@@ -1,0 +1,59 @@
+"""Device resolution, dtype names and the kernel build directory.
+
+The port's entry points run on the card unless the caller asks for the
+CPU: :func:`resolve_device` turns ``None`` into ``"cuda"`` and raises
+where no CUDA device is present, so nothing quietly falls back to the
+CPU. The CPU path exists for the parity tests, which pass
+``device="cpu"`` explicitly.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+#: dtype names (as numpy/JAX spell them) → torch dtypes
+DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "int8": torch.int8,
+    "int32": torch.int32,
+    "int64": torch.int64,
+}
+
+
+def to_torch_dtype(dt) -> torch.dtype:
+    """A torch dtype from a torch dtype, a name, or anything whose
+    ``str``/``name`` spells one (numpy and JAX dtypes)."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    name = getattr(dt, "name", None) or getattr(dt, "__name__", None)
+    name = name or str(dt)
+    name = name.replace("torch.", "")
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {dt!r}")
+    return DTYPES[name]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the first CUDA device. A CUDA device on a host without
+    one raises; ``"cpu"`` must be asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return dev
+
+
+def build_dir() -> Path:
+    """Where the CUDA sources are compiled to (listed in .gitignore)."""
+    return Path(__file__).resolve().parent / "_build"
+
+
+def csrc_dir() -> Path:
+    return Path(__file__).resolve().parent / "csrc"

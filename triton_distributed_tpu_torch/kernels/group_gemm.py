@@ -1,0 +1,205 @@
+"""Grouped (per-expert) GEMM with int8 weights, and its quantizers.
+
+Port of ``triton_distributed_tpu/kernels/group_gemm.py`` in its two
+quantized modes:
+
+* **W8A16** (``w_scale`` only): x bf16/f32, w int8, f32 accumulation,
+  ``acc · w_scale[e, n]`` stored straight to ``out_dtype`` — the TPU's
+  ``_ggemm_q_kernel``.
+* **W8A8** (``w_scale`` and ``x_scale``): x int8 from
+  :func:`quantize_act_rows`, s8×s8→s32, ``acc · x_scale[m] ·
+  w_scale[e, n]`` — the TPU's ``_ggemm_q8a_kernel``.
+
+Rows are cut into ``len(block_expert)`` equal M-blocks; block ``b``
+multiplies expert ``block_expert[b]``'s (K, N) weight (the dense
+projections call it with E = 1).
+
+On a CUDA tensor :func:`grouped_matmul` launches the hand-written
+kernels of ``csrc/group_gemm.cu`` (built on first use); on a CPU tensor
+it runs :func:`grouped_matmul_plain`, the plain PyTorch version of the
+same arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.config import to_torch_dtype
+
+#: the CUDA kernel's M tile: with more than one M-block, block_m must be
+#: a multiple of it (one tile never straddles two experts)
+KERNEL_BM = 64
+
+_DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def quantize_act_rows(x):
+    """Per-row symmetric int8 activation quantization: (M, K) →
+    ((M, K) int8, (M, 1) f32 scales). ``torch.round`` rounds half to
+    even, as ``jnp.round`` does, so the values are bit-identical."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+def quantize_grouped_weights(w, mode: str = "int8"):
+    """(E, K, N) weights → ((E, K, N) int8, (E, N) f32 scales):
+    symmetric per-(expert, out-channel) quantization. Only ``"int8"``
+    is ported (the fp8 mode has no consumer on the serving path)."""
+    if mode != "int8":
+        raise ValueError(f"weight quant mode must be int8, got {mode!r}")
+    wf = w.float()
+    amax = wf.abs().amax(dim=1)                                # (E, N)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    q = torch.round(wf / scale[:, None, :])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def dequantize_grouped_weights(q, scale, dtype=torch.bfloat16):
+    """Widen (E, K, N) int8 weights with their (E, N) scales."""
+    return (q.float() * scale[:, None, :]).to(to_torch_dtype(dtype))
+
+
+def _check_args(x_sorted, w, block_expert, w_scale, x_scale):
+    cap, k = x_sorted.shape
+    e, kw, n = w.shape
+    if kw != k:
+        raise ValueError(f"x has K={k} but w has K={kw}")
+    if w.dtype != torch.int8:
+        raise ValueError(f"w must be int8, got {w.dtype}")
+    if w_scale is None:
+        raise ValueError("grouped_matmul needs w_scale (int8 weights)")
+    if tuple(w_scale.shape) != (e, n):
+        raise ValueError(f"w_scale shape {tuple(w_scale.shape)} != {(e, n)}")
+    nb = block_expert.shape[0]
+    if nb < 1 or cap % nb:
+        raise ValueError(
+            f"{cap} rows do not split into {nb} equal M-blocks")
+    if x_scale is not None:
+        if x_sorted.dtype != torch.int8:
+            raise ValueError(f"W8A8 needs int8 x, got {x_sorted.dtype}")
+        if tuple(x_scale.shape) != (cap, 1):
+            raise ValueError(
+                f"x_scale shape {tuple(x_scale.shape)} != {(cap, 1)}")
+    return cap, k, e, n, cap // nb
+
+
+def grouped_matmul_plain(x_sorted, w, block_expert, *, w_scale,
+                         x_scale=None, out_dtype=None):
+    """Plain PyTorch version of :func:`grouped_matmul` (same signature).
+
+    W8A8 sums s8×s8 products exactly: in int64 on the CPU, in float64 on
+    a card (CUDA has no general integer matmul; every partial sum is an
+    integer far below 2**53, so float64 is exact too). The epilogue then
+    repeats the kernel's f32 ``(acc · x_scale) · w_scale``."""
+    cap, _, _, n, block_m = _check_args(
+        x_sorted, w, block_expert, w_scale, x_scale)
+    if x_scale is not None:
+        out_dtype = to_torch_dtype(out_dtype or torch.bfloat16)
+        acc_t = torch.int64 if x_sorted.device.type == "cpu" else torch.float64
+        out = torch.empty((cap, n), dtype=out_dtype, device=x_sorted.device)
+        for b, e in enumerate(block_expert.tolist()):
+            rows = slice(b * block_m, (b + 1) * block_m)
+            acc = x_sorted[rows].to(acc_t) @ w[e].to(acc_t)
+            y = acc.float() * x_scale[rows].float()
+            y = y * w_scale[e].float()[None, :]
+            out[rows] = y.to(out_dtype)
+        return out
+    out_dtype = to_torch_dtype(out_dtype or x_sorted.dtype)
+    out = torch.empty((cap, n), dtype=out_dtype, device=x_sorted.device)
+    for b, e in enumerate(block_expert.tolist()):
+        rows = slice(b * block_m, (b + 1) * block_m)
+        acc = x_sorted[rows].float() @ w[e].float()
+        out[rows] = (acc * w_scale[e].float()[None, :]).to(out_dtype)
+    return out
+
+
+def grouped_matmul(x_sorted, w, block_expert, *, w_scale, x_scale=None,
+                   out_dtype=None):
+    """x_sorted (cap, K) @ w (E, K, N) int8 → (cap, N), expert per
+    M-block, in the W8A16 (``x_scale=None``) or W8A8 mode.
+
+    ``out_dtype`` defaults to x's dtype for W8A16 and to bf16 for W8A8.
+    On a CPU tensor this is :func:`grouped_matmul_plain`; on a CUDA
+    tensor it launches the kernel or raises."""
+    if x_sorted.device.type == "cpu":
+        return grouped_matmul_plain(
+            x_sorted, w, block_expert, w_scale=w_scale, x_scale=x_scale,
+            out_dtype=out_dtype)
+    cap, k, _, n, block_m = _check_args(
+        x_sorted, w, block_expert, w_scale, x_scale)
+    if x_scale is not None:
+        return _w8a8_cuda(x_sorted, w, block_expert, w_scale, x_scale,
+                          out_dtype, cap, k, n, block_m)
+    return _w8a16_cuda(x_sorted, w, block_expert, w_scale, out_dtype,
+                       cap, k, n, block_m)
+
+
+def _cuda_common(tensors, block_expert, cap, block_m):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_matmul runs on CPU or CUDA tensors, "
+                         f"got {dev}")
+    for t in (*tensors, block_expert):
+        if t.device != dev:
+            raise ValueError(f"tensor on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError("grouped_matmul's CUDA kernel needs "
+                             "contiguous tensors")
+    if block_expert.dtype != torch.int32:
+        raise ValueError(f"block_expert must be int32, got "
+                         f"{block_expert.dtype}")
+    if block_expert.shape[0] > 1 and block_m % KERNEL_BM:
+        raise ValueError(
+            f"block_m={block_m} must be a multiple of {KERNEL_BM} when "
+            "there is more than one M-block")
+    return dev
+
+
+def _w8a8_cuda(x, w, block_expert, w_scale, x_scale, out_dtype, cap, k, n,
+               block_m):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    out_dtype = to_torch_dtype(out_dtype or torch.bfloat16)
+    if out_dtype not in _DT_CODE:
+        raise ValueError(f"W8A8 out_dtype must be f32 or bf16, got "
+                         f"{out_dtype}")
+    if w_scale.dtype != torch.float32 or x_scale.dtype != torch.float32:
+        raise ValueError("W8A8 scales must be float32")
+    dev = _cuda_common((x, w, w_scale, x_scale), block_expert, cap, block_m)
+    out = torch.empty((cap, n), dtype=out_dtype, device=dev)
+    fn = _build.function("tdt_ggemm_w8a8", "pppppp" + "iiiii" + "p")
+    rc = fn(_build.ptr(x), _build.ptr(x_scale), _build.ptr(w),
+            _build.ptr(w_scale), _build.ptr(block_expert), _build.ptr(out),
+            cap, k, n, block_m, _DT_CODE[out_dtype], _build.stream(dev))
+    _build.check(rc, "tdt_ggemm_w8a8")
+    _w8a8_cuda.launches += 1
+    return out
+
+
+def _w8a16_cuda(x, w, block_expert, w_scale, out_dtype, cap, k, n,
+                block_m):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    out_dtype = to_torch_dtype(out_dtype or x.dtype)
+    if x.dtype not in _DT_CODE or out_dtype not in _DT_CODE:
+        raise ValueError(f"W8A16 takes f32/bf16 x and out, got {x.dtype} "
+                         f"-> {out_dtype}")
+    if w_scale.dtype != torch.float32:
+        raise ValueError("W8A16 w_scale must be float32")
+    dev = _cuda_common((x, w, w_scale), block_expert, cap, block_m)
+    out = torch.empty((cap, n), dtype=out_dtype, device=dev)
+    fn = _build.function("tdt_ggemm_w8a16", "ppppp" + "iiiiii" + "p")
+    rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(w_scale),
+            _build.ptr(block_expert), _build.ptr(out), cap, k, n, block_m,
+            _DT_CODE[x.dtype], _DT_CODE[out_dtype], _build.stream(dev))
+    _build.check(rc, "tdt_ggemm_w8a16")
+    _w8a16_cuda.launches += 1
+    return out
+
+
+#: launch counts of the two kernels (plain ints on the wrappers)
+_w8a8_cuda.launches = 0
+_w8a16_cuda.launches = 0

@@ -1,0 +1,8 @@
+from triton_distributed_tpu_torch.models import presets
+from triton_distributed_tpu_torch.models.transformer import (
+    Transformer,
+    TransformerConfig,
+    params_from_numpy,
+)
+
+__all__ = ["Transformer", "TransformerConfig", "params_from_numpy", "presets"]

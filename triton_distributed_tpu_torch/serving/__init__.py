@@ -1,0 +1,35 @@
+from triton_distributed_tpu_torch.serving.engine import (
+    TIERS,
+    EngineConfig,
+    EngineStats,
+    Request,
+    ServingEngine,
+    TenantConfig,
+    effective_rank,
+    poisson_trace,
+    tier_rank,
+)
+from triton_distributed_tpu_torch.serving.protocol import ProtocolOps
+from triton_distributed_tpu_torch.serving.state import (
+    PagePool,
+    ServingState,
+    fresh_table,
+    page_chain_hash,
+)
+
+__all__ = [
+    "TIERS",
+    "EngineConfig",
+    "EngineStats",
+    "PagePool",
+    "ProtocolOps",
+    "Request",
+    "ServingEngine",
+    "ServingState",
+    "TenantConfig",
+    "effective_rank",
+    "fresh_table",
+    "page_chain_hash",
+    "poisson_trace",
+    "tier_rank",
+]
