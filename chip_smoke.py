@@ -1,9 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,tiny,main] [--n-layers N]
-                          [--profile]
+    python3 chip_smoke.py [--profile]
 
-Phases (all by default):
+Phases, all run every time:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
@@ -33,18 +32,19 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-ALL_PHASES = ("build", "kernels", "tiny", "main")
-
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_BF16_OPS = 989e12           # dense bf16 tensor-core rate
 H100_INT8_OPS = 1979e12          # dense int8 tensor-core rate
+
+# attention against its plain version in f32:
+# |out - ref| <= ATTN_RTOL·|ref| + ATTN_ATOL, |lse - ref| <= ATTN_LSE_TOL
+ATTN_RTOL, ATTN_ATOL, ATTN_LSE_TOL = 1e-2, 1e-4, 1e-4
 
 KERNELS = {
     "ggemm_w8a8": dict(
@@ -102,9 +102,9 @@ class Results:
         self.rows = {}
         self.failures = []
 
-    def check(self, name, err, tol, what):
+    def check(self, name, err, tol, what, metric="max_abs_err"):
         ok = bool(np.isfinite(err)) and err <= tol
-        log(f"check {name} {what}: max_abs_err={err:.6g} tol={tol:.6g} "
+        log(f"check {name} {what}: {metric}={err:.6g} tol={tol:.6g} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             self.failures.append(f"{name} {what}: {err} > {tol}")
@@ -292,18 +292,26 @@ def check_attention(res: Results, dev):
     for quant in (True, False):
         args, kw, info = attention_batch(dev, quant)
         out, lse = rpa.ragged_paged_attention(*args, **kw)
-        ref, rlse = rpa.ragged_paged_attention_plain(*args, **kw)
+        # the plain version in f32 on the same values: q and bf16 pools
+        # widened, int8 pools dequantized in f32. The kernel computes in
+        # f32 too and folds the int8 scales exactly, so out differs only
+        # by its rounding to bf16 (at most 2^-8·|ref|) and the f32
+        # summation order, which the atol covers on outputs near 0
+        q, kp, vp, *meta = args
+        if not quant:
+            kp, vp = kp.float(), vp.float()
+        ref, rlse = rpa.ragged_paged_attention_plain(
+            q.float(), kp, vp, *meta, **kw)
         torch.cuda.synchronize()
         tag = "int8 pools" if quant else "bf16 pools"
-        err = (out.float() - ref.float()).abs().max().item()
+        diff = (out.float() - ref).abs()
+        err = diff.max().item()
         lerr = (lse - rlse).abs().max().item()
-        # int8: the plain version dequantizes the pools to bf16 first
-        # (as the JAX twin does), the kernel folds the f32 scales
-        # exactly; bf16: the same f32 arithmetic in another order, then
-        # one bf16 rounding of out
-        tol, ltol = (5e-2, 5e-2) if quant else (3e-2, 1e-3)
-        res.check("ragged_paged_attention", err, tol, f"{tag} out")
-        res.check("ragged_paged_attention", lerr, ltol, f"{tag} lse")
+        excess = (diff - ATTN_RTOL * ref.abs()).max().item()
+        res.check("ragged_paged_attention", excess, ATTN_ATOL, f"{tag} out",
+                  metric=f"max(|err|-{ATTN_RTOL:g}|ref|)")
+        log(f"check ragged_paged_attention {tag} out: max_abs_err={err:.6g}")
+        res.check("ragged_paged_attention", lerr, ATTN_LSE_TOL, f"{tag} lse")
         ms = time_ms(lambda: rpa.ragged_paged_attention(*args, **kw), 10)
         plain = time_ms(
             lambda: rpa.ragged_paged_attention_plain(*args, **kw), 2)
@@ -407,7 +415,7 @@ class _CheckedEngine:
         return super()._advance_row(s, req, take, logits)
 
 
-def run_main(res: Results, dev, n_layers: int | None):
+def run_main(res: Results, dev):
     import torch
 
     from triton_distributed_tpu_torch.kernels import (
@@ -421,9 +429,8 @@ def run_main(res: Results, dev, n_layers: int | None):
         poisson_trace,
     )
 
-    over = {} if n_layers is None else {"n_layers": n_layers}
     cfg = presets.llama_7b(kv_quant="int8", dense_weight_quant="int8",
-                           dense_act_quant="int8", **over)
+                           dense_act_quant="int8")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Transformer(cfg, device=dev)
@@ -512,13 +519,9 @@ def run_profile(model, params, ecfg, trace, steps: int = 8):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default=",".join(ALL_PHASES))
-    ap.add_argument("--n-layers", type=int, default=None,
-                    help="cut the main path's depth (default: 32)")
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, profile a few engine steps")
     opts = ap.parse_args()
-    phases = set(opts.phases.split(","))
 
     import torch
 
@@ -541,22 +544,12 @@ def main() -> int:
     _build.lib()
     log(f"build {len(_build.sources())} sources in "
         f"{time.perf_counter() - t0:.2f} s")
-    build_log = (_build.build_dir() / "build.log").read_text()
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", build_log)]
-    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                            build_log))
-    if regs:
-        log(f"ptxas: {len(regs)} kernel instantiations, registers "
-            f"{min(regs)}-{max(regs)}, spill stores {spills} bytes in all")
-    if "kernels" in phases:
-        check_gemms(res, dev)
-        check_attention(res, dev)
-    if "tiny" in phases:
-        check_tiny(res, dev)
-    if "main" in phases:
-        main_run = run_main(res, dev, opts.n_layers)
-        if opts.profile:
-            run_profile(*main_run)
+    check_gemms(res, dev)
+    check_attention(res, dev)
+    check_tiny(res, dev)
+    main_run = run_main(res, dev)
+    if opts.profile:
+        run_profile(*main_run)
     if res.failures:
         for f in res.failures:
             log(f"FAIL {f}")

@@ -43,10 +43,12 @@ def _gemm_inputs(seed, e, cap, k, n, block_m):
 class TestGroupedMatmulKernel:
     @pytest.mark.parametrize("out", ["float32", "bfloat16"])
     @pytest.mark.parametrize("shape", [(192, 200, 100, 64, 3),
-                                       (37, 70, 33, 37, 1)])
+                                       (37, 70, 33, 37, 1),
+                                       (1100, 96, 40, 1100, 1)])
     def test_w8a8_is_exact(self, dev, out, shape):
-        """Ragged M/N/K edges, one or three experts: the int32 sums and
-        the f32 epilogue equal the plain version's bit for bit."""
+        """Ragged M/N/K edges, one or three experts, and one M-block of
+        more than 1024 rows: the int32 sums and the f32 epilogue equal
+        the plain version's bit for bit."""
         cap, k, n, block_m, e = shape
         x, w, be = _gemm_inputs(0, e, cap, k, n, block_m)
         wq, ws = gg.quantize_grouped_weights(_t(w, dev))

@@ -274,6 +274,32 @@ class TestServingStep:
                     np.testing.assert_allclose(tp.numpy(), np.asarray(jp),
                                                rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("rows", [8, 1032])
+    def test_dmm_runs_every_batch_through_w8a8(self, mesh1, rows):
+        """``_dmm`` on an int8 weight is the W8A8 grouped GEMM at every
+        batch size, above 1024 rows too (where the JAX ``_dmm`` widens
+        the weight instead): bit-equal to quantizing the rows and calling
+        the grouped GEMM's plain version."""
+        from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+        _, _, tm, tparams = _jax_and_port(mesh1, True)
+        w = tparams["blocks"][0]["up"]
+        x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+            (rows, w["q"].shape[0])).astype(np.float32))
+        xq, xs = gg.quantize_act_rows(x)
+        want = gg.grouped_matmul_plain(
+            xq, w["q"][None], torch.zeros((1,), dtype=torch.int32),
+            w_scale=w["scale"][None], x_scale=xs, out_dtype=torch.float32)
+        torch.testing.assert_close(tm._dmm(x, w), want, rtol=0, atol=0)
+
+    def test_dense_w_matches_jax(self, mesh1):
+        """The widened int8 weight equals the JAX package's, bit for
+        bit (the same f32 product of code and scale)."""
+        jm, params, tm, tparams = _jax_and_port(mesh1, True)
+        np.testing.assert_array_equal(
+            tm._dense_w(tparams["blocks"][1]["wo"]).numpy(),
+            np.asarray(jm._dense_w(params["blocks"][1]["wo"])))
+
     def test_moe_config_raises(self):
         cfg = presets.tiny(presets.mixtral_8x7b())
         tm = Transformer(cfg, device="cpu")
@@ -376,6 +402,24 @@ class TestEngine:
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x.prompt, y.prompt)
             assert (x.max_new, x.arrival) == (y.max_new, y.arrival)
+
+    def test_rows_longer_than_block_q_raise(self):
+        """A row longer than the attention's block_q would leave query
+        rows the kernel never computes: the engine refuses the step."""
+        cfg = presets.tiny()
+        tm = Transformer(cfg, device="cpu")
+        params = tm.init(torch.Generator().manual_seed(0))
+
+        class WideChunks(ServingEngine):
+            def _chunk_for(self, req):
+                return 40                  # past block_q_cap = 16
+
+        eng = WideChunks(tm, params, EngineConfig(
+            slots=2, token_budget=48, chunk=16, page=8, npages=16))
+        eng.submit_trace(poisson_trace(1, 1, 1.0, 40, 41, 2, 3, cfg.vocab))
+        with pytest.raises(ValueError, match="block_q"):
+            for _ in range(4):
+                eng.step()
 
     def test_config_errors(self):
         tm = Transformer(presets.tiny(), device="cpu")

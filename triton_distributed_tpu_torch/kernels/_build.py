@@ -33,7 +33,7 @@ from triton_distributed_tpu_torch.config import build_dir, csrc_dir
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC",
 ]
 
 _LOCK = threading.Lock()
@@ -68,9 +68,7 @@ def _digest(srcs) -> str:
 def build() -> Path:
     """Compile the sources (in parallel) and link the library unless a
     library for these exact sources exists. Returns its path; raises
-    with nvcc's stderr when a compile or the link fails. nvcc's output
-    (ptxas register and spill notes) is kept in ``build.log`` beside
-    the library."""
+    with nvcc's output when a compile or the link fails."""
     srcs = sources()
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -79,25 +77,16 @@ def build() -> Path:
         return so
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs, procs = [], []
-        for src in srcs:
-            obj = Path(tmp) / (src.stem + ".o")
-            objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            )))
-        logs, failed = [], []
-        for src, p in procs:
-            out, err = p.communicate()
-            logs.append(f"== {src.name}\n{out}{err}")
-            if p.returncode != 0:
-                failed.append(src.name)
-        build_log = "\n".join(logs)
-        (out_dir / "build.log").write_text(build_log)
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        failed = [f"== {src.name}\n{out}"
+                  for src, p, out in zip(srcs, procs, outs) if p.returncode]
         if failed:
-            raise RuntimeError(
-                f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_so = Path(tmp) / so.name
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp_so), *map(str, objs)],

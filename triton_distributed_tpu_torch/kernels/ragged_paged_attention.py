@@ -210,8 +210,11 @@ def ragged_paged_attention(
     scale: float | None = None, soft_cap: float = 0.0, block_q: int = 8,
 ):
     """Mixed prefill-chunk/decode attention over a shared page pool
-    (layout in the module docstring). ``block_q`` bounds ``max(q_lens)``
-    and sizes the kernel's grid. On a CPU tensor this is
+    (layout in the module docstring). ``block_q`` sizes the kernel's
+    grid, and the caller must keep ``max(q_lens) <= block_q``: the
+    kernel computes only a row's first ``block_q`` tokens, while the
+    plain version computes them all (the engine raises before a step
+    that would break this). On a CPU tensor this is
     :func:`ragged_paged_attention_plain`; on a CUDA tensor it launches
     the kernel or raises."""
     if q.device.type == "cpu":

@@ -211,7 +211,13 @@ class Transformer:
         """Dense matmul dispatching on the weight storage: int8 dicts go
         through the grouped-GEMM kernel with E = 1 (W8A8 when
         ``config.dense_act_quant`` and ``act_quant``, else W8A16); plain
-        tensors take an ordinary matmul."""
+        tensors take an ordinary matmul.
+
+        Every batch size stays on the kernel, which covers any M in one
+        launch. The JAX ``_dmm`` dequantizes the weight above 1024 rows
+        instead (a second M-block on the TPU grid re-streams every weight
+        tile), so batches of more than 1024 rows differ from it by the
+        activation quantization."""
         c = self.config
         if not isinstance(w, dict):
             return x @ w.to(out_dtype or c.dtype)
@@ -220,9 +226,6 @@ class Transformer:
             quantize_act_rows,
         )
 
-        if x.shape[0] > 1024:              # the JAX path's huge-M branch
-            y = x @ self._dense_w(w)
-            return y.to(out_dtype) if out_dtype is not None else y
         be = torch.zeros((1,), dtype=torch.int32, device=x.device)
         wq, ws = w["q"][None], w["scale"][None]
         if (act_quant and c.dense_act_quant == "int8"

@@ -507,6 +507,11 @@ class ServingEngine:
             return report
         block_q = min(self._block_q_cap,
                       auto_block_q(int(q_lens.max()), self._g))
+        if int(q_lens.max()) > block_q:
+            # the attention kernel computes block_q query rows per row
+            raise ValueError(
+                f"a row of {int(q_lens.max())} tokens exceeds block_q="
+                f"{block_q} (the cap set by chunk={self.cfg.chunk})")
         t0 = time.perf_counter()
         logits = self._run_device(
             (tokens, token_rows, token_pos, q_starts, q_lens, kv_dev, topo),
