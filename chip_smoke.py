@@ -9,16 +9,27 @@ Phases, all run every time:
 2. build: compile the CUDA kernels of ``triton_distributed_tpu_torch/
    csrc`` (timed);
 3. kernels: each kernel against its plain PyTorch version on seeded
-   inputs at the serving step's shapes, with its time, the plain
-   version's, a PyTorch library call's where one exists, and the
-   card's bound for the same work;
-4. tiny: the int8 tiny model served on the card and on the CPU from the
-   same weights — the token streams must be equal;
-5. main: the continuous-batching engine serving a Poisson trace with
-   the Llama-2-7B geometry (int8 KV, W8A8 projections, W8A16 lm_head,
-   bf16), with the launches of every kernel counted over the run;
-   ``--profile`` then profiles a few engine steps (device time by
-   kernel, the device's idle share).
+   inputs at the serving steps' shapes, with its time, the plain
+   version's, a PyTorch library call's, and the card's bound for the
+   same work — the dense W8A8 projections, the W8A16 lm_head and
+   attention at the shapes of the Llama-2-7B step and of the
+   DeepSeek-MoE-16B step, and the MoE step's chunked all-to-all (both
+   legs, both modes, byte-exact) and expert GEMMs (bf16 and W8A8, 64
+   experts). The kernels line reports the main path's shapes, each
+   kernel's times averaged over them by their launches a step;
+4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
+   its float-expert variant, each served on the card and on the CPU
+   from the same weights — the token streams must be equal, and the
+   card's run must launch the kernels of its path;
+5. the serving paths, each a continuous-batching engine serving the
+   same Poisson trace with the launches of every kernel counted over
+   the run: the Llama-2-7B geometry (int8 KV, W8A8 projections, W8A16
+   lm_head); DeepSeek-MoE-16B with bf16 experts; and the main path,
+   DeepSeek-MoE-16B at full width and depth (28 layers, 64 experts
+   top-6 over an fp8 EP wire, W8A8 experts and projections, int8 KV),
+   last. ``--profile`` then profiles a few of the main path's engine
+   steps (device time by kernel, host enqueue time, the device's idle
+   share).
 
 Exits non-zero, printing no result line, without a CUDA device or
 without the port's package beside it. The last line is
@@ -59,7 +70,26 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/ragged_paged_attention.cu",
         replaces="triton_distributed_tpu/kernels/ragged_paged_attention.py:216"),
+    "ggemm_bf16": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/group_gemm.py:32"),
+    "chunked_a2a": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_dispatch.cu",
+        replaces="triton_distributed_tpu/kernels/moe_dispatch.py:346"),
 }
+
+# every serving step packs 768 rows (token_budget 512 plus the 256-row
+# parking zone) for 16 slots
+T_PAD, SLOTS = 768, 16
+# the MoE main path's step: hidden 2048, 64 experts of ffn 1408, top-6
+MOE_T, MOE_H, MOE_F, MOE_E, MOE_K = T_PAD, 2048, 1408, 64, 6
+
+# bf16 expert GEMM against its plain version in f32:
+# |out - ref| <= GG_RTOL·|ref| + GG_ATOL·max|ref| (one bf16 rounding of
+# the output, and the f32 summation order)
+GG_RTOL, GG_ATOL = 2.0 ** -8, 1e-4
 
 
 def log(*a):
@@ -91,6 +121,23 @@ def time_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_time_ms(fn, iters: int = 24, reps: int = 10) -> float:
+    """Device time of one ``fn(i)`` call, launched from a CUDA graph of
+    ``iters`` calls (i = 0, 1, ...) replayed ``reps`` times: for a
+    kernel shorter than its wrapper's host work, where back-to-back
+    calls would time the host. ``fn`` cycles through buffers by ``i``
+    so that the calls do not hit the 50 MB L2 cache."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    return time_ms(graph.replay, reps) / iters
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     tb = nbytes / H100_BYTES_PER_S * 1e3
     to = ops / peak_ops * 1e3
@@ -98,9 +145,16 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 class Results:
+    """Checks, and the kernels line's rows. A row's ``ms``, ``plain_ms``,
+    ``library_ms`` and ``bound_ms`` are per launch, averaged over the
+    shapes its path launches it at, each weighted by its launches per
+    step (:meth:`shape`), so that they belong to the launches counted
+    beside them."""
+
     def __init__(self):
         self.rows = {}
         self.failures = []
+        self.mix = {}
 
     def check(self, name, err, tol, what, metric="max_abs_err"):
         ok = bool(np.isfinite(err)) and err <= tol
@@ -117,20 +171,59 @@ class Results:
         row["max_abs_err"] = max(row["max_abs_err"], kw.pop("err", 0.0))
         row.update({k: v for k, v in kw.items() if v is not None})
 
+    def shape(self, name, per_step, ms, plain_ms, library_ms, nbytes, ops,
+              peak_ops):
+        """One shape at which the path launches ``name`` ``per_step``
+        times a step, with its times and its work."""
+        self.mix.setdefault(name, []).append(dict(
+            n=per_step, ms=ms, plain=plain_ms, lib=library_ms,
+            bytes=nbytes, ops=ops, peak=peak_ops))
+
+    def finish_rows(self):
+        for name, shapes in self.mix.items():
+            total = sum(s["n"] for s in shapes)
+
+            def mean(key):
+                return sum(s["n"] * s[key] for s in shapes) / total
+
+            lib = (mean("lib") if all(s["lib"] is not None for s in shapes)
+                   else None)
+            b, by = bound_ms(mean("bytes"), mean("ops"), shapes[0]["peak"])
+            self.kernel(name, ms=mean("ms"), plain_ms=mean("plain"),
+                        library_ms=lib, bound_ms=b, bound_by=by)
+            log(f"row {name} over {len(shapes)} shapes, {total} launches a "
+                f"step: kernel_ms={mean('ms'):.4f} plain_ms="
+                f"{mean('plain'):.4f} library_ms={lib} bound_ms={b:.4f} "
+                f"({by})")
+
 
 # ------------------------------------------------------------------ kernels
 
-def check_gemms(res: Results, dev):
+def dense_shapes(cfg):
+    """The W8A8 projections of one serving step at ``T_PAD`` packed
+    rows: (what, (M, K, N), launches a step). The MLP runs only on the
+    layers without experts."""
+    dense = sum(1 for i in range(cfg.n_layers)
+                if cfg.moe == "none" or i not in cfg.moe_layers)
+    t, h, f = T_PAD, cfg.hidden, cfg.ffn
+    shapes = [("wqkv", (t, h, cfg.qkv_dim), cfg.n_layers),
+              ("wo", (t, cfg.q_dim, h), cfg.n_layers)]
+    if dense:
+        shapes += [("up", (t, h, f), dense), ("down", (t, f, h), dense)]
+    return shapes
+
+
+def check_gemms(res: Results, dev, path, cfg, main: bool):
+    """The dense W8A8 projections and the W8A16 lm_head of ``path`` at
+    its shapes, each against its plain version. The main path's shapes
+    also feed the kernels line (:meth:`Results.shape`)."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
 
     g = torch.Generator(device=dev).manual_seed(1)
     be = torch.zeros((1,), dtype=torch.int32, device=dev)
-    # the four W8A8 projections of one Llama-7B layer at T = 768 packed
-    # tokens: wqkv, wo, up (K = 4096) and down (K = 11008)
-    for m, k, n in ((768, 4096, 12288), (768, 4096, 4096),
-                    (768, 4096, 11008), (768, 11008, 4096)):
+    for what, (m, k, n), per_step in dense_shapes(cfg):
         x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
         w = torch.randn((1, k, n), generator=g, device=dev,
                         dtype=torch.bfloat16) / math.sqrt(k)
@@ -144,28 +237,26 @@ def check_gemms(res: Results, dev):
         # exact s32 sums on both sides and the same f32 epilogue: the
         # only allowed difference is one bf16 rounding step
         tol = ref.float().abs().max().item() * 2.0 ** -8
-        res.check("ggemm_w8a8", err, tol, f"M={m} K={k} N={n}")
+        tag = f"{path} {what} M={m} K={k} N={n}"
+        res.check("ggemm_w8a8", err, tol, tag)
+        res.kernel("ggemm_w8a8", err=err)
         ms = time_ms(lambda: gg.grouped_matmul(xq, wq, be, **kw), 10)
         plain = time_ms(lambda: gg.grouped_matmul_plain(xq, wq, be, **kw), 3)
         wcol = wq[0].t().contiguous().t()      # column-major for _int_mm
-        try:
-            lib = time_ms(lambda: (torch._int_mm(xq, wcol).float() * xs
-                                   * ws).to(torch.bfloat16), 10)
-        except RuntimeError as e:            # yardstick only
-            log(f"library ggemm_w8a8 torch._int_mm unavailable: {e}")
-            lib = None
+        lib = time_ms(lambda: (torch._int_mm(xq, wcol).float() * xs
+                               * ws).to(torch.bfloat16), 10)
         nbytes = m * k + 4 * m + k * n + 4 * n + 2 * m * n
-        b, by = bound_ms(nbytes, 2.0 * m * n * k, H100_INT8_OPS)
-        log(f"time ggemm_w8a8 M={m} K={k} N={n}: kernel_ms={ms:.4f} "
-            f"plain_ms={plain:.4f} library_ms={lib} bound_ms={b:.4f} ({by})")
-        if (k, n) == (4096, 12288):           # the row reports wqkv
-            res.kernel("ggemm_w8a8", err=err, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=b, bound_by=by)
-        else:
-            res.kernel("ggemm_w8a8", err=err)
+        ops = 2.0 * m * n * k
+        b, by = bound_ms(nbytes, ops, H100_INT8_OPS)
+        log(f"time ggemm_w8a8 {tag} ({per_step}/step): kernel_ms={ms:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch._int_mm + "
+            f"epilogue) bound_ms={b:.4f} ({by})")
+        if main:
+            res.shape("ggemm_w8a8", per_step, ms, plain, lib, nbytes, ops,
+                      H100_INT8_OPS)
 
-    # lm_head: 16 slots, W8A16 with f32 logits
-    m, k, n = 16, 4096, 32000
+    # lm_head: the slots' last rows, W8A16 with f32 logits
+    m, k, n = SLOTS, cfg.hidden, cfg.vocab
     x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
     w = torch.randn((1, k, n), generator=g, device=dev,
                     dtype=torch.bfloat16) / math.sqrt(k)
@@ -177,29 +268,34 @@ def check_gemms(res: Results, dev):
     err = (out - ref).abs().max().item()
     # f32 sums of exact bf16 x int8 products in another order
     tol = 1e-5 * max(1.0, ref.abs().max().item()) * math.sqrt(k)
-    res.check("ggemm_w8a16", err, tol, f"M={m} K={k} N={n}")
+    tag = f"{path} lm_head M={m} K={k} N={n}"
+    res.check("ggemm_w8a16", err, tol, tag)
+    res.kernel("ggemm_w8a16", err=err)
     ms = time_ms(lambda: gg.grouped_matmul(x, wq, be, **kw), 20)
     plain = time_ms(lambda: gg.grouped_matmul_plain(x, wq, be, **kw), 5)
     wdq = gg.dequantize_grouped_weights(wq, ws, torch.bfloat16)[0]
     lib = time_ms(lambda: torch.matmul(x, wdq), 20)
     nbytes = 2 * m * k + k * n + 4 * n + 4 * m * n
-    b, by = bound_ms(nbytes, 2.0 * m * n * k, H100_BF16_OPS)
-    log(f"time ggemm_w8a16 M={m} K={k} N={n}: kernel_ms={ms:.4f} "
-        f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b:.4f} ({by})")
-    res.kernel("ggemm_w8a16", err=err, ms=ms, plain_ms=plain,
-               library_ms=lib, bound_ms=b, bound_by=by)
+    ops = 2.0 * m * n * k
+    b, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+    log(f"time ggemm_w8a16 {tag} (1/step): kernel_ms={ms:.4f} "
+        f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch.matmul, "
+        f"dequantized bf16 W) bound_ms={b:.4f} ({by})")
+    if main:
+        res.shape("ggemm_w8a16", 1, ms, plain, lib, nbytes, ops,
+                  H100_BF16_OPS)
 
 
-def attention_batch(dev, quant: bool, seed: int = 2):
-    """R = 16 rows at Hkv = 32, G = 1, D = 128, page 16: prefill chunks,
-    decode rows, one q_len == 0 row, one SHARED_PREFIX, one TREE and
-    one CP row."""
+def attention_batch(dev, quant: bool, hkv: int, seed: int = 2):
+    """R = 16 rows at ``hkv`` KV heads, G = 1, D = 128, page 16: prefill
+    chunks, decode rows, one q_len == 0 row, one SHARED_PREFIX, one TREE
+    and one CP row."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import quantize_kv
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
 
-    hkv, g, d, page, pps = 32, 1, 128, 16, 64
+    g, d, page, pps = 1, 128, 16, 64
     rng = np.random.default_rng(seed)
     #            kv_len, q_len
     rows = [(256, 256), (1000, 128), (384, 64), (700, 1), (1024, 1),
@@ -280,7 +376,9 @@ def attention_work(info, quant: bool):
     return nbytes, 4.0 * d * pairs * hkv
 
 
-def check_attention(res: Results, dev):
+def check_attention(res: Results, dev, path, cfg, main: bool):
+    """Attention at ``path``'s heads (G = 1, D = 128 on both paths),
+    over int8 pools (the serving paths') and bf16 pools."""
     import torch
     import torch.nn.functional as F
 
@@ -289,8 +387,11 @@ def check_attention(res: Results, dev):
         _row_mask,
     )
 
+    if (cfg.n_heads, cfg.head_dim) != (cfg.n_kv_heads, 128):
+        raise AssertionError(f"{path}: the batch is built for G = 1, "
+                             "D = 128")
     for quant in (True, False):
-        args, kw, info = attention_batch(dev, quant)
+        args, kw, info = attention_batch(dev, quant, cfg.n_kv_heads)
         out, lse = rpa.ragged_paged_attention(*args, **kw)
         # the plain version in f32 on the same values: q and bf16 pools
         # widened, int8 pools dequantized in f32. The kernel computes in
@@ -303,7 +404,8 @@ def check_attention(res: Results, dev):
         ref, rlse = rpa.ragged_paged_attention_plain(
             q.float(), kp, vp, *meta, **kw)
         torch.cuda.synchronize()
-        tag = "int8 pools" if quant else "bf16 pools"
+        tag = (f"{path} Hkv={cfg.n_kv_heads} "
+               + ("int8 pools" if quant else "bf16 pools"))
         diff = (out.float() - ref).abs()
         err = diff.max().item()
         lerr = (lse - rlse).abs().max().item()
@@ -350,72 +452,246 @@ def check_attention(res: Results, dev):
         log(f"time ragged_paged_attention {tag}: kernel_ms={ms:.4f} "
             f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA per row) "
             f"bound_ms={b:.4f} ({by})")
-        if quant:                              # the main path's pools
-            res.kernel("ragged_paged_attention", err=max(err, lerr), ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=b,
-                       bound_by=by)
-        else:
-            res.kernel("ragged_paged_attention", err=max(err, lerr))
+        res.kernel("ragged_paged_attention", err=max(err, lerr))
+        if main and quant:                     # the serving paths' pools
+            res.shape("ragged_paged_attention", cfg.n_layers, ms, plain, lib,
+                      nbytes, ops, H100_BF16_OPS)
+
+
+# ---------------------------------------------------------------- MoE step
+
+def moe_step_inputs(dev, cfg, seed: int = 3):
+    """The main path's MoE step on seeded inputs: 768 bf16 token rows
+    routed by seeded softmax logits over 64 experts (top-6), staged
+    for the fp8 wire exactly as ``ops.ep_moe`` stages them."""
+    import torch
+
+    from triton_distributed_tpu_torch import ops
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+    from triton_distributed_tpu_torch.kernels.moe_utils import select_experts
+
+    got = (cfg.hidden, cfg.ffn, cfg.num_experts, cfg.topk, cfg.moe_wire_quant)
+    if got != (MOE_H, MOE_F, MOE_E, MOE_K, "fp8"):
+        raise AssertionError(f"MoE step built for (2048, 1408, 64, 6, fp8), "
+                             f"the preset has {got}")
+    ctx = ops.create_ep_moe_context(
+        num_experts=MOE_E, topk=MOE_K, max_m=MOE_T * MOE_K, hidden=MOE_H,
+        dtype=torch.bfloat16, block_m=64, quant="fp8", act_quant="int8")
+    a2a = ctx.a2a
+    geom = (a2a.max_m, md.slot_pad(a2a), md.m_cap(a2a))
+    if geom != (4608, 4608, 4704):
+        raise AssertionError(f"MoE geometry {geom} != (4608, 4608, 4704)")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((MOE_T, MOE_H), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    logits = torch.randn((MOE_T, MOE_E), generator=g, device=dev)
+    _, ids = select_experts(logits, MOE_K)
+    flat_e = ids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    splits = torch.zeros((MOE_E,), dtype=torch.int32, device=dev)
+    splits.index_add_(0, flat_e.long(), torch.ones_like(flat_e))
+    _, offs, offs_al, sendk = md.send_plan(a2a, splits)
+    _, dest = md.assignment_dest(a2a, flat_e[order], offs, offs_al)
+    payload, scales = md.stage_aligned(a2a, x, order // MOE_K, dest,
+                                       flat_e.shape[0])
+    meta = md.meta_payload(a2a, splits, scales, offs_al, sendk)
+    return dict(ctx=ctx, a2a=a2a, payload=payload, meta=meta,
+                offs_al=offs_al, sendk=sendk, g=g,
+                n_moe=len(cfg.moe_layers))
+
+
+def check_a2a(res: Results, dev, inp):
+    """Dispatch and combine, in LL mode (both parities) and barrier
+    mode, over windows pre-filled with a sentinel byte: the kernel's
+    windows must equal the plain version's byte for byte (the rows past
+    the shipped chunks keep the sentinel in both)."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+
+    a2a, n_moe = inp["a2a"], inp["n_moe"]
+    a = md.align(a2a)
+    (tshape, tdt), (mshape, _) = md.ll_workspace_shapes(a2a)
+    sp, mr = md.slot_pad(a2a), md.meta_rows(a2a)
+    dispatch = (inp["payload"], inp["meta"].reshape(-1, 128),
+                (inp["offs_al"] // a).to(torch.int32), inp["sendk"],
+                torch.zeros_like(inp["sendk"]))
+    toks, _ = md.recv_view(a2a, inp["payload"][:sp], inp["meta"])
+    y_tok, y_meta = md.stage_return(a2a, toks)
+    combine = (y_tok, y_meta.reshape(-1, 128),
+               torch.zeros((1,), dtype=torch.int32, device=dev),
+               inp["sendk"], inp["sendk"])
+
+    def windows(n_windows):
+        tok = torch.full((n_windows * sp, MOE_H), 0xA5, dtype=torch.uint8,
+                         device=dev).view(tdt)
+        meta = torch.full((n_windows * mr, 128), -0x5A5A5A5B,
+                          dtype=torch.int32, device=dev)
+        return tok, meta
+
+    # at one rank every assignment ships, so the main path's window is
+    # full; a push of half the chunks checks the rows past them too
+    half = dispatch[:3] + (inp["sendk"] // 2,) + dispatch[4:]
+    for leg, args in (("dispatch", dispatch), ("combine", combine),
+                      ("half dispatch", half)):
+        shipped = int(args[3][0]) * md.chunk_rows(a2a)
+        for mode, nw, pars in (("LL", 2, (0, 1)), ("barrier", 1, (0,))):
+            got, want = windows(nw), windows(nw)
+            for par in pars:
+                p = torch.tensor([par], dtype=torch.int32, device=dev)
+                md.chunked_a2a(a2a, *args, *got, p)
+                md.chunked_a2a_plain(a2a, *args, *want, p)
+            torch.cuda.synchronize()
+            bad = int((got[0].view(torch.uint8) != want[0].view(
+                torch.uint8)).sum()) + int((got[1] != want[1]).sum())
+            untouched = got[0].view(torch.uint8).reshape(nw, sp, -1)[
+                :, shipped:]
+            bad += int((untouched != 0xA5).sum())
+            res.check("chunked_a2a", bad, 0, f"{leg} {mode} "
+                      f"({shipped} of {sp} rows shipped)",
+                      metric="bytes_differing")
+    res.kernel("chunked_a2a", err=0.0)
+    # the kernel and the copy_ take microseconds, their Python wrappers
+    # tens: both are timed from CUDA graphs (the plain version reads the
+    # counts back to the host and cannot be captured), each call on one
+    # of 6 payload/window pairs (113 MB together, past the L2 cache).
+    # Each MoE layer runs both legs once, in LL mode
+    par = torch.zeros((1,), dtype=torch.int32, device=dev)
+    wss = [windows(2) for _ in range(6)]
+    for leg, args in (("dispatch", dispatch), ("combine", combine)):
+        shipped = int(args[3][0]) * md.chunk_rows(a2a)
+        pays = [args[0].clone() for _ in range(6)]
+
+        def kernel(i):
+            md.chunked_a2a(a2a, pays[i % 6], *args[1:], *wss[i % 6], par)
+
+        ms = graph_time_ms(kernel)
+        call = time_ms(lambda: kernel(0), 50)
+        ws = wss[0]
+        plain = time_ms(lambda: md.chunked_a2a_plain(a2a, *args, *ws, par),
+                        10)
+        srcs = [p.view(torch.uint8)[:shipped] for p in pays]
+        dsts = [w[0].view(torch.uint8)[:shipped] for w in wss]
+        lib = graph_time_ms(lambda i: dsts[i % 6].copy_(srcs[i % 6]))
+        nbytes = 2 * (shipped * MOE_H * a2a.wire_itemsize + mr * 128 * 4)
+        b, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time chunked_a2a {leg} fp8 {shipped} rows x {MOE_H} B "
+            f"({n_moe}/step): kernel_ms={ms:.4f} (graph; back-to-back "
+            f"wrapper calls {call:.4f}) plain_ms={plain:.4f} library_ms="
+            f"{lib:.4f} (one copy_, graph) bound_ms={b:.4f} ({by})")
+        res.shape("chunked_a2a", n_moe, ms, plain, lib, nbytes, 0.0,
+                  H100_BF16_OPS)
+
+
+def expert_rows(inp):
+    """The up GEMM's sorted input exactly as the expert MLP builds it
+    from the dispatched window: (8704, 2048) bf16 rows (zeros at the
+    padding) and the expert of each 64-row block."""
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+    from triton_distributed_tpu_torch.ops.moe import _slot_tables, sort_rows
+
+    ctx, a2a = inp["ctx"], inp["a2a"]
+    sp = md.slot_pad(a2a)
+    tok, meta = md.dispatch_device(a2a, inp["payload"], inp["offs_al"],
+                                   inp["sendk"], inp["meta"])
+    rows, rspl = md.recv_view(a2a, tok, meta)
+    eid, valid = _slot_tables(ctx, rspl, sp)
+    xs, be, _ = sort_rows(ctx, rows.reshape(sp, MOE_H), eid, valid)
+    return xs.contiguous(), be
+
+
+def check_expert_gemms(res: Results, dev, inp):
+    """The expert MLP's two GEMMs at the main path's shapes (8704 sorted
+    rows, 64 experts): the bf16 float mode (the bf16-expert run) and
+    W8A8 (the main path), each against its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    xs, be = expert_rows(inp)
+    cap, n_moe = xs.shape[0], inp["n_moe"]
+    g = inp["g"]
+    used = int(torch.unique(be).numel())
+    w_up = torch.randn((MOE_E, MOE_H, MOE_F), generator=g, device=dev,
+                       dtype=torch.bfloat16) / math.sqrt(MOE_H)
+    w_down = torch.randn((MOE_E, MOE_F, MOE_H), generator=g, device=dev,
+                         dtype=torch.bfloat16) / math.sqrt(MOE_F)
+    h = F.silu(gg.grouped_matmul(xs, w_up, be))
+    for what, x, w in (("up", xs, w_up), ("down", h, w_down)):
+        k, n = w.shape[1], w.shape[2]
+        out = gg.grouped_matmul(x, w, be)
+        ref = gg.grouped_matmul_plain(x, w, be, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        scale = ref.abs().max().item()
+        excess = (diff - GG_RTOL * ref.abs()).max().item()
+        res.check("ggemm_bf16", excess, GG_ATOL * scale,
+                  f"{what} M={cap} K={k} N={n}",
+                  metric=f"max(|err|-2^-8|ref|)")
+        err = diff.max().item()
+        ms = time_ms(lambda: gg.grouped_matmul(x, w, be), 10)
+        plain = time_ms(lambda: gg.grouped_matmul_plain(x, w, be), 3)
+        wg = w[be.long()]                      # gathered beforehand
+        xb = x.reshape(-1, 64, k)
+        lib = time_ms(lambda: torch.bmm(xb, wg), 10)
+        del wg
+        nbytes = 2 * cap * k + 2 * used * k * n + 2 * cap * n
+        ops = 2.0 * cap * k * n
+        b, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+        log(f"time ggemm_bf16 {what} M={cap} K={k} N={n} ({used} experts,"
+            f" {n_moe}/step): kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (bmm, gathered W) bound_ms={b:.4f} "
+            f"({by}) max_abs_err={err:.6g}")
+        res.kernel("ggemm_bf16", err=err)
+        res.shape("ggemm_bf16", n_moe, ms, plain, lib, nbytes, ops,
+                  H100_BF16_OPS)
+        # W8A8 at the same expert shapes (the main path's experts)
+        wq, ws = gg.quantize_grouped_weights(w)
+        xq, xsc = gg.quantize_act_rows(x)
+        kw = dict(w_scale=ws, x_scale=xsc, out_dtype=torch.bfloat16)
+        out = gg.grouped_matmul(xq, wq, be, **kw)
+        ref = gg.grouped_matmul_plain(xq, wq, be, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        res.check("ggemm_w8a8", err, ref.float().abs().max().item()
+                  * 2.0 ** -8, f"deepseek_moe_16b experts {what} M={cap} "
+                  f"K={k} N={n}")
+        res.kernel("ggemm_w8a8", err=err)
+        ms = time_ms(lambda: gg.grouped_matmul(xq, wq, be, **kw), 10)
+        plain = time_ms(lambda: gg.grouped_matmul_plain(xq, wq, be, **kw), 2)
+        # no PyTorch call multiplies int8 per expert block (``_int_mm`` is
+        # one 2-D product): the yardstick is ``bmm`` on the dequantized
+        # bf16 rows and the dequantized weights gathered per block
+        xdq = (xq.float() * xsc).to(torch.bfloat16).reshape(-1, 64, k)
+        wg = gg.dequantize_grouped_weights(wq, ws, torch.bfloat16)[be.long()]
+        lib = time_ms(lambda: torch.bmm(xdq, wg), 10)
+        del wg, xdq
+        nbytes = cap * k + 4 * cap + used * k * n + 4 * used * n + 2 * cap * n
+        b, by = bound_ms(nbytes, ops, H100_INT8_OPS)
+        log(f"time ggemm_w8a8 deepseek_moe_16b experts {what} M={cap} K={k} "
+            f"N={n} ({n_moe}/step): kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (bmm, dequantized bf16) bound_ms={b:.4f} "
+            f"({by})")
+        res.shape("ggemm_w8a8", n_moe, ms, plain, lib, nbytes, ops,
+                  H100_INT8_OPS)
 
 
 # -------------------------------------------------------------- end to end
 
+def _to(node, dev):
+    if isinstance(node, dict):
+        return {k: _to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, dev) for v in node]
+    return node.to(dev)
+
+
 def check_tiny(res: Results, dev):
-    """The int8 tiny model on the card (kernels) and on the CPU (plain
-    versions) from the same weights."""
-    import torch
-
-    from triton_distributed_tpu_torch.models import Transformer, presets
-    from triton_distributed_tpu_torch.serving import (
-        EngineConfig,
-        ServingEngine,
-        poisson_trace,
-    )
-
-    cfg = presets.tiny(kv_quant="int8", dense_weight_quant="int8",
-                       dense_act_quant="int8")
-    cpu = Transformer(cfg, device="cpu")
-    params_cpu = cpu.quantize_dense_weights(
-        cpu.init(torch.Generator().manual_seed(0)))
-    gpu = Transformer(cfg, device=dev)
-
-    def to_dev(node):
-        if isinstance(node, dict):
-            return {k: to_dev(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_dev(v) for v in node]
-        return node.to(dev)
-
-    params_gpu = to_dev(params_cpu)
-    ecfg = EngineConfig(slots=4, token_budget=48, chunk=16, page=8,
-                        npages=12)
-    streams = []
-    for model, params in ((gpu, params_gpu), (cpu, params_cpu)):
-        trace = poisson_trace(7, 8, 1.0, 5, 30, 3, 6, cfg.vocab)
-        stats = ServingEngine(model, params, ecfg).run(trace, max_steps=600)
-        streams.append([r.generated for r in trace])
-        if stats.completed != len(trace):
-            res.failures.append(f"tiny: {stats.completed}/{len(trace)} "
-                                "requests completed")
-    same = streams[0] == streams[1]
-    log(f"check tiny int8 engine: token streams card == cpu: {same} "
-        f"({sum(map(len, streams[0]))} tokens)")
-    if not same:
-        res.failures.append("tiny: card and CPU token streams differ")
-
-
-class _CheckedEngine:
-    """Mixin: every batched row's logits must be finite."""
-
-    bad_rows = 0
-
-    def _advance_row(self, s, req, take, logits):
-        if not np.isfinite(logits[s]).all():
-            self.bad_rows += 1
-        return super()._advance_row(s, req, take, logits)
-
-
-def run_main(res: Results, dev):
+    """Tiny models on the card (kernels) and on the CPU (plain versions)
+    from the same weights: the int8 dense preset, the DeepSeek-MoE
+    preset (fp8 wire, W8A8 experts) and its float-expert variant (the
+    f32 instantiation of the float grouped GEMM)."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import (
@@ -429,8 +705,95 @@ def run_main(res: Results, dev):
         poisson_trace,
     )
 
-    cfg = presets.llama_7b(kv_quant="int8", dense_weight_quant="int8",
-                           dense_act_quant="int8")
+    #           name, config, kernels the card's run must launch
+    cases = (
+        ("int8", presets.tiny(kv_quant="int8", dense_weight_quant="int8",
+                              dense_act_quant="int8"),
+         ("ggemm_w8a8", "ragged_paged_attention")),
+        ("deepseek_moe int8", presets.tiny(presets.deepseek_moe_16b()),
+         ("ggemm_w8a8", "ragged_paged_attention", "chunked_a2a")),
+        ("deepseek_moe float experts", presets.tiny(presets.deepseek_moe_16b(
+            moe_weight_quant=None, moe_act_quant=None)),
+         ("ggemm_f32", "ragged_paged_attention", "chunked_a2a")),
+    )
+    ecfg = EngineConfig(slots=4, token_budget=48, chunk=16, page=8,
+                        npages=12)
+    for name, cfg, kernels in cases:
+        cpu = Transformer(cfg, device="cpu")
+        params_cpu = cpu.init(torch.Generator().manual_seed(0))
+        params_cpu = cpu.quantize_dense_weights(params_cpu)
+        if cfg.moe == "ep":
+            params_cpu = cpu.quantize_moe_weights(params_cpu)
+        gpu = Transformer(cfg, device=dev)
+        streams = []
+        for model, params in ((gpu, _to(params_cpu, dev)),
+                              (cpu, params_cpu)):
+            trace = poisson_trace(7, 8, 1.0, 5, 30, 3, 6, cfg.vocab)
+            reset_launch_counts()
+            stats = ServingEngine(model, params, ecfg).run(trace,
+                                                          max_steps=600)
+            if model is gpu:
+                counts = launch_counts()
+                log(f"launches tiny {name} " + " ".join(
+                    f"{k}={v}" for k, v in counts.items()))
+                for k in kernels:
+                    if counts[k] == 0:
+                        res.failures.append(f"tiny {name}: {k} never "
+                                            "launched")
+            streams.append([r.generated for r in trace])
+            if stats.completed != len(trace):
+                res.failures.append(f"tiny {name}: {stats.completed}/"
+                                    f"{len(trace)} requests completed")
+        same = streams[0] == streams[1]
+        log(f"check tiny {name} engine: token streams card == cpu: {same} "
+            f"({sum(map(len, streams[0]))} tokens)")
+        if not same:
+            res.failures.append(f"tiny {name}: card and CPU token streams "
+                                "differ")
+
+
+class _CheckedEngine:
+    """Mixin: every batched row's logits must be finite."""
+
+    bad_rows = 0
+
+    def _advance_row(self, s, req, take, logits):
+        if not np.isfinite(logits[s]).all():
+            self.bad_rows += 1
+        return super()._advance_row(s, req, take, logits)
+
+
+#: the kernels each serving path must launch
+PATH_KERNELS = {
+    "llama_7b": ("ggemm_w8a8", "ggemm_w8a16", "ragged_paged_attention"),
+    "deepseek_moe_16b": ("ggemm_w8a8", "ggemm_w8a16",
+                         "ragged_paged_attention", "chunked_a2a"),
+    "deepseek_moe_16b_bf16_experts": ("ggemm_w8a8", "ggemm_w8a16",
+                                      "ragged_paged_attention", "ggemm_bf16",
+                                      "chunked_a2a"),
+}
+
+
+def run_path(res: Results, dev, name, cfg, profile=False):
+    """One serving path at full width: the engine serves the seeded
+    Poisson trace (16 requests, prompts 128–1023 tokens) from random
+    weights drawn in bf16 and quantized on the card; the launches of
+    every kernel are counted over the run. Returns the launches and the
+    number of engine steps."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer
+    from triton_distributed_tpu_torch.serving import (
+        EngineConfig,
+        ServingEngine,
+        poisson_trace,
+    )
+
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Transformer(cfg, device=dev)
@@ -452,43 +815,75 @@ def run_main(res: Results, dev):
     wall = time.perf_counter() - t1
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"main llama_7b int8 layers={cfg.n_layers}: setup_s={setup:.2f} "
+    steps = len(stats.step_times)
+    log(f"path {name} layers={cfg.n_layers}: setup_s={setup:.2f} "
         f"completed={stats.completed}/{len(trace)} "
         f"generated_tokens={stats.generated_tokens} "
-        f"prefill_tokens={stats.prefill_tokens} steps={len(stats.step_times)}"
+        f"prefill_tokens={stats.prefill_tokens} steps={steps}"
         f" evictions={stats.evictions} wall_s={wall:.2f} "
         f"tok_s={stats.generated_tokens / wall:.2f} "
         f"packed_tok_s={sum(stats.step_tokens) / wall:.2f} "
         f"p50_step_ms={stats.p50_step_ms:.2f} "
         f"p99_step_ms={stats.p99_step_ms:.2f} peak_mem_gib={peak:.2f}")
-    log("kernels " + " ".join(f"{k}={v}" for k, v in counts.items()))
-    for name, n in counts.items():
-        res.kernel(name, launches=n)
-        if n == 0:
-            res.failures.append(f"main: {name} never launched")
+    log(f"launches {name} " + " ".join(
+        f"{k}={v} ({v / max(steps, 1):g}/step)" for k, v in counts.items()))
+    for k in PATH_KERNELS[name]:
+        if counts[k] == 0:
+            res.failures.append(f"{name}: {k} never launched")
     if stats.completed != len(trace):
         res.failures.append(
-            f"main: {stats.completed}/{len(trace)} requests completed")
+            f"{name}: {stats.completed}/{len(trace)} requests completed")
     if eng.bad_rows:
-        res.failures.append(f"main: {eng.bad_rows} rows of non-finite "
+        res.failures.append(f"{name}: {eng.bad_rows} rows of non-finite "
                             "logits")
-    return model, params, ecfg, trace
+    if profile:
+        run_profile(name, model, params, ecfg, trace)
+    return counts, steps
 
 
-def run_profile(model, params, ecfg, trace, steps: int = 8):
+def run_profile(name, model, params, ecfg, trace, steps: int = 8):
     """Device time by kernel and the device's idle share over ``steps``
-    engine steps of the same trace (torch.profiler, CUDA activity)."""
+    engine steps of the same trace (torch.profiler, CUDA activity).
+
+    The same steps run twice from a fresh engine (the schedule and the
+    greedy tokens repeat): first unprofiled, timing the step on the host
+    clock and the host's enqueue of ``serving_step`` (its return, before
+    the logits fetch waits for the card); then under the profiler, whose
+    own host overhead stretches the wall. The idle share is reported
+    against both walls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from triton_distributed_tpu_torch.serving import ServingEngine, Request
 
-    eng = ServingEngine(model, params, ecfg)
-    eng.submit_trace([Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
-                              arrival=r.arrival) for r in trace])
-    for _ in range(3):                       # past the first arrivals
+    def engine_past_arrivals():
+        eng = ServingEngine(model, params, ecfg)
+        eng.submit_trace([Request(rid=r.rid, prompt=r.prompt,
+                                  max_new=r.max_new, arrival=r.arrival)
+                          for r in trace])
+        for _ in range(3):                   # past the first arrivals
+            eng.step()
+        torch.cuda.synchronize()
+        return eng
+
+    eng = engine_past_arrivals()
+    enqueue = []
+    serve = model.serving_step
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = serve(*a, **kw)
+        enqueue.append(time.perf_counter() - t)
+        return out
+
+    model.serving_step = timed
+    t0 = time.perf_counter()
+    for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    del model.serving_step
+    eng = engine_past_arrivals()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -509,18 +904,24 @@ def run_profile(model, params, ecfg, trace, steps: int = 8):
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(us for us, _, _ in rows)
-    log(f"profile {steps} steps: wall_ms={wall_us / 1e3:.2f} "
+    kernels = sum(n for _, _, n in rows)
+    log(f"profile {name} {steps} steps: wall_ms={plain_us / 1e3:.2f} "
+        f"host_enqueue_ms={sum(enqueue) * 1e3:.2f} "
         f"device_busy_ms={busy / 1e3:.2f} "
+        f"device_ops_per_step={kernels / steps:.0f} "
+        f"idle_share={max(0.0, 1 - busy / plain_us):.4f} | under the "
+        f"profiler wall_ms={wall_us / 1e3:.2f} "
         f"idle_share={max(0.0, 1 - busy / wall_us):.4f}")
     for us, key, n in rows[:10]:
-        log(f"  profile {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% "
+        log(f"  profile {name} {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% "
             f"x{n} {key[:90]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile a few engine steps")
+                    help="after the main (MoE) path, profile a few engine "
+                    "steps")
     opts = ap.parse_args()
 
     import torch
@@ -544,12 +945,44 @@ def main() -> int:
     _build.lib()
     log(f"build {len(_build.sources())} sources in "
         f"{time.perf_counter() - t0:.2f} s")
-    check_gemms(res, dev)
-    check_attention(res, dev)
+    from triton_distributed_tpu_torch.models import presets
+
+    llama = presets.llama_7b(kv_quant="int8", dense_weight_quant="int8",
+                             dense_act_quant="int8")
+    deepseek = presets.deepseek_moe_16b()
+    # the Llama path's shapes are its own checks; the main path's shapes
+    # also make the kernels line's rows
+    for path, cfg, main_path in (("llama_7b", llama, False),
+                                 ("deepseek_moe_16b", deepseek, True)):
+        check_gemms(res, dev, path, cfg, main_path)
+        check_attention(res, dev, path, cfg, main_path)
+    moe = moe_step_inputs(dev, deepseek)
+    check_a2a(res, dev, moe)
+    check_expert_gemms(res, dev, moe)
+    del moe
+    res.finish_rows()
     check_tiny(res, dev)
-    main_run = run_main(res, dev)
-    if opts.profile:
-        run_profile(*main_run)
+
+    run_path(res, dev, "llama_7b", llama)
+    bf16_counts, bf16_steps = run_path(
+        res, dev, "deepseek_moe_16b_bf16_experts", presets.deepseek_moe_16b(
+            moe_weight_quant=None, moe_act_quant=None))
+    # the main path last, and its profile after its timed run: a
+    # torch.profiler run slows the later host work of the process
+    main_counts, main_steps = run_path(res, dev, "deepseek_moe_16b",
+                                       deepseek, profile=opts.profile)
+    # each row's launches come from the main path; the bf16 grouped GEMM
+    # runs only where the experts are bf16. A row's times are weighted by
+    # the launches a step of its shapes: those must be the run's
+    for name in KERNELS:
+        n, steps = ((main_counts[name], main_steps) if main_counts[name]
+                    else (bf16_counts[name], bf16_steps))
+        res.kernel(name, launches=n)
+        per_step = sum(s["n"] for s in res.mix[name])
+        if n != per_step * steps:
+            res.failures.append(
+                f"{name}: {n} launches in {steps} steps, but its row "
+                f"weighs shapes of {per_step} launches a step")
     if res.failures:
         for f in res.failures:
             log(f"FAIL {f}")

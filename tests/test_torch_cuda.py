@@ -13,6 +13,8 @@ import torch
 
 from triton_distributed_tpu_torch.kernels import group_gemm as gg
 from triton_distributed_tpu_torch.kernels import launch_counts, quantize_kv
+from triton_distributed_tpu_torch.kernels import moe_all_to_all as ma
+from triton_distributed_tpu_torch.kernels import moe_dispatch as md
 from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
 
 pytestmark = pytest.mark.cuda
@@ -74,6 +76,52 @@ class TestGroupedMatmulKernel:
         tol = 1e-4 if out == "float32" else 1e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(256, 2048, 1408, 64, 4),
+                                       (37, 70, 33, 37, 1),
+                                       (192, 96, 136, 64, 3)])
+    def test_bf16_float_mode_matches_plain(self, dev, out, shape):
+        """The tensor-core kernel: bf16 products are exact in f32, so
+        only the f32 summation order (1e-5·sqrt(K) of the largest sum)
+        and, for bf16 out, one bf16 rounding (2^-8 relative) differ.
+        Ragged M/N/K edges (K = 70: no 16-byte rows) and the expert
+        shapes of the serving path."""
+        cap, k, n, block_m, e = shape
+        x, w, be = _gemm_inputs(5, e, cap, k, n, block_m)
+        xb, wb = _t(x, dev, torch.bfloat16), _t(w, dev, torch.bfloat16)
+        odt = getattr(torch, out)
+        before = launch_counts()["ggemm_bf16"]
+        got = gg.grouped_matmul(xb, wb, _t(be, dev), out_dtype=odt)
+        want = gg.grouped_matmul_plain(xb, wb, _t(be, dev),
+                                       out_dtype=torch.float32)
+        assert launch_counts()["ggemm_bf16"] == before + 1
+        assert got.dtype == odt
+        scale = want.abs().max().item()
+        tol = (2.0 ** -8 * want.abs() if out == "bfloat16" else 0.0) \
+            + 1e-5 * np.sqrt(k) * scale
+        assert ((got.float() - want).abs() <= tol).all()
+
+    def test_f32_float_mode_matches_plain(self, dev):
+        """The f32 instantiation (FMA): 1e-5 (summation order)."""
+        x, w, be = _gemm_inputs(6, 3, 192, 200, 100, 64)
+        before = launch_counts()
+        got = gg.grouped_matmul(_t(x, dev), _t(w, dev), _t(be, dev))
+        after = launch_counts()
+        assert after["ggemm_f32"] == before["ggemm_f32"] + 1
+        assert after["ggemm_bf16"] == before["ggemm_bf16"]
+        want = gg.grouped_matmul_plain(_t(x, dev), _t(w, dev), _t(be, dev))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    def test_w8a8_is_exact_with_64_experts(self, dev):
+        """The expert layout: 64 experts, many 64-row blocks."""
+        x, w, be = _gemm_inputs(7, 64, 64 * 40, 256, 192, 64)
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        xq, xs = gg.quantize_act_rows(_t(x, dev))
+        kw = dict(w_scale=ws, x_scale=xs, out_dtype=torch.bfloat16)
+        got = gg.grouped_matmul(xq, wq, _t(be, dev), **kw)
+        want = gg.grouped_matmul_plain(xq, wq, _t(be, dev), **kw)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
     def test_wrapper_refuses_what_the_kernel_does_not_take(self, dev):
         x, w, be = _gemm_inputs(2, 2, 128, 64, 32, 32)
@@ -166,6 +214,97 @@ class TestRaggedAttentionKernel:
         with pytest.raises(ValueError, match="int32"):
             rpa.ragged_paged_attention(q, kp, vp, *[m.long() for m in meta],
                                        **kw)
+
+
+def _staged_a2a(dev, quant, dtype, seed):
+    """One rank's staged payload and metadata for a seeded routing."""
+    ctx = ma.MoEAllToAllContext(n=1, max_m=200, hidden=96,
+                                experts_per_rank=8, dtype=dtype, quant=quant)
+    rng = np.random.default_rng(seed)
+    flat_e = _t(rng.integers(0, 9, (200,)).astype(np.int32), dev)
+    x = _t(rng.standard_normal((100, 96)), dev, dtype)
+    order = torch.argsort(flat_e, stable=True)
+    valid = flat_e < 8
+    splits = torch.bincount(flat_e[valid].long(), minlength=8).to(torch.int32)
+    _, offs, offs_al, sendk = md.send_plan(ctx, splits)
+    _, dest = md.assignment_dest(ctx, flat_e[order], offs, offs_al)
+    payload, scales = md.stage_aligned(ctx, x, order // 2, dest,
+                                       valid.sum())
+    meta = md.meta_payload(ctx, splits, scales, offs_al, sendk)
+    return ctx, payload, offs_al, sendk, meta
+
+
+class TestChunkedA2AKernel:
+    @pytest.mark.parametrize("wire", [("fp8", torch.float32),
+                                      ("int8", torch.bfloat16),
+                                      (None, torch.bfloat16),
+                                      (None, torch.float32)])
+    def test_windows_are_byte_exact(self, dev, wire):
+        """Barrier and workspace mode over windows pre-filled with random
+        bytes, parity rolling 0, 1, 0: every byte equals the plain
+        version's, the rows past the shipped chunks untouched."""
+        quant, dtype = wire
+        ctx = ma.MoEAllToAllContext(n=1, max_m=200, hidden=96,
+                                    experts_per_rank=8, dtype=dtype,
+                                    quant=quant)
+        (tshape, tdt), (mshape, _) = md.ll_workspace_shapes(ctx)
+        g = torch.Generator(device=dev).manual_seed(0)
+        raw = torch.randint(0, 256, (tshape[0], 96 * ctx.wire_itemsize),
+                            generator=g, device=dev, dtype=torch.uint8)
+        ws = [raw.clone().view(tdt), raw.clone().view(tdt)]
+        wsm = torch.randint(-2 ** 31, 2 ** 31 - 1, mshape, generator=g,
+                            device=dev, dtype=torch.int32)
+        wsm = [wsm.clone(), wsm.clone()]
+        for call in range(3):
+            _, payload, offs_al, sendk, meta = _staged_a2a(dev, quant, dtype,
+                                                           call)
+            par = torch.tensor([call % 2], dtype=torch.int32, device=dev)
+            args = (ctx, payload, meta.reshape(-1, 128),
+                    (offs_al // md.align(ctx)).to(torch.int32), sendk,
+                    torch.zeros_like(sendk))
+            before = launch_counts()["chunked_a2a"]
+            md.chunked_a2a(*args, ws[0], wsm[0], par)
+            assert launch_counts()["chunked_a2a"] == before + 1
+            md.chunked_a2a_plain(*args, ws[1], wsm[1], par)
+            torch.cuda.synchronize()
+            assert torch.equal(ws[0].view(torch.uint8),
+                               ws[1].view(torch.uint8))
+            assert torch.equal(wsm[0], wsm[1])
+        tok, tmeta = md.dispatch_device(ctx, payload, offs_al, sendk, meta)
+        rows = int(sendk[0]) * md.chunk_rows(ctx)
+        assert torch.equal(tok.view(torch.uint8)[:rows],
+                           payload.view(torch.uint8)[:rows])
+        assert torch.equal(tmeta, meta.reshape(-1, 128))
+
+
+def test_ep_moe_on_card_matches_cpu(dev):
+    """The tiny f32 EP MoE (fp8 wire, W8A8 and float experts) on the card
+    against the CPU's plain versions: 1e-5 of the output's scale, or
+    one fp8 / int8 code flip of a token's row (see tests/test_torch_moe.py
+    for the same bound against JAX)."""
+    from triton_distributed_tpu_torch import ops
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((40, 128)).astype(np.float32)
+    logits = rng.standard_normal((40, 8)).astype(np.float32)
+    up = (rng.standard_normal((8, 128, 64)) / 11).astype(np.float32)
+    down = (rng.standard_normal((8, 64, 128)) / 8).astype(np.float32)
+    for act in ("int8", None):
+        outs = []
+        for d in ("cpu", dev):
+            u, dn = _t(up, d), _t(down, d)
+            if act:
+                u, dn = ({"q": q, "scale": sc} for q, sc in (
+                    gg.quantize_grouped_weights(w) for w in (u, dn)))
+            ctx = ops.create_ep_moe_context(
+                num_experts=8, topk=2, max_m=80, hidden=128,
+                dtype=torch.float32, quant="fp8", act_quant=act)
+            st = ops.create_ep_moe_state(ctx, d)
+            out, st = ops.ep_moe(_t(x, d), _t(logits, d), u, dn, ctx,
+                                 state=st)
+            outs.append(out.cpu())
+        diff = (outs[1] - outs[0]).abs() / outs[0].abs().max()
+        assert diff.max() <= 7e-2 and (diff > 1e-5).float().mean() <= 0.05
 
 
 def test_serving_step_on_card_matches_cpu(dev):

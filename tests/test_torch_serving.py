@@ -300,14 +300,6 @@ class TestServingStep:
             tm._dense_w(tparams["blocks"][1]["wo"]).numpy(),
             np.asarray(jm._dense_w(params["blocks"][1]["wo"])))
 
-    def test_moe_config_raises(self):
-        cfg = presets.tiny(presets.mixtral_8x7b())
-        tm = Transformer(cfg, device="cpu")
-        st = None
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tm.serving_step({}, st, torch.zeros(8, dtype=torch.int32),
-                            None, None, None, None)
-
     def test_quantized_init_and_carry_over(self, mesh1):
         _, params, tm, tparams = _jax_and_port(mesh1, True)
         assert tparams["lm_head"]["q"].dtype == torch.int8
@@ -324,6 +316,135 @@ class TestServingStep:
         own = tm.init(torch.Generator().manual_seed(0), quantize=True)
         assert own["blocks"][0]["up"]["q"].shape == (128, 256)
         assert own["embed"].dtype == torch.float32
+
+
+# --------------------------------------------------------------------- MoE
+
+#: the tiny DeepSeek-MoE preset as served (fp8 wire, int8 W8A8 experts)
+#: and its bf16-expert variant (float experts, fp8 wire)
+MOE_VARIANTS = {"int8": {}, "float_experts": dict(moe_weight_quant=None,
+                                                  moe_act_quant=None)}
+
+
+def _tpu_moe_ctx(self, m_local, inference=False, weights_quantized=None):
+    """JAX ``Transformer._moe_ep_ctx`` as a TPU builds it for serving:
+    the fused transport, the Pallas grouped GEMMs (interpret mode here)
+    at the port's block_m, the wire quant, and W8A8 experts when the
+    weights are int8 dicts."""
+    from triton_distributed_tpu import ops as jops
+    from triton_distributed_tpu_torch.models.transformer import MOE_BLOCK_M
+
+    c = self.config
+    wq = c.moe_weight_quant
+    if weights_quantized is False:
+        wq = None
+    elif weights_quantized and wq is None:
+        wq = "int8"
+    return jops.create_ep_moe_context(
+        self.mesh, self.tp_axis, num_experts=c.num_experts, topk=c.topk,
+        max_m=m_local * c.topk, hidden=c.hidden, dtype=c.dtype,
+        transport="fused" if inference else "xla",
+        use_pallas_gemm=inference, block_m=MOE_BLOCK_M,
+        quant=c.moe_wire_quant if inference else None,
+        act_quant=c.moe_act_quant if inference and wq == "int8" else None,
+        batch_axes=tuple(self.dp_axes))
+
+
+@pytest.fixture
+def tpu_moe(monkeypatch):
+    monkeypatch.setattr(JTransformer, "_moe_ep_ctx", _tpu_moe_ctx)
+
+
+def _moe_jax_and_port(mesh, variant, seed=0):
+    """The tiny MoE preset in both packages with the same weights (EP:
+    the DeepSeek preset in ``variant``; "tp": Mixtral's topology with
+    the TP-flavour MoE)."""
+    if variant == "tp":
+        jcfg = jpresets.tiny(jpresets.mixtral_8x7b(moe="tp"))
+        cfg = presets.tiny(presets.mixtral_8x7b(moe="tp"))
+    else:
+        kw = MOE_VARIANTS[variant]
+        jcfg = jpresets.tiny(jpresets.deepseek_moe_16b(**kw))
+        cfg = presets.tiny(presets.deepseek_moe_16b(**kw))
+    jm = JTransformer(jcfg, mesh, "tp", ())
+    params = jm.init(jax.random.PRNGKey(seed))
+    params = jm.quantize_moe_weights(jm.quantize_dense_weights(params))
+    tm = Transformer(cfg, device="cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), cfg, "cpu")
+    return jm, params, tm, tparams
+
+
+class TestMoE:
+    def test_params_carry_over_bit_for_bit(self, mesh1):
+        """The quantized JAX tree carries over with its dtypes (int8 q,
+        f32 scales, f32 router); the port's quantize_moe_weights on the
+        carried float tree equals JAX's; the port's own init keeps the
+        router f32 and quantizes the experts it draws."""
+        jm, params, tm, tparams = _moe_jax_and_port(mesh1, "int8")
+        jb, tb = params["blocks"][1], tparams["blocks"][1]
+        assert "up" not in tb and tb["router"].dtype == torch.float32
+        for name in ("moe_up", "moe_down"):
+            assert tb[name]["q"].dtype == torch.int8
+            assert tb[name]["scale"].dtype == torch.float32
+            for k in ("q", "scale"):
+                np.testing.assert_array_equal(tb[name][k].numpy(),
+                                              np.asarray(jb[name][k]))
+        np.testing.assert_array_equal(tb["router"].numpy(),
+                                      np.asarray(jb["router"]))
+        fparams = jm.init(jax.random.PRNGKey(0))
+        tfloat = params_from_numpy(jax.tree.map(np.asarray, fparams),
+                                   tm.config, "cpu")
+        q_port = tm.quantize_moe_weights(tfloat)["blocks"][1]["moe_down"]
+        q_jax = jm.quantize_moe_weights(fparams)["blocks"][1]["moe_down"]
+        for k in ("q", "scale"):
+            np.testing.assert_array_equal(q_port[k].numpy(),
+                                          np.asarray(q_jax[k]))
+        np.testing.assert_array_equal(
+            tm._expert_w(q_port).numpy(), np.asarray(jm._expert_w(q_jax)))
+        own = tm.init(torch.Generator().manual_seed(0), quantize=True)
+        assert own["blocks"][1]["router"].dtype == torch.float32
+        assert own["blocks"][1]["moe_up"]["q"].shape == (8, 128, 256)
+        assert "moe_up" not in own["blocks"][0]
+
+    @pytest.mark.parametrize("variant", ["int8", "float_experts", "tp"])
+    def test_step_matches_jax(self, mesh1, tpu_moe, variant):
+        """Two packed steps: logits of the batched rows within 1e-4 (f32
+        sums in another order, as for the dense model; the fp8 wire and
+        the W8A8 experts are bit-equal on these inputs), the persistent
+        MoE workspaces threaded through both (EP), none for TP."""
+        jm, params, tm, tparams = _moe_jax_and_port(mesh1, variant)
+        table = np.arange(16, dtype=np.int32).reshape(4, 4)
+        js = jm.init_serving_state(4, 16, 8)
+        ts = tm.init_serving_state(4, 16, 8)
+        budget, t_pad = 32, 48
+        jst = jm.init_decode_state(t_pad)
+        tst = tm.init_decode_state(t_pad)
+        assert (jst is None) == (tst is None) == (variant == "tp")
+        seqs, plan = _two_steps()
+        for rows in plan:
+            tok, trow, tpos, qs, ql, kv = _batch(seqs, rows, t_pad, budget)
+            block_q = auto_block_q(int(ql.max()), 2)
+            js = js.replace(block_table=jnp.asarray(table),
+                            kv_lens=jnp.asarray(kv))
+            jout = jm._serving_jit(
+                params, js, *map(jnp.asarray, (tok, trow, tpos, qs, ql)),
+                None, jst, block_q, False)
+            ts = ts.replace(block_table=torch.as_tensor(table),
+                            kv_lens=torch.as_tensor(kv))
+            batch = tuple(map(torch.as_tensor, (tok, trow, tpos, qs, ql)))
+            tout = tm.serving_step(tparams, ts, *batch, None, tst,
+                                   block_q=block_q)
+            if tst is None:
+                (jl, js), (tl, ts) = jout, tout
+            else:
+                jl, js, jst = jout
+                tl, ts, tst = tout
+                assert int(tst[1].parity[0]) == int(np.asarray(
+                    jst[1].parity)[0])
+            live = ql > 0
+            np.testing.assert_allclose(tl.numpy()[live],
+                                       np.asarray(jl)[live],
+                                       rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------------------ engine
@@ -396,6 +517,23 @@ class TestEngine:
 
         _assert_same(*_run_both(mesh1, False, ecfg, trace))
 
+    @pytest.mark.parametrize("variant", ["int8", "float_experts"])
+    def test_moe_streams_and_counters_match_jax(self, mesh1, tpu_moe,
+                                                variant):
+        """The tiny DeepSeek-MoE preset served by both engines, the JAX
+        one on the TPU's MoE path, under eviction."""
+        ecfg = dict(slots=4, token_budget=48, chunk=16, page=8, npages=12)
+        jm, params, tm, tparams = _moe_jax_and_port(mesh1, variant)
+        jtr = j_trace(7, 8, 1.0, 5, 30, 3, 6, 128)
+        ttr = poisson_trace(7, 8, 1.0, 5, 30, 3, 6, 128)
+        jstats = JServingEngine(jm, params, JEngineConfig(**ecfg),
+                                use_pallas=False).run(jtr, max_steps=600)
+        eng = ServingEngine(tm, tparams, EngineConfig(**ecfg))
+        assert eng.moe_state is not None
+        tstats = eng.run(ttr, max_steps=600)
+        assert tstats.completed == 8 and tstats.evictions > 0
+        _assert_same(jtr, jstats, ttr, tstats)
+
     def test_poisson_trace_matches_jax(self):
         a = j_trace(11, 16, 0.25, 128, 1024, 16, 32, 32000)
         b = poisson_trace(11, 16, 0.25, 128, 1024, 16, 32, 32000)
@@ -456,6 +594,7 @@ class TestHygiene:
         code = (
             "import sys, triton_distributed_tpu_torch.serving, "
             "triton_distributed_tpu_torch.models, "
+            "triton_distributed_tpu_torch.ops, "
             "triton_distributed_tpu_torch.layers, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton_distributed_tpu')]; "

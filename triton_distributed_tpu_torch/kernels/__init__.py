@@ -1,6 +1,8 @@
 """The port's kernels: each module keeps a plain PyTorch version beside
 the wrapper of its hand-written CUDA kernel (``csrc/``). The attention
-wrapper is not re-exported here: its name is its module's."""
+wrapper is not re-exported here: its name is its module's. The MoE
+modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``) are
+imported by name."""
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -31,22 +33,30 @@ __all__ = [
 ]
 
 
-def launch_counts() -> dict:
-    """Launches of each CUDA kernel since the last :func:`reset_launch_counts`."""
+def _counters() -> dict:
+    """Each CUDA kernel's name → (the wrapper that launches it, the
+    attribute that counts its launches). The float grouped GEMM's
+    wrapper launches two kernels: bf16 on tensor cores, f32 on FMA."""
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
 
     return {
-        "ggemm_w8a8": gg._w8a8_cuda.launches,
-        "ggemm_w8a16": gg._w8a16_cuda.launches,
-        "ragged_paged_attention": rpa._ragged_cuda.launches,
+        "ggemm_w8a8": (gg._w8a8_cuda, "launches"),
+        "ggemm_w8a16": (gg._w8a16_cuda, "launches"),
+        "ragged_paged_attention": (rpa._ragged_cuda, "launches"),
+        "ggemm_bf16": (gg._ggemm_f_cuda, "launches_bf16"),
+        "ggemm_f32": (gg._ggemm_f_cuda, "launches_f32"),
+        "chunked_a2a": (md._chunked_a2a_cuda, "launches"),
     }
 
 
-def reset_launch_counts() -> None:
-    from triton_distributed_tpu_torch.kernels import group_gemm as gg
-    from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last :func:`reset_launch_counts`."""
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
-    gg._w8a8_cuda.launches = 0
-    gg._w8a16_cuda.launches = 0
-    rpa._ragged_cuda.launches = 0
+
+def reset_launch_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)

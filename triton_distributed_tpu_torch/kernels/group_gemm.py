@@ -1,8 +1,9 @@
-"""Grouped (per-expert) GEMM with int8 weights, and its quantizers.
+"""Grouped (per-expert) GEMM, and its weight and activation quantizers.
 
-Port of ``triton_distributed_tpu/kernels/group_gemm.py`` in its two
-quantized modes:
+Port of ``triton_distributed_tpu/kernels/group_gemm.py`` in three modes:
 
+* **float** (``w_scale=None``): x and w both bf16 or both f32, f32
+  accumulation, stored to ``out_dtype`` — the TPU's ``_ggemm_kernel``;
 * **W8A16** (``w_scale`` only): x bf16/f32, w int8, f32 accumulation,
   ``acc · w_scale[e, n]`` stored straight to ``out_dtype`` — the TPU's
   ``_ggemm_q_kernel``.
@@ -12,7 +13,8 @@ quantized modes:
 
 Rows are cut into ``len(block_expert)`` equal M-blocks; block ``b``
 multiplies expert ``block_expert[b]``'s (K, N) weight (the dense
-projections call it with E = 1).
+projections call it with E = 1, the MoE experts with E = experts per
+rank). The fp8 weight mode is not ported.
 
 On a CUDA tensor :func:`grouped_matmul` launches the hand-written
 kernels of ``csrc/group_gemm.cu`` (built on first use); on a CPU tensor
@@ -67,11 +69,16 @@ def _check_args(x_sorted, w, block_expert, w_scale, x_scale):
     e, kw, n = w.shape
     if kw != k:
         raise ValueError(f"x has K={k} but w has K={kw}")
-    if w.dtype != torch.int8:
-        raise ValueError(f"w must be int8, got {w.dtype}")
     if w_scale is None:
-        raise ValueError("grouped_matmul needs w_scale (int8 weights)")
-    if tuple(w_scale.shape) != (e, n):
+        if x_scale is not None:
+            raise ValueError("x_scale requires w_scale (W8A8 mode)")
+        if x_sorted.dtype not in _DT_CODE or w.dtype != x_sorted.dtype:
+            raise ValueError(
+                "the float mode takes x and w both f32 or both bf16, got "
+                f"{x_sorted.dtype} and {w.dtype}")
+    elif w.dtype != torch.int8:
+        raise ValueError(f"w_scale needs int8 w, got {w.dtype}")
+    elif tuple(w_scale.shape) != (e, n):
         raise ValueError(f"w_scale shape {tuple(w_scale.shape)} != {(e, n)}")
     nb = block_expert.shape[0]
     if nb < 1 or cap % nb:
@@ -86,10 +93,11 @@ def _check_args(x_sorted, w, block_expert, w_scale, x_scale):
     return cap, k, e, n, cap // nb
 
 
-def grouped_matmul_plain(x_sorted, w, block_expert, *, w_scale,
+def grouped_matmul_plain(x_sorted, w, block_expert, *, w_scale=None,
                          x_scale=None, out_dtype=None):
     """Plain PyTorch version of :func:`grouped_matmul` (same signature).
 
+    The float mode is a per-block f32 matmul stored to ``out_dtype``.
     W8A8 sums s8×s8 products exactly: in int64 on the CPU, in float64 on
     a card (CUDA has no general integer matmul; every partial sum is an
     integer far below 2**53, so float64 is exact too). The epilogue then
@@ -112,16 +120,19 @@ def grouped_matmul_plain(x_sorted, w, block_expert, *, w_scale,
     for b, e in enumerate(block_expert.tolist()):
         rows = slice(b * block_m, (b + 1) * block_m)
         acc = x_sorted[rows].float() @ w[e].float()
-        out[rows] = (acc * w_scale[e].float()[None, :]).to(out_dtype)
+        if w_scale is not None:
+            acc = acc * w_scale[e].float()[None, :]
+        out[rows] = acc.to(out_dtype)
     return out
 
 
-def grouped_matmul(x_sorted, w, block_expert, *, w_scale, x_scale=None,
+def grouped_matmul(x_sorted, w, block_expert, *, w_scale=None, x_scale=None,
                    out_dtype=None):
-    """x_sorted (cap, K) @ w (E, K, N) int8 → (cap, N), expert per
-    M-block, in the W8A16 (``x_scale=None``) or W8A8 mode.
+    """x_sorted (cap, K) @ w (E, K, N) → (cap, N), expert per M-block:
+    the float mode (``w_scale=None``, w in x's dtype), W8A16 (int8 w
+    with ``w_scale``) or W8A8 (``x_scale`` too).
 
-    ``out_dtype`` defaults to x's dtype for W8A16 and to bf16 for W8A8.
+    ``out_dtype`` defaults to x's dtype, and to bf16 for W8A8.
     On a CPU tensor this is :func:`grouped_matmul_plain`; on a CUDA
     tensor it launches the kernel or raises."""
     if x_sorted.device.type == "cpu":
@@ -130,6 +141,9 @@ def grouped_matmul(x_sorted, w, block_expert, *, w_scale, x_scale=None,
             out_dtype=out_dtype)
     cap, k, _, n, block_m = _check_args(
         x_sorted, w, block_expert, w_scale, x_scale)
+    if w_scale is None:
+        return _ggemm_f_cuda(x_sorted, w, block_expert, out_dtype, cap, k,
+                             n, block_m)
     if x_scale is not None:
         return _w8a8_cuda(x_sorted, w, block_expert, w_scale, x_scale,
                           out_dtype, cap, k, n, block_m)
@@ -200,6 +214,41 @@ def _w8a16_cuda(x, w, block_expert, w_scale, out_dtype, cap, k, n,
     return out
 
 
-#: launch counts of the two kernels (plain ints on the wrappers)
+def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    out_dtype = to_torch_dtype(out_dtype or x.dtype)
+    if out_dtype not in _DT_CODE:
+        raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    dev = _cuda_common((x, w), block_expert, cap, block_m)
+    out = torch.empty((cap, n), dtype=out_dtype, device=dev)
+    fn = _build.function("tdt_ggemm_f", "pppp" + "iiiiii" + "p")
+    rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(block_expert),
+            _build.ptr(out), cap, k, n, block_m, _DT_CODE[x.dtype],
+            _DT_CODE[out_dtype], _build.stream(dev))
+    _build.check(rc, "tdt_ggemm_f")
+    if x.dtype == torch.bfloat16:
+        _ggemm_f_cuda.launches_bf16 += 1
+    else:
+        _ggemm_f_cuda.launches_f32 += 1
+    return out
+
+
+#: launch counts of the kernels (plain ints on the wrappers); the float
+#: mode counts its bf16 (tensor-core) and f32 (FMA) kernels apart
 _w8a8_cuda.launches = 0
 _w8a16_cuda.launches = 0
+_ggemm_f_cuda.launches_bf16 = 0
+_ggemm_f_cuda.launches_f32 = 0
+
+
+def padded_splits(splits, block_m: int, cap: int):
+    """Block-aligned per-expert counts with the tail slack folded into
+    the last group, so the sizes sum to ``cap``."""
+    from triton_distributed_tpu_torch.kernels.moe_utils import (
+        round_up_to_block,
+    )
+
+    padded = round_up_to_block(splits, block_m)
+    slack = cap - padded.sum()
+    return torch.cat([padded[:-1], (padded[-1] + slack).reshape(1)])

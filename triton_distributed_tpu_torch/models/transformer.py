@@ -1,12 +1,15 @@
 """The serving subset of the flagship transformer, in PyTorch.
 
 Port of ``triton_distributed_tpu/models/transformer.py``: the config,
-the parameter layout of ``Transformer.init``, the dense-weight
-quantizers, and the continuous-batching ``serving_step`` with its dense
-MLP. One GPU holds every head, so there is no mesh: the step's
-projections run through :func:`~triton_distributed_tpu_torch.kernels.
-group_gemm.grouped_matmul` (int8 weights) or a plain matmul (float
-weights), and attention through the ragged paged-attention kernel.
+the parameter layout of ``Transformer.init``, the dense and expert
+weight quantizers, and the continuous-batching ``serving_step`` with
+its dense MLP and its two MoE flavours. One GPU holds every head and
+every expert, so there is no mesh: the step's projections run through
+:func:`~triton_distributed_tpu_torch.kernels.group_gemm.grouped_matmul`
+(int8 weights) or a plain matmul (float weights), attention through the
+ragged paged-attention kernel, and an ``moe="ep"`` block through
+:func:`~triton_distributed_tpu_torch.ops.moe.ep_moe` at EP world size 1
+(the chunked all-to-all and grouped-GEMM kernels).
 
 Parameters are a plain dict with exactly the JAX layout::
 
@@ -14,7 +17,10 @@ Parameters are a plain dict with exactly the JAX layout::
      "blocks": [{"norm_attn", "norm_mlp", "wqkv": (H, qkv), "wo": (q, H),
                  "up": (H, F), "down": (F, H)}, ...]}
 
-where a quantized matrix is ``{"q": int8 (K, N), "scale": f32 (N,)}``.
+where an MoE block holds ``"router": (H, E)`` f32, ``"moe_up": (E, H,
+F)`` and ``"moe_down": (E, F, H)`` in place of up/down, a quantized
+matrix is ``{"q": int8 (K, N), "scale": f32 (N,)}`` and a quantized
+expert tensor ``{"q": int8 (E, K, N), "scale": f32 (E, N)}``.
 :func:`params_from_numpy` carries a JAX parameter tree over.
 """
 
@@ -109,6 +115,22 @@ class TransformerConfig:
 
 _DENSE_QUANT_KEYS = ("wqkv", "wo", "up", "down")
 
+#: the grouped-GEMM M-block of the MoE experts: a multiple of the CUDA
+#: kernels' 64-row tile (kernels/group_gemm.py KERNEL_BM); the smallest
+#: one pads the least (8704 rows at the serving step's 4608 assignments
+#: over 64 experts, against 12928 at 128)
+MOE_BLOCK_M = 64
+
+
+def _qexperts(w, mode="int8"):
+    """(E, K, N) expert tensor → ``{"q": int8, "scale": f32 (E, N)}``."""
+    from triton_distributed_tpu_torch.kernels.group_gemm import (
+        quantize_grouped_weights,
+    )
+
+    q, scale = quantize_grouped_weights(w, mode)
+    return {"q": q, "scale": scale}
+
 
 def _q2d(w, mode="int8"):
     """(K, N) matrix → ``{"q": int8 (K, N), "scale": f32 (N,)}``."""
@@ -137,9 +159,11 @@ class Transformer:
         (which must live on the same device) with the JAX scales.
 
         ``quantize=True`` (needs ``dense_weight_quant``) draws each
-        dense matrix in ``config.dtype`` and quantizes it at once, so a
-        full-size model never holds its float weights: the other leaves
-        are then in ``config.dtype`` too."""
+        dense matrix, and each (E, K, N) expert tensor, in
+        ``config.dtype`` and quantizes it at once (the experts when
+        ``moe_weight_quant`` is set), so a full-size model never holds
+        its float weights: the other leaves are then in ``config.dtype``
+        too, except the router, which stays f32."""
         c = self.config
         if quantize and c.dense_weight_quant is None:
             raise ValueError("init(quantize=True) needs dense_weight_quant")
@@ -147,14 +171,20 @@ class Transformer:
         dev = self.device
         s = 1.0 / (c.hidden ** 0.5)
 
-        def dense(shape, scale=None):
+        def dense(shape, scale=None, dtype=pd):
             w = torch.randn(shape, generator=generator, device=dev,
-                            dtype=pd) * (scale or s)
+                            dtype=dtype) * (scale or s)
             return w
 
         def mat(shape, scale=None):
             w = dense(shape, scale)
             return _q2d(w, c.dense_weight_quant) if quantize else w
+
+        def experts(shape, scale=None):
+            w = dense(shape, scale)
+            if quantize and c.moe_weight_quant is not None:
+                return _qexperts(w, c.moe_weight_quant)
+            return w
 
         params = {
             "embed": dense((c.vocab, c.hidden), 0.02),
@@ -170,12 +200,37 @@ class Transformer:
                 "wo": mat((c.q_dim, c.hidden)),
             }
             if c.moe != "none" and i in c.moe_layers:
-                raise NotImplementedError(
-                    "MoE blocks come with the port's MoE slice")
-            blk["up"] = mat((c.hidden, c.ffn))
-            blk["down"] = mat((c.ffn, c.hidden), 1.0 / (c.ffn ** 0.5))
+                blk["router"] = dense((c.hidden, c.num_experts),
+                                      dtype=c.param_dtype)
+                blk["moe_up"] = experts((c.num_experts, c.hidden, c.ffn))
+                blk["moe_down"] = experts((c.num_experts, c.ffn, c.hidden),
+                                          1.0 / (c.ffn ** 0.5))
+            else:
+                blk["up"] = mat((c.hidden, c.ffn))
+                blk["down"] = mat((c.ffn, c.hidden), 1.0 / (c.ffn ** 0.5))
             params["blocks"].append(blk)
         return params
+
+    def quantize_moe_weights(self, params, mode: str | None = None):
+        """Replace every block's expert tensors (moe_up / moe_down) with
+        int8 ``{"q": (E, K, N), "scale": (E, N) f32}`` dicts
+        (per-(expert, out-channel) scales). ``mode`` defaults to
+        ``config.moe_weight_quant``; returns ``params`` unchanged when
+        both are None. Only int8 is ported."""
+        mode = mode or self.config.moe_weight_quant
+        if mode is None:
+            return params
+        if self.config.moe != "ep":
+            raise ValueError("quantize_moe_weights targets EP expert weights")
+        out = dict(params)
+        out["blocks"] = []
+        for blk in params["blocks"]:
+            blk = dict(blk)
+            for name in ("moe_up", "moe_down"):
+                if name in blk and not isinstance(blk[name], dict):
+                    blk[name] = _qexperts(blk[name], mode)
+            out["blocks"].append(blk)
+        return out
 
     def quantize_dense_weights(self, params, mode: str | None = None):
         """Replace wqkv / wo / up / down of every block, and lm_head,
@@ -236,6 +291,90 @@ class Transformer:
         return grouped_matmul(x.to(c.dtype).contiguous(), wq, be,
                               w_scale=ws, out_dtype=out_dtype)
 
+    def _expert_w(self, w):
+        """Expert weights for a dense consumer: widen a quantized dict,
+        cast a plain tensor."""
+        if isinstance(w, dict):
+            from triton_distributed_tpu_torch.kernels.group_gemm import (
+                dequantize_grouped_weights,
+            )
+
+            return dequantize_grouped_weights(w["q"], w["scale"],
+                                              self.config.dtype)
+        return w.to(self.config.dtype)
+
+    def _moe_ep_ctx(self, m_local: int, weights_quantized: bool | None = None):
+        """The EP MoE context this card runs: the fused transport, the
+        grouped-GEMM kernels at ``MOE_BLOCK_M``, ``moe_wire_quant`` on
+        the wire, and W8A8 experts (``moe_act_quant``) when the expert
+        weights are int8 dicts. ``weights_quantized``: whether the
+        leaves in hand are quantized dicts (None → trust the config)."""
+        from triton_distributed_tpu_torch.ops import create_ep_moe_context
+
+        c = self.config
+        wq = c.moe_weight_quant
+        if weights_quantized is False:
+            wq = None
+        elif weights_quantized and wq is None:
+            wq = "int8"
+        return create_ep_moe_context(
+            num_experts=c.num_experts, topk=c.topk, max_m=m_local * c.topk,
+            hidden=c.hidden, dtype=c.dtype, block_m=MOE_BLOCK_M,
+            quant=c.moe_wire_quant,
+            act_quant=c.moe_act_quant if wq == "int8" else None,
+        )
+
+    def init_decode_state(self, batch: int):
+        """Per-layer persistent workspaces of the barrier-free EP MoE
+        transport (:class:`~triton_distributed_tpu_torch.ops.EPMoEState`)
+        sized for ``batch`` tokens: one per MoE layer, None elsewhere;
+        None when the model has no EP layers."""
+        from triton_distributed_tpu_torch.ops import create_ep_moe_state
+
+        c = self.config
+        if c.moe != "ep" or not c.moe_layers:
+            return None
+        ctx = self._moe_ep_ctx(batch)
+        return [create_ep_moe_state(ctx, self.device)
+                if i in c.moe_layers else None for i in range(c.n_layers)]
+
+    def _decode_moe_ep(self, blk, xn, state=None):
+        """One EP MoE block on the (T, H) normed rows: the f32 router,
+        then :func:`~triton_distributed_tpu_torch.ops.ep_moe` (over the
+        persistent workspaces when ``state`` is given). Returns
+        ``(y, state')``."""
+        from triton_distributed_tpu_torch.ops import ep_moe
+
+        c = self.config
+        logits = xn.float() @ blk["router"].float()
+        wq = isinstance(blk["moe_up"], dict)
+        ctx = self._moe_ep_ctx(xn.shape[0], weights_quantized=wq)
+        w_up, w_down = (w if isinstance(w, dict) else w.to(c.dtype)
+                        for w in (blk["moe_up"], blk["moe_down"]))
+        if state is not None:
+            return ep_moe(xn, logits, w_up, w_down, ctx, state=state)
+        return ep_moe(xn, logits, w_up, w_down, ctx), None
+
+    def _moe_tp(self, blk, xn):
+        """The TP-flavour MoE block: every expert on this card, each
+        token's top-k expert MLPs run on its gathered (H, F) weights
+        (plain tensor math)."""
+        from triton_distributed_tpu_torch.kernels.moe_utils import (
+            select_experts,
+        )
+
+        c = self.config
+        logits_r = xn.float() @ blk["router"].float()
+        w, ids = select_experts(logits_r, c.topk)
+        y = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
+        for tt in range(c.topk):
+            e = ids[:, tt].long()
+            hh = F.silu(torch.einsum("bh,bhf->bf", xn,
+                                     blk["moe_up"][e].to(c.dtype)))
+            y += w[:, tt:tt + 1] * torch.einsum(
+                "bf,bfh->bh", hh, blk["moe_down"][e].to(c.dtype)).float()
+        return y
+
     def _rmsnorm(self, x, w):
         xf = x.float()
         r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True)
@@ -290,7 +429,7 @@ class Transformer:
                      block_q=block_q, with_lse=with_lse)
 
     def serving_step(self, params, state, tokens, token_rows, token_pos,
-                     q_starts, q_lens, topologies=None, *,
+                     q_starts, q_lens, topologies=None, moe_state=None, *,
                      block_q: int = 8, all_logits: bool = False):
         """One continuous-batching step: a ragged mixed batch of prefill
         chunks and decode tokens through every layer.
@@ -301,7 +440,10 @@ class Transformer:
         dropped); ``q_starts``/``q_lens``: (slots,) spans. Returns
         ``(logits (slots, vocab) f32, state)`` — logits at each slot's
         last packed token, or at every packed token under
-        ``all_logits``.
+        ``all_logits``. With ``moe_state`` (from
+        :meth:`init_decode_state`) the EP MoE blocks run over its
+        persistent workspaces and the step returns ``(logits, state,
+        moe_state')``.
 
         Every new K/V token is written into the pools first and
         attention reads the updated pools (append-then-attend). The
@@ -316,10 +458,6 @@ class Transformer:
         )
 
         c = self.config
-        if c.moe != "none" and c.moe_layers:
-            raise NotImplementedError(
-                "MoE serving comes with the port's MoE slice "
-                "(_ggemm_kernel, _chunked_a2a_kernel)")
         t = tokens.shape[0]
         page = state.page
         x = params["embed"][tokens.long()].to(c.dtype)          # (T, H)
@@ -337,7 +475,9 @@ class Transformer:
         oi = (pos_c[keep] % page)[:, None]
         idx = (pi, hi, oi)
 
-        for blk, (kp, vp) in zip(params["blocks"], state.layers):
+        new_states = None if moe_state is None else list(moe_state)
+        for li, (blk, (kp, vp)) in enumerate(zip(params["blocks"],
+                                                 state.layers)):
             xn = self._rmsnorm(x, blk["norm_attn"])
             qkv = self._dmm(xn, blk["wqkv"])                     # (T, qkv)
             q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
@@ -360,11 +500,17 @@ class Transformer:
             o = unpack_gqa_rows(o, c.n_heads).reshape(t, c.q_dim)
             x = x + self._dmm(o.to(c.dtype), blk["wo"])
             xn = self._rmsnorm(x, blk["norm_mlp"])
-            if "up" not in blk:
-                raise NotImplementedError(
-                    "MoE blocks come with the port's MoE slice")
-            h = F.silu(self._dmm(xn, blk["up"]))
-            x = x + self._dmm(h, blk["down"])
+            if "up" in blk:
+                h = F.silu(self._dmm(xn, blk["up"]))
+                x = x + self._dmm(h, blk["down"])
+            elif c.moe == "ep":
+                st = None if moe_state is None else moe_state[li]
+                y, st = self._decode_moe_ep(blk, xn, st)
+                x = x + y.to(x.dtype)
+                if new_states is not None:
+                    new_states[li] = st
+            else:
+                x = x + self._moe_tp(blk, xn).to(x.dtype)
         x = self._rmsnorm(x, params["norm_f"])
         if all_logits:
             x_last = x                                           # (T, H)
@@ -377,7 +523,9 @@ class Transformer:
                                out_dtype=torch.float32, act_quant=False)
         else:
             logits = x_last.float() @ params["lm_head"].float()
-        return logits, state
+        if moe_state is None:
+            return logits, state
+        return logits, state, new_states
 
 
 def _leaf_from_numpy(a, device):
@@ -392,8 +540,9 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
     """A JAX parameter tree, passed as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), as the port's parameter dict
     on ``device``. Plain trees and trees already put through
-    ``quantize_dense_weights`` (int8 ``{"q", "scale"}`` dicts) both
-    carry over; dtypes are kept."""
+    ``quantize_dense_weights`` or ``quantize_moe_weights`` (int8
+    ``{"q", "scale"}`` dicts), MoE blocks included, carry over bit for
+    bit; dtypes are kept."""
     dev = resolve_device(device)
     if len(tree["blocks"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['blocks'])} blocks, config "

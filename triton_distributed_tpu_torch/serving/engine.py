@@ -16,6 +16,10 @@ host is the step's fence. Sampling is keyed on ``(seed, rid,
 tokens generated)``, so logits that agree give the JAX engine's token
 streams.
 
+An EP MoE model's layers keep persistent transport workspaces
+(``moe_state``, built by ``model.init_decode_state`` for the packed
+step width) that every step threads through.
+
 Not in this slice: the health ledger and the demotion to a twin when a
 kernel raises (a kernel error propagates), the watchdog hooks, the
 TPU grid schedule, the KV-ship verbs, context parallelism and
@@ -209,7 +213,7 @@ class ServingEngine:
 
     def __init__(self, model, params, cfg: EngineConfig, *,
                  on_complete=None, tenants=None, aging_ticks: int = 64,
-                 ops=None):
+                 ops=None, moe_state="auto"):
         from triton_distributed_tpu_torch.kernels.ragged_paged_attention import (
             auto_block_q,
         )
@@ -251,6 +255,10 @@ class ServingEngine:
         # block_q_cap tokens past the budget: q_len == 0 rows point
         # there, so the batch is laid out exactly as in JAX
         self._t_pad = cfg.token_budget + self._block_q_cap
+        # the EP MoE layers' persistent (LL) workspaces, sized for the
+        # packed step width; None when the model has no EP layers
+        self.moe_state = (model.init_decode_state(self._t_pad)
+                          if moe_state == "auto" else moe_state)
 
     # ------------------------------------------------------------ requests
 
@@ -483,11 +491,15 @@ class ServingEngine:
                 [0 if r is None else r.cursor for r in self.slot_req],
                 np.int32)),
         )
-        logits, self.state = self.model.serving_step(
+        out = self.model.serving_step(
             self.params, state, put(tokens), put(token_rows),
             put(token_pos), put(q_starts), put(q_lens), put(topo),
-            block_q=block_q,
+            self.moe_state, block_q=block_q,
         )
+        if self.moe_state is None:
+            logits, self.state = out
+        else:
+            logits, self.state, self.moe_state = out
         return logits.cpu().numpy()
 
     def step(self) -> dict:
