@@ -15,12 +15,17 @@ Phases, all run every time:
    attention at the shapes of the Llama-2-7B step and of the
    DeepSeek-MoE-16B step, and the MoE step's chunked all-to-all (both
    legs, both modes, byte-exact) and expert GEMMs (bf16 and W8A8, 64
-   experts). The kernels line reports the main path's shapes, each
-   kernel's times averaged over them by their launches a step;
+   experts); and the decode path's kernels at Llama-2-7B's full width:
+   flash decode (bf16 and int8, contiguous bhsd and bshd, paged at page
+   128, one soft-capped case) and the world-size-1 AG-GEMM / GEMM-RS at
+   the prefill's shapes. The kernels line reports each kernel at the
+   shapes of the path that launches it, its times averaged over them by
+   their launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
    its float-expert variant, each served on the card and on the CPU
-   from the same weights — the token streams must be equal, and the
-   card's run must launch the kernels of its path;
+   from the same weights, and the tiny f32 and int8 models through
+   prefill + generate, contiguous and paged — the token streams must be
+   equal, and the card's run must launch the kernels of its path;
 5. the serving paths, each a continuous-batching engine serving the
    same Poisson trace with the launches of every kernel counted over
    the run: the Llama-2-7B geometry (int8 KV, W8A8 projections, W8A16
@@ -29,7 +34,13 @@ Phases, all run every time:
    top-6 over an fp8 EP wire, W8A8 experts and projections, int8 KV),
    last. ``--profile`` then profiles a few of the main path's engine
    steps (device time by kernel, host enqueue time, the device's idle
-   share).
+   share), and a few decode steps of each decode path;
+6. the decode path, Llama-2-7B at full width and depth in bf16 (bf16
+   weights and KV) and in int8 (int8 KV, W8A8): 8 seeded prompts of
+   128–1024 tokens prefilled into contiguous caches of capacity 2048,
+   a paged copy at page 128, 64 greedy steps on each; the first step's
+   logits and the token streams of the two layouts must agree. Then the
+   port's ``tools.generate`` CLI once, in bf16.
 
 Exits non-zero, printing no result line, without a CUDA device or
 without the port's package beside it. The last line is
@@ -78,7 +89,33 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/moe_dispatch.cu",
         replaces="triton_distributed_tpu/kernels/moe_dispatch.py:346"),
+    # the strided walk also stands for :51 (unaligned, bshd) and :331
+    # (int8); the block-table walk for :470 (int8)
+    "flash_decode": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_decode.cu",
+        replaces="triton_distributed_tpu/kernels/flash_decode.py:144"),
+    "paged_decode": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_decode.cu",
+        replaces="triton_distributed_tpu/kernels/flash_decode.py:1005"),
+    "ag_gemm_n1": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/ag_gemm.py:227"),
+    "gemm_rs_n1": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:248"),
 }
+
+#: the kernels of the decode path: their rows' launches and shapes come
+#: from its runs (decode steps for the attention, prefills for the GEMMs)
+DECODE_ROWS = ("flash_decode", "paged_decode", "ag_gemm_n1", "gemm_rs_n1")
+
+# the decode path: 8 rows, prompts of 128-1024 tokens padded to 1024,
+# caches of capacity 2048, pages of 128, 64 greedy steps
+DEC_B, DEC_PROMPT, DEC_CAP, DEC_PAGE, DEC_STEPS = 8, 1024, 2048, 128, 64
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -891,19 +928,7 @@ def run_profile(name, model, params, ecfg, trace, steps: int = 8):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        # device-side entries only (kernels, memcpy, memset): the host
-        # ops that launched them carry the same time again
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy = sum(us for us, _, _ in rows)
+    busy, rows = device_rows(prof)
     kernels = sum(n for _, _, n in rows)
     log(f"profile {name} {steps} steps: wall_ms={plain_us / 1e3:.2f} "
         f"host_enqueue_ms={sum(enqueue) * 1e3:.2f} "
@@ -912,16 +937,416 @@ def run_profile(name, model, params, ecfg, trace, steps: int = 8):
         f"idle_share={max(0.0, 1 - busy / plain_us):.4f} | under the "
         f"profiler wall_ms={wall_us / 1e3:.2f} "
         f"idle_share={max(0.0, 1 - busy / wall_us):.4f}")
+    log_rows(name, busy, rows)
+
+
+def device_rows(prof):
+    """(device busy µs, [(µs, kernel, launches)] by time) of a
+    torch.profiler run: device-side entries only (kernels, memcpy,
+    memset), whose host ops would count the same time again."""
+    import torch
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return sum(us for us, _, _ in rows), rows
+
+
+def log_rows(name, busy, rows):
     for us, key, n in rows[:10]:
         log(f"  profile {name} {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% "
             f"x{n} {key[:90]}")
+
+
+# ------------------------------------------------------------- decode path
+
+def decode_inputs(dev, kind: str, layout: str, seed: int = 4):
+    """Llama-2-7B's decode attention: q (8, 32, 128) bf16 and a cache of
+    capacity 2048 in ``kind`` ("bf16" or "int8") and ``layout`` ("bhsd",
+    "bshd" or "paged" at page 128, pages in a seeded permutation), with
+    seeded ragged lengths including 0, 1 and the capacity. Returns (the
+    entry's positional args after q, lens, its plain twin's name)."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import quantize_kv
+
+    h, d, cap = 32, 128, DEC_CAP
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([[0, 1, cap],
+                           rng.integers(128, DEC_PROMPT + DEC_STEPS + 1,
+                                        DEC_B - 3)]).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((DEC_B, h, d), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    if layout == "paged":
+        pps = cap // DEC_PAGE
+        shape = (DEC_B * pps, h, DEC_PAGE, d)
+        table = rng.permutation(DEC_B * pps).astype(np.int32)
+        extra = (torch.as_tensor(table.reshape(DEC_B, pps), device=dev),)
+    else:
+        shape = (DEC_B, h, cap, d) if layout == "bhsd" else (DEC_B, cap, h, d)
+        extra = ()
+    k = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    # the entries' order: (kq, ks, vq, vs) or (k, v)
+    cache = ((*quantize_kv(k), *quantize_kv(v)) if kind == "int8"
+             else (k, v))
+    return q, cache, torch.as_tensor(lens, device=dev), extra, lens
+
+
+def decode_work(lens, kind: str):
+    """(bytes, operations) of one decode call: every valid K/V row once
+    (int8: with its two f32 scales), q, out and lse once; 4·D operations
+    per (head, valid position)."""
+    h, d = 32, 128
+    rows = int(np.minimum(lens, DEC_CAP).sum()) * h
+    kv = rows * (2 * d * (1 if kind == "int8" else 2)
+                 + (8 if kind == "int8" else 0))
+    nbytes = kv + DEC_B * h * d * 2 * 2 + DEC_B * h * 4
+    return nbytes, 4.0 * d * rows
+
+
+def check_decode_kernels(res: Results, dev):
+    """Both decode kernels against their plain versions, in f32 on the
+    same values, at Llama-2-7B's decode shapes, each timed. The
+    contiguous bhsd and paged cases of both dtypes are the decode path's
+    (32 launches a step each in its configuration) and make the rows;
+    bshd (the TPU's static-grid kernel) and the soft cap are off it."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import flash_decode as fd
+
+    cases = (("bf16", "bhsd", 0.0, True), ("int8", "bhsd", 0.0, True),
+             ("bf16", "paged", 0.0, True), ("int8", "paged", 0.0, True),
+             ("bf16", "bshd", 0.0, False), ("bf16", "bhsd", 30.0, False))
+    for kind, layout, cap_, on_path in cases:
+        q, cache, lens, extra, lens_np = decode_inputs(dev, kind, layout)
+        quant = kind == "int8"
+        kw = dict(soft_cap=cap_)
+        if layout == "paged":
+            name = "paged_decode"
+            fn = (fd.paged_gqa_fwd_batch_decode_q8 if quant
+                  else fd.paged_gqa_fwd_batch_decode)
+            plain = (fd.paged_gqa_fwd_batch_decode_q8_plain if quant
+                     else fd.paged_gqa_fwd_batch_decode_plain)
+        else:
+            name = "flash_decode"
+            fn = fd.gqa_fwd_batch_decode_q8 if quant else fd.gqa_fwd_batch_decode
+            plain = (fd.gqa_fwd_batch_decode_q8_plain if quant
+                     else fd.gqa_fwd_batch_decode_plain)
+            if not quant:
+                kw["kv_layout"] = layout
+        args = (q, *cache, lens, *extra)
+        out, lse = fn(*args, **kw)
+        # the plain version walks the kernel's 64-position tiles and
+        # rounds p alike, in f32 on the same bf16/int8 values
+        ref, rlse = plain(*args, **kw)
+        torch.cuda.synchronize()
+        tag = (f"llama_7b decode {kind} {layout} B={DEC_B} Hkv=32 D=128 "
+               f"cap={DEC_CAP}" + (f" soft_cap={cap_:g}" if cap_ else ""))
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        lerr = (lse - rlse).abs().max().item()
+        excess = (diff - ATTN_RTOL * ref.float().abs()).max().item()
+        res.check(name, excess, ATTN_ATOL, f"{tag} out",
+                  metric=f"max(|err|-{ATTN_RTOL:g}|ref|)")
+        res.check(name, lerr, ATTN_LSE_TOL, f"{tag} lse")
+        empty = (out[0] == 0).all().item() and (lse[0] == fd.NEG_INF).all().item()
+        if not empty:
+            res.failures.append(f"{tag}: the empty row is not zero/NEG_INF")
+        res.kernel(name, err=max(err, lerr))
+        ms = graph_time_ms(lambda i: fn(*args, **kw))
+        call = time_ms(lambda: fn(*args, **kw), 20)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 3)
+        # yardstick: SDPA over the contiguous bf16 (or dequantized) cache
+        # with a length mask and GQA; timed only
+        if layout == "paged":
+            kc = fd._gather_pages(cache[0], extra[0])
+            vc = fd._gather_pages(cache[2 if quant else 1], extra[0])
+            if quant:
+                kc = fd._widen(kc, fd._gather_pages(cache[1], extra[0]),
+                               torch.bfloat16)
+                vc = fd._widen(vc, fd._gather_pages(cache[3], extra[0]),
+                               torch.bfloat16)
+        elif quant:
+            kc = fd._widen(cache[0], cache[1], torch.bfloat16)
+            vc = fd._widen(cache[2], cache[3], torch.bfloat16)
+        elif layout == "bshd":
+            kc, vc = (t.transpose(1, 2) for t in cache)
+        else:
+            kc, vc = cache
+        mask = (torch.arange(DEC_CAP, device=dev)[None, None, None, :]
+                < lens.long()[:, None, None, None])
+        qs = q[:, :, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=mask, enable_gqa=True), 20)
+        del kc, vc
+        nbytes, ops = decode_work(lens_np, kind)
+        b, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+        log(f"time {name} {tag} ({'32/step' if on_path else 'off the path'})"
+            f": kernel_ms={ms:.4f} (graph; back-to-back wrapper calls "
+            f"{call:.4f}) plain_ms={plain_ms:.4f} library_ms={lib:.4f} (SDPA, "
+            f"length mask, enable_gqa) bound_ms={b:.4f} ({by}) "
+            f"max_abs_err={err:.6g}")
+        if on_path:
+            res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, H100_BF16_OPS)
+
+
+def check_n1_gemms(res: Results, dev):
+    """The world-size-1 AG-GEMM / GEMM-RS at the prefill's shapes (8
+    prompts of 1024 rows): wqkv and up through ``ag_gemm``, wo and down
+    through ``gemm_rs``, 32 launches a prefill each."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import ag_gemm as agm
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+
+    m, h, f, qkv = DEC_B * DEC_PROMPT, 4096, 11008, 3 * 4096
+    g = torch.Generator(device=dev).manual_seed(6)
+    shapes = (("ag_gemm_n1", "wqkv", h, qkv, agm.ag_gemm, agm.ag_gemm_plain),
+              ("ag_gemm_n1", "up", h, f, agm.ag_gemm, agm.ag_gemm_plain),
+              ("gemm_rs_n1", "wo", h, h, grs.gemm_rs, grs.gemm_rs_plain),
+              ("gemm_rs_n1", "down", f, h, grs.gemm_rs, grs.gemm_rs_plain))
+    for name, what, k, n, fn, plain in shapes:
+        a = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+        b = torch.randn((k, n), generator=g, device=dev,
+                        dtype=torch.bfloat16) / math.sqrt(k)
+        out = fn(a, b)
+        ref = plain(a, b, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        scale = ref.abs().max().item()
+        excess = (diff - GG_RTOL * ref.abs()).max().item()
+        tag = f"llama_7b prefill {what} M={m} K={k} N={n}"
+        res.check(name, excess, GG_ATOL * scale, tag,
+                  metric="max(|err|-2^-8|ref|)")
+        err = diff.max().item()
+        res.kernel(name, err=err)
+        ms = time_ms(lambda: fn(a, b), 5)
+        plain_ms = time_ms(lambda: plain(a, b), 2)
+        lib = time_ms(lambda: torch.matmul(a, b), 5)
+        nbytes = 2 * (m * k + k * n + m * n)
+        ops = 2.0 * m * k * n
+        bnd, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+        log(f"time {name} {tag} (32/prefill): kernel_ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} library_ms={lib:.4f} (torch.matmul) bound_ms="
+            f"{bnd:.4f} ({by}) max_abs_err={err:.6g}")
+        res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, H100_BF16_OPS)
+        del a, b, out, ref, diff
+
+
+def by_tpu_kernel() -> dict:
+    """The decode kernels' launches since the last reset, by the TPU
+    kernel each call stood for (the JAX entries' gates)."""
+    from triton_distributed_tpu_torch.kernels import flash_decode as fd
+
+    return {**fd._flash_decode_cuda.by_tpu_kernel,
+            **fd._paged_decode_cuda.by_tpu_kernel}
+
+
+def check_tiny_decode(res: Results, dev):
+    """The tiny f32 and int8 models through prefill + generate on the
+    card (kernels) and on the CPU (plain versions) from the same
+    weights, contiguous and paged: the four token streams of a model
+    must be equal, and the card's runs must launch the path's kernels."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer, presets
+
+    for name, cfg in (("f32", presets.tiny()),
+                      ("int8", presets.tiny(kv_quant="int8",
+                                            dense_weight_quant="int8",
+                                            dense_act_quant="int8"))):
+        cpu = Transformer(cfg, device="cpu")
+        params = cpu.quantize_dense_weights(
+            cpu.init(torch.Generator().manual_seed(0)))
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab, (4, 24)).astype(np.int32)
+        lens = np.array([24, 17, 5, 1], np.int32)
+        streams = {}
+        for where, model in (("card", Transformer(cfg, device=dev)),
+                             ("cpu", cpu)):
+            d = model.device
+            p = _to(params, d)
+            reset_launch_counts()
+            last, caches, kl = model.prefill(
+                p, model.init_cache(4, 48), torch.as_tensor(toks, device=d),
+                torch.as_tensor(lens, device=d))
+            first = torch.argmax(last, -1).to(torch.int32)
+            pools, table = model.paginate_caches(caches, page=8)
+            for layout, cc, tb in (("contiguous", caches, None),
+                                   ("paged", pools, table)):
+                out, _, _ = model.generate(p, cc, kl, first, 16,
+                                           block_table=tb)
+                streams[(where, layout)] = out.cpu().tolist()
+            if where == "card":
+                counts = launch_counts()
+                log(f"launches tiny decode {name} " + " ".join(
+                    f"{k}={v}" for k, v in counts.items() if v)
+                    + f" by TPU kernel {by_tpu_kernel()}")
+                for k in DECODE_ROWS:
+                    if counts[k] == 0:
+                        res.failures.append(f"tiny decode {name}: {k} never "
+                                            "launched")
+        want = streams[("cpu", "contiguous")]
+        same = all(v == want for v in streams.values())
+        log(f"check tiny decode {name}: token streams card == cpu, "
+            f"contiguous == paged: {same} ({4 * 16} tokens each)")
+        if not same:
+            res.failures.append(f"tiny decode {name}: token streams differ")
+
+
+def run_decode_path(res: Results, dev, name, cfg, profile=False):
+    """Llama-2-7B prefill → generate at full width and depth: 8 seeded
+    prompts (lengths 128-1024, padded to 1024) prefilled into contiguous
+    caches of capacity 2048, a paged copy at page 128, 64 greedy steps
+    on each. Returns {kernel: launches} and the number of prefills and
+    of decode steps per layout they came from."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        quantize=cfg.dense_weight_quant is not None)
+    rng = np.random.default_rng(7)
+    lens = torch.as_tensor(rng.integers(128, DEC_PROMPT + 1, DEC_B),
+                           dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (DEC_B, DEC_PROMPT),
+                           generator=torch.Generator(device=dev).manual_seed(8),
+                           device=dev, dtype=torch.int32)
+    caches = model.init_cache(DEC_B, DEC_CAP)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    last, caches, kl = model.prefill(params, caches, tokens, lens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    first = torch.argmax(last, -1).to(torch.int32)
+    if not torch.isfinite(last).all():
+        res.failures.append(f"{name}: non-finite prefill logits")
+    pools, table = model.paginate_caches(caches, page=DEC_PAGE)
+    # the first step's logits in both layouts (each writes the new token's
+    # K/V at the slot the timed run then writes again with equal values)
+    lc, _, _ = model.decode_step(params, caches, kl, first)
+    lp, _, _ = model.decode_step(params, pools, kl, first, block_table=table)
+    torch.cuda.synchronize()
+    lerr = (lc - lp).abs().max().item()
+    res.check(name, lerr, 1e-3 * lc.abs().max().item(),
+              "first decode step logits contiguous vs paged")
+    streams, step_ms = {}, {}
+    for layout, cc, tb in (("contiguous", caches, None),
+                           ("paged", pools, table)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, _, klen = model.generate(params, cc, kl, first, DEC_STEPS,
+                                       block_table=tb)
+        streams[layout] = toks.cpu()
+        wall = time.perf_counter() - t0
+        step_ms[layout] = wall / DEC_STEPS * 1e3
+        c = launch_counts()
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"path {name} decode {layout}: {DEC_STEPS} steps ms_per_step="
+            f"{step_ms[layout]:.3f} tok_s={DEC_B * DEC_STEPS / wall:.2f} "
+            f"launches " + " ".join(f"{k}={v}" for k, v in c.items() if v)
+            + f" by TPU kernel {by_tpu_kernel()}")
+    same = int((streams["contiguous"] == streams["paged"]).sum())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path {name} layers={cfg.n_layers}: setup_s={setup:.2f} "
+        f"prefill_ms={prefill_ms:.2f} ({DEC_B} x {DEC_PROMPT} rows, lens "
+        f"{lens.tolist()}) decode ms_per_step contiguous="
+        f"{step_ms['contiguous']:.3f} paged={step_ms['paged']:.3f} "
+        f"first-step logits max|contiguous-paged|={lerr:.6g} tokens equal "
+        f"{same}/{DEC_B * DEC_STEPS} peak_mem_gib={peak:.2f}")
+    if same != DEC_B * DEC_STEPS:
+        res.failures.append(f"{name}: the contiguous and paged token streams"
+                            f" differ ({same}/{DEC_B * DEC_STEPS} equal)")
+    if int(klen.max()) != int(kl.max()) + DEC_STEPS:
+        res.failures.append(f"{name}: lengths did not advance")
+    if profile:
+        profile_decode(name, model, params, caches, kl, first)
+    return counts
+
+
+def profile_decode(name, model, params, caches, kl, first, steps: int = 8):
+    """Device time by kernel and the device's idle share over ``steps``
+    contiguous decode steps (torch.profiler, CUDA activity), and the
+    host's enqueue time of a step (its return, before a synchronize)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        lens, toks, enq = kl, first, 0.0
+        for _ in range(steps):
+            t = time.perf_counter()
+            logits, _, lens = model.decode_step(params, caches, lens, toks)
+            enq += time.perf_counter() - t
+            toks = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        return enq
+
+    run()
+    t0 = time.perf_counter()
+    enq = run()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, rows = device_rows(prof)
+    log(f"profile {name} decode {steps} steps: wall_ms={plain_us / 1e3:.2f} "
+        f"host_enqueue_ms={enq * 1e3:.2f} device_busy_ms={busy / 1e3:.2f} "
+        f"device_ops_per_step={sum(n for *_, n in rows) / steps:.0f} "
+        f"idle_share={max(0.0, 1 - busy / plain_us):.4f} | under the "
+        f"profiler wall_ms={wall_us / 1e3:.2f}")
+    log_rows(f"{name} decode", busy, rows)
+
+
+def run_generate_cli(res: Results, dev):
+    """The port's generation CLI once, in bf16 at full size."""
+    import torch
+
+    from triton_distributed_tpu_torch.tools import generate
+
+    torch.cuda.empty_cache()
+    out = generate.main(["--preset", "llama_7b", "--batch", "4",
+                         "--prompt-len", "512", "--steps", "16",
+                         "--seed", "3", "--device", str(dev)])
+    log(f"path tools.generate llama_7b bf16: prefill_ms="
+        f"{out['prefill_ms']:.2f} ms_per_step={out['ms_per_step']:.3f} "
+        f"tok_s={out['tok_s']:.2f}")
+    if np.asarray(out["tokens"]).shape != (4, 16):
+        res.failures.append("tools.generate: wrong token shape")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="after the main (MoE) path, profile a few engine "
-                    "steps")
+                    "steps, and a few decode steps of each decode path")
     opts = ap.parse_args()
 
     import torch
@@ -960,8 +1385,11 @@ def main() -> int:
     check_a2a(res, dev, moe)
     check_expert_gemms(res, dev, moe)
     del moe
+    check_decode_kernels(res, dev)
+    check_n1_gemms(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
+    check_tiny_decode(res, dev)
 
     run_path(res, dev, "llama_7b", llama)
     bf16_counts, bf16_steps = run_path(
@@ -971,12 +1399,30 @@ def main() -> int:
     # torch.profiler run slows the later host work of the process
     main_counts, main_steps = run_path(res, dev, "deepseek_moe_16b",
                                        deepseek, profile=opts.profile)
-    # each row's launches come from the main path; the bf16 grouped GEMM
-    # runs only where the experts are bf16. A row's times are weighted by
-    # the launches a step of its shapes: those must be the run's
+    # the decode path: two configurations, each one prefill and DEC_STEPS
+    # steps per layout
+    decode_counts = {}
+    for name, cfg in (("llama_7b bf16", presets.llama_7b(
+                           param_dtype=torch.bfloat16)),
+                      ("llama_7b int8", llama)):
+        for k, v in run_decode_path(res, dev, name, cfg,
+                                    profile=opts.profile).items():
+            decode_counts[k] = decode_counts.get(k, 0) + v
+    run_generate_cli(res, dev)
+    # each serving row's launches come from the main path; the bf16
+    # grouped GEMM runs only where the experts are bf16. The decode rows'
+    # come from the decode path: flash_decode / paged_decode 32 a step in
+    # each configuration (64 a step index over the two), the GEMMs 32 a
+    # prefill at each of two shapes. A row's times are weighted by the
+    # launches a step of its shapes: those must be the run's
     for name in KERNELS:
-        n, steps = ((main_counts[name], main_steps) if main_counts[name]
-                    else (bf16_counts[name], bf16_steps))
+        if name in ("flash_decode", "paged_decode"):
+            n, steps = decode_counts[name], DEC_STEPS
+        elif name in ("ag_gemm_n1", "gemm_rs_n1"):
+            n, steps = decode_counts[name], 2
+        else:
+            n, steps = ((main_counts[name], main_steps) if main_counts[name]
+                        else (bf16_counts[name], bf16_steps))
         res.kernel(name, launches=n)
         per_step = sum(s["n"] for s in res.mix[name])
         if n != per_step * steps:

@@ -356,3 +356,196 @@ def test_serving_step_on_card_matches_cpu(dev):
                 block_q=rpa.auto_block_q(int(q_lens.max()), 2))
             out.append(logits.cpu()[torch.from_numpy(q_lens > 0)])
         torch.testing.assert_close(out[1], out[0], rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------------------------ flash decode
+
+from triton_distributed_tpu_torch.kernels import ag_gemm as agm  # noqa: E402
+from triton_distributed_tpu_torch.kernels import flash_decode as fd  # noqa: E402
+from triton_distributed_tpu_torch.kernels import gemm_rs as grs  # noqa: E402
+
+#: an empty row, one position, a full row, rows ending inside a tile and
+#: on a tile's edge
+DEC_LENS = np.array([0, 1, 256, 77, 128], np.int32)
+DEC_B, DEC_HKV, DEC_G, DEC_S = 5, 2, 2, 256
+
+
+def _decode_inputs(seed, dev, d, kv, layout):
+    """Seeded q and a cache in ``layout`` ("bhsd", "bshd" or "paged" at
+    page 128, or 8 for head dim 16) of ``kv`` ("float32", "bfloat16",
+    "int8")."""
+    rng = np.random.default_rng(seed)
+    q = _t(rng.standard_normal((DEC_B, DEC_HKV * DEC_G, d)), dev,
+           torch.bfloat16 if kv == "bfloat16" else torch.float32)
+    lens = _t(DEC_LENS, dev)
+    if layout == "paged":
+        page = 128 if d == 128 else 8
+        pps = DEC_S // page
+        npages = DEC_B * pps + 2
+        shape = (npages, DEC_HKV, page, d)
+        table = rng.permutation(npages)[:DEC_B * pps].reshape(DEC_B, pps)
+        table[3, -1] = -1                  # past row 3's 77 positions
+        extra = (_t(table.astype(np.int32), dev),)
+    else:
+        shape = ((DEC_B, DEC_HKV, DEC_S, d) if layout == "bhsd"
+                 else (DEC_B, DEC_S, DEC_HKV, d))
+        extra = ()
+    k = _t(rng.standard_normal(shape), dev, torch.float32)
+    v = _t(rng.standard_normal(shape), dev, torch.float32)
+    if kv == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        cache = (kq, ks, vq, vs)
+    else:
+        cache = (k.to(getattr(torch, kv)), v.to(getattr(torch, kv)))
+    return q, cache, lens, extra
+
+
+_DECODE_CASES = [(d, kv, layout) for d in (16, 128)
+                 for kv in ("float32", "bfloat16", "int8")
+                 for layout in ("bhsd", "bshd", "paged")
+                 if not (kv == "int8" and layout == "bshd")]
+
+
+class TestFlashDecodeKernels:
+    @pytest.mark.parametrize("soft_cap", [0.0, 4.0])
+    @pytest.mark.parametrize("d,kv,layout", _DECODE_CASES)
+    def test_matches_plain(self, dev, d, kv, layout, soft_cap):
+        """Every row of out and lse against the plain version on the same
+        inputs: both walk the same 64-position tiles and round p alike,
+        so they differ by the f32 summation order and one rounding of
+        out: 1e-5 for f32 caches, 1e-2 for bf16 out, 1e-4 otherwise
+        (int8 at head dim 128 rounds p to bf16; at head dim 16 the gate
+        widens it to f32). The empty row is exactly zero with lse
+        NEG_INF, and each launch counts once on its kernel's counter."""
+        q, cache, lens, extra = _decode_inputs(0, dev, d, kv, layout)
+        kw = dict(soft_cap=soft_cap)
+        if layout == "paged":
+            fn = (fd.paged_gqa_fwd_batch_decode_q8 if kv == "int8"
+                  else fd.paged_gqa_fwd_batch_decode)
+            plain = (fd.paged_gqa_fwd_batch_decode_q8_plain if kv == "int8"
+                     else fd.paged_gqa_fwd_batch_decode_plain)
+            counter = "paged_decode"
+        else:
+            fn = (fd.gqa_fwd_batch_decode_q8 if kv == "int8"
+                  else fd.gqa_fwd_batch_decode)
+            plain = (fd.gqa_fwd_batch_decode_q8_plain if kv == "int8"
+                     else fd.gqa_fwd_batch_decode_plain)
+            counter = "flash_decode"
+            if kv != "int8":
+                kw["kv_layout"] = layout
+        before = launch_counts()
+        got, lse = fn(q, *cache, lens, *extra, **kw)
+        after = launch_counts()
+        assert after[counter] == before[counter] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want, wlse = plain(q, *cache, lens, *extra, **kw)
+        torch.cuda.synchronize()
+        tol = {"float32": 1e-5, "bfloat16": 1e-2, "int8": 1e-4}[kv]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(lse, wlse, rtol=1e-4, atol=1e-4)
+        assert torch.all(got[0] == 0) and torch.all(lse[0] == fd.NEG_INF)
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_paged_equals_contiguous_bitwise(self, dev, quant):
+        """A contiguous cache and its paginated copy: the two kernels sum
+        in the same order, so out and lse are equal bit for bit."""
+        from triton_distributed_tpu_torch.models import Transformer, presets
+
+        cfg = presets.tiny(head_dim=128, dtype=torch.bfloat16,
+                           **(dict(kv_quant="int8") if quant else {}))
+        tm = Transformer(cfg, device=dev)
+        caches = tm.init_cache(DEC_B, DEC_S)
+        g = torch.Generator(device=dev).manual_seed(1)
+        for c in caches[0]:
+            if quant:
+                c["q"].copy_(torch.randint(-127, 128, c["q"].shape,
+                                           generator=g, device=dev))
+                c["scale"].copy_(torch.rand(c["scale"].shape, generator=g,
+                                            device=dev))
+            else:
+                c.copy_(torch.randn(c.shape, generator=g, device=dev))
+        pools, table = tm.paginate_caches(caches[:1], page=128)
+        q = torch.randn((DEC_B, cfg.n_heads, 128), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        lens = _t(DEC_LENS, dev)
+        a = tm._sp_attn.partials(q, *caches[0], lens)
+        b = tm._sp_attn.partials(q, *pools[0], lens, table)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def test_wrapper_refuses_what_the_kernel_does_not_take(self, dev):
+        q = torch.zeros((2, 4, 12), device=dev, dtype=torch.bfloat16)
+        k = torch.zeros((2, 2, 64, 12), device=dev, dtype=torch.bfloat16)
+        lens = torch.zeros((2,), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="multiple of 16 bytes"):
+            fd.gqa_fwd_batch_decode(q, k, k, lens)   # 24-byte rows
+        q = torch.zeros((2, 4, 16), device=dev)
+        k = torch.zeros((2, 2, 64, 16), device=dev)
+        with pytest.raises(ValueError, match="int32"):
+            fd.gqa_fwd_batch_decode(q, k, k, lens.long())
+
+
+class TestGemmN1Kernels:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("op", ["ag_gemm_n1", "gemm_rs_n1"])
+    def test_matches_plain(self, dev, op, dtype):
+        """M = 200 (not a multiple of the 64-row tile), ragged N and K:
+        f32 sums in another order (1e-5·sqrt(K) of the largest sum) and,
+        in bf16, one rounding of the output. Each launch counts on its
+        own counter, not the grouped GEMM's."""
+        rng = np.random.default_rng(3)
+        tdt = getattr(torch, dtype)
+        a = _t(rng.standard_normal((200, 136)), dev, tdt)
+        b = _t(rng.standard_normal((136, 72)) / 12, dev, tdt)
+        fn = agm.ag_gemm if op == "ag_gemm_n1" else grs.gemm_rs
+        before = launch_counts()
+        got = fn(a, b)
+        after = launch_counts()
+        assert after[op] == before[op] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = agm.ag_gemm_plain(a, b, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and got.shape == (200, 72)
+        tol = ((2.0 ** -8 * want.abs() if dtype == "bfloat16" else 0.0)
+               + 1e-5 * np.sqrt(136) * want.abs().max().item())
+        assert ((got.float() - want).abs() <= tol).all()
+
+
+def test_prefill_generate_on_card_equals_cpu(dev):
+    """The tiny f32 and int8 models, contiguous and paged: prefill and 6
+    greedy steps on the card (kernels) give the CPU's (plain versions)
+    token streams."""
+    from triton_distributed_tpu_torch.models import Transformer, presets
+
+    for kw in ({}, dict(kv_quant="int8", dense_weight_quant="int8",
+                        dense_act_quant="int8")):
+        cfg = presets.tiny(**kw)
+        cpu = Transformer(cfg, device="cpu")
+        params = cpu.quantize_dense_weights(
+            cpu.init(torch.Generator().manual_seed(0)))
+        gpu = Transformer(cfg, device=dev)
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab, (3, 16)).astype(np.int32)
+        lens = np.array([16, 9, 1], np.int32)
+        streams = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            p = _to(params, d)
+            last, caches, kl = model.prefill(p, model.init_cache(3, 32),
+                                             _t(toks, d), _t(lens, d))
+            first = torch.argmax(last, -1).to(torch.int32)
+            pools, table = model.paginate_caches(caches, page=8)
+            a, _, _ = model.generate(p, caches, kl, first, 6)
+            b, _, _ = model.generate(p, pools, kl, first, 6,
+                                     block_table=table)
+            streams += [a.cpu(), b.cpu()]
+        for s in streams[1:]:
+            assert torch.equal(s, streams[0])
+
+
+def _to(node, d):
+    if isinstance(node, dict):
+        return {k: _to(v, d) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, d) for v in node]
+    return node.to(d)

@@ -1,8 +1,9 @@
 """The port's kernels: each module keeps a plain PyTorch version beside
 the wrapper of its hand-written CUDA kernel (``csrc/``). The attention
 wrapper is not re-exported here: its name is its module's. The MoE
-modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``) are
-imported by name."""
+modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``), the
+decode entries of ``flash_decode`` and the world-size-1 ``ag_gemm`` /
+``gemm_rs`` are imported by name."""
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -37,6 +38,9 @@ def _counters() -> dict:
     """Each CUDA kernel's name → (the wrapper that launches it, the
     attribute that counts its launches). The float grouped GEMM's
     wrapper launches two kernels: bf16 on tensor cores, f32 on FMA."""
+    from triton_distributed_tpu_torch.kernels import ag_gemm as agg
+    from triton_distributed_tpu_torch.kernels import flash_decode as fd
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
     from triton_distributed_tpu_torch.kernels import moe_dispatch as md
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
@@ -48,6 +52,10 @@ def _counters() -> dict:
         "ggemm_bf16": (gg._ggemm_f_cuda, "launches_bf16"),
         "ggemm_f32": (gg._ggemm_f_cuda, "launches_f32"),
         "chunked_a2a": (md._chunked_a2a_cuda, "launches"),
+        "flash_decode": (fd._flash_decode_cuda, "launches"),
+        "paged_decode": (fd._paged_decode_cuda, "launches"),
+        "ag_gemm_n1": (agg._ag_gemm_cuda, "launches"),
+        "gemm_rs_n1": (grs._gemm_rs_cuda, "launches"),
     }
 
 
@@ -60,3 +68,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+        if hasattr(fn, "by_tpu_kernel"):
+            fn.by_tpu_kernel.clear()

@@ -214,7 +214,8 @@ def _w8a16_cuda(x, w, block_expert, w_scale, out_dtype, cap, k, n,
     return out
 
 
-def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
+def _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m):
+    """Launch the float-mode kernel; the callers count the launch."""
     from triton_distributed_tpu_torch.kernels import _build
 
     out_dtype = to_torch_dtype(out_dtype or x.dtype)
@@ -227,6 +228,22 @@ def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
             _build.ptr(out), cap, k, n, block_m, _DT_CODE[x.dtype],
             _DT_CODE[out_dtype], _build.stream(dev))
     _build.check(rc, "tdt_ggemm_f")
+    return out
+
+
+def float_gemm(a, b, out_dtype=None):
+    """(M, K) @ (K, N) on a CUDA tensor through the float-mode kernel
+    with one expert (a and b both bf16 or both f32, f32 sums, stored to
+    ``out_dtype``, default a's dtype). Counts no launch: the world-size-1
+    ``ag_gemm`` and ``gemm_rs`` that share it count their own."""
+    x, w = a.contiguous(), b.contiguous()[None]
+    be = torch.zeros((1,), dtype=torch.int32, device=a.device)
+    cap, k, _, n, block_m = _check_args(x, w, be, None, None)
+    return _launch_ggemm_f(x, w, be, out_dtype, cap, k, n, block_m)
+
+
+def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
+    out = _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m)
     if x.dtype == torch.bfloat16:
         _ggemm_f_cuda.launches_bf16 += 1
     else:

@@ -1,10 +1,14 @@
-"""The serving subset of the flagship transformer, in PyTorch.
+"""The serving and generation paths of the flagship transformer, in PyTorch.
 
 Port of ``triton_distributed_tpu/models/transformer.py``: the config,
 the parameter layout of ``Transformer.init``, the dense and expert
-weight quantizers, and the continuous-batching ``serving_step`` with
-its dense MLP and its two MoE flavours. One GPU holds every head and
-every expert, so there is no mesh: the step's projections run through
+weight quantizers, the continuous-batching ``serving_step`` with its
+dense MLP and its two MoE flavours, and the dense prefill → decode path
+(``init_cache`` / ``init_paged_cache`` / ``paginate_caches``,
+``prefill``, ``decode_step``, ``generate``): prefill projects through
+the world-size-1 ``ag_gemm`` / ``gemm_rs``, decode attends through the
+flash-decode kernels. One GPU holds every head and every expert, so
+there is no mesh: the serving step's projections run through
 :func:`~triton_distributed_tpu_torch.kernels.group_gemm.grouped_matmul`
 (int8 weights) or a plain matmul (float weights), attention through the
 ragged paged-attention kernel, and an ``moe="ep"`` block through
@@ -26,6 +30,7 @@ expert tensor ``{"q": int8 (E, K, N), "scale": f32 (E, N)}``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -398,18 +403,9 @@ class Transformer:
         dev = self.device
         pps = min(npages, 1024)
         shape = (npages, c.n_kv_heads, page, c.head_dim)
-
-        def pool():
-            if c.kv_quant is not None:
-                return {
-                    "q": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "scale": torch.ones(shape[:3], dtype=torch.float32,
-                                        device=dev),
-                }
-            return torch.zeros(shape, dtype=c.dtype, device=dev)
-
         return ServingState(
-            layers=tuple((pool(), pool()) for _ in range(c.n_layers)),
+            layers=tuple((self._fresh_cache(shape), self._fresh_cache(shape))
+                         for _ in range(c.n_layers)),
             block_table=torch.as_tensor(fresh_table(slots, pps), device=dev),
             kv_lens=torch.zeros((slots,), dtype=torch.int32, device=dev),
             cursors=torch.zeros((slots,), dtype=torch.int32, device=dev),
@@ -527,6 +523,326 @@ class Transformer:
             return logits, state
         return logits, state, new_states
 
+    # ------------------------------------------------------ prefill → decode
+
+    @functools.cached_property
+    def _ag_ctx(self):
+        from triton_distributed_tpu_torch import ops
+
+        return ops.create_ag_gemm_context()
+
+    @functools.cached_property
+    def _rs_ctx(self):
+        from triton_distributed_tpu_torch import ops
+
+        return ops.create_gemm_rs_context()
+
+    @functools.cached_property
+    def _mlp(self):
+        from triton_distributed_tpu_torch.layers import (
+            ColumnParallelLinear,
+            ParallelMLP,
+            RowParallelLinear,
+        )
+
+        return ParallelMLP(ColumnParallelLinear(self._ag_ctx),
+                           RowParallelLinear(self._rs_ctx),
+                           activation="silu")
+
+    @functools.cached_property
+    def _sp_attn(self):
+        from triton_distributed_tpu_torch.layers import (
+            SpGQAFlashDecodeAttention,
+        )
+
+        c = self.config
+        return SpGQAFlashDecodeAttention(q_heads=c.n_heads,
+                                         kv_heads=c.n_kv_heads,
+                                         head_dim=c.head_dim)
+
+    def _attention_kv(self, blk, x, b, s):
+        """Prefill attention for ``attn="tp"``: (B·S, H) rows → ((B·S, H)
+        rows, k, v) with k/v (B, S, Hkv, D), which :meth:`prefill` writes
+        into the caches. The projections run through ``ag_gemm`` /
+        ``gemm_rs``; the causal softmax is plain tensor math in f32 with
+        the ``-1e30`` mask, as JAX computes it outside any kernel."""
+        from triton_distributed_tpu_torch import ops
+
+        c = self.config
+        if c.attn != "tp":
+            raise NotImplementedError(
+                f"attn={c.attn!r} prefill runs the context-parallel kernels "
+                "(ROADMAP Queue 1 item 16)")
+        qkv = ops.ag_gemm(x, self._dense_w(blk["wqkv"]), self._ag_ctx)
+        q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
+        hq, hkv, d = c.n_heads, c.n_kv_heads, c.head_dim
+        g = hq // hkv
+        qg = q.reshape(b, s, hkv, g, d)
+        k = k.reshape(b, s, hkv, d)
+        v = v.reshape(b, s, hkv, d)
+        logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
+                              k.float()) / d ** 0.5
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                     device=x.device))
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1).to(c.dtype)
+        del logits
+        o = torch.einsum("bhgst,bthd->bshgd", probs, v.to(c.dtype))
+        o = o.reshape(b * s, hq * d)
+        out = ops.gemm_rs(o, self._dense_w(blk["wo"]), self._rs_ctx)
+        return out, k, v
+
+    def _mlp_block(self, blk, x):
+        """The dense MLP through ``ag_gemm`` → silu → ``gemm_rs``."""
+        if "up" not in blk:
+            raise NotImplementedError(
+                "MoE prefill (EPMoEMLP, moe_tp_mlp_overlapped) comes with the "
+                "next slice of the decode path (ROADMAP Queue 1 item 10)")
+        p = {"up": {"w": self._dense_w(blk["up"])},
+             "down": {"w": self._dense_w(blk["down"])}}
+        return self._mlp(p, x)
+
+    def _embed_rows(self, params, tokens):
+        """(B, S) token ids → (B·S, H) activations."""
+        return params["embed"][tokens.reshape(-1).long()].to(self.config.dtype)
+
+    def _block(self, blk, x, b, s):
+        """One decoder block → (x, k, v)."""
+        xn = self._rmsnorm(x, blk["norm_attn"])
+        h, k, v = self._attention_kv(blk, xn, b, s)
+        x = x + h
+        x = x + self._mlp_block(blk, self._rmsnorm(x, blk["norm_mlp"]))
+        return x, k, v
+
+    def _head(self, params, x):
+        """Final norm and the f32 logits (an int8 lm_head widened)."""
+        x = self._rmsnorm(x, params["norm_f"])
+        w = params["lm_head"]
+        if isinstance(w, dict):
+            w = self._dense_w(w)
+        return x.float() @ w.float()
+
+    def init_cache(self, batch: int, max_len: int):
+        """Per-layer (k, v) caches of shape (B, Hkv, S, D) ("bhsd") in
+        ``config.dtype``, zero; under ``config.kv_quant`` each is a
+        ``{"q": int8, "scale": (B, Hkv, S) f32}`` dict (scales 1). Every
+        leaf is its own tensor: the decode step writes them in place."""
+        c = self.config
+        shape = (batch, c.n_kv_heads, max_len, c.head_dim)
+        return [(self._fresh_cache(shape), self._fresh_cache(shape))
+                for _ in range(c.n_layers)]
+
+    def _fresh_cache(self, shape):
+        """One zero K or V cache (or page pool) of ``shape`` in
+        ``config.dtype``, or an int8 dict with unit scales under
+        ``kv_quant``."""
+        dev = self.device
+        if self.config.kv_quant is not None:
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "scale": torch.ones(shape[:3], dtype=torch.float32,
+                                        device=dev)}
+        return torch.zeros(shape, dtype=self.config.dtype, device=dev)
+
+    def init_paged_cache(self, batch: int, max_len: int, page: int = 1024):
+        """Paged twin of :meth:`init_cache`: per-layer (k_pool, v_pool) of
+        shape (B·pps, Hkv, page, D) (int8 dicts under ``kv_quant``) and
+        one (1, B, pps) int32 block table shared by every layer (the
+        dense identity allocation; R = 1 rank)."""
+        c = self.config
+        if max_len % page:
+            raise ValueError(f"capacity {max_len} must split into whole "
+                             f"{page}-row pages")
+        pps = max_len // page
+        shape = (batch * pps, c.n_kv_heads, page, c.head_dim)
+        caches = [(self._fresh_cache(shape), self._fresh_cache(shape))
+                  for _ in range(c.n_layers)]
+        return caches, self._identity_table(batch, pps)
+
+    def _identity_table(self, batch, pps):
+        return torch.arange(batch * pps, dtype=torch.int32,
+                            device=self.device).reshape(1, batch, pps)
+
+    def paginate_caches(self, caches, page: int = 1024):
+        """Contiguous (prefill-filled) caches → (page pools, (1, B, pps)
+        table): page j of row b becomes pool page b·pps + j (a reshape
+        and a copy per plane; the caches are left as they are)."""
+        def split(x):                   # (B, Hkv, S[, D]) → pools
+            b, hkv, s = x.shape[:3]
+            tail = tuple(x.shape[3:])
+            pps = s // page
+            y = x.reshape((b, hkv, 1, pps, page) + tail)
+            y = torch.movedim(y, (2, 0, 3, 1), (0, 1, 2, 3))
+            return y.reshape((b * pps, hkv, page) + tail).contiguous()
+
+        out = []
+        for ck, cv in caches:
+            lead = ck["q"] if isinstance(ck, dict) else ck
+            batch, s = lead.shape[0], lead.shape[2]
+            if s % page:
+                raise ValueError(f"capacity {s} must split into whole "
+                                 f"{page}-row pages")
+            if isinstance(ck, dict):
+                ck = {name: split(t) for name, t in ck.items()}
+                cv = {name: split(t) for name, t in cv.items()}
+            else:
+                ck, cv = split(ck), split(cv)
+            out.append((ck, cv))
+        return out, self._identity_table(batch, s // page)
+
+    def prefill(self, params, caches, tokens, lens=None):
+        """Process a prompt batch in one forward pass and fill the
+        contiguous caches (in place): returns (logits at each row's last
+        prompt position (B, vocab) f32, caches, kv_lens (B,) int32).
+
+        ``lens`` (B,) makes the batch ragged: rows are right-padded to S
+        and row i's logits are taken at ``lens[i] - 1``, ``lens`` clamped
+        to [1, S] (:1014-1021); the pad positions' K/V land past the
+        lengths, where decode never reads."""
+        c = self.config
+        b, s = tokens.shape
+        cap = _cache_capacity(caches)
+        if s > cap:
+            raise ValueError(f"prompt length {s} exceeds cache capacity {cap}")
+        x = self._embed_rows(params, tokens)
+        for blk, (ck, cv) in zip(params["blocks"], caches):
+            x, k, v = self._block(blk, x, b, s)
+            kb = k.transpose(1, 2)                    # (B, Hkv, S, D)
+            vb = v.transpose(1, 2)
+            if isinstance(ck, dict):
+                from triton_distributed_tpu_torch.kernels.flash_decode import (
+                    quantize_kv,
+                )
+
+                _update_q8(ck, *quantize_kv(kb))
+                _update_q8(cv, *quantize_kv(vb))
+            else:
+                ck[:, :, :s] = kb.to(ck.dtype)
+                cv[:, :, :s] = vb.to(cv.dtype)
+        if lens is None:
+            lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        lens = torch.clamp(lens.to(device=x.device, dtype=torch.int32), 1, s)
+        rows = torch.arange(b, device=x.device)
+        x_last = x.reshape(b, s, c.hidden)[rows, lens.long() - 1]
+        return self._head(params, x_last), caches, lens
+
+    def decode_step(self, params, caches, kv_lens, last_tokens,
+                    moe_state=None, block_table=None):
+        """One decode token for every row: (B,) last tokens → ((B, vocab)
+        f32 logits, caches, kv_lens + 1). The caches (contiguous, or page
+        pools with ``block_table`` (1, B, pps)) are written in place.
+
+        Attention runs over the OLD cache and merges the new token as a
+        single-position partial (``combine_partials``): the merge is
+        associative, so this equals attending over the appended cache.
+        Int8 caches attend the new token quantized and append the same
+        (int8, scale) pairs. Projections go through ``_dmm``."""
+        from triton_distributed_tpu_torch.kernels.flash_decode import (
+            combine_partials,
+            quantize_kv,
+        )
+        from triton_distributed_tpu_torch.layers import (
+            append_kv,
+            paged_append_kv,
+        )
+
+        if moe_state is not None:
+            raise NotImplementedError(
+                "decode_step's MoE branches come with the next slice of the "
+                "decode path (ROADMAP Queue 1 item 10)")
+        c = self.config
+        x = params["embed"][last_tokens.long()].to(c.dtype)      # (B, H)
+        b = x.shape[0]
+        new_caches = []
+        for blk, (ck, cv) in zip(params["blocks"], caches):
+            if "up" not in blk:
+                raise NotImplementedError(
+                    "decode_step's MoE branches come with the next slice of "
+                    "the decode path (ROADMAP Queue 1 item 10)")
+            xn = self._rmsnorm(x, blk["norm_attn"])
+            qkv = self._dmm(xn, blk["wqkv"])
+            q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
+            q = q.reshape(b, c.n_heads, c.head_dim)
+            k = k.reshape(b, c.n_kv_heads, c.head_dim)
+            v = v.reshape(b, c.n_kv_heads, c.head_dim)
+            kq_pair = vq_pair = None
+            if isinstance(ck, dict):
+                kq_pair, vq_pair = quantize_kv(k), quantize_kv(v)
+                k = (kq_pair[0].float() * kq_pair[1][..., None]).to(k.dtype)
+                v = (vq_pair[0].float() * vq_pair[1][..., None]).to(v.dtype)
+            o_c, lse_c = self._sp_attn.partials(q, ck, cv, kv_lens,
+                                                block_table)
+            o_new, lse_new = self._sp_attn.token_partial(q, k, v)
+            o, _ = combine_partials(torch.stack([o_c.float(), o_new]),
+                                    torch.stack([lse_c, lse_new]),
+                                    out_dtype=o_c.dtype)
+            if block_table is None:
+                ck, cv, _ = append_kv(ck, cv, kv_lens, k, v,
+                                      k_quant=kq_pair, v_quant=vq_pair)
+            else:
+                ck, cv, _ = paged_append_kv(ck, cv, block_table, kv_lens, k,
+                                            v, k_quant=kq_pair,
+                                            v_quant=vq_pair)
+            new_caches.append((ck, cv))
+            x = x + self._dmm(o.reshape(b, c.q_dim), blk["wo"])
+            xn = self._rmsnorm(x, blk["norm_mlp"])
+            h = F.silu(self._dmm(xn, blk["up"]))
+            x = x + self._dmm(h, blk["down"])
+        x = self._rmsnorm(x, params["norm_f"])
+        if isinstance(params["lm_head"], dict):
+            # W8A16: the logits keep the f32 accumulator
+            logits = self._dmm(x, params["lm_head"], out_dtype=torch.float32,
+                               act_quant=False)
+        else:
+            logits = x.float() @ params["lm_head"].float()
+        return logits, new_caches, kv_lens + 1
+
+    def generate(self, params, caches, kv_lens, last_tokens, steps: int,
+                 moe_state=None, block_table=None):
+        """Greedy-decode ``steps`` tokens: returns ((B, steps) int32
+        tokens, caches, kv_lens). With ``block_table``, the caches are
+        page pools (:meth:`init_paged_cache` / :meth:`paginate_caches`).
+        Raises when the longest row would outgrow the capacity (writes
+        past it would be dropped)."""
+        cap = _serving_capacity(caches, block_table)
+        max_len = int(kv_lens.max()) + steps
+        if max_len > cap:
+            raise ValueError(f"cache capacity {cap} < {max_len} needed — "
+                             "writes past capacity are dropped (see "
+                             "layers.append_kv)")
+        out = []
+        for _ in range(steps):
+            logits, caches, kv_lens = self.decode_step(
+                params, caches, kv_lens, last_tokens, moe_state=moe_state,
+                block_table=block_table)
+            last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(last_tokens)
+        return torch.stack(out, dim=1), caches, kv_lens
+
+
+def _cache_capacity(caches):
+    """Sequence capacity S of a per-layer cache list (plain bhsd tensors
+    or int8 dicts); for page pools, dim 2 is the page."""
+    ck = caches[0][0]
+    return (ck["q"] if isinstance(ck, dict) else ck).shape[2]
+
+
+def _serving_capacity(caches, block_table=None):
+    """Capacity in positions: S for contiguous caches, R·pps·page for
+    page pools."""
+    if block_table is None:
+        return _cache_capacity(caches)
+    r, _, pps = block_table.shape
+    return r * pps * _cache_capacity(caches)
+
+
+def _update_q8(cache, q_new, s_new):
+    """Write a quantized (B, Hkv, S', …) prefix into an int8 cache dict,
+    in place."""
+    s = q_new.shape[2]
+    cache["q"][:, :, :s] = q_new
+    cache["scale"][:, :, :s] = s_new.to(cache["scale"].dtype)
+    return cache
+
 
 def _leaf_from_numpy(a, device):
     a = np.asarray(a)
@@ -559,3 +875,18 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
         return _leaf_from_numpy(node, dev)
 
     return conv(tree)
+
+
+def caches_from_numpy(caches, device=None):
+    """A JAX per-layer cache list, passed as numpy arrays (contiguous
+    caches or page pools, plain arrays or int8 ``{"q", "scale"}``
+    dicts), as the port's list of (k, v) pairs on ``device``, bit for
+    bit."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf_from_numpy(node, dev)
+
+    return [(conv(k), conv(v)) for k, v in caches]
