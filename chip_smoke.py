@@ -18,12 +18,16 @@ Phases, all run every time:
    experts); and the decode path's kernels at Llama-2-7B's full width:
    flash decode (bf16 and int8, contiguous bhsd and bshd, paged at page
    128, one soft-capped case) and the world-size-1 AG-GEMM / GEMM-RS at
-   the prefill's shapes. The kernels line reports each kernel at the
-   shapes of the path that launches it, its times averaged over them by
-   their launches a step;
+   the prefill's shapes; the two MoE-TP kernels (AG + grouped GEMM with
+   the gather fused into its tile load, grouped GEMM + RS) at the
+   DeepSeek-MoE-16B TP prefill's shapes, and in f32 and bf16 with an
+   empty expert. The kernels line reports each kernel at the shapes of
+   the path that launches it, its times averaged over them by their
+   launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
    its float-expert variant, each served on the card and on the CPU
-   from the same weights, and the tiny f32 and int8 models through
+   from the same weights; the tiny f32 and int8 models, and the tiny
+   DeepSeek-MoE preset as served (EP) and in its TP flavour, through
    prefill + generate, contiguous and paged — the token streams must be
    equal, and the card's run must launch the kernels of its path;
 5. the serving paths, each a continuous-batching engine serving the
@@ -34,13 +38,22 @@ Phases, all run every time:
    top-6 over an fp8 EP wire, W8A8 experts and projections, int8 KV),
    last. ``--profile`` then profiles a few of the main path's engine
    steps (device time by kernel, host enqueue time, the device's idle
-   share), and a few decode steps of each decode path;
+   share), and a prefill and a few decode steps of each decode and MoE
+   generation path;
 6. the decode path, Llama-2-7B at full width and depth in bf16 (bf16
    weights and KV) and in int8 (int8 KV, W8A8): 8 seeded prompts of
    128–1024 tokens prefilled into contiguous caches of capacity 2048,
    a paged copy at page 128, 64 greedy steps on each; the first step's
    logits and the token streams of the two layouts must agree. Then the
-   port's ``tools.generate`` CLI once, in bf16.
+   port's ``tools.generate`` CLI once, in bf16;
+7. the MoE generation path, DeepSeek-MoE-16B at full width and depth as
+   served (EP: fp8 wire, W8A8 int8 experts, int8 KV, W8A8 dense) and in
+   its TP flavour with bf16 experts: the same batch, caches and layouts
+   as the decode path, 32 greedy steps on each, the EP decode over its
+   persistent workspaces; the TP prefill must launch each MoE-TP kernel
+   once a MoE layer (27 times). Then ``tools.generate --preset
+   deepseek_moe_16b`` once. The run's wall time is printed last before
+   the result lines.
 
 Exits non-zero, printing no result line, without a CUDA device or
 without the port's package beside it. The last line is
@@ -107,15 +120,31 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
         replaces="triton_distributed_tpu/kernels/gemm_rs.py:248"),
+    "ag_group_gemm": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:172"),
+    "moe_reduce_rs": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:285"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
 #: from its runs (decode steps for the attention, prefills for the GEMMs)
 DECODE_ROWS = ("flash_decode", "paged_decode", "ag_gemm_n1", "gemm_rs_n1")
 
+#: the MoE-TP kernels: their rows' launches and shapes come from the MoE
+#: generation path's TP prefill (27 MoE layers, one launch of each a layer)
+MOE_TP_ROWS = ("ag_group_gemm", "moe_reduce_rs")
+
 # the decode path: 8 rows, prompts of 128-1024 tokens padded to 1024,
 # caches of capacity 2048, pages of 128, 64 greedy steps
 DEC_B, DEC_PROMPT, DEC_CAP, DEC_PAGE, DEC_STEPS = 8, 1024, 2048, 128, 64
+# the MoE generation path: the same batch and caches, 32 greedy steps
+MOE_GEN_STEPS = 32
+# its prefill's MoE-TP GEMMs at block_m 128: 8192 tokens, top-6
+MOE_TP_BM = 128
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -800,8 +829,15 @@ class _CheckedEngine:
         return super()._advance_row(s, req, take, logits)
 
 
-#: the kernels each serving path must launch
+#: the kernels each serving path, and each MoE generation path, must
+#: launch
 PATH_KERNELS = {
+    "deepseek_moe_16b ep": ("ag_gemm_n1", "gemm_rs_n1", "ggemm_bf16",
+                            "chunked_a2a", "ggemm_w8a8", "ggemm_w8a16",
+                            "flash_decode", "paged_decode"),
+    "deepseek_moe_16b tp": ("ag_gemm_n1", "gemm_rs_n1", "ag_group_gemm",
+                            "moe_reduce_rs", "ggemm_w8a8", "ggemm_w8a16",
+                            "flash_decode", "paged_decode"),
     "llama_7b": ("ggemm_w8a8", "ggemm_w8a16", "ragged_paged_attention"),
     "deepseek_moe_16b": ("ggemm_w8a8", "ggemm_w8a16",
                          "ragged_paged_attention", "chunked_a2a"),
@@ -1143,6 +1179,113 @@ def check_n1_gemms(res: Results, dev):
         del a, b, out, ref, diff
 
 
+def moe_tp_inputs(dev, m, dtype, seed, empty=None):
+    """The TP prefill's routing over ``m`` tokens (seeded softmax logits
+    over 64 experts, top-6; expert ``empty`` starved when given), its
+    sorted ids and block table at block_m 128, and x (m, 2048) in
+    ``dtype``."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import moe_utils as mu
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((m, MOE_E), generator=g, device=dev)
+    if empty is not None:
+        logits[:, empty] = -1e4
+    _, ids = mu.select_experts(logits, MOE_K)
+    sti, be, splits = mu.moe_align_block_size(ids, MOE_E, MOE_TP_BM)
+    x = torch.randn((m, MOE_H), generator=g, device=dev, dtype=dtype)
+    return x, sti, be, splits, g
+
+
+def check_moe_tp_kernels(res: Results, dev):
+    """The two MoE-TP kernels against their plain versions: at the TP
+    prefill's shapes in bf16 (8 prompts of 1024 tokens, top-6 over 64
+    experts: 57344 sorted rows; up K 2048 N 1408, down K 1408 N 2048),
+    timed, and in f32 and bf16 at 1024 tokens with an empty expert."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+
+    cases = (("bf16 prefill", DEC_B * DEC_PROMPT, torch.bfloat16, None),
+             ("f32 expert 5 empty", 1024, torch.float32, 5),
+             ("bf16 expert 5 empty", 1024, torch.bfloat16, 5))
+    for what, m, dt, empty in cases:
+        x, sti, be, splits, g = moe_tp_inputs(dev, m, dt, 9, empty)
+        if empty is not None and int(splits[empty]) != 0:
+            res.failures.append(f"moe_tp {what}: expert {empty} not empty")
+        cap, nb = sti.shape[0], be.shape[0]
+        used = int(torch.unique(be).numel())
+        w_up = torch.randn((MOE_E, MOE_H, MOE_F), generator=g, device=dev,
+                           dtype=dt) / math.sqrt(MOE_H)
+        w_down = torch.randn((MOE_E, MOE_F, MOE_H), generator=g, device=dev,
+                             dtype=dt) / math.sqrt(MOE_F)
+        h = F.silu(mtf.ag_group_gemm(x, sti, be, w_up, MOE_K).float()).to(dt)
+        valid = m * MOE_K
+        rows = torch.clamp(sti.long() // MOE_K, 0, m - 1)
+        ops = {
+            "ag_group_gemm": (
+                lambda: mtf.ag_group_gemm(x, sti, be, w_up, MOE_K),
+                lambda **kw: mtf.ag_group_gemm_plain(x, sti, be, w_up, MOE_K,
+                                                     **kw),
+                w_up, "up"),
+            "moe_reduce_rs": (
+                lambda: mtf.moe_reduce_rs(h, be, w_down),
+                lambda **kw: mtf.moe_reduce_rs_plain(h, be, w_down, **kw),
+                w_down, "down"),
+        }
+        for name, (fn, plain, w, leg) in ops.items():
+            k, n = w.shape[1], w.shape[2]
+            out = fn()
+            ref = plain(out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref).abs()
+            scale = ref.abs().max().item()
+            rt = GG_RTOL if dt == torch.bfloat16 else 0.0
+            excess = (diff - rt * ref.abs()).max().item()
+            tag = f"{what} {leg} M={m} cap={cap} K={k} N={n}"
+            res.check(name, excess, GG_ATOL * scale, tag,
+                      metric=f"max(|err|-{rt:g}|ref|)")
+            err = diff.max().item()
+            res.kernel(name, err=err)
+            if name == "ag_group_gemm":
+                pad = sti >= valid
+                if not bool((out[pad] == 0).all()):
+                    res.failures.append(f"{name} {tag}: padding rows not 0")
+            if empty is not None:
+                continue
+            ms = time_ms(fn, 5)
+            plain_ms = time_ms(plain, 2)
+            # yardstick: bmm over the 128-row blocks, the weights
+            # gathered per block beforehand; the up leg times the row
+            # gather of x with it
+            wg = w[be.long()]
+            if name == "ag_group_gemm":
+                lib = time_ms(lambda: torch.bmm(
+                    x[rows].reshape(nb, MOE_TP_BM, k), wg), 5)
+                a_bytes = 2 * m * k + 4 * cap
+            else:
+                hb = h.reshape(nb, MOE_TP_BM, k)
+                lib = time_ms(lambda: torch.bmm(hb, wg), 5)
+                a_bytes = 2 * cap * k
+            del wg
+            # bytes: A once, the used experts' weights once, the output
+            # once; operations: the valid rows' products (the padding
+            # rows are zeros)
+            nbytes = a_bytes + 2 * used * k * n + 4 * nb + 2 * cap * n
+            flops = 2.0 * valid * k * n
+            b, by = bound_ms(nbytes, flops, H100_BF16_OPS)
+            log(f"time {name} {tag} ({used} experts, 27/prefill): "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                f"{lib:.4f} (bmm, weights gathered per block"
+                f"{', after the row gather' if leg == 'up' else ''}) "
+                f"bound_ms={b:.4f} ({by}) max_abs_err={err:.6g}")
+            res.shape(name, 27, ms, plain_ms, lib, nbytes, flops,
+                      H100_BF16_OPS)
+        del x, h, w_up, w_down
+
+
 def by_tpu_kernel() -> dict:
     """The decode kernels' launches since the last reset, by the TPU
     kernel each call stood for (the JAX entries' gates)."""
@@ -1208,12 +1351,85 @@ def check_tiny_decode(res: Results, dev):
             res.failures.append(f"tiny decode {name}: token streams differ")
 
 
-def run_decode_path(res: Results, dev, name, cfg, profile=False):
-    """Llama-2-7B prefill → generate at full width and depth: 8 seeded
-    prompts (lengths 128-1024, padded to 1024) prefilled into contiguous
-    caches of capacity 2048, a paged copy at page 128, 64 greedy steps
-    on each. Returns {kernel: launches} and the number of prefills and
-    of decode steps per layout they came from."""
+def check_tiny_moe_decode(res: Results, dev):
+    """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8 int8
+    experts, int8 KV and dense weights) and its TP flavour through
+    prefill + generate on the card and on the CPU from the same weights,
+    contiguous and paged, the EP decode over the persistent workspaces:
+    the four token streams of a model must be equal. The card's EP run
+    must launch the all-to-all and the f32 grouped GEMM in prefill (full
+    precision on the widened experts) and the all-to-all and W8A8 in
+    decode; its TP run both MoE-TP kernels in prefill."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer, presets
+
+    #        name, preset overrides, kernels of prefill, kernels of decode
+    cases = (("ep", {}, ("chunked_a2a", "ggemm_f32"),
+              ("chunked_a2a", "ggemm_w8a8")),
+             ("tp", dict(moe="tp", moe_weight_quant=None, moe_act_quant=None),
+              MOE_TP_ROWS, ("flash_decode",)))
+    for name, kw, pre_k, dec_k in cases:
+        cfg = presets.tiny(presets.deepseek_moe_16b(**kw))
+        cpu = Transformer(cfg, device="cpu")
+        params = cpu.quantize_moe_weights(cpu.quantize_dense_weights(
+            cpu.init(torch.Generator().manual_seed(0))))
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab, (4, 24)).astype(np.int32)
+        lens = np.array([24, 17, 5, 1], np.int32)
+        streams = {}
+        for where, model in (("card", Transformer(cfg, device=dev)),
+                             ("cpu", cpu)):
+            d = model.device
+            p = _to(params, d)
+            reset_launch_counts()
+            last, caches, kl = model.prefill(
+                p, model.init_cache(4, 48), torch.as_tensor(toks, device=d),
+                torch.as_tensor(lens, device=d))
+            pre = launch_counts()
+            first = torch.argmax(last, -1).to(torch.int32)
+            pools, table = model.paginate_caches(caches, page=8)
+            st = model.init_decode_state(4)
+            reset_launch_counts()
+            for layout, cc, tb in (("contiguous", caches, None),
+                                   ("paged", pools, table)):
+                out = model.generate(p, cc, kl, first, 16, moe_state=st,
+                                     block_table=tb)
+                if st is not None:
+                    st = out[3]
+                streams[(where, layout)] = out[0].cpu().tolist()
+            if where == "card":
+                dec = launch_counts()
+                log(f"launches tiny moe {name} prefill " + " ".join(
+                    f"{k}={v}" for k, v in pre.items() if v) + " decode "
+                    + " ".join(f"{k}={v}" for k, v in dec.items() if v))
+                for counts, kernels, phase in ((pre, pre_k, "prefill"),
+                                               (dec, dec_k, "decode")):
+                    for k in kernels:
+                        if counts[k] == 0:
+                            res.failures.append(f"tiny moe {name}: {k} never "
+                                                f"launched in {phase}")
+        want = streams[("cpu", "contiguous")]
+        same = all(v == want for v in streams.values())
+        log(f"check tiny moe {name}: token streams card == cpu, contiguous "
+            f"== paged: {same} ({4 * 16} tokens each)")
+        if not same:
+            res.failures.append(f"tiny moe {name}: token streams differ")
+
+
+def run_decode_path(res: Results, dev, name, cfg, steps=DEC_STEPS,
+                    expect=None, profile=False):
+    """Prefill → generate at full width and depth: 8 seeded prompts
+    (lengths 128-1024, padded to 1024) prefilled into contiguous caches
+    of capacity 2048, a paged copy at page 128, ``steps`` greedy steps
+    on each (an EP MoE model over its persistent workspaces, threaded
+    from step to step). ``expect``: {kernel: (launches a prefill,
+    launches a decode step)} the run must show. Returns {kernel:
+    launches} over the prefill and both layouts' steps."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import (
@@ -1235,22 +1451,34 @@ def run_decode_path(res: Results, dev, name, cfg, profile=False):
                            generator=torch.Generator(device=dev).manual_seed(8),
                            device=dev, dtype=torch.int32)
     caches = model.init_cache(DEC_B, DEC_CAP)
+    st = model.init_decode_state(DEC_B)     # EP MoE only, else None
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    expect = expect or {}
     reset_launch_counts()
     t0 = time.perf_counter()
     last, caches, kl = model.prefill(params, caches, tokens, lens)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
+    log(f"path {name} prefill launches " + " ".join(
+        f"{k}={v}" for k, v in counts.items() if v))
+    for k, (per_prefill, _) in expect.items():
+        if counts[k] != per_prefill:
+            res.failures.append(f"{name}: {counts[k]} {k} launches in the "
+                                f"prefill, expected {per_prefill}")
     first = torch.argmax(last, -1).to(torch.int32)
     if not torch.isfinite(last).all():
         res.failures.append(f"{name}: non-finite prefill logits")
     pools, table = model.paginate_caches(caches, page=DEC_PAGE)
     # the first step's logits in both layouts (each writes the new token's
-    # K/V at the slot the timed run then writes again with equal values)
-    lc, _, _ = model.decode_step(params, caches, kl, first)
-    lp, _, _ = model.decode_step(params, pools, kl, first, block_table=table)
+    # K/V at the slot the timed run then writes again with equal values;
+    # an EP model's workspaces are threaded from call to call)
+    out = model.decode_step(params, caches, kl, first, moe_state=st)
+    lc, st = out[0], out[3] if st is not None else None
+    out = model.decode_step(params, pools, kl, first, moe_state=st,
+                            block_table=table)
+    lp, st = out[0], out[3] if st is not None else None
     torch.cuda.synchronize()
     lerr = (lc - lp).abs().max().item()
     res.check(name, lerr, 1e-3 * lc.abs().max().item(),
@@ -1260,34 +1488,68 @@ def run_decode_path(res: Results, dev, name, cfg, profile=False):
                            ("paged", pools, table)):
         reset_launch_counts()
         t0 = time.perf_counter()
-        toks, _, klen = model.generate(params, cc, kl, first, DEC_STEPS,
-                                       block_table=tb)
+        out = model.generate(params, cc, kl, first, steps, moe_state=st,
+                             block_table=tb)
+        toks, klen = out[0], out[2]
+        if st is not None:
+            st = out[3]
         streams[layout] = toks.cpu()
         wall = time.perf_counter() - t0
-        step_ms[layout] = wall / DEC_STEPS * 1e3
+        step_ms[layout] = wall / steps * 1e3
         c = launch_counts()
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
-        log(f"path {name} decode {layout}: {DEC_STEPS} steps ms_per_step="
-            f"{step_ms[layout]:.3f} tok_s={DEC_B * DEC_STEPS / wall:.2f} "
+        log(f"path {name} decode {layout}: {steps} steps ms_per_step="
+            f"{step_ms[layout]:.3f} tok_s={DEC_B * steps / wall:.2f} "
             f"launches " + " ".join(f"{k}={v}" for k, v in c.items() if v)
             + f" by TPU kernel {by_tpu_kernel()}")
+        for k, (_, per_step) in expect.items():
+            if c[k] != per_step * steps:
+                res.failures.append(f"{name} {layout}: {c[k]} {k} launches "
+                                    f"in {steps} steps, expected "
+                                    f"{per_step} a step")
     same = int((streams["contiguous"] == streams["paged"]).sum())
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"path {name} layers={cfg.n_layers}: setup_s={setup:.2f} "
         f"prefill_ms={prefill_ms:.2f} ({DEC_B} x {DEC_PROMPT} rows, lens "
-        f"{lens.tolist()}) decode ms_per_step contiguous="
-        f"{step_ms['contiguous']:.3f} paged={step_ms['paged']:.3f} "
-        f"first-step logits max|contiguous-paged|={lerr:.6g} tokens equal "
-        f"{same}/{DEC_B * DEC_STEPS} peak_mem_gib={peak:.2f}")
-    if same != DEC_B * DEC_STEPS:
+        f"{lens.tolist()}, prefill_tok_s="
+        f"{int(lens.sum()) / prefill_ms * 1e3:.1f}) decode ms_per_step "
+        f"contiguous={step_ms['contiguous']:.3f} paged="
+        f"{step_ms['paged']:.3f} first-step logits max|contiguous-paged|="
+        f"{lerr:.6g} tokens equal {same}/{DEC_B * steps} "
+        f"peak_mem_gib={peak:.2f}")
+    if same != DEC_B * steps:
         res.failures.append(f"{name}: the contiguous and paged token streams"
-                            f" differ ({same}/{DEC_B * DEC_STEPS} equal)")
-    if int(klen.max()) != int(kl.max()) + DEC_STEPS:
+                            f" differ ({same}/{DEC_B * steps} equal)")
+    if int(klen.max()) != int(kl.max()) + steps:
         res.failures.append(f"{name}: lengths did not advance")
     if profile:
+        profile_prefill(name, model, params, tokens, lens)
         profile_decode(name, model, params, caches, kl, first)
     return counts
+
+
+def profile_prefill(name, model, params, tokens, lens):
+    """Device time by kernel and the device's idle share over one more
+    prefill of the path's batch into fresh caches (torch.profiler, CUDA
+    activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    caches = model.init_cache(DEC_B, DEC_CAP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, caches, tokens, lens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, rows = device_rows(prof)
+    log(f"profile {name} prefill: under the profiler wall_ms="
+        f"{wall_us / 1e3:.2f} device_busy_ms={busy / 1e3:.2f} "
+        f"device_ops={sum(n for *_, n in rows)} "
+        f"idle_share={max(0.0, 1 - busy / wall_us):.4f}")
+    log_rows(f"{name} prefill", busy, rows)
 
 
 def profile_decode(name, model, params, caches, kl, first, steps: int = 8):
@@ -1325,29 +1587,32 @@ def profile_decode(name, model, params, caches, kl, first, steps: int = 8):
     log_rows(f"{name} decode", busy, rows)
 
 
-def run_generate_cli(res: Results, dev):
-    """The port's generation CLI once, in bf16 at full size."""
+def run_generate_cli(res: Results, dev, preset):
+    """The port's generation CLI once at full size: B 4, prompt 512, 16
+    steps of ``preset``."""
     import torch
 
     from triton_distributed_tpu_torch.tools import generate
 
     torch.cuda.empty_cache()
-    out = generate.main(["--preset", "llama_7b", "--batch", "4",
+    out = generate.main(["--preset", preset, "--batch", "4",
                          "--prompt-len", "512", "--steps", "16",
                          "--seed", "3", "--device", str(dev)])
-    log(f"path tools.generate llama_7b bf16: prefill_ms="
+    log(f"path tools.generate {preset}: prefill_ms="
         f"{out['prefill_ms']:.2f} ms_per_step={out['ms_per_step']:.3f} "
         f"tok_s={out['tok_s']:.2f}")
     if np.asarray(out["tokens"]).shape != (4, 16):
-        res.failures.append("tools.generate: wrong token shape")
+        res.failures.append(f"tools.generate {preset}: wrong token shape")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="after the main (MoE) path, profile a few engine "
-                    "steps, and a few decode steps of each decode path")
+                    "steps, and a prefill and a few decode steps of each "
+                    "decode and MoE generation path")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1387,9 +1652,11 @@ def main() -> int:
     del moe
     check_decode_kernels(res, dev)
     check_n1_gemms(res, dev)
+    check_moe_tp_kernels(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
+    check_tiny_moe_decode(res, dev)
 
     run_path(res, dev, "llama_7b", llama)
     bf16_counts, bf16_steps = run_path(
@@ -1408,18 +1675,44 @@ def main() -> int:
         for k, v in run_decode_path(res, dev, name, cfg,
                                     profile=opts.profile).items():
             decode_counts[k] = decode_counts.get(k, 0) + v
-    run_generate_cli(res, dev)
+    run_generate_cli(res, dev, "llama_7b")
+    # the MoE generation path: DeepSeek-MoE-16B at full width and depth
+    # as served (EP: int8 W8A8 experts over an fp8 wire, int8 KV, W8A8
+    # dense) and in the TP flavour with bf16 experts, whose prefill runs
+    # the two MoE-TP kernels once a MoE layer
+    n_moe = len(deepseek.moe_layers)
+    moe_counts = {}
+    for name, cfg, expect in (
+            ("deepseek_moe_16b ep", deepseek,
+             {"ggemm_bf16": (2 * n_moe, 0),
+              "chunked_a2a": (2 * n_moe, 2 * n_moe),
+              "ag_group_gemm": (0, 0), "moe_reduce_rs": (0, 0)}),
+            ("deepseek_moe_16b tp", presets.deepseek_moe_16b(
+                moe="tp", moe_weight_quant=None, moe_act_quant=None),
+             {"ag_group_gemm": (n_moe, 0), "moe_reduce_rs": (n_moe, 0),
+              "chunked_a2a": (0, 0)})):
+        counts = run_decode_path(res, dev, name, cfg, steps=MOE_GEN_STEPS,
+                                 expect=expect, profile=opts.profile)
+        for k in PATH_KERNELS[name]:
+            if counts[k] == 0:
+                res.failures.append(f"{name}: {k} never launched")
+        for k, v in counts.items():
+            moe_counts[k] = moe_counts.get(k, 0) + v
+    run_generate_cli(res, dev, "deepseek_moe_16b")
     # each serving row's launches come from the main path; the bf16
     # grouped GEMM runs only where the experts are bf16. The decode rows'
     # come from the decode path: flash_decode / paged_decode 32 a step in
     # each configuration (64 a step index over the two), the GEMMs 32 a
-    # prefill at each of two shapes. A row's times are weighted by the
+    # prefill at each of two shapes; the MoE-TP rows' from the MoE
+    # generation path's one TP prefill. A row's times are weighted by the
     # launches a step of its shapes: those must be the run's
     for name in KERNELS:
         if name in ("flash_decode", "paged_decode"):
             n, steps = decode_counts[name], DEC_STEPS
         elif name in ("ag_gemm_n1", "gemm_rs_n1"):
             n, steps = decode_counts[name], 2
+        elif name in MOE_TP_ROWS:
+            n, steps = moe_counts[name], 1
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))
@@ -1429,6 +1722,7 @@ def main() -> int:
             res.failures.append(
                 f"{name}: {n} launches in {steps} steps, but its row "
                 f"weighs shapes of {per_step} launches a step")
+    log(f"smoke wall_s={time.perf_counter() - t_start:.1f}")
     if res.failures:
         for f in res.failures:
             log(f"FAIL {f}")

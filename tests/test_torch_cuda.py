@@ -15,6 +15,8 @@ from triton_distributed_tpu_torch.kernels import group_gemm as gg
 from triton_distributed_tpu_torch.kernels import launch_counts, quantize_kv
 from triton_distributed_tpu_torch.kernels import moe_all_to_all as ma
 from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+from triton_distributed_tpu_torch.kernels import moe_utils as mu
 from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
 
 pytestmark = pytest.mark.cuda
@@ -538,6 +540,126 @@ def test_prefill_generate_on_card_equals_cpu(dev):
             a, _, _ = model.generate(p, caches, kl, first, 6)
             b, _, _ = model.generate(p, pools, kl, first, 6,
                                      block_table=table)
+            streams += [a.cpu(), b.cpu()]
+        for s in streams[1:]:
+            assert torch.equal(s, streams[0])
+
+
+def _moe_tp_inputs(seed, dev, m, topk, e, k, n, block_m, dtype):
+    """Routing over ``e`` experts with expert 1 empty and expert 0 given
+    several blocks (half the tokens favour it), the sorted ids and block
+    table at ``block_m``, x (m, k) and w (e, k, n) in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((m, e)).astype(np.float32)
+    logits[:, 1] = -1e4
+    logits[: m // 2, 0] += 6.0
+    _, ids = mu.select_experts(torch.from_numpy(logits), topk)
+    sti, be, splits = mu.moe_align_block_size(ids, e, block_m)
+    assert int(splits[1]) == 0 and int((be == 0).sum()) > 1
+    x = _t(rng.standard_normal((m, k)), dev, dtype)
+    w = _t(rng.standard_normal((e, k, n)) / np.sqrt(k), dev, dtype)
+    return x, sti.to(dev), be.to(dev), w
+
+
+def _gemm_tol(want, k, bf16_out):
+    """f32 sums in another order (1e-5·sqrt(K) of the largest sum) and,
+    for bf16 out, one bf16 rounding (2^-8 relative)."""
+    return ((2.0 ** -8 * want.abs() if bf16_out else 0.0)
+            + 1e-5 * np.sqrt(k) * want.abs().max().item())
+
+
+#: (tokens, top-k, experts, K, N, block_m): K and N not multiples of 8
+#: (no 16-byte rows), 16-byte rows with several blocks an expert, and
+#: the prefill's experts (64 of 2048 x 1408, top-6) at 256 tokens
+MOE_TP_SHAPES = [(120, 2, 6, 70, 33, 64), (300, 2, 8, 136, 72, 64),
+                 (256, 6, 64, 2048, 1408, 128)]
+
+
+class TestMoETPKernels:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", MOE_TP_SHAPES)
+    def test_ag_group_gemm_matches_plain(self, dev, dtype, shape):
+        """The gather fused into the tile load: every row equals the
+        plain version's (gather_sorted, then the grouped GEMM), and the
+        padding rows (the sentinel) are exactly zero."""
+        m, topk, e, k, n, bm = shape
+        tdt = getattr(torch, dtype)
+        x, sti, be, w = _moe_tp_inputs(11, dev, m, topk, e, k, n, bm, tdt)
+        before = launch_counts()
+        got = mtf.ag_group_gemm(x, sti, be, w, topk)
+        after = launch_counts()
+        assert after["ag_group_gemm"] == before["ag_group_gemm"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = mtf.ag_group_gemm_plain(x, sti, be, w, topk,
+                                       out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and got.shape == (sti.shape[0], n)
+        tol = _gemm_tol(want, k, dtype == "bfloat16")
+        assert ((got.float() - want).abs() <= tol).all()
+        pad = sti >= m * topk
+        assert pad.any() and (got[pad] == 0).all()
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", MOE_TP_SHAPES)
+    def test_moe_reduce_rs_matches_plain(self, dev, dtype, shape):
+        """The down projection over sorted rows in place (F = K here)."""
+        m, topk, e, k, n, bm = shape
+        tdt = getattr(torch, dtype)
+        _, sti, be, w = _moe_tp_inputs(12, dev, m, topk, e, k, n, bm, tdt)
+        y = _t(np.random.default_rng(13).standard_normal((sti.shape[0], k)),
+               dev, tdt)
+        before = launch_counts()["moe_reduce_rs"]
+        got = mtf.moe_reduce_rs(y, be, w)
+        assert launch_counts()["moe_reduce_rs"] == before + 1
+        want = mtf.moe_reduce_rs_plain(y, be, w, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt
+        assert ((got.float() - want).abs()
+                <= _gemm_tol(want, k, dtype == "bfloat16")).all()
+
+    def test_wrappers_refuse_what_the_kernels_do_not_take(self, dev):
+        x, sti, be, w = _moe_tp_inputs(14, dev, 200, 2, 4, 64, 64, 64,
+                                       torch.bfloat16)
+        with pytest.raises(ValueError, match="int32"):
+            mtf.ag_group_gemm(x, sti.long(), be, w, 2)
+        with pytest.raises(ValueError, match="operands both"):
+            mtf.ag_group_gemm(x, sti, be, w.float(), 2)
+        with pytest.raises(ValueError, match="equal M-blocks"):
+            mtf.moe_reduce_rs(x[:63], be[:2], w)
+
+
+def test_moe_prefill_generate_on_card_equals_cpu(dev):
+    """The tiny DeepSeek-MoE preset as served (EP) and its TP flavour,
+    contiguous and paged: prefill and 6 greedy steps on the card give
+    the CPU's token streams; the TP prefill launches both MoE-TP kernels
+    once per MoE layer."""
+    from triton_distributed_tpu_torch.models import Transformer, presets
+
+    for kw in ({}, dict(moe="tp", moe_weight_quant=None,
+                        moe_act_quant=None)):
+        cfg = presets.tiny(presets.deepseek_moe_16b(**kw))
+        cpu = Transformer(cfg, device="cpu")
+        params = cpu.quantize_moe_weights(cpu.quantize_dense_weights(
+            cpu.init(torch.Generator().manual_seed(0))))
+        gpu = Transformer(cfg, device=dev)
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+        lens = np.array([16, 9], np.int32)
+        streams = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            p = _to(params, d)
+            before = launch_counts()
+            last, caches, kl = model.prefill(p, model.init_cache(2, 32),
+                                             _t(toks, d), _t(lens, d))
+            after = launch_counts()
+            if d != "cpu" and cfg.moe == "tp":
+                for name in ("ag_group_gemm", "moe_reduce_rs"):
+                    assert after[name] - before[name] == len(cfg.moe_layers)
+            first = torch.argmax(last, -1).to(torch.int32)
+            pools, table = model.paginate_caches(caches, page=8)
+            st = model.init_decode_state(2)
+            a = model.generate(p, caches, kl, first, 6, moe_state=st)[0]
+            b = model.generate(p, pools, kl, first, 6, block_table=table)[0]
             streams += [a.cpu(), b.cpu()]
         for s in streams[1:]:
             assert torch.equal(s, streams[0])

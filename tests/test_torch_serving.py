@@ -32,6 +32,7 @@ from triton_distributed_tpu.serving import ServingEngine as JServingEngine
 from triton_distributed_tpu.serving.state import page_chain_hash as j_chain_hash
 from triton_distributed_tpu.serving import poisson_trace as j_trace
 from triton_distributed_tpu_torch.kernels import auto_block_q
+from _torch_moe_ref import tpu_moe  # noqa: F401 (the fixture)
 from triton_distributed_tpu_torch.models import (
     Transformer,
     TransformerConfig,
@@ -324,35 +325,6 @@ class TestServingStep:
 #: and its bf16-expert variant (float experts, fp8 wire)
 MOE_VARIANTS = {"int8": {}, "float_experts": dict(moe_weight_quant=None,
                                                   moe_act_quant=None)}
-
-
-def _tpu_moe_ctx(self, m_local, inference=False, weights_quantized=None):
-    """JAX ``Transformer._moe_ep_ctx`` as a TPU builds it for serving:
-    the fused transport, the Pallas grouped GEMMs (interpret mode here)
-    at the port's block_m, the wire quant, and W8A8 experts when the
-    weights are int8 dicts."""
-    from triton_distributed_tpu import ops as jops
-    from triton_distributed_tpu_torch.models.transformer import MOE_BLOCK_M
-
-    c = self.config
-    wq = c.moe_weight_quant
-    if weights_quantized is False:
-        wq = None
-    elif weights_quantized and wq is None:
-        wq = "int8"
-    return jops.create_ep_moe_context(
-        self.mesh, self.tp_axis, num_experts=c.num_experts, topk=c.topk,
-        max_m=m_local * c.topk, hidden=c.hidden, dtype=c.dtype,
-        transport="fused" if inference else "xla",
-        use_pallas_gemm=inference, block_m=MOE_BLOCK_M,
-        quant=c.moe_wire_quant if inference else None,
-        act_quant=c.moe_act_quant if inference and wq == "int8" else None,
-        batch_axes=tuple(self.dp_axes))
-
-
-@pytest.fixture
-def tpu_moe(monkeypatch):
-    monkeypatch.setattr(JTransformer, "_moe_ep_ctx", _tpu_moe_ctx)
 
 
 def _moe_jax_and_port(mesh, variant, seed=0):

@@ -2,8 +2,9 @@
 the wrapper of its hand-written CUDA kernel (``csrc/``). The attention
 wrapper is not re-exported here: its name is its module's. The MoE
 modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``), the
-decode entries of ``flash_decode`` and the world-size-1 ``ag_gemm`` /
-``gemm_rs`` are imported by name."""
+decode entries of ``flash_decode``, the world-size-1 ``ag_gemm`` /
+``gemm_rs`` and the MoE-TP GEMMs (``moe_tp_fused``) are imported by
+name."""
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -43,6 +44,7 @@ def _counters() -> dict:
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
     from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+    from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
 
     return {
@@ -56,6 +58,8 @@ def _counters() -> dict:
         "paged_decode": (fd._paged_decode_cuda, "launches"),
         "ag_gemm_n1": (agg._ag_gemm_cuda, "launches"),
         "gemm_rs_n1": (grs._gemm_rs_cuda, "launches"),
+        "ag_group_gemm": (mtf._ag_group_gemm_cuda, "launches"),
+        "moe_reduce_rs": (mtf._moe_reduce_rs_cuda, "launches"),
     }
 
 

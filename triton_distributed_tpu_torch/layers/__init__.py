@@ -9,9 +9,11 @@ from triton_distributed_tpu_torch.layers.linear import (
     ParallelMLP,
     RowParallelLinear,
 )
+from triton_distributed_tpu_torch.layers.moe import EPMoEMLP
 
 __all__ = [
     "ColumnParallelLinear",
+    "EPMoEMLP",
     "ParallelMLP",
     "RaggedPagedAttention",
     "RowParallelLinear",

@@ -3,17 +3,22 @@
 Port of ``triton_distributed_tpu/models/transformer.py``: the config,
 the parameter layout of ``Transformer.init``, the dense and expert
 weight quantizers, the continuous-batching ``serving_step`` with its
-dense MLP and its two MoE flavours, and the dense prefill → decode path
+dense MLP and its two MoE flavours, and the prefill → decode path
 (``init_cache`` / ``init_paged_cache`` / ``paginate_caches``,
-``prefill``, ``decode_step``, ``generate``): prefill projects through
-the world-size-1 ``ag_gemm`` / ``gemm_rs``, decode attends through the
-flash-decode kernels. One GPU holds every head and every expert, so
-there is no mesh: the serving step's projections run through
+``prefill``, ``decode_step``, ``generate``) for dense and MoE blocks:
+prefill projects through the world-size-1 ``ag_gemm`` / ``gemm_rs``
+and runs an MoE block through ``EPMoEMLP`` in full precision (EP: the
+fused transport with no wire quantization, on float experts) or
+``moe_tp_mlp_overlapped`` on the MoE-TP kernels (TP); decode attends
+through the flash-decode kernels and runs an MoE block as the serving
+step does. One GPU holds every head and every expert, so there is no
+mesh: the serving step's projections run through
 :func:`~triton_distributed_tpu_torch.kernels.group_gemm.grouped_matmul`
 (int8 weights) or a plain matmul (float weights), attention through the
 ragged paged-attention kernel, and an ``moe="ep"`` block through
 :func:`~triton_distributed_tpu_torch.ops.moe.ep_moe` at EP world size 1
-(the chunked all-to-all and grouped-GEMM kernels).
+on the fused transport (the chunked all-to-all and grouped-GEMM
+kernels).
 
 Parameters are a plain dict with exactly the JAX layout::
 
@@ -120,11 +125,16 @@ class TransformerConfig:
 
 _DENSE_QUANT_KEYS = ("wqkv", "wo", "up", "down")
 
-#: the grouped-GEMM M-block of the MoE experts: a multiple of the CUDA
-#: kernels' 64-row tile (kernels/group_gemm.py KERNEL_BM); the smallest
-#: one pads the least (8704 rows at the serving step's 4608 assignments
-#: over 64 experts, against 12928 at 128)
+#: the grouped-GEMM M-block of the MoE experts on the fused (decode and
+#: serving) transport: a multiple of the CUDA kernels' 64-row tile
+#: (kernels/group_gemm.py KERNEL_BM); the smallest one pads the least
+#: (8704 rows at the serving step's 4608 assignments over 64 experts,
+#: against 12928 at 128)
 MOE_BLOCK_M = 64
+#: the M-block of the prefill's MoE GEMMs (EP and the MoE-TP kernels):
+#: JAX's off-TPU choice, so that the routing tables equal the
+#: reference's integer for integer
+PREFILL_BLOCK_M = 128
 
 
 def _qexperts(w, mode="int8"):
@@ -308,26 +318,45 @@ class Transformer:
                                               self.config.dtype)
         return w.to(self.config.dtype)
 
-    def _moe_ep_ctx(self, m_local: int, weights_quantized: bool | None = None):
-        """The EP MoE context this card runs: the fused transport, the
-        grouped-GEMM kernels at ``MOE_BLOCK_M``, ``moe_wire_quant`` on
-        the wire, and W8A8 experts (``moe_act_quant``) when the expert
-        weights are int8 dicts. ``weights_quantized``: whether the
+    @functools.cached_property
+    def _moe_tp_ctx(self):
+        """The MoE-TP context of the prefill's overlapped engines."""
+        from triton_distributed_tpu_torch.ops import (
+            create_ag_group_gemm_context,
+        )
+
+        c = self.config
+        return create_ag_group_gemm_context(
+            num_experts=c.num_experts, topk=c.topk, block_m=PREFILL_BLOCK_M,
+            dtype=c.dtype)
+
+    def _moe_ep_ctx(self, m_local: int, inference: bool = False,
+                    weights_quantized: bool | None = None):
+        """The EP MoE context, on the fused transport. ``inference``
+        (decode, serving): the grouped-GEMM kernels at ``MOE_BLOCK_M``,
+        ``moe_wire_quant`` on the wire, and W8A8 experts
+        (``moe_act_quant``) when the expert weights are int8 dicts.
+        Otherwise (prefill) the full precision of JAX's off-TPU ``xla``
+        context: no wire quantization, no W8A8, ``PREFILL_BLOCK_M``; the
+        caller hands float experts, so both GEMMs run the float mode
+        over the same sorted rows (at one rank the exchange of either
+        transport is the identity). ``weights_quantized``: whether the
         leaves in hand are quantized dicts (None → trust the config)."""
         from triton_distributed_tpu_torch.ops import create_ep_moe_context
 
         c = self.config
+        kw = dict(num_experts=c.num_experts, topk=c.topk,
+                  max_m=m_local * c.topk, hidden=c.hidden, dtype=c.dtype)
+        if not inference:
+            return create_ep_moe_context(block_m=PREFILL_BLOCK_M, **kw)
         wq = c.moe_weight_quant
         if weights_quantized is False:
             wq = None
         elif weights_quantized and wq is None:
             wq = "int8"
         return create_ep_moe_context(
-            num_experts=c.num_experts, topk=c.topk, max_m=m_local * c.topk,
-            hidden=c.hidden, dtype=c.dtype, block_m=MOE_BLOCK_M,
-            quant=c.moe_wire_quant,
-            act_quant=c.moe_act_quant if wq == "int8" else None,
-        )
+            block_m=MOE_BLOCK_M, quant=c.moe_wire_quant,
+            act_quant=c.moe_act_quant if wq == "int8" else None, **kw)
 
     def init_decode_state(self, batch: int):
         """Per-layer persistent workspaces of the barrier-free EP MoE
@@ -339,7 +368,7 @@ class Transformer:
         c = self.config
         if c.moe != "ep" or not c.moe_layers:
             return None
-        ctx = self._moe_ep_ctx(batch)
+        ctx = self._moe_ep_ctx(batch, inference=True)
         return [create_ep_moe_state(ctx, self.device)
                 if i in c.moe_layers else None for i in range(c.n_layers)]
 
@@ -353,7 +382,8 @@ class Transformer:
         c = self.config
         logits = xn.float() @ blk["router"].float()
         wq = isinstance(blk["moe_up"], dict)
-        ctx = self._moe_ep_ctx(xn.shape[0], weights_quantized=wq)
+        ctx = self._moe_ep_ctx(xn.shape[0], inference=True,
+                               weights_quantized=wq)
         w_up, w_down = (w if isinstance(w, dict) else w.to(c.dtype)
                         for w in (blk["moe_up"], blk["moe_down"]))
         if state is not None:
@@ -592,26 +622,52 @@ class Transformer:
         out = ops.gemm_rs(o, self._dense_w(blk["wo"]), self._rs_ctx)
         return out, k, v
 
-    def _mlp_block(self, blk, x):
-        """The dense MLP through ``ag_gemm`` → silu → ``gemm_rs``."""
-        if "up" not in blk:
+    def _mlp_block(self, blk, x, inference: bool = False):
+        """The block's MLP on (T, H) rows. Dense: ``ag_gemm`` → silu →
+        ``gemm_rs``. MoE (the experts widened to ``config.dtype``, one
+        layer at a time): EP through ``EPMoEMLP`` in full precision
+        (:meth:`_moe_ep_ctx`); TP routes once in f32 and, with ``inference``, runs
+        ``moe_tp_mlp_overlapped`` (the MoE-TP kernels). The
+        differentiable TP path (``MoETPMLP``) raises until training is
+        ported."""
+        c = self.config
+        if "up" in blk:
+            p = {"up": {"w": self._dense_w(blk["up"])},
+                 "down": {"w": self._dense_w(blk["down"])}}
+            return self._mlp(p, x)
+        moe = {"router": blk["router"],
+               "up": self._expert_w(blk["moe_up"]),
+               "down": self._expert_w(blk["moe_down"])}
+        if c.moe == "ep":
+            from triton_distributed_tpu_torch.layers import EPMoEMLP
+
+            return EPMoEMLP(self._moe_ep_ctx(x.shape[0]))(moe, x)
+        if not inference:
             raise NotImplementedError(
-                "MoE prefill (EPMoEMLP, moe_tp_mlp_overlapped) comes with the "
-                "next slice of the decode path (ROADMAP Queue 1 item 10)")
-        p = {"up": {"w": self._dense_w(blk["up"])},
-             "down": {"w": self._dense_w(blk["down"])}}
-        return self._mlp(p, x)
+                "the differentiable MoE-TP block (MoETPMLP, moe_tp_mlp) "
+                "comes with training (ROADMAP Queue 1 item 10)")
+        from triton_distributed_tpu_torch.kernels.moe_utils import (
+            select_experts,
+        )
+        from triton_distributed_tpu_torch.ops import moe_tp_mlp_overlapped
+
+        weights, ids = select_experts(x.float() @ blk["router"].float(),
+                                      c.topk)
+        return moe_tp_mlp_overlapped(x, ids, weights, moe["up"],
+                                     moe["down"], self._moe_tp_ctx).to(c.dtype)
 
     def _embed_rows(self, params, tokens):
         """(B, S) token ids → (B·S, H) activations."""
         return params["embed"][tokens.reshape(-1).long()].to(self.config.dtype)
 
-    def _block(self, blk, x, b, s):
-        """One decoder block → (x, k, v)."""
+    def _block(self, blk, x, b, s, inference: bool = False):
+        """One decoder block → (x, k, v); ``inference`` picks the
+        MoE-TP block's overlapped engines."""
         xn = self._rmsnorm(x, blk["norm_attn"])
         h, k, v = self._attention_kv(blk, xn, b, s)
         x = x + h
-        x = x + self._mlp_block(blk, self._rmsnorm(x, blk["norm_mlp"]))
+        x = x + self._mlp_block(blk, self._rmsnorm(x, blk["norm_mlp"]),
+                                inference=inference)
         return x, k, v
 
     def _head(self, params, x):
@@ -697,7 +753,8 @@ class Transformer:
         ``lens`` (B,) makes the batch ragged: rows are right-padded to S
         and row i's logits are taken at ``lens[i] - 1``, ``lens`` clamped
         to [1, S] (:1014-1021); the pad positions' K/V land past the
-        lengths, where decode never reads."""
+        lengths, where decode never reads. MoE blocks run the inference
+        engines of :meth:`_mlp_block`."""
         c = self.config
         b, s = tokens.shape
         cap = _cache_capacity(caches)
@@ -705,7 +762,7 @@ class Transformer:
             raise ValueError(f"prompt length {s} exceeds cache capacity {cap}")
         x = self._embed_rows(params, tokens)
         for blk, (ck, cv) in zip(params["blocks"], caches):
-            x, k, v = self._block(blk, x, b, s)
+            x, k, v = self._block(blk, x, b, s, inference=True)
             kb = k.transpose(1, 2)                    # (B, Hkv, S, D)
             vb = v.transpose(1, 2)
             if isinstance(ck, dict):
@@ -735,7 +792,11 @@ class Transformer:
         single-position partial (``combine_partials``): the merge is
         associative, so this equals attending over the appended cache.
         Int8 caches attend the new token quantized and append the same
-        (int8, scale) pairs. Projections go through ``_dmm``."""
+        (int8, scale) pairs. Projections go through ``_dmm``. An EP MoE
+        block runs ``ep_moe`` on the fused transport, over the persistent
+        workspaces of ``moe_state`` (from :meth:`init_decode_state`) when
+        given, and the step then returns the next states as a 4th
+        result; a TP MoE block runs the per-token expert loop."""
         from triton_distributed_tpu_torch.kernels.flash_decode import (
             combine_partials,
             quantize_kv,
@@ -745,19 +806,12 @@ class Transformer:
             paged_append_kv,
         )
 
-        if moe_state is not None:
-            raise NotImplementedError(
-                "decode_step's MoE branches come with the next slice of the "
-                "decode path (ROADMAP Queue 1 item 10)")
         c = self.config
         x = params["embed"][last_tokens.long()].to(c.dtype)      # (B, H)
         b = x.shape[0]
         new_caches = []
-        for blk, (ck, cv) in zip(params["blocks"], caches):
-            if "up" not in blk:
-                raise NotImplementedError(
-                    "decode_step's MoE branches come with the next slice of "
-                    "the decode path (ROADMAP Queue 1 item 10)")
+        new_states = None if moe_state is None else list(moe_state)
+        for li, (blk, (ck, cv)) in enumerate(zip(params["blocks"], caches)):
             xn = self._rmsnorm(x, blk["norm_attn"])
             qkv = self._dmm(xn, blk["wqkv"])
             q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
@@ -785,8 +839,17 @@ class Transformer:
             new_caches.append((ck, cv))
             x = x + self._dmm(o.reshape(b, c.q_dim), blk["wo"])
             xn = self._rmsnorm(x, blk["norm_mlp"])
-            h = F.silu(self._dmm(xn, blk["up"]))
-            x = x + self._dmm(h, blk["down"])
+            if "up" in blk:
+                h = F.silu(self._dmm(xn, blk["up"]))
+                x = x + self._dmm(h, blk["down"])
+            elif c.moe == "ep":
+                st = None if moe_state is None else moe_state[li]
+                y, st = self._decode_moe_ep(blk, xn, st)
+                x = x + y.to(x.dtype)
+                if new_states is not None:
+                    new_states[li] = st
+            else:
+                x = x + self._moe_tp(blk, xn).to(x.dtype)
         x = self._rmsnorm(x, params["norm_f"])
         if isinstance(params["lm_head"], dict):
             # W8A16: the logits keep the f32 accumulator
@@ -794,15 +857,19 @@ class Transformer:
                                act_quant=False)
         else:
             logits = x.float() @ params["lm_head"].float()
-        return logits, new_caches, kv_lens + 1
+        if moe_state is None:
+            return logits, new_caches, kv_lens + 1
+        return logits, new_caches, kv_lens + 1, new_states
 
     def generate(self, params, caches, kv_lens, last_tokens, steps: int,
                  moe_state=None, block_table=None):
         """Greedy-decode ``steps`` tokens: returns ((B, steps) int32
-        tokens, caches, kv_lens). With ``block_table``, the caches are
-        page pools (:meth:`init_paged_cache` / :meth:`paginate_caches`).
-        Raises when the longest row would outgrow the capacity (writes
-        past it would be dropped)."""
+        tokens, caches, kv_lens), and the MoE states as a 4th result when
+        ``moe_state`` (:meth:`init_decode_state`) is threaded through.
+        With ``block_table``, the caches are page pools
+        (:meth:`init_paged_cache` / :meth:`paginate_caches`). Raises when
+        the longest row would outgrow the capacity (writes past it would
+        be dropped)."""
         cap = _serving_capacity(caches, block_table)
         max_len = int(kv_lens.max()) + steps
         if max_len > cap:
@@ -811,12 +878,18 @@ class Transformer:
                              "layers.append_kv)")
         out = []
         for _ in range(steps):
-            logits, caches, kv_lens = self.decode_step(
-                params, caches, kv_lens, last_tokens, moe_state=moe_state,
-                block_table=block_table)
+            res = self.decode_step(params, caches, kv_lens, last_tokens,
+                                   moe_state=moe_state,
+                                   block_table=block_table)
+            logits, caches, kv_lens = res[:3]
+            if moe_state is not None:
+                moe_state = res[3]
             last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(last_tokens)
-        return torch.stack(out, dim=1), caches, kv_lens
+        toks = torch.stack(out, dim=1)
+        if moe_state is None:
+            return toks, caches, kv_lens
+        return toks, caches, kv_lens, moe_state
 
 
 def _cache_capacity(caches):

@@ -1,5 +1,5 @@
-"""The port's ops: the expert-parallel MoE MLP and the TP overlap
-GEMMs, at world size 1."""
+"""The port's ops: the expert-parallel MoE MLP, the MoE-TP overlap
+GEMMs and the TP overlap GEMMs, at world size 1."""
 
 from triton_distributed_tpu_torch.ops.moe import (
     EPMoEContext,
@@ -7,6 +7,16 @@ from triton_distributed_tpu_torch.ops.moe import (
     create_ep_moe_context,
     create_ep_moe_state,
     ep_moe,
+)
+from triton_distributed_tpu_torch.ops.moe_tp import (
+    MoETPContext,
+    ShardedRouting,
+    ag_group_gemm_fused,
+    align_routing_sharded,
+    create_ag_group_gemm_context,
+    create_moe_rs_context,
+    moe_reduce_rs_fused,
+    moe_tp_mlp_overlapped,
 )
 from triton_distributed_tpu_torch.ops.overlap import (
     OverlapContext,
@@ -19,12 +29,20 @@ from triton_distributed_tpu_torch.ops.overlap import (
 __all__ = [
     "EPMoEContext",
     "EPMoEState",
+    "MoETPContext",
     "OverlapContext",
+    "ShardedRouting",
     "ag_gemm",
+    "ag_group_gemm_fused",
+    "align_routing_sharded",
     "create_ag_gemm_context",
-    "create_gemm_rs_context",
+    "create_ag_group_gemm_context",
     "create_ep_moe_context",
     "create_ep_moe_state",
+    "create_gemm_rs_context",
+    "create_moe_rs_context",
     "ep_moe",
     "gemm_rs",
+    "moe_reduce_rs_fused",
+    "moe_tp_mlp_overlapped",
 ]

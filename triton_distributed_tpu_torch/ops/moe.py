@@ -15,8 +15,11 @@ double-buffered workspaces in place, in the window its device-side
 parity names, and the call returns the state with the parity flipped.
 Nothing reads a value back to the host.
 
-Not ported: the hierarchical (DCN) exchange, the padded-slot
-(``pallas``) and ``xla`` transports, ``ep_moe_tuned`` and the demotion
+At one rank the exchange of JAX's full-precision ``xla`` transport is
+the identity, so a context with no wire quantization and no W8A8, on
+float experts, gives its values (the model's prefill runs so). Not
+ported: the hierarchical (DCN) exchange, the padded-slot (``pallas``)
+and ``xla`` transports, ``ep_moe_tuned`` and the demotion
 probe of the health ledger.
 """
 

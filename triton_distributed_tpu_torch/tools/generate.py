@@ -10,8 +10,12 @@ through the flash-decode kernels, reporting prefill and decode times::
 
 Weights are drawn in the preset's compute dtype (bf16 for the full-size
 presets), and presets with ``dense_weight_quant`` draw and quantize each
-matrix on the device. It runs on the card unless ``--device cpu`` is
-given. ``main(argv)`` returns the timings as a dict.
+matrix on the device. MoE presets (``deepseek_moe_16b``,
+``mixtral_8x7b``) prefill through their MoE blocks and decode EP blocks
+over the persistent workspaces of ``init_decode_state``, threaded
+through the warm step and ``generate``. It runs on the card unless
+``--device cpu`` is given. ``main(argv)`` returns the timings as a
+dict.
 """
 
 from __future__ import annotations
@@ -77,12 +81,19 @@ def main(argv=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    # persistent workspaces of the EP MoE decode (None for other models)
+    moe_state = model.init_decode_state(args.batch)
     # one warm prefill and decode step on throwaway caches, so that the
-    # timings below leave out the kernels' build and first launches
+    # timings below leave out the kernels' build and first launches; the
+    # MoE states are threaded on from the warm step
     warm, wc, wl = model.prefill(params, model.init_cache(args.batch, cap),
                                  prompt)
-    model.decode_step(params, wc, wl, torch.argmax(warm, -1).to(torch.int32))
-    del warm, wc, wl
+    res = model.decode_step(params, wc, wl,
+                            torch.argmax(warm, -1).to(torch.int32),
+                            moe_state=moe_state)
+    if moe_state is not None:
+        moe_state = res[3]
+    del warm, wc, wl, res
     sync()
 
     caches = model.init_cache(args.batch, cap)
@@ -92,9 +103,8 @@ def main(argv=None) -> dict:
     t_prefill = time.perf_counter() - t0
     first = torch.argmax(last, dim=-1).to(torch.int32)
     t0 = time.perf_counter()
-    toks, caches, lens = model.generate(params, caches, lens, first,
-                                        args.steps)
-    toks = toks.cpu()
+    toks = model.generate(params, caches, lens, first, args.steps,
+                          moe_state=moe_state)[0].cpu()
     t_decode = time.perf_counter() - t0
     res = dict(preset=args.preset, device=str(dev), batch=args.batch,
                prompt_len=args.prompt_len, steps=args.steps,
