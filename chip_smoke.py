@@ -21,15 +21,20 @@ Phases, all run every time:
    the prefill's shapes; the two MoE-TP kernels (AG + grouped GEMM with
    the gather fused into its tile load, grouped GEMM + RS) at the
    DeepSeek-MoE-16B TP prefill's shapes, and in f32 and bf16 with an
-   empty expert. The kernels line reports each kernel at the shapes of
+   empty expert; and the tensor-parallel kernels at the Llama-2-7B tp = 4
+   path's shapes, four ranks of a loopback mesh in each launch: the
+   AG-GEMM and GEMM-RS over the mesh (bf16, the prefill's wqkv / up and
+   wo / down) and the all-gather of the decode's attention partials
+   (byte-exact). The kernels line reports each kernel at the shapes of
    the path that launches it, its times averaged over them by their
    launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
    its float-expert variant, each served on the card and on the CPU
    from the same weights; the tiny f32 and int8 models, and the tiny
    DeepSeek-MoE preset as served (EP) and in its TP flavour, through
-   prefill + generate, contiguous and paged — the token streams must be
-   equal, and the card's run must launch the kernels of its path;
+   prefill + generate, contiguous and paged, and the tiny int8 model at
+   tp = 4 on a loopback mesh — the token streams must be equal, and the
+   card's run must launch the kernels of its path;
 5. the serving paths, each a continuous-batching engine serving the
    same Poisson trace with the launches of every kernel counted over
    the run: the Llama-2-7B geometry (int8 KV, W8A8 projections, W8A16
@@ -45,7 +50,18 @@ Phases, all run every time:
    128–1024 tokens prefilled into contiguous caches of capacity 2048,
    a paged copy at page 128, 64 greedy steps on each; the first step's
    logits and the token streams of the two layouts must agree. Then the
-   port's ``tools.generate`` CLI once, in bf16;
+   tensor-parallel path: the bf16 run's weights sharded over a loopback
+   mesh of 4 ranks on the card (``Transformer(cfg, mesh=...)``), the same
+   prompts prefilled through the mesh AG-GEMM / GEMM-RS (64 launches
+   each, every launch covering the 4 ranks) into sequence-sharded
+   caches (the first step's logits within 1e-3 of the largest tp = 1
+   logit), 32 steps decoded in lockstep with the tp = 1 model, both fed
+   its greedy tokens (every step's logits on every row within a stated
+   bf16 tolerance, the tokens equal on the rows whose top-2 margin
+   exceeds it; the last step again with one rank's partial lost must
+   break that tolerance), and 32 timed greedy steps (the all-gather
+   twice a layer and step). Then the port's ``tools.generate`` CLI on
+   its default device once in bf16, and once with ``--tp 4``;
 7. the MoE generation path, DeepSeek-MoE-16B at full width and depth as
    served (EP: fp8 wire, W8A8 int8 experts, int8 KV, W8A8 dense) and in
    its TP flavour with bf16 experts: the same batch, caches and layouts
@@ -65,6 +81,7 @@ summary.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -128,6 +145,21 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
         replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:285"),
+    # the two fused TP kernels again, over a mesh of 4 ranks (the rows
+    # above are their GEMM bodies at world size 1)
+    "ag_gemm": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/ag_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/ag_gemm.py:227"),
+    "gemm_rs": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:248"),
+    # also stands for the small-message push, allgather.py:199
+    "all_gather": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/allgather.cu",
+        replaces="triton_distributed_tpu/kernels/allgather.py:42"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -138,6 +170,24 @@ DECODE_ROWS = ("flash_decode", "paged_decode", "ag_gemm_n1", "gemm_rs_n1")
 #: generation path's TP prefill (27 MoE layers, one launch of each a layer)
 MOE_TP_ROWS = ("ag_group_gemm", "moe_reduce_rs")
 
+#: the tensor-parallel path: Llama-2-7B at tp = 4 on a loopback mesh, the
+#: decode path's prompts and caches, 32 greedy steps; its GEMM rows'
+#: launches come from its prefill (32 a shape), the all-gather's from
+#: its timed decode steps (2 a layer)
+TP, TP_STEPS = 4, 32
+TP_ROWS = ("ag_gemm", "gemm_rs")
+# its first-step logits against the tp = 1 run's, relative to the
+# largest tp = 1 logit: the mesh GEMMs sum every output in the one-rank
+# GEMMs' K order and each rank's attention is the same per-head
+# arithmetic, so the prefill reads bit-equal; 1e-3 leaves room for a
+# summation order change
+TP_PREFILL_RTOL = 1e-3
+# every teacher-forced decode step's logits against tp = 1's: the
+# per-rank projections summed in f32 and the sequence-parallel combine
+# round apart from the one-rank path. On an H100 the steps read at most
+# 1.6 % of the largest logit, and losing the partial of a rank that
+# holds positions at least 24 %: 5 % lies between
+TP_DECODE_RTOL = 0.05
 # the decode path: 8 rows, prompts of 128-1024 tokens padded to 1024,
 # caches of capacity 2048, pages of 128, 64 greedy steps
 DEC_B, DEC_PROMPT, DEC_CAP, DEC_PAGE, DEC_STEPS = 8, 1024, 2048, 128, 64
@@ -1003,12 +1053,16 @@ def log_rows(name, busy, rows):
 
 # ------------------------------------------------------------- decode path
 
-def decode_inputs(dev, kind: str, layout: str, seed: int = 4):
+def decode_inputs(dev, kind: str, layout: str, seed: int = 4, tp: int = 1):
     """Llama-2-7B's decode attention: q (8, 32, 128) bf16 and a cache of
     capacity 2048 in ``kind`` ("bf16" or "int8") and ``layout`` ("bhsd",
     "bshd" or "paged" at page 128, pages in a seeded permutation), with
-    seeded ragged lengths including 0, 1 and the capacity. Returns (the
-    entry's positional args after q, lens, its plain twin's name)."""
+    seeded ragged lengths including 0, 1 and the capacity. ``tp`` > 1:
+    the tp path's one local launch over its sequence-sharded caches, the
+    ranks stacked as tp·8 rows of capacity 2048/tp, q repeated a rank
+    and each row's length clamped to its rank's slice as the
+    sequence-parallel decode clamps it. Returns (q, the cache's tensors,
+    lens on the card, the entry's extra args, lens)."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import quantize_kv
@@ -1021,13 +1075,19 @@ def decode_inputs(dev, kind: str, layout: str, seed: int = 4):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((DEC_B, h, d), generator=g, device=dev,
                     dtype=torch.bfloat16)
+    rows = DEC_B
+    if tp > 1:
+        cap //= tp
+        lens = np.clip(lens[None, :] - cap * np.arange(tp)[:, None], 0,
+                       cap).reshape(-1).astype(np.int32)
+        q, rows = q.repeat(tp, 1, 1), tp * DEC_B
     if layout == "paged":
         pps = cap // DEC_PAGE
-        shape = (DEC_B * pps, h, DEC_PAGE, d)
-        table = rng.permutation(DEC_B * pps).astype(np.int32)
-        extra = (torch.as_tensor(table.reshape(DEC_B, pps), device=dev),)
+        shape = (rows * pps, h, DEC_PAGE, d)
+        table = rng.permutation(rows * pps).astype(np.int32)
+        extra = (torch.as_tensor(table.reshape(rows, pps), device=dev),)
     else:
-        shape = (DEC_B, h, cap, d) if layout == "bhsd" else (DEC_B, cap, h, d)
+        shape = (rows, h, cap, d) if layout == "bhsd" else (rows, cap, h, d)
         extra = ()
     k = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
     v = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
@@ -1038,14 +1098,15 @@ def decode_inputs(dev, kind: str, layout: str, seed: int = 4):
 
 
 def decode_work(lens, kind: str):
-    """(bytes, operations) of one decode call: every valid K/V row once
-    (int8: with its two f32 scales), q, out and lse once; 4·D operations
-    per (head, valid position)."""
-    h, d = 32, 128
-    rows = int(np.minimum(lens, DEC_CAP).sum()) * h
+    """(bytes, operations) of one decode call over ``lens`` (one a row,
+    each within its cache): every valid K/V row once (int8: with its two
+    f32 scales), q, out and lse once; 4·D operations per (head, valid
+    position)."""
+    h, d, b = 32, 128, len(lens)
+    rows = int(np.sum(lens)) * h
     kv = rows * (2 * d * (1 if kind == "int8" else 2)
                  + (8 if kind == "int8" else 0))
-    nbytes = kv + DEC_B * h * d * 2 * 2 + DEC_B * h * 4
+    nbytes = kv + b * h * d * 2 * 2 + b * h * 4
     return nbytes, 4.0 * d * rows
 
 
@@ -1054,17 +1115,24 @@ def check_decode_kernels(res: Results, dev):
     same values, at Llama-2-7B's decode shapes, each timed. The
     contiguous bhsd and paged cases of both dtypes are the decode path's
     (32 launches a step each in its configuration) and make the rows;
-    bshd (the TPU's static-grid kernel) and the soft cap are off it."""
+    so does the tp = 4 path's one launch a layer over its 4 ranks'
+    stacked caches (32 rows of capacity 512), weighted 16 a step of the
+    decode path's 64: its 32 steps of 32 launches; bshd (the TPU's
+    static-grid kernel) and the soft cap are off the paths."""
     import torch
     import torch.nn.functional as F
 
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
 
-    cases = (("bf16", "bhsd", 0.0, True), ("int8", "bhsd", 0.0, True),
-             ("bf16", "paged", 0.0, True), ("int8", "paged", 0.0, True),
-             ("bf16", "bshd", 0.0, False), ("bf16", "bhsd", 30.0, False))
-    for kind, layout, cap_, on_path in cases:
-        q, cache, lens, extra, lens_np = decode_inputs(dev, kind, layout)
+    # (kind, layout, soft cap, tp, launches a decode-path step)
+    cases = (("bf16", "bhsd", 0.0, 1, 32), ("int8", "bhsd", 0.0, 1, 32),
+             ("bf16", "paged", 0.0, 1, 32), ("int8", "paged", 0.0, 1, 32),
+             ("bf16", "bhsd", 0.0, TP, 32 * TP_STEPS // DEC_STEPS),
+             ("bf16", "bshd", 0.0, 1, 0), ("bf16", "bhsd", 30.0, 1, 0))
+    for kind, layout, cap_, tp, per_step in cases:
+        q, cache, lens, extra, lens_np = decode_inputs(dev, kind, layout,
+                                                       tp=tp)
+        cap_kv = DEC_CAP // tp
         quant = kind == "int8"
         kw = dict(soft_cap=cap_)
         if layout == "paged":
@@ -1086,8 +1154,9 @@ def check_decode_kernels(res: Results, dev):
         # rounds p alike, in f32 on the same bf16/int8 values
         ref, rlse = plain(*args, **kw)
         torch.cuda.synchronize()
-        tag = (f"llama_7b decode {kind} {layout} B={DEC_B} Hkv=32 D=128 "
-               f"cap={DEC_CAP}" + (f" soft_cap={cap_:g}" if cap_ else ""))
+        tag = (f"llama_7b decode {kind} {layout} B={len(lens_np)} Hkv=32 "
+               f"D=128 cap={cap_kv}" + (f" soft_cap={cap_:g}" if cap_ else "")
+               + (f" (tp={tp}: {tp} ranks x {DEC_B} rows)" if tp > 1 else ""))
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
         lerr = (lse - rlse).abs().max().item()
@@ -1119,7 +1188,7 @@ def check_decode_kernels(res: Results, dev):
             kc, vc = (t.transpose(1, 2) for t in cache)
         else:
             kc, vc = cache
-        mask = (torch.arange(DEC_CAP, device=dev)[None, None, None, :]
+        mask = (torch.arange(cap_kv, device=dev)[None, None, None, :]
                 < lens.long()[:, None, None, None])
         qs = q[:, :, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1127,13 +1196,16 @@ def check_decode_kernels(res: Results, dev):
         del kc, vc
         nbytes, ops = decode_work(lens_np, kind)
         b, by = bound_ms(nbytes, ops, H100_BF16_OPS)
-        log(f"time {name} {tag} ({'32/step' if on_path else 'off the path'})"
+        where = ("off the path" if not per_step else "32/step"
+                 if tp == 1 else f"32/step of the tp={tp} path")
+        log(f"time {name} {tag} ({where})"
             f": kernel_ms={ms:.4f} (graph; back-to-back wrapper calls "
             f"{call:.4f}) plain_ms={plain_ms:.4f} library_ms={lib:.4f} (SDPA, "
             f"length mask, enable_gqa) bound_ms={b:.4f} ({by}) "
             f"max_abs_err={err:.6g}")
-        if on_path:
-            res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, H100_BF16_OPS)
+        if per_step:
+            res.shape(name, per_step, ms, plain_ms, lib, nbytes, ops,
+                      H100_BF16_OPS)
 
 
 def check_n1_gemms(res: Results, dev):
@@ -1286,6 +1358,159 @@ def check_moe_tp_kernels(res: Results, dev):
         del x, h, w_up, w_down
 
 
+def check_mesh_kernels(res: Results, dev):
+    """The tensor-parallel kernels over a loopback mesh of 4 ranks at the
+    Llama-2-7B tp = 4 path's shapes, against their plain versions: the
+    AG-GEMM (A 4 x (2048, 4096) bf16 row shards, B_r (4096, 3072) for
+    wqkv and (4096, 2752) for up) and GEMM-RS (A_q (8192, 1024) for wo
+    and (8192, 2752) for down, B_q (K_q, 4096)), 32 launches a prefill
+    each shape, timed; and the all-gather of the decode's partials
+    ((8, 32, 128) bf16 out and (8, 32) f32 lse a rank, 32 launches a
+    step each), byte-exact, timed from a CUDA graph."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import ag_gemm as agm
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    mesh = Mesh.loopback(TP, dev)
+    m, h, f = DEC_B * DEC_PROMPT, 4096, 11008
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def shards(shape, scale=1.0):
+        t = torch.randn((TP, *shape), generator=g, device=dev,
+                        dtype=torch.bfloat16) * scale
+        return list(t.unbind(0))
+
+    cases = (("ag_gemm", "wqkv", h, 3 * h // TP),
+             ("ag_gemm", "up", h, f // TP),
+             ("gemm_rs", "wo", h // TP, h),
+             ("gemm_rs", "down", f // TP, h))
+    for name, what, k, n in cases:
+        if name == "ag_gemm":
+            a, b = shards((m // TP, k)), shards((k, n), k ** -0.5)
+            fn, plain = agm.ag_gemm, agm.ag_gemm_plain
+            # the same products for every rank at once
+            a_cat, b_cat = torch.cat(a), torch.cat(b, dim=1)
+            out_elems, kk = TP * m * n, k
+        else:
+            a, b = shards((m, k)), shards((k, n), (TP * k) ** -0.5)
+            fn, plain = grs.gemm_rs, grs.gemm_rs_plain
+            a_cat, b_cat = torch.cat(a, dim=1), torch.cat(b)
+            out_elems, kk = m * n, TP * k
+        out = fn(a, b, mesh)
+        ref = plain(a, b, mesh, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        err = excess = 0.0
+        scale = max(r.abs().max().item() for r in ref)
+        for o, r in zip(out, ref):
+            diff = (o.float() - r).abs()
+            err = max(err, diff.max().item())
+            excess = max(excess, (diff - GG_RTOL * r.abs()).max().item())
+        del ref, diff
+        tag = (f"llama_7b tp={TP} prefill {what} A {TP} x "
+               f"{tuple(a[0].shape)} B {TP} x {tuple(b[0].shape)}")
+        res.check(name, excess, GG_ATOL * scale, tag,
+                  metric="max(|err|-2^-8|ref|)")
+        res.kernel(name, err=err)
+        ms = time_ms(lambda: fn(a, b, mesh), 5)
+        plain_ms = time_ms(lambda: plain(a, b, mesh), 2)
+        lib = time_ms(lambda: torch.matmul(a_cat, b_cat), 5)
+        # bytes: every rank's A and B read once, every output written
+        # once; operations: all ranks' products
+        nbytes = 2 * (a_cat.numel() + b_cat.numel() + out_elems)
+        ops = 2.0 * m * kk * (TP * n if name == "ag_gemm" else n)
+        bnd, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+        log(f"time {name} {tag} (32/prefill, one launch for {TP} ranks): "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            f"{lib:.4f} (torch.matmul on the concatenated operands) "
+            f"bound_ms={bnd:.4f} ({by}) max_abs_err={err:.6g}")
+        res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, H100_BF16_OPS)
+        del a, b, a_cat, b_cat, out
+
+    for what, shape, dt in (("out", (DEC_B, 32, 128), torch.bfloat16),
+                            ("lse", (DEC_B, 32), torch.float32)):
+        # 24 inputs apart, so that the graph's calls stream from memory
+        ins = [list(torch.randn((TP, *shape), generator=g, device=dev)
+                    .to(dt).unbind(0)) for _ in range(24)]
+        x = ins[0]
+        got = agk.all_gather(x, mesh)
+        want = torch.cat(x)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(o, want) for o in got)
+        res.check("all_gather", 0.0 if exact else 1.0, 0.0,
+                  f"llama_7b tp={TP} decode partial {what} {TP} x "
+                  f"{tuple(shape)} {str(dt)[6:]}", metric="bytes differ")
+        res.kernel("all_gather", err=0.0)
+        ms = graph_time_ms(lambda i: agk.all_gather(ins[i], mesh))
+        plain_ms = time_ms(lambda: agk.all_gather_plain(x, mesh), 20)
+        # one call writing every rank's gathered copy end to end
+        lib = time_ms(lambda: torch.cat(x * TP), 20)
+        nb = x[0].numel() * x[0].element_size()
+        nbytes = TP * nb + TP * TP * nb
+        bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time all_gather decode partial {what} ({TP} ranks, 32/step): "
+            f"kernel_ms={ms:.4f} (graph) plain_ms={plain_ms:.4f} "
+            f"library_ms={lib:.4f} (one torch.cat of every rank's copy) "
+            f"bound_ms={bnd:.6f} ({by}; the launch bounds it)")
+        res.shape("all_gather", 32, ms, plain_ms, lib, nbytes, 0.0,
+                  H100_BF16_OPS)
+        del ins, x, got
+
+
+def check_tiny_tp(res: Results, dev):
+    """The tiny int8 model (int8 KV, W8A8) at tp = 4 on a loopback mesh,
+    on the card and on the CPU (plain versions) from the same weights:
+    prefill and 16 greedy steps must give equal token streams, and the
+    card's run must launch the three mesh kernels and no world-size-1
+    GEMM."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    cfg = presets.tiny(kv_quant="int8", dense_weight_quant="int8",
+                       dense_act_quant="int8")
+    one = Transformer(cfg, device="cpu")
+    params = one.quantize_dense_weights(
+        one.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (4, 24)).astype(np.int32)
+    lens = np.array([24, 17, 5, 1], np.int32)
+    streams = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Transformer(cfg, mesh=Mesh.loopback(TP, d))
+        p = model.shard_params(_to(params, d))
+        reset_launch_counts()
+        last, caches, kl = model.prefill(
+            p, model.init_cache(4, 48), torch.as_tensor(toks, device=d),
+            torch.as_tensor(lens, device=d))
+        out, _, _ = model.generate(p, caches, kl,
+                                   torch.argmax(last, -1).to(torch.int32), 16)
+        streams[where] = out.cpu().tolist()
+        if where == "card":
+            counts = launch_counts()
+            log(f"launches tiny tp{TP} int8 " + " ".join(
+                f"{k}={v}" for k, v in counts.items() if v))
+            for k in ("ag_gemm", "gemm_rs", "all_gather", "flash_decode",
+                      "ggemm_w8a8"):
+                if counts[k] == 0:
+                    res.failures.append(f"tiny tp{TP}: {k} never launched")
+            for k in ("ag_gemm_n1", "gemm_rs_n1"):
+                if counts[k]:
+                    res.failures.append(f"tiny tp{TP}: {k} launched")
+    same = streams["card"] == streams["cpu"]
+    log(f"check tiny tp{TP} int8: token streams card == cpu: {same} "
+        f"({4 * 16} tokens)")
+    if not same:
+        res.failures.append(f"tiny tp{TP} int8: token streams differ")
+
+
 def by_tpu_kernel() -> dict:
     """The decode kernels' launches since the last reset, by the TPU
     kernel each call stood for (the JAX entries' gates)."""
@@ -1422,14 +1647,17 @@ def check_tiny_moe_decode(res: Results, dev):
 
 
 def run_decode_path(res: Results, dev, name, cfg, steps=DEC_STEPS,
-                    expect=None, profile=False):
+                    expect=None, profile=False, keep=False):
     """Prefill → generate at full width and depth: 8 seeded prompts
     (lengths 128-1024, padded to 1024) prefilled into contiguous caches
     of capacity 2048, a paged copy at page 128, ``steps`` greedy steps
     on each (an EP MoE model over its persistent workspaces, threaded
     from step to step). ``expect``: {kernel: (launches a prefill,
     launches a decode step)} the run must show. Returns {kernel:
-    launches} over the prefill and both layouts' steps."""
+    launches} over the prefill and both layouts' steps; with ``keep``
+    also the run's model, weights, prompts, contiguous caches (which
+    hold the prefill's K/V, and the decode's past the lengths) and its
+    prefill logits, for :func:`run_tp_path`."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import (
@@ -1526,7 +1754,176 @@ def run_decode_path(res: Results, dev, name, cfg, steps=DEC_STEPS,
     if profile:
         profile_prefill(name, model, params, tokens, lens)
         profile_decode(name, model, params, caches, kl, first)
+    if keep:
+        return counts, dict(model=model, params=params, caches=caches,
+                            kl=kl, last=last, tokens=tokens, lens=lens)
     return counts
+
+
+def run_tp_path(res: Results, dev, one, profile=False):
+    """The Llama-2-7B bf16 decode path at tp = 4 on a loopback mesh of
+    the card, from the tp = 1 run ``one`` (:func:`run_decode_path` with
+    ``keep``): its weights sharded, its prompts prefilled into
+    sequence-sharded caches (64 mesh AG-GEMM and 64 GEMM-RS launches,
+    each covering the 4 ranks; no world-size-1 GEMM), the first step's
+    logits within ``TP_PREFILL_RTOL`` of the tp = 1 prefill's, then
+    ``TP_STEPS`` steps in lockstep with the tp = 1 model, both fed its
+    greedy tokens: every step's logits within ``TP_DECODE_RTOL``, the
+    tokens equal where the tp = 1 top-2 margin exceeds that tolerance
+    (as tests/test_models.py gates them), and the last step, rerun with
+    a rank's partial lost (:func:`_lost_partial`), outside it for every
+    rank that holds positions; then ``TP_STEPS`` timed greedy steps
+    (``generate``), which must launch the flash decode once a layer for
+    all ranks and the all-gather twice. Returns {kernel: launches} of
+    the prefill and the timed steps."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    name = f"llama_7b bf16 tp{TP}"
+    m1, kl = one["model"], one["kl"]
+    cfg = m1.config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, mesh=Mesh.loopback(TP, dev))
+    params = model.shard_params(one["params"])
+    caches = model.init_cache(DEC_B, DEC_CAP)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    last, caches, kl4 = model.prefill(params, caches, one["tokens"],
+                                      one["lens"])
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    log(f"path {name} prefill launches " + " ".join(
+        f"{k}={v}" for k, v in counts.items() if v))
+    for k, want in (("ag_gemm", 2 * cfg.n_layers),
+                    ("gemm_rs", 2 * cfg.n_layers), ("ag_gemm_n1", 0),
+                    ("gemm_rs_n1", 0)):
+        if counts[k] != want:
+            res.failures.append(f"{name}: {counts[k]} {k} launches in the "
+                                f"prefill, expected {want}")
+    if not torch.equal(kl4, kl):
+        res.failures.append(f"{name}: prefill lengths differ")
+    scale = one["last"].abs().max().item()
+    lerr = (last - one["last"]).abs().max().item()
+    res.check(name, lerr, TP_PREFILL_RTOL * scale,
+              "first-step logits tp4 vs tp1")
+    # teacher-forced lockstep: both models fed the tp = 1 model's greedy
+    # token each step, every step's logits compared on every row, and the
+    # tokens on the rows whose tp = 1 top-2 margin exceeds the tolerance
+    # (the gate of tests/test_models.py)
+    tol = TP_DECODE_RTOL * scale
+    l1, l4, k1, k4 = one["last"], last, kl, kl4
+    c1 = one["caches"]
+    compared = equal = 0
+    drift = []      # max |logits tp4 - tp1| of each decode step
+    for i in range(TP_STEPS + 1):
+        top2 = torch.topk(l1, 2, dim=-1).values
+        gate = (top2[:, 0] - top2[:, 1]) > tol
+        t1 = torch.argmax(l1, -1).to(torch.int32)
+        compared += int(gate.sum())
+        equal += int((gate & (torch.argmax(l4, -1) == t1)).sum())
+        if i == TP_STEPS:
+            break
+        prev = (k4, t1)
+        l1, c1, k1 = m1.decode_step(one["params"], c1, k1, t1)
+        l4, caches, k4 = model.decode_step(params, caches, k4, t1)
+        drift.append((l4 - l1).abs().max().item())
+    res.check(name, max(drift), tol, f"teacher-forced decode logits tp4 vs "
+              f"tp1, {TP_STEPS} steps x {DEC_B} rows")
+    log(f"check {name} teacher-forced: max|logits tp4-tp1| by step "
+        + " ".join(f"{x:.4g}" for x in drift) + f"; tokens equal on "
+        f"{equal}/{compared} gated (row, step) pairs (gate: tp1 top-2 "
+        f"margin > {tol:.4g}) of {DEC_B * (TP_STEPS + 1)}")
+    if compared == 0 or equal != compared:
+        res.failures.append(f"{name}: {compared - equal} of {compared} "
+                            "gated tokens differ from tp = 1")
+    # the check's power: the last step again with one rank's (out, lse)
+    # partial lost in the gather (its lse set to NEG_INF), against the
+    # same tp = 1 logits; losing a rank that holds positions must move the
+    # logits past the tolerance (an empty rank's partial weighs 0 anyway)
+    held = torch.clamp(prev[0].long()[None, :] - DEC_CAP // TP
+                       * torch.arange(TP, device=dev)[:, None], 0,
+                       DEC_CAP // TP)                          # (W, B)
+    for r in range(TP):
+        with _lost_partial(r):
+            lf, _, _ = model.decode_step(params, caches, *prev)
+        err = (lf - l1).abs().max().item()
+        n_r = held[r].tolist()
+        log(f"check {name} rank {r}'s partial lost at the last step: "
+            f"max|logits - tp1|={err:.6g} (tol {tol:.4g}); the rank holds "
+            f"{min(n_r)}-{max(n_r)} positions a row")
+        if max(n_r) and not err > tol:
+            res.failures.append(f"{name}: losing rank {r}'s partial moves "
+                                f"the logits by {err}, within the "
+                                f"tolerance {tol}")
+    first = torch.argmax(last, -1).to(torch.int32)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, _, klen = model.generate(params, caches, kl4, first, TP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = launch_counts()
+    log(f"path {name} decode contiguous: {TP_STEPS} steps ms_per_step="
+        f"{wall / TP_STEPS * 1e3:.3f} tok_s={DEC_B * TP_STEPS / wall:.2f} "
+        "launches " + " ".join(f"{k}={v}" for k, v in c.items() if v))
+    for k, per_step in (("all_gather", 2 * cfg.n_layers),
+                        ("flash_decode", cfg.n_layers), ("ag_gemm", 0),
+                        ("gemm_rs", 0)):
+        if c[k] != per_step * TP_STEPS:
+            res.failures.append(f"{name}: {c[k]} {k} launches in "
+                                f"{TP_STEPS} steps, expected {per_step} a "
+                                "step")
+    for k, v in c.items():
+        counts[k] += v
+    if toks.shape != (DEC_B, TP_STEPS) or int(klen.max()) != int(
+            kl4.max()) + TP_STEPS:
+        res.failures.append(f"{name}: wrong tokens or lengths")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path {name} layers={cfg.n_layers}: setup_s={setup:.2f} "
+        f"prefill_ms={prefill_ms:.2f} ({DEC_B} x {DEC_PROMPT} rows, "
+        f"prefill_tok_s={int(one['lens'].sum()) / prefill_ms * 1e3:.1f}) "
+        f"decode ms_per_step={wall / TP_STEPS * 1e3:.3f} first-step logits "
+        f"max|tp4-tp1|={lerr:.6g} (max|logit| {scale:.4g}) "
+        f"peak_mem_gib={peak:.2f} (both weight sets and both caches)")
+    if profile:
+        profile_prefill(name, model, params, one["tokens"], one["lens"])
+        profile_decode(name, model, params, caches, kl4, first)
+    return counts
+
+
+@contextlib.contextmanager
+def _lost_partial(rank: int):
+    """Within the block, the sequence-parallel decode loses ``rank``'s
+    (out, lse) partial in the gather: the gathered lse rows of that rank
+    read NEG_INF, so the combine weighs its out 0 (a fault made for the
+    check's power; the out gather, 3-D, passes untouched)."""
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels.flash_decode import NEG_INF
+
+    gather = agk.all_gather
+
+    def lossy(x, mesh, axis="tp", **kw):
+        got = gather(x, mesh, axis, **kw)
+        if got[0].dim() != 2:
+            return got
+        g, m = got[0].clone(), x[0].shape[0]
+        g[rank * m:(rank + 1) * m] = NEG_INF
+        return [g] * len(got)
+
+    agk.all_gather = lossy
+    try:
+        yield
+    finally:
+        agk.all_gather = gather
 
 
 def profile_prefill(name, model, params, tokens, lens):
@@ -1587,9 +1984,10 @@ def profile_decode(name, model, params, caches, kl, first, steps: int = 8):
     log_rows(f"{name} decode", busy, rows)
 
 
-def run_generate_cli(res: Results, dev, preset):
+def run_generate_cli(res: Results, dev, preset, tp=1):
     """The port's generation CLI once at full size: B 4, prompt 512, 16
-    steps of ``preset``."""
+    steps of ``preset``, at ``tp`` ranks, on its default device (the
+    current CUDA device, ``dev``)."""
     import torch
 
     from triton_distributed_tpu_torch.tools import generate
@@ -1597,8 +1995,11 @@ def run_generate_cli(res: Results, dev, preset):
     torch.cuda.empty_cache()
     out = generate.main(["--preset", preset, "--batch", "4",
                          "--prompt-len", "512", "--steps", "16",
-                         "--seed", "3", "--device", str(dev)])
-    log(f"path tools.generate {preset}: prefill_ms="
+                         "--seed", "3", "--tp", str(tp)])
+    if out["device"] != str(dev):
+        res.failures.append(f"tools.generate ran on {out['device']}, not "
+                            f"{dev}")
+    log(f"path tools.generate {preset} tp={tp}: prefill_ms="
         f"{out['prefill_ms']:.2f} ms_per_step={out['ms_per_step']:.3f} "
         f"tok_s={out['tok_s']:.2f}")
     if np.asarray(out["tokens"]).shape != (4, 16):
@@ -1653,10 +2054,12 @@ def main() -> int:
     check_decode_kernels(res, dev)
     check_n1_gemms(res, dev)
     check_moe_tp_kernels(res, dev)
+    check_mesh_kernels(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
     check_tiny_moe_decode(res, dev)
+    check_tiny_tp(res, dev)
 
     run_path(res, dev, "llama_7b", llama)
     bf16_counts, bf16_steps = run_path(
@@ -1667,15 +2070,19 @@ def main() -> int:
     main_counts, main_steps = run_path(res, dev, "deepseek_moe_16b",
                                        deepseek, profile=opts.profile)
     # the decode path: two configurations, each one prefill and DEC_STEPS
-    # steps per layout
-    decode_counts = {}
-    for name, cfg in (("llama_7b bf16", presets.llama_7b(
-                           param_dtype=torch.bfloat16)),
-                      ("llama_7b int8", llama)):
-        for k, v in run_decode_path(res, dev, name, cfg,
-                                    profile=opts.profile).items():
-            decode_counts[k] = decode_counts.get(k, 0) + v
+    # steps per layout; the bf16 run's weights and prompts then drive the
+    # tensor-parallel path (its launches are counted apart)
+    decode_counts, one = run_decode_path(
+        res, dev, "llama_7b bf16", presets.llama_7b(param_dtype=torch.bfloat16),
+        profile=opts.profile, keep=True)
+    tp_counts = run_tp_path(res, dev, one, profile=opts.profile)
+    del one
+    for k, v in run_decode_path(res, dev, "llama_7b int8", llama,
+                                profile=opts.profile).items():
+        decode_counts[k] += v
     run_generate_cli(res, dev, "llama_7b")
+    run_generate_cli(res, dev, "llama_7b", tp=TP)
+    torch.cuda.empty_cache()
     # the MoE generation path: DeepSeek-MoE-16B at full width and depth
     # as served (EP: int8 W8A8 experts over an fp8 wire, int8 KV, W8A8
     # dense) and in the TP flavour with bf16 experts, whose prefill runs
@@ -1702,17 +2109,27 @@ def main() -> int:
     # each serving row's launches come from the main path; the bf16
     # grouped GEMM runs only where the experts are bf16. The decode rows'
     # come from the decode path: flash_decode / paged_decode 32 a step in
-    # each configuration (64 a step index over the two), the GEMMs 32 a
+    # each configuration (64 a step index over the two; flash_decode also
+    # the tp = 4 path's 32 a step over its 32 steps), the GEMMs 32 a
     # prefill at each of two shapes; the MoE-TP rows' from the MoE
-    # generation path's one TP prefill. A row's times are weighted by the
-    # launches a step of its shapes: those must be the run's
+    # generation path's one TP prefill; the mesh GEMM rows' from the tp = 4
+    # prefill (32 at each of two shapes), the all-gather's from its timed
+    # decode steps (32 a step at each of two shapes). A row's times are
+    # weighted by the launches a step of its shapes: those must be the
+    # run's
     for name in KERNELS:
-        if name in ("flash_decode", "paged_decode"):
+        if name == "flash_decode":
+            n, steps = decode_counts[name] + tp_counts[name], DEC_STEPS
+        elif name == "paged_decode":
             n, steps = decode_counts[name], DEC_STEPS
         elif name in ("ag_gemm_n1", "gemm_rs_n1"):
             n, steps = decode_counts[name], 2
         elif name in MOE_TP_ROWS:
             n, steps = moe_counts[name], 1
+        elif name in TP_ROWS:
+            n, steps = tp_counts[name], 1
+        elif name == "all_gather":
+            n, steps = tp_counts[name], TP_STEPS
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from triton_distributed_tpu_torch.kernels import allgather as ag
 from triton_distributed_tpu_torch.kernels import group_gemm as gg
 from triton_distributed_tpu_torch.kernels import launch_counts, quantize_kv
 from triton_distributed_tpu_torch.kernels import moe_all_to_all as ma
@@ -671,3 +672,189 @@ def _to(node, d):
     if isinstance(node, list):
         return [_to(v, d) for v in node]
     return node.to(d)
+
+
+# ------------------------------------------------------- mesh collectives
+
+def _mesh_shards(rng, dev, w, shape, dtype, separate):
+    """W per-rank shards of ``shape``: views of one allocation, or
+    (``separate``) tensors of their own (the peer table then comes from
+    the host)."""
+    full = _t(rng.standard_normal((w, *shape)), dev, dtype)
+    if separate:
+        return [full[r].clone() for r in range(w)]
+    return list(full.unbind(0))
+
+
+class TestMeshKernels:
+    @pytest.mark.parametrize("separate", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", [(37, 72, 40), (64, 70, 136)])
+    def test_ag_gemm_matches_plain(self, dev, shape, w, dtype, separate):
+        """Ragged shards (37 rows a rank, K not a multiple of 8: no
+        16-byte rows) and aligned ones: every rank's output within f32
+        summation order (and one bf16 rounding) of the plain version,
+        one launch of ``tdt_ag_gemm`` for all ranks."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n = shape
+        rng = np.random.default_rng(20)
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        a = _mesh_shards(rng, dev, w, (m, k), tdt, separate)
+        b = [x / np.sqrt(k) for x in _mesh_shards(rng, dev, w, (k, n), tdt,
+                                                  False)]
+        before = launch_counts()
+        got = agm.ag_gemm(a, b, mesh)
+        after = launch_counts()
+        assert after["ag_gemm"] == before["ag_gemm"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = agm.ag_gemm_plain(a, b, mesh, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == tdt and g.shape == (w * m, n)
+            tol = _gemm_tol(ref, k, dtype == "bfloat16")
+            assert ((g.float() - ref).abs() <= tol).all()
+
+    @pytest.mark.parametrize("separate", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", [(37, 50, 40), (64, 136, 72)])
+    def test_gemm_rs_matches_plain(self, dev, shape, w, dtype, separate):
+        """Every rank's row block of the sum over ranks: f32 sums over
+        ranks and K in another order than the plain version (1e-5·
+        sqrt(W·K) of the largest sum) and, in bf16, one rounding of the
+        output; one launch of ``tdt_gemm_rs``."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n = shape
+        rng = np.random.default_rng(21)
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        a = _mesh_shards(rng, dev, w, (w * m, k), tdt, separate)
+        b = [x / np.sqrt(w * k) for x in _mesh_shards(rng, dev, w, (k, n),
+                                                      tdt, separate)]
+        before = launch_counts()
+        got = grs.gemm_rs(a, b, mesh)
+        assert launch_counts()["gemm_rs"] == before["gemm_rs"] + 1
+        want = grs.gemm_rs_plain(a, b, mesh, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == tdt and g.shape == (m, n)
+            tol = _gemm_tol(ref, w * k, dtype == "bfloat16")
+            assert ((g.float() - ref).abs() <= tol).all()
+
+    @pytest.mark.parametrize("separate", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", [(13, 7), (64, 32)])
+    def test_all_gather_is_byte_exact(self, dev, shape, w, dtype, separate):
+        """Shards of 91 elements (offsets off the 16-byte grid: the byte
+        loop) and of 2048: every rank's result equals ``torch.cat``."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        rng = np.random.default_rng(22)
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        if dtype == "int8":
+            full = _t(rng.integers(-128, 128, (w, *shape)), dev, tdt)
+            x = ([full[r].clone() for r in range(w)] if separate
+                 else list(full.unbind(0)))
+        else:
+            x = _mesh_shards(rng, dev, w, shape, tdt, separate)
+        before = launch_counts()["all_gather"]
+        got = ag.all_gather(x, mesh)
+        assert launch_counts()["all_gather"] == before + 1
+        want = torch.cat(x)
+        torch.cuda.synchronize()
+        for g in got:
+            assert torch.equal(g, want)
+
+    def test_wrappers_refuse_what_the_kernels_do_not_take(self, dev):
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(2, dev)
+        a = [torch.zeros((4, 8), device=dev) for _ in range(2)]
+        b = [torch.zeros((8, 4), device=dev, dtype=torch.bfloat16)] * 2
+        with pytest.raises(ValueError, match="both f32 or both bf16"):
+            agm.ag_gemm(a, b, mesh)
+        with pytest.raises(ValueError, match="the mesh is on"):
+            agm.ag_gemm([t.cpu() for t in a], [t.float().cpu() for t in b],
+                        mesh)
+        with pytest.raises(ValueError, match="contiguous"):
+            ag.all_gather([t.t() for t in a], mesh)
+
+
+def test_tp_prefill_generate_on_card_equals_cpu(dev):
+    """The tiny f32 and int8 models at tp = 4 on a loopback mesh on the
+    card and on the CPU, from the same weights: the prefill logits within
+    1e-4 (f32 GEMMs summed in another order), then 6 greedy steps in
+    lockstep, each side on its own tokens, the tokens equal on every row
+    while its CPU top-2 margin stays above 1e-2 (the gate of
+    tests/test_models.py: an int8 K/V code can round the other way
+    across a tie, which moves the logits by about 1e-3). The card's
+    prefill launches the two mesh GEMMs twice a layer each, its decode
+    the all-gather twice a layer and step, and no world-size-1 GEMM
+    runs."""
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    for kw in ({}, dict(kv_quant="int8", dense_weight_quant="int8",
+                        dense_act_quant="int8")):
+        cfg = presets.tiny(**kw)
+        one = Transformer(cfg, device="cpu")
+        params = one.quantize_dense_weights(
+            one.init(torch.Generator().manual_seed(0)))
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
+        lens = np.array([16, 9, 5, 1], np.int32)
+        runs = []
+        for d in ("cpu", dev):
+            model = Transformer(cfg, mesh=Mesh.loopback(4, d))
+            p = model.shard_params(_to(params, d))
+            before = launch_counts()
+            last, caches, kl = model.prefill(p, model.init_cache(4, 32),
+                                             _t(toks, d), _t(lens, d))
+            mid = launch_counts()
+            runs.append([model, p, caches, kl, last])
+            if d != "cpu":
+                assert mid["ag_gemm"] - before["ag_gemm"] == 2 * cfg.n_layers
+                assert mid["gemm_rs"] - before["gemm_rs"] == 2 * cfg.n_layers
+        (mc, pc, cc, kc, lc), (mg, pg, cg, kg, lg) = runs
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        gate = torch.ones((4,), dtype=torch.bool)
+        mid = launch_counts()
+        for _ in range(6):
+            top2 = torch.topk(lc, 2, dim=-1).values
+            gate &= (top2[:, 0] - top2[:, 1]) > 1e-2
+            assert gate.any(), "degenerate: every row near-tied"
+            tc = torch.argmax(lc, -1).to(torch.int32)
+            tg = torch.argmax(lg, -1).to(torch.int32)
+            assert torch.equal(tc[gate], tg.cpu()[gate])
+            lc, cc, kc = mc.decode_step(pc, cc, kc, tc)
+            lg, cg, kg = mg.decode_step(pg, cg, kg, tg)
+        after = launch_counts()
+        assert after["all_gather"] - mid["all_gather"] == 2 * cfg.n_layers * 6
+        assert after["ag_gemm_n1"] == before["ag_gemm_n1"]
+        assert after["gemm_rs_n1"] == before["gemm_rs_n1"]
+
+
+def test_generate_cli_tp_on_the_default_device(dev, capsys):
+    """With no device named, the mesh takes the current CUDA device with
+    its index (as the tensors made on it report theirs), and the CLI's
+    tp = 4 path runs through the mesh kernels on it."""
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.tools import generate
+
+    mesh = Mesh.loopback(4)
+    assert mesh.device == torch.device("cuda", torch.cuda.current_device())
+    before = launch_counts()
+    res = generate.main(["--tp", "4", "--batch", "2", "--prompt-len", "8",
+                         "--steps", "3"])
+    after = launch_counts()
+    assert np.asarray(res["tokens"]).shape == (2, 3) and res["tp"] == 4
+    assert f"loopback, 4 ranks along 'tp' on {mesh.device}" in (
+        capsys.readouterr().out)
+    for k in ("ag_gemm", "gemm_rs", "all_gather"):
+        assert after[k] > before[k]

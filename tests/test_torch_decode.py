@@ -308,12 +308,16 @@ class TestGemmN1:
         assert torch.equal(op_fn(_t(a).to(tdt), _t(b).to(tdt), ctx), got)
 
     def test_world_size_above_one_raises(self):
+        """Above world size 1 the ops take lists of per-rank shards
+        (tests/test_torch_tp.py); tensors are refused."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
         a = torch.zeros((4, 8))
-        with pytest.raises(NotImplementedError, match="Queue 1 items 12-13"):
-            tag.ag_gemm(a, torch.zeros((8, 2)), world_size=2)
-        with pytest.raises(NotImplementedError, match="Queue 1 items 12-13"):
+        with pytest.raises(ValueError, match="per-rank shards"):
+            tag.ag_gemm(a, torch.zeros((8, 2)), Mesh.loopback(2, "cpu"))
+        with pytest.raises(ValueError, match="per-rank shards"):
             ops.gemm_rs(a, torch.zeros((8, 2)),
-                        ops.OverlapContext(world_size=4))
+                        ops.OverlapContext(Mesh.loopback(4, "cpu")))
 
     @pytest.mark.parametrize("activation", ["silu", "gelu"])
     def test_parallel_mlp(self, activation):

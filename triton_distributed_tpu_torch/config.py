@@ -1,7 +1,8 @@
 """Device resolution, dtype names and the kernel build directory.
 
 The port's entry points run on the card unless the caller asks for the
-CPU: :func:`resolve_device` turns ``None`` into ``"cuda"`` and raises
+CPU: :func:`resolve_device` turns ``None`` into the current CUDA device
+(``cuda:0`` unless the caller set another) and raises
 where no CUDA device is present, so nothing quietly falls back to the
 CPU. The CPU path exists for the parity tests, which pass
 ``device="cpu"`` explicitly.
@@ -39,14 +40,23 @@ def to_torch_dtype(dt) -> torch.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → the first CUDA device. A CUDA device on a host without
-    one raises; ``"cpu"`` must be asked for."""
+    """``None`` → the current CUDA device, with its index. A CUDA device on
+    a host without one raises; ``"cpu"`` must be asked for."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU"
         )
+    return indexed(dev)
+
+
+def indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index: a CUDA device given without one names the
+    current device, as the tensors made on it report it (``cuda:0``, not
+    ``cuda``), so that devices compare equal."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -1,19 +1,32 @@
 // The float and W8A16 tile loops of the grouped GEMM, shared by
-// group_gemm.cu (tdt_ggemm_f, tdt_ggemm_w8a16) and moe_tp_fused.cu
-// (tdt_ag_group_gemm, tdt_moe_reduce_rs).
+// group_gemm.cu (tdt_ggemm_f, tdt_ggemm_w8a16), moe_tp_fused.cu
+// (tdt_ag_group_gemm, tdt_moe_reduce_rs), ag_gemm.cu (tdt_ag_gemm) and
+// gemm_rs.cu (tdt_gemm_rs).
 //
 // out (M, N) = A (M, K) @ w[block_expert[m / block_m]] (K, N): output
 // row m's A row is read from wherever a row source says, so the same
-// loop runs a dense A (DenseRows) and a gather fused into the tile load
+// loop runs a dense A (DenseRows), a gather fused into the tile load
 // (GatherRows: the expert-sorted slab of the MoE-TP up projection,
-// never written out). A row source is a compile-time trait: at(m) gives
-// a row reference, ok(ref) whether the row is real (a row of zeros
-// otherwise) and off(ref) its element offset. DenseRows' reference is m
-// itself, so its loops compute m * K and m < M where they load, as a
-// plain dense GEMM does; GatherRows' reference is the offset looked up
-// in sti, resolved once before the K loop (into shared memory for the
+// never written out), and the two tensor-parallel GEMMs over the peer
+// tables of a mesh (PeerRows, PeerSum). A row source is a compile-time
+// trait: at(m) gives a row reference, ok(ref) whether the row is real (a
+// row of zeros otherwise), off(ref) its element offset from a_base(x,
+// ref). DenseRows' reference is m itself and its bases are the kernel's
+// own pointers, so its loops compute x + m * K and m < M where they load,
+// as a plain dense GEMM does; GatherRows' reference is the offset looked
+// up in sti, resolved once before the K loop (into shared memory for the
 // FMA loop, into registers for the two rows each thread loads in the
 // tensor-core loop).
+//
+// The mesh traits read the rank from blockIdx.z (one launch covers
+// every rank on the device) and their operands from peer tables (the
+// ranks' data pointers): w_base / out_base pick the rank's weight and
+// output. PeerRows gathers A's rows over the ranks' shards (row g of the
+// gathered A is row g % m of rank g / m; its reference is the row's
+// address); PeerSum runs the K loop over (rank q, k-block) with kParts,
+// A and w both from rank q, looked up once a part. DenseRows and
+// GatherRows have one part and return the kernel's pointers, so their
+// loops compile as before.
 //
 // Two loops: fma_kernel (64 x 64 tiles, 256 threads with 4 x 4 FMA
 // micro-tiles, both operands widened to f32 in shared memory; f32 or
@@ -35,9 +48,25 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
 // ------------------------------------------------------------ row sources
 
+// The operands of a source that reads the kernel's own A (or, with
+// kParts, the current part's) and w, and stores output row m in row m.
+#define TDT_KERNEL_OPERANDS                                                 \
+  template <typename T>                                                     \
+  __device__ __forceinline__ const T* a_base(const T* x, Ref) const {       \
+    return x;                                                               \
+  }                                                                         \
+  template <typename T>                                                     \
+  __device__ __forceinline__ const T* w_base(const T* w) const {            \
+    return w;                                                               \
+  }                                                                         \
+  template <typename T>                                                     \
+  __device__ __forceinline__ T* out_base(T* out) const { return out; }      \
+  __device__ __forceinline__ int orow(int m) const { return m; }
+
 // row m of a dense (M, K) A; nothing to look up
 struct DenseRows {
   static constexpr bool kLookup = false;
+  static constexpr bool kParts = false;
   using Ref = int;
   int M, K;
   __device__ __forceinline__ Ref at(int m) const { return m; }
@@ -45,6 +74,7 @@ struct DenseRows {
   __device__ __forceinline__ size_t off(Ref m) const {
     return static_cast<size_t>(m) * K;
   }
+  TDT_KERNEL_OPERANDS
 };
 
 // row m of the expert-sorted slab: token sti[m] / topk of x (., K), or
@@ -52,6 +82,7 @@ struct DenseRows {
 // the reference is the row's element offset, -1 for a row of zeros
 struct GatherRows {
   static constexpr bool kLookup = true;
+  static constexpr bool kParts = false;
   using Ref = long long;
   const int* __restrict__ sti;
   int M, K, topk, total;
@@ -64,6 +95,90 @@ struct GatherRows {
   __device__ __forceinline__ size_t off(Ref r) const {
     return static_cast<size_t>(r);
   }
+  TDT_KERNEL_OPERANDS
+};
+
+// AG-GEMM over a mesh: rank r = rank0 + blockIdx.z computes
+// out_r (W * m, N) = [A_0; A_1; ...; A_{W-1}] @ w_r, where A_q (m, K) is
+// rank q's row shard. The tile rows are rotated so that rank r's first
+// M-tiles are its own shard (the TPU ring's step-0 order): tile row t is
+// gathered row g = (t + r * m) mod (W * m), row g % m of rank g / m.
+struct PeerRows {
+  static constexpr bool kLookup = true;
+  static constexpr bool kParts = false;
+  using Ref = const char*;  // the row's first byte; nullptr past the rows
+  const unsigned long long* __restrict__ a_peers;
+  const unsigned long long* __restrict__ w_peers;
+  const unsigned long long* __restrict__ out_peers;
+  int m, world, rank0, K, esize;  // esize: bytes per A element
+  __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
+  __device__ __forceinline__ int orow(int t) const {
+    return (t + rank() * m) % (world * m);
+  }
+  __device__ __forceinline__ Ref at(int t) const {
+    if (t >= world * m) return nullptr;
+    const int g = orow(t);
+    return reinterpret_cast<const char*>(a_peers[g / m]) +
+           static_cast<size_t>(g % m) * K * esize;
+  }
+  __device__ __forceinline__ bool ok(Ref r) const { return r != nullptr; }
+  __device__ __forceinline__ size_t off(Ref) const { return 0; }
+  template <typename T>
+  __device__ __forceinline__ const T* a_base(const T*, Ref r) const {
+    return reinterpret_cast<const T*>(r);
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* w_base(const T*) const {
+    return reinterpret_cast<const T*>(w_peers[rank()]);
+  }
+  template <typename T>
+  __device__ __forceinline__ T* out_base(T*) const {
+    return reinterpret_cast<T*>(out_peers[rank()]);
+  }
+};
+
+// GEMM-RS over a mesh: rank r = rank0 + blockIdx.z computes
+// out_r (m, N) = sum_q A_q[r * m : (r + 1) * m] @ w_q, where A_q (W * m,
+// K) holds rank q's K columns and w_q (K, N) its weight rows. The K loop
+// runs over (rank q, k-block) with kParts: part q's A and w come from
+// part_a(q) / part_w(q), looked up once a part; f32 sums across ranks and
+// K, one rounding at the store.
+struct PeerSum {
+  static constexpr bool kLookup = false;
+  static constexpr bool kParts = true;
+  using Ref = int;
+  const unsigned long long* __restrict__ a_peers;
+  const unsigned long long* __restrict__ w_peers;
+  const unsigned long long* __restrict__ out_peers;
+  int m, world, rank0, K;
+  __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
+  __device__ __forceinline__ int parts() const { return world; }
+  template <typename T>
+  __device__ __forceinline__ const T* part_a(int q) const {
+    return reinterpret_cast<const T*>(a_peers[q]);
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* part_w(int q) const {
+    return reinterpret_cast<const T*>(w_peers[q]);
+  }
+  __device__ __forceinline__ Ref at(int i) const { return i; }
+  __device__ __forceinline__ bool ok(Ref i) const { return i < m; }
+  __device__ __forceinline__ size_t off(Ref i) const {
+    return (static_cast<size_t>(rank()) * m + i) * K;
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* a_base(const T* x, Ref) const {
+    return x;
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* w_base(const T* w) const {
+    return w;
+  }
+  template <typename T>
+  __device__ __forceinline__ T* out_base(T*) const {
+    return reinterpret_cast<T*>(out_peers[rank()]);
+  }
+  __device__ __forceinline__ int orow(int i) const { return i; }
 };
 
 // ------------------------------------------------------ W8A16 and f32
@@ -96,21 +211,25 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  // one K step over A (or a part's A) xa and weights wa
+  auto step = [&](const XT* __restrict__ xa, const WT* __restrict__ wa,
+                  int k0) {
     for (int idx = tid; idx < BM * BK; idx += THREADS) {
       const int r = idx / BK, c = idx % BK;
       Ref ref;
       if constexpr (Rows::kLookup) ref = a_ref[r];
       else ref = rows.at(m0 + r);
       const int k = k0 + c;
-      As[r][c] = (rows.ok(ref) && k < K) ? tdt_to_f<XT>(x[rows.off(ref) + k])
-                                         : 0.f;
+      As[r][c] = (rows.ok(ref) && k < K)
+                     ? tdt_to_f<XT>(rows.a_base(xa, ref)[rows.off(ref) + k])
+                     : 0.f;
     }
+    const WT* __restrict__ wp = rows.w_base(wa);
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
       const int c = idx / BN, n = idx % BN;
       const int k = k0 + c, nn = n0 + n;
       Bs[c][n] = (k < K && nn < N)
-                     ? tdt_to_f<WT>(we[static_cast<size_t>(k) * N + nn])
+                     ? tdt_to_f<WT>(wp[static_cast<size_t>(k) * N + nn])
                      : 0.f;
     }
     __syncthreads();
@@ -127,6 +246,15 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
+  };
+  if constexpr (Rows::kParts) {
+    for (int q = 0; q < rows.parts(); ++q) {
+      const XT* __restrict__ xq = rows.template part_a<XT>(q);
+      const WT* __restrict__ wq = rows.template part_w<WT>(q);
+      for (int k0 = 0; k0 < K; k0 += BK) step(xq, wq, k0);
+    }
+  } else {
+    for (int k0 = 0; k0 < K; k0 += BK) step(x, we, k0);
   }
 
 #pragma unroll
@@ -139,7 +267,8 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
       if (n >= N) continue;
       const float v = ws ? acc[i][j] * ws[static_cast<size_t>(e) * N + n]
                          : acc[i][j];
-      out[static_cast<size_t>(m) * N + n] = tdt_from_f<OutT>(v);
+      rows.out_base(out)[static_cast<size_t>(rows.orow(m)) * N + n] =
+          tdt_from_f<OutT>(v);
     }
   }
 }
@@ -223,18 +352,23 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
       for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
 
   uint4 ra[2], rb[4];
+  // the A and weights the K loop reads: the kernel's own, or (kParts)
+  // the current part's
+  const unsigned short* __restrict__ xa = x;
+  const unsigned short* __restrict__ wa = we;
   auto gload = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {  // A: 64 rows x 4 vectors
       const int c = ((tid + i * TC_THREADS) & 3) * 8;
-      ra[i] = load8(x, rows.off(a_ref[i]), k0 + c, K, rows.ok(a_ref[i]),
-                    vec_a);
+      ra[i] = load8(rows.a_base(xa, a_ref[i]), rows.off(a_ref[i]), k0 + c,
+                    K, rows.ok(a_ref[i]), vec_a);
     }
+    const unsigned short* __restrict__ wp = rows.w_base(wa);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // B: 32 rows x 16 vectors
       const int idx = tid + i * TC_THREADS, r = idx >> 4, c = (idx & 15) * 8;
       const int k = k0 + r;
-      rb[i] = load8(we, static_cast<size_t>(k) * N, n0 + c, N, k < K, vec_b);
+      rb[i] = load8(wp, static_cast<size_t>(k) * N, n0 + c, N, k < K, vec_b);
     }
   };
   auto sstore = [&](int buf) {
@@ -250,34 +384,46 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
     }
   };
 
+  // one pipelined K loop a part: the next K step is loaded into
+  // registers while the current one multiplies
   const int nk = (K + TBK - 1) / TBK;
-  gload(0);
-  sstore(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) gload((t + 1) * TBK);  // in flight during the mma
+  int nparts = 1;
+  if constexpr (Rows::kParts) nparts = rows.parts();
+  for (int part = 0; part < nparts; ++part) {
+    if constexpr (Rows::kParts) {
+      xa = rows.template part_a<unsigned short>(part);
+      wa = rows.template part_w<unsigned short>(part);
+    }
+    gload(0);
+    sstore(0);
+    __syncthreads();
+    for (int t = 0; t < nk; ++t) {
+      const int buf = t & 1;
+      if (t + 1 < nk) gload((t + 1) * TBK);  // in flight during the mma
 #pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      uint32_t af[2][4];
+      for (int kk = 0; kk < TBK; kk += 16) {
+        uint32_t af[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], &As[buf][wm + mi * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm_x4(af[mi], &As[buf][wm + mi * 16 + (lane & 15)]
+                             [kk + (lane >> 4) * 8]);
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        // x4.trans over a 16 (k) x 16 (n) block: registers 0/1 are the
-        // k 0-7 / 8-15 halves of n-tile 2nj, registers 2/3 of 2nj + 1
-        uint32_t bf[4];
-        ldsm_x4_t(bf, &Bs[buf][kk + (lane & 15)][wn + nj * 16 + (lane >> 4) * 8]);
+        for (int nj = 0; nj < 4; ++nj) {
+          // x4.trans over a 16 (k) x 16 (n) block: registers 0/1 are the
+          // k 0-7 / 8-15 halves of n-tile 2nj, registers 2/3 of 2nj + 1
+          uint32_t bf[4];
+          ldsm_x4_t(bf, &Bs[buf][kk + (lane & 15)]
+                            [wn + nj * 16 + (lane >> 4) * 8]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
+            mma_bf16(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+          }
         }
       }
+      if (t + 1 < nk) sstore(buf ^ 1);
+      __syncthreads();
     }
-    if (t + 1 < nk) sstore(buf ^ 1);
-    __syncthreads();
   }
 
 #pragma unroll
@@ -290,26 +436,28 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
       for (int v = 0; v < 4; ++v) {
         const int m = r + (v >> 1) * 8, n = c + (v & 1);
         if (m < M && n < N)
-          out[static_cast<size_t>(m) * N + n] = tdt_from_f<OutT>(acc[mi][nj][v]);
+          rows.out_base(out)[static_cast<size_t>(rows.orow(m)) * N + n] =
+              tdt_from_f<OutT>(acc[mi][nj][v]);
       }
     }
 }
 
 // The float mode on `rows`: x and w both TDT_BF16 (tensor cores) or
-// both TDT_F32 (FMA); out_dtype TDT_F32 or TDT_BF16. `a_aligned`: every
-// A row starts on a 16-byte boundary (the bf16 loop's vector loads).
-// Returns the launch's cudaGetLastError().
+// both TDT_F32 (FMA); out_dtype TDT_F32 or TDT_BF16. `a_aligned` /
+// `b_aligned`: every A row / the weights start on a 16-byte boundary
+// (the bf16 loop's vector loads); `nz` ranks along blockIdx.z (the mesh
+// traits; 1 otherwise). Returns the launch's cudaGetLastError().
 template <typename Rows>
-int launch_float_ggemm(const void* x, const void* w, const int* be, void* out,
-                       int M, int K, int N, int block_m, int x_dtype,
-                       int out_dtype, cudaStream_t s, Rows rows,
-                       bool a_aligned) {
+int launch_float_ggemm_z(const void* x, const void* w, const int* be,
+                         void* out, int M, int K, int N, int block_m,
+                         int x_dtype, int out_dtype, cudaStream_t s,
+                         Rows rows, bool a_aligned, bool b_aligned, int nz) {
   if (x_dtype == TDT_BF16) {
-    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM, nz);
     const unsigned short* xb = static_cast<const unsigned short*>(x);
     const unsigned short* wb = static_cast<const unsigned short*>(w);
     const bool vec_a = K % 8 == 0 && a_aligned;
-    const bool vec_b = N % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    const bool vec_b = N % 8 == 0 && b_aligned;
     if (out_dtype == TDT_BF16)
       bf16_mma_kernel<__nv_bfloat16, Rows><<<grid, TC_THREADS, 0, s>>>(
           xb, wb, be, static_cast<__nv_bfloat16*>(out), M, K, N, block_m,
@@ -321,7 +469,7 @@ int launch_float_ggemm(const void* x, const void* w, const int* be, void* out,
     else
       return static_cast<int>(cudaErrorInvalidValue);
   } else if (x_dtype == TDT_F32) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nz);
     const float* xf = static_cast<const float*>(x);
     const float* wf = static_cast<const float*>(w);
     if (out_dtype == TDT_F32)
@@ -338,6 +486,17 @@ int launch_float_ggemm(const void* x, const void* w, const int* be, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_float_ggemm_z on the kernel's own operands, one rank
+template <typename Rows>
+int launch_float_ggemm(const void* x, const void* w, const int* be, void* out,
+                       int M, int K, int N, int block_m, int x_dtype,
+                       int out_dtype, cudaStream_t s, Rows rows,
+                       bool a_aligned) {
+  return launch_float_ggemm_z(
+      x, w, be, out, M, K, N, block_m, x_dtype, out_dtype, s, rows,
+      a_aligned, (reinterpret_cast<uintptr_t>(w) & 15) == 0, 1);
 }
 
 }  // namespace

@@ -2,9 +2,9 @@
 the wrapper of its hand-written CUDA kernel (``csrc/``). The attention
 wrapper is not re-exported here: its name is its module's. The MoE
 modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``), the
-decode entries of ``flash_decode``, the world-size-1 ``ag_gemm`` /
-``gemm_rs`` and the MoE-TP GEMMs (``moe_tp_fused``) are imported by
-name."""
+decode entries of ``flash_decode``, ``ag_gemm`` / ``gemm_rs`` (at world
+size 1 and over a mesh), ``allgather`` and the MoE-TP GEMMs
+(``moe_tp_fused``) are imported by name."""
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -40,6 +40,7 @@ def _counters() -> dict:
     attribute that counts its launches). The float grouped GEMM's
     wrapper launches two kernels: bf16 on tensor cores, f32 on FMA."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
+    from triton_distributed_tpu_torch.kernels import allgather as ag
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
@@ -60,6 +61,9 @@ def _counters() -> dict:
         "gemm_rs_n1": (grs._gemm_rs_cuda, "launches"),
         "ag_group_gemm": (mtf._ag_group_gemm_cuda, "launches"),
         "moe_reduce_rs": (mtf._moe_reduce_rs_cuda, "launches"),
+        "ag_gemm": (agg._ag_gemm_mesh_cuda, "launches"),
+        "gemm_rs": (grs._gemm_rs_mesh_cuda, "launches"),
+        "all_gather": (ag._all_gather_cuda, "launches"),
     }
 
 

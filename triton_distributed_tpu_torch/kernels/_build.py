@@ -114,14 +114,16 @@ def lib() -> ctypes.CDLL:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
-#: C signatures: "p" pointer or stream, "i" int, "f" float
-_CODES = {"p": _P, "i": _I, "f": _F}
+#: C signatures: "p" pointer or stream, "i" int, "L" long long, "f" float
+_CODES = {"p": _P, "i": _I, "L": _L, "f": _F}
 
 
 def function(name: str, sig: str):
     """The C entry ``name`` with ``argtypes`` set from ``sig`` (one
-    letter per argument: p = pointer/stream, i = int, f = float)."""
+    letter per argument: p = pointer/stream, i = int, L = long long,
+    f = float)."""
     fn = getattr(lib(), name)
     if getattr(fn, "_tdt_sig", None) != sig:
         fn.argtypes = [_CODES[c] for c in sig]

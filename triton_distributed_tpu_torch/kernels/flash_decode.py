@@ -1,7 +1,9 @@
 """GQA flash-decode: one query token per batch row over a KV cache.
 
 Port of ``triton_distributed_tpu/kernels/flash_decode.py``: the KV-cache
-quantizer, the four local decode entries and the partials merge.
+quantizer, the four local decode entries, the partials merge, and the
+sequence-parallel entries over a mesh
+(:func:`sp_gqa_fwd_batch_decode`, :func:`sp_gqa_fwd_batch_decode_q8`).
 
 * :func:`gqa_fwd_batch_decode` — a contiguous cache, (B, Hkv, S, D)
   (``"bhsd"``) or (B, S, Hkv, D) (``"bshd"``), f32 or bf16;
@@ -386,6 +388,90 @@ def combine_partials(outs, lses, out_dtype=None):
     denom = torch.clamp(w.sum(dim=0), min=1e-30)
     merged = torch.einsum("rbh,rbhd->bhd", w, outs.float()) / denom[..., None]
     return merged.to(out_dtype), m[0] + torch.log(denom)
+
+
+# ------------------------------------------------------ sequence parallel
+
+def _sp_decode(local, q, planes, global_kv_lens, mesh, axis, s_dim,
+               with_lse):
+    """Sequence-parallel decode (≡ ``sp_gqa_fwd_batch_decode_device``,
+    ``:1485``): each rank's local decode over its slice of the sequence
+    (``_local_shard_decode``, ``:1420``), an all-gather of the per-rank
+    ``(out, lse)`` (``_merge_shard_partials_lse``, ``:1446``, on
+    ``tdt_all_gather`` where JAX runs XLA's ``all_gather``), then
+    :func:`combine_partials`. ``planes``: the cache's per-rank shard lists
+    in ``local``'s order; ``s_dim`` their sequence dim.
+
+    Every plane's shards are views of one allocation (the caches of
+    ``Transformer.init_cache`` on a mesh), so the strided walk takes the
+    W ranks as one batch of W·B rows: one launch for every rank. The
+    merged result is replicated: one shared tensor on the loopback mesh,
+    combined from rank 0's gathered copy (every rank's copy holds the
+    same bytes)."""
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+    from triton_distributed_tpu_torch.lang.shmem import require_stacked
+    from triton_distributed_tpu_torch.runtime.topology import one_axis
+
+    n = one_axis(mesh, axis)
+    if any(not isinstance(p, (list, tuple)) or len(p) != n for p in planes):
+        raise ValueError(f"sequence-parallel decode takes caches as lists of "
+                         f"{n} per-rank shards")
+    stacks = [require_stacked(p, "sequence-parallel decode") for p in planes]
+    b, hq, d = q.shape
+    s_loc = planes[0][0].shape[s_dim]
+    starts = torch.arange(n, device=q.device)[:, None] * s_loc
+    lens = torch.clamp(global_kv_lens.to(torch.int64)[None, :] - starts, 0,
+                       s_loc).to(torch.int32)                  # (W, B)
+    out, lse = local(q.repeat(n, 1, 1),
+                     *(st.reshape(n * b, *st.shape[2:]) for st in stacks),
+                     lens.reshape(-1))
+    outs = list(out.view(n, b, hq, d).unbind(0))
+    lses = list(lse.view(n, b, hq).unbind(0))
+    g_out = all_gather(outs, mesh, axis)[0]
+    g_lse = all_gather(lses, mesh, axis)[0]
+    merged, mlse = combine_partials(g_out.view(n, b, hq, d),
+                                    g_lse.view(n, b, hq),
+                                    out_dtype=outs[0].dtype)
+    return (merged, mlse) if with_lse else merged
+
+
+def sp_gqa_fwd_batch_decode(q, k_cache, v_cache, global_kv_lens, mesh,
+                            axis: str = "tp", *, scale: float | None = None,
+                            soft_cap: float = 0.0,
+                            block_k: int | None = 2048,
+                            kv_layout: str = "bhsd", with_lse: bool = False):
+    """Sequence-parallel GQA decode over a mesh (``:1535``).
+
+    k_cache/v_cache: lists of W per-rank slices of the sequence, (B, Hkv,
+    S/W, D) (``"bhsd"``) or (B, S/W, Hkv, D) (``"bshd"``); q (B, Hq, D)
+    and global_kv_lens (B,) replicated. Rank r holds positions [r·S/W,
+    (r+1)·S/W). Returns (B, Hq, D) in q's dtype, and the merged (B, Hq)
+    lse with ``with_lse``."""
+    def local(qq, k, v, lens):
+        return gqa_fwd_batch_decode(qq, k, v, lens, scale=scale,
+                                    soft_cap=soft_cap, block_k=block_k,
+                                    kv_layout=kv_layout)
+
+    return _sp_decode(local, q, (k_cache, v_cache), global_kv_lens, mesh,
+                      axis, 2 if kv_layout == "bhsd" else 1, with_lse)
+
+
+def sp_gqa_fwd_batch_decode_q8(q, k_q, k_scale, v_q, v_scale,
+                               global_kv_lens, mesh, axis: str = "tp", *,
+                               scale: float | None = None,
+                               soft_cap: float = 0.0,
+                               block_k: int | None = None,
+                               with_lse: bool = False):
+    """Sequence-parallel GQA decode over an int8 cache (``:1627``):
+    k_q/v_q lists of W (B, Hkv, S/W, D) int8 slices, k_scale/v_scale
+    lists of W (B, Hkv, S/W) f32; the rest as
+    :func:`sp_gqa_fwd_batch_decode`."""
+    def local(qq, kq, ks, vq, vs, lens):
+        return gqa_fwd_batch_decode_q8(qq, kq, ks, vq, vs, lens, scale=scale,
+                                       soft_cap=soft_cap, block_k=block_k)
+
+    return _sp_decode(local, q, (k_q, k_scale, v_q, v_scale), global_kv_lens,
+                      mesh, axis, 2, with_lse)
 
 
 # ---------------------------------------------------------------- kernels

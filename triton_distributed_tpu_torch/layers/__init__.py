@@ -1,3 +1,4 @@
+from triton_distributed_tpu_torch.layers.allgather import AllGatherLayer
 from triton_distributed_tpu_torch.layers.attention import (
     RaggedPagedAttention,
     SpGQAFlashDecodeAttention,
@@ -12,6 +13,7 @@ from triton_distributed_tpu_torch.layers.linear import (
 from triton_distributed_tpu_torch.layers.moe import EPMoEMLP
 
 __all__ = [
+    "AllGatherLayer",
     "ColumnParallelLinear",
     "EPMoEMLP",
     "ParallelMLP",

@@ -2,7 +2,10 @@
 
 Port of ``triton_distributed_tpu/layers/linear.py``: callables over a
 params dict in the JAX layout (``{"w": (in, out)}``; the MLP's
-``{"up": {"w"}, "down": {"w"}}``), forward only.
+``{"up": {"w"}, "down": {"w"}}``), forward only. At world size 1 ``x``
+and ``w`` are tensors; over a mesh they are lists of per-rank shards:
+``x`` row shards (m, in) for the column layer and the MLP, ``w`` the
+column (``up``) or row (``down``) shards of the weight.
 """
 
 from __future__ import annotations
@@ -38,6 +41,13 @@ class RowParallelLinear:
         return gemm_rs(x, params["w"], self.ctx)
 
 
+def _act(h, activation):
+    if activation == "silu":
+        return F.silu(h)
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(h, approximate="tanh")
+
+
 @dataclass(frozen=True)
 class ParallelMLP:
     """Column → activation → Row: one AG-GEMM and one GEMM-RS."""
@@ -48,7 +58,8 @@ class ParallelMLP:
 
     def __call__(self, params, x):
         h = self.up(params["up"], x)
-        if self.activation == "silu":
-            return self.down(params["down"], F.silu(h))
-        # jax.nn.gelu's default is the tanh approximation
-        return self.down(params["down"], F.gelu(h, approximate="tanh"))
+        if isinstance(h, list):
+            h = [_act(hr, self.activation) for hr in h]
+        else:
+            h = _act(h, self.activation)
+        return self.down(params["down"], h)

@@ -11,14 +11,37 @@ and runs an MoE block through ``EPMoEMLP`` in full precision (EP: the
 fused transport with no wire quantization, on float experts) or
 ``moe_tp_mlp_overlapped`` on the MoE-TP kernels (TP); decode attends
 through the flash-decode kernels and runs an MoE block as the serving
-step does. One GPU holds every head and every expert, so there is no
-mesh: the serving step's projections run through
+step does. Without a mesh one GPU holds every head and every expert:
+the serving step's projections run through
 :func:`~triton_distributed_tpu_torch.kernels.group_gemm.grouped_matmul`
 (int8 weights) or a plain matmul (float weights), attention through the
 ragged paged-attention kernel, and an ``moe="ep"`` block through
 :func:`~triton_distributed_tpu_torch.ops.moe.ep_moe` at EP world size 1
 on the fused transport (the chunked all-to-all and grouped-GEMM
 kernels).
+
+**Tensor parallelism** (``Transformer(config, mesh=...)``, dense blocks,
+``attn="tp"``): the prefill → decode path over the ``tp`` axis of a
+loopback mesh (:class:`~triton_distributed_tpu_torch.runtime.topology.
+Mesh`), single-controller as in JAX. :meth:`Transformer.shard_params`
+turns each tensor-parallel weight into a list of per-rank shards (the
+counterpart of ``shardings()`` and ``device_put``): rank r holds the q
+columns of its ``Hq/W`` heads and the k and v columns of its ``Hkv/W``
+heads in ``wqkv`` (JAX shards ``wqkv``'s columns in contiguous quarters
+and reshards after the split; the port keeps each rank's attention
+local), the matching rows of ``wo``, and quarters of ``up`` / ``down``;
+the other leaves stay one shared tensor. Prefill runs the fused
+``ag_gemm`` / ``gemm_rs`` kernels over the mesh with the activation rows
+sequence-parallel (row block r of the (B·S, H) activations is rank r's
+shard), each rank's attention over its heads, and writes the K/V into
+sequence-sharded caches (rank r holds positions [r·S/W, (r+1)·S/W) of
+every head). Decode projects each rank's shard with ``_dmm`` and
+combines with plain tensor ops (concatenation of column shards, an f32
+sum of row shards: XLA's collectives in JAX), attends through the
+sequence-parallel flash decode (local decode, ``all_gather`` of the
+partials, combine), and appends each token on the rank that owns its
+position. Replicated activations are one shared tensor on the loopback
+mesh.
 
 Parameters are a plain dict with exactly the JAX layout::
 
@@ -43,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from triton_distributed_tpu_torch.config import resolve_device, to_torch_dtype
+from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 
 
 @dataclass(frozen=True)
@@ -125,6 +149,9 @@ class TransformerConfig:
 
 _DENSE_QUANT_KEYS = ("wqkv", "wo", "up", "down")
 
+#: the mesh axis the tensor-parallel path runs over
+TP_AXIS = "tp"
+
 #: the grouped-GEMM M-block of the MoE experts on the fused (decode and
 #: serving) transport: a multiple of the CUDA kernels' 64-row tile
 #: (kernels/group_gemm.py KERNEL_BM); the smallest one pads the least
@@ -160,12 +187,43 @@ def _q2d(w, mode="int8"):
 
 
 class Transformer:
-    """Config + device. The serving step is a method; the parameters
-    live in a dict the caller holds (see the module docstring)."""
+    """Config + device, or config + mesh. The serving step is a method;
+    the parameters live in a dict the caller holds (see the module
+    docstring).
 
-    def __init__(self, config: TransformerConfig, device=None):
+    ``mesh``: a loopback mesh whose ``"tp"`` axis the prefill → decode
+    path runs tensor-parallel over (dense blocks, ``attn="tp"``; the
+    device is the mesh's). It needs ``n_heads``, ``n_kv_heads`` and
+    ``ffn`` to split over the ranks."""
+
+    def __init__(self, config: TransformerConfig, mesh: Mesh | None = None,
+                 device=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.tp = 1
+            return
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a Mesh, got {type(mesh).__name__}"
+                            " (pass the device as device=...)")
+        self.device = mesh.device
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{self.device}")
+        self.tp = one_axis(mesh, TP_AXIS)
+        c = config
+        if c.moe != "none":
+            raise NotImplementedError(
+                "MoE blocks over a mesh (tp > 1: MoE-TP's reduce_scatter, "
+                "EP across ranks) are ROADMAP Queue 1 item 14")
+        for name, v in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
+                        ("ffn", c.ffn)):
+            if v % self.tp:
+                raise ValueError(
+                    f"{name} = {v} does not split over tp = {self.tp} (KV-"
+                    "head replication for n_kv_heads < tp is ROADMAP Queue 1"
+                    " item 12)")
 
     # ---------------------------------------------------------------- params
 
@@ -265,9 +323,126 @@ class Transformer:
             out["blocks"].append(blk)
         return out
 
+    # ---------------------------------------------------- tensor parallel
+
+    def _shard_index(self, name):
+        """(dim, per-rank index tensors) of a tensor-parallel weight:
+        ``wqkv`` by columns, rank r's q columns of its Hq/W heads then k
+        and v columns of its Hkv/W heads; ``up`` by column blocks;
+        ``wo`` and ``down`` by the matching rows."""
+        c, n = self.config, self.tp
+
+        def blocks(size):
+            w = size // n
+            return [torch.arange(r * w, (r + 1) * w) for r in range(n)]
+
+        if name == "wqkv":
+            q, k, v = (blocks(x) for x in (c.q_dim, c.kv_dim, c.kv_dim))
+            return 1, [torch.cat([q[r], c.q_dim + k[r],
+                                  c.q_dim + c.kv_dim + v[r]])
+                       for r in range(n)]
+        if name == "wo":
+            return 0, blocks(c.q_dim)
+        return (1 if name == "up" else 0), blocks(c.ffn)
+
+    def shard_params(self, params):
+        """Place a parameter dict on the model's mesh (the counterpart of
+        ``shardings()`` followed by ``device_put``): each
+        tensor-parallel leaf (``wqkv``, ``wo``, ``up``, ``down``, and both
+        leaves of their int8 dicts) becomes a list of W per-rank shards,
+        views of one allocation; every other leaf stays one shared
+        tensor. ``wqkv`` is cut per head (see :meth:`_shard_index`)."""
+        if self.mesh is None:
+            raise ValueError("shard_params needs the model's mesh")
+        dev = self.device
+
+        def shard(w, dim, idx):
+            idx = [i.to(w.device) for i in idx]
+            full = torch.stack([w.index_select(dim, i) for i in idx])
+            return list(full.to(dev).unbind(0))
+
+        out = dict(params)
+        out["blocks"] = []
+        for blk in params["blocks"]:
+            blk = dict(blk)
+            for name in _DENSE_QUANT_KEYS:
+                if name not in blk:
+                    continue
+                dim, idx = self._shard_index(name)
+                w = blk[name]
+                if isinstance(w, dict):
+                    # out-channel scales follow column shards; row shards
+                    # keep every column, and its scale
+                    sc = (shard(w["scale"], 0, idx) if dim == 1 else
+                          list(w["scale"].to(dev)[None]
+                               .expand(self.tp, -1).contiguous().unbind(0)))
+                    blk[name] = {"q": shard(w["q"], dim, idx), "scale": sc}
+                else:
+                    blk[name] = shard(w, dim, idx)
+            out["blocks"].append(blk)
+        return out
+
+    def _dmm_tp(self, x, w, rows: bool):
+        """A decode projection over a sharded weight: each rank's shard
+        product with the kernels ``_dmm`` uses, combined with plain
+        tensor ops, the counterparts of XLA's collectives in JAX.
+        Column shards (``rows=False``: wqkv, up) concatenate; row shards
+        (wo, down) take rank r's block of x's columns and sum in f32,
+        then cast to the compute dtype. W8A8 quantizes x's rows once over
+        the whole row, as the one-rank model does, so every rank's int32
+        sums are exact slices of it."""
+        c, n = self.config, self.tp
+        if not isinstance(w, dict):
+            parts = x.chunk(n, dim=-1) if rows else (x,) * n
+            outs = [xr @ wr.to(c.dtype) for xr, wr in zip(parts, w)]
+        else:
+            from triton_distributed_tpu_torch.kernels.group_gemm import (
+                grouped_matmul,
+                quantize_act_rows,
+            )
+
+            be = torch.zeros((1,), dtype=torch.int32, device=x.device)
+            kw = dict(out_dtype=torch.float32 if rows else c.dtype)
+            if c.dense_act_quant == "int8":
+                xq, kw["x_scale"] = quantize_act_rows(x)
+            else:
+                xq = x.to(c.dtype)
+            parts = xq.chunk(n, dim=-1) if rows else (xq,) * n
+            outs = [grouped_matmul(xr.contiguous(), wq[None], be,
+                                   w_scale=ws[None], **kw)
+                    for xr, wq, ws in zip(parts, w["q"], w["scale"])]
+        if rows:
+            return torch.stack(outs).sum(0, dtype=torch.float32).to(c.dtype)
+        return torch.cat(outs, dim=-1)
+
+    def _proj(self, x, w, rows: bool):
+        """A decode projection: ``_dmm``, or over a mesh :meth:`_dmm_tp`
+        (``rows``: the weight is row-parallel)."""
+        if self.mesh is None:
+            return self._dmm(x, w)
+        return self._dmm_tp(x, w, rows)
+
+    def _qkv(self, xn, w):
+        """The decode step's q, k and v rows (B, q_dim / kv_dim), every
+        head in head order; over a mesh from the ranks' [q | k | v]
+        column shards."""
+        c = self.config
+        n = self.tp
+        qkv = self._proj(xn, w, rows=False)
+        if self.mesh is not None:
+            qkv = qkv.reshape(xn.shape[0], n, -1)
+        q, k, v = torch.split(qkv, [c.q_dim // n, c.kv_dim // n,
+                                    c.kv_dim // n], dim=-1)
+        return tuple(t.reshape(xn.shape[0], -1) for t in (q, k, v))
+
     def _dense_w(self, w):
         """Dense weight in the compute dtype: widen a quantized dict,
-        cast a plain tensor."""
+        cast a plain tensor; a sharded leaf rank by rank."""
+        if isinstance(w, list):
+            return [self._dense_w(wr) for wr in w]
+        if isinstance(w, dict) and isinstance(w["q"], list):
+            return [self._dense_w({"q": q, "scale": sc})
+                    for q, sc in zip(w["q"], w["scale"])]
         if isinstance(w, dict):
             from triton_distributed_tpu_torch.kernels.group_gemm import (
                 dequantize_grouped_weights,
@@ -429,6 +604,7 @@ class Transformer:
             fresh_table,
         )
 
+        self._one_rank("the serving state")
         c = self.config
         dev = self.device
         pps = min(npages, 1024)
@@ -483,6 +659,7 @@ class Transformer:
             unpack_gqa_rows,
         )
 
+        self._one_rank("serving_step")
         c = self.config
         t = tokens.shape[0]
         page = state.page
@@ -555,17 +732,23 @@ class Transformer:
 
     # ------------------------------------------------------ prefill → decode
 
+    def _one_rank(self, what):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} over a mesh: paged caches and the serving step at "
+                "tp > 1 are ROADMAP Queue 1 item 12")
+
     @functools.cached_property
     def _ag_ctx(self):
         from triton_distributed_tpu_torch import ops
 
-        return ops.create_ag_gemm_context()
+        return ops.create_ag_gemm_context(self.mesh, TP_AXIS)
 
     @functools.cached_property
     def _rs_ctx(self):
         from triton_distributed_tpu_torch import ops
 
-        return ops.create_gemm_rs_context()
+        return ops.create_gemm_rs_context(self.mesh, TP_AXIS)
 
     @functools.cached_property
     def _mlp(self):
@@ -586,26 +769,19 @@ class Transformer:
         )
 
         c = self.config
-        return SpGQAFlashDecodeAttention(q_heads=c.n_heads,
+        return SpGQAFlashDecodeAttention(self.mesh, TP_AXIS,
+                                         q_heads=c.n_heads,
                                          kv_heads=c.n_kv_heads,
                                          head_dim=c.head_dim)
 
-    def _attention_kv(self, blk, x, b, s):
-        """Prefill attention for ``attn="tp"``: (B·S, H) rows → ((B·S, H)
-        rows, k, v) with k/v (B, S, Hkv, D), which :meth:`prefill` writes
-        into the caches. The projections run through ``ag_gemm`` /
-        ``gemm_rs``; the causal softmax is plain tensor math in f32 with
-        the ``-1e30`` mask, as JAX computes it outside any kernel."""
-        from triton_distributed_tpu_torch import ops
-
+    def _causal(self, qkv, b, s, hq, hkv):
+        """The causal softmax of one rank's heads: (B·S, (hq + 2·hkv)·D)
+        projected rows → ((B·S, hq·D) out, k, v (B, S, hkv, D)). Plain
+        tensor math in f32 with the ``-1e30`` mask, as JAX computes it
+        outside any kernel."""
         c = self.config
-        if c.attn != "tp":
-            raise NotImplementedError(
-                f"attn={c.attn!r} prefill runs the context-parallel kernels "
-                "(ROADMAP Queue 1 item 16)")
-        qkv = ops.ag_gemm(x, self._dense_w(blk["wqkv"]), self._ag_ctx)
-        q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
-        hq, hkv, d = c.n_heads, c.n_kv_heads, c.head_dim
+        d = c.head_dim
+        q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
         g = hq // hkv
         qg = q.reshape(b, s, hkv, g, d)
         k = k.reshape(b, s, hkv, d)
@@ -613,14 +789,41 @@ class Transformer:
         logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
                               k.float()) / d ** 0.5
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
-                                     device=x.device))
+                                     device=qkv.device))
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
         probs = torch.softmax(logits, dim=-1).to(c.dtype)
         del logits
         o = torch.einsum("bhgst,bthd->bshgd", probs, v.to(c.dtype))
-        o = o.reshape(b * s, hq * d)
-        out = ops.gemm_rs(o, self._dense_w(blk["wo"]), self._rs_ctx)
-        return out, k, v
+        return o.reshape(b * s, hq * d), k, v
+
+    def _attention_kv(self, blk, x, b, s):
+        """Prefill attention for ``attn="tp"``: (B·S, H) rows → ((B·S, H)
+        rows, k, v) with k/v (B, S, Hkv, D), which :meth:`prefill` writes
+        into the caches. The projections run through ``ag_gemm`` /
+        ``gemm_rs``. Over a mesh, row block r of ``x`` and of the result
+        is rank r's shard, and rank r attends over its Hq/W heads (k/v
+        come back with every rank's heads, in head order)."""
+        from triton_distributed_tpu_torch import ops
+
+        c = self.config
+        if c.attn != "tp":
+            raise NotImplementedError(
+                f"attn={c.attn!r} prefill runs the context-parallel kernels "
+                "(ROADMAP Queue 1 item 16)")
+        n = self.tp
+        hq, hkv = c.n_heads // n, c.n_kv_heads // n
+        if self.mesh is None:
+            qkv = ops.ag_gemm(x, self._dense_w(blk["wqkv"]), self._ag_ctx)
+            o, k, v = self._causal(qkv, b, s, hq, hkv)
+            out = ops.gemm_rs(o, self._dense_w(blk["wo"]), self._rs_ctx)
+            return out, k, v
+        qkv = ops.ag_gemm(list(x.chunk(n)), self._dense_w(blk["wqkv"]),
+                          self._ag_ctx)
+        parts = [self._causal(qr, b, s, hq, hkv) for qr in qkv]
+        out = ops.gemm_rs([o for o, _, _ in parts],
+                          self._dense_w(blk["wo"]), self._rs_ctx)
+        return (_rows(out), torch.cat([k for _, k, _ in parts], dim=2),
+                torch.cat([v for _, _, v in parts], dim=2))
 
     def _mlp_block(self, blk, x, inference: bool = False):
         """The block's MLP on (T, H) rows. Dense: ``ag_gemm`` → silu →
@@ -634,7 +837,9 @@ class Transformer:
         if "up" in blk:
             p = {"up": {"w": self._dense_w(blk["up"])},
                  "down": {"w": self._dense_w(blk["down"])}}
-            return self._mlp(p, x)
+            if self.mesh is None:
+                return self._mlp(p, x)
+            return _rows(self._mlp(p, list(x.chunk(self.tp))))
         moe = {"router": blk["router"],
                "up": self._expert_w(blk["moe_up"]),
                "down": self._expert_w(blk["moe_down"])}
@@ -682,28 +887,44 @@ class Transformer:
         """Per-layer (k, v) caches of shape (B, Hkv, S, D) ("bhsd") in
         ``config.dtype``, zero; under ``config.kv_quant`` each is a
         ``{"q": int8, "scale": (B, Hkv, S) f32}`` dict (scales 1). Every
-        leaf is its own tensor: the decode step writes them in place."""
+        leaf is its own tensor: the decode step writes them in place.
+
+        Over a mesh the sequence is sharded (the counterpart of
+        ``cache_sharding``): each leaf is a list of W per-rank (B, Hkv,
+        S/W, D) slices, views of one allocation, rank r holding positions
+        [r·S/W, (r+1)·S/W). S must split over the ranks."""
         c = self.config
-        shape = (batch, c.n_kv_heads, max_len, c.head_dim)
+        n = self.tp
+        if self.mesh is not None and max_len % n:
+            raise ValueError(f"capacity {max_len} does not split over tp = "
+                             f"{n}")
+        shape = (batch, c.n_kv_heads, max_len // n, c.head_dim)
         return [(self._fresh_cache(shape), self._fresh_cache(shape))
                 for _ in range(c.n_layers)]
 
     def _fresh_cache(self, shape):
         """One zero K or V cache (or page pool) of ``shape`` in
         ``config.dtype``, or an int8 dict with unit scales under
-        ``kv_quant``."""
+        ``kv_quant``; over a mesh, each leaf a list of per-rank tensors
+        of ``shape``, views of one allocation."""
         dev = self.device
+        lead = () if self.mesh is None else (self.tp,)
+
+        def leaf(shp, dtype, fill):
+            t = torch.full(lead + shp, fill, dtype=dtype, device=dev)
+            return t if not lead else list(t.unbind(0))
+
         if self.config.kv_quant is not None:
-            return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "scale": torch.ones(shape[:3], dtype=torch.float32,
-                                        device=dev)}
-        return torch.zeros(shape, dtype=self.config.dtype, device=dev)
+            return {"q": leaf(shape, torch.int8, 0),
+                    "scale": leaf(shape[:3], torch.float32, 1.0)}
+        return leaf(shape, self.config.dtype, 0.0)
 
     def init_paged_cache(self, batch: int, max_len: int, page: int = 1024):
         """Paged twin of :meth:`init_cache`: per-layer (k_pool, v_pool) of
         shape (B·pps, Hkv, page, D) (int8 dicts under ``kv_quant``) and
         one (1, B, pps) int32 block table shared by every layer (the
         dense identity allocation; R = 1 rank)."""
+        self._one_rank("init_paged_cache")
         c = self.config
         if max_len % page:
             raise ValueError(f"capacity {max_len} must split into whole "
@@ -722,6 +943,7 @@ class Transformer:
         """Contiguous (prefill-filled) caches → (page pools, (1, B, pps)
         table): page j of row b becomes pool page b·pps + j (a reshape
         and a copy per plane; the caches are left as they are)."""
+        self._one_rank("paginate_caches")
         def split(x):                   # (B, Hkv, S[, D]) → pools
             b, hkv, s = x.shape[:3]
             tail = tuple(x.shape[3:])
@@ -754,27 +976,22 @@ class Transformer:
         and row i's logits are taken at ``lens[i] - 1``, ``lens`` clamped
         to [1, S] (:1014-1021); the pad positions' K/V land past the
         lengths, where decode never reads. MoE blocks run the inference
-        engines of :meth:`_mlp_block`."""
+        engines of :meth:`_mlp_block`. Over a mesh, B·S must split over
+        the ranks (the sequence-parallel rows, as JAX asserts), and each
+        rank's slice of the sequence lands in its cache shard."""
         c = self.config
         b, s = tokens.shape
         cap = _cache_capacity(caches)
         if s > cap:
             raise ValueError(f"prompt length {s} exceeds cache capacity {cap}")
+        if (b * s) % self.tp:
+            raise ValueError(f"B·S = {b * s} rows do not shard over tp = "
+                             f"{self.tp} (the sequence-parallel rows)")
         x = self._embed_rows(params, tokens)
         for blk, (ck, cv) in zip(params["blocks"], caches):
             x, k, v = self._block(blk, x, b, s, inference=True)
-            kb = k.transpose(1, 2)                    # (B, Hkv, S, D)
-            vb = v.transpose(1, 2)
-            if isinstance(ck, dict):
-                from triton_distributed_tpu_torch.kernels.flash_decode import (
-                    quantize_kv,
-                )
-
-                _update_q8(ck, *quantize_kv(kb))
-                _update_q8(cv, *quantize_kv(vb))
-            else:
-                ck[:, :, :s] = kb.to(ck.dtype)
-                cv[:, :, :s] = vb.to(cv.dtype)
+            _fill_cache(ck, k.transpose(1, 2))        # (B, Hkv, S, D)
+            _fill_cache(cv, v.transpose(1, 2))
         if lens is None:
             lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
         lens = torch.clamp(lens.to(device=x.device, dtype=torch.int32), 1, s)
@@ -792,7 +1009,8 @@ class Transformer:
         single-position partial (``combine_partials``): the merge is
         associative, so this equals attending over the appended cache.
         Int8 caches attend the new token quantized and append the same
-        (int8, scale) pairs. Projections go through ``_dmm``. An EP MoE
+        (int8, scale) pairs. Projections go through ``_dmm`` (over a
+        mesh, rank by rank: :meth:`_dmm_tp`). An EP MoE
         block runs ``ep_moe`` on the fused transport, over the persistent
         workspaces of ``moe_state`` (from :meth:`init_decode_state`) when
         given, and the step then returns the next states as a 4th
@@ -806,6 +1024,8 @@ class Transformer:
             paged_append_kv,
         )
 
+        if block_table is not None:
+            self._one_rank("paged decode")
         c = self.config
         x = params["embed"][last_tokens.long()].to(c.dtype)      # (B, H)
         b = x.shape[0]
@@ -813,8 +1033,7 @@ class Transformer:
         new_states = None if moe_state is None else list(moe_state)
         for li, (blk, (ck, cv)) in enumerate(zip(params["blocks"], caches)):
             xn = self._rmsnorm(x, blk["norm_attn"])
-            qkv = self._dmm(xn, blk["wqkv"])
-            q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
+            q, k, v = self._qkv(xn, blk["wqkv"])
             q = q.reshape(b, c.n_heads, c.head_dim)
             k = k.reshape(b, c.n_kv_heads, c.head_dim)
             v = v.reshape(b, c.n_kv_heads, c.head_dim)
@@ -837,11 +1056,11 @@ class Transformer:
                                             v, k_quant=kq_pair,
                                             v_quant=vq_pair)
             new_caches.append((ck, cv))
-            x = x + self._dmm(o.reshape(b, c.q_dim), blk["wo"])
+            x = x + self._proj(o.reshape(b, c.q_dim), blk["wo"], rows=True)
             xn = self._rmsnorm(x, blk["norm_mlp"])
             if "up" in blk:
-                h = F.silu(self._dmm(xn, blk["up"]))
-                x = x + self._dmm(h, blk["down"])
+                h = F.silu(self._proj(xn, blk["up"], rows=False))
+                x = x + self._proj(h, blk["down"], rows=True)
             elif c.moe == "ep":
                 st = None if moe_state is None else moe_state[li]
                 y, st = self._decode_moe_ep(blk, xn, st)
@@ -894,9 +1113,50 @@ class Transformer:
 
 def _cache_capacity(caches):
     """Sequence capacity S of a per-layer cache list (plain bhsd tensors
-    or int8 dicts); for page pools, dim 2 is the page."""
+    or int8 dicts, whole or as per-rank slices); for page pools, dim 2
+    is the page."""
     ck = caches[0][0]
-    return (ck["q"] if isinstance(ck, dict) else ck).shape[2]
+    lead = ck["q"] if isinstance(ck, dict) else ck
+    if isinstance(lead, list):
+        return len(lead) * lead[0].shape[2]
+    return lead.shape[2]
+
+
+def _rows(shards):
+    """Per-rank row shards, views of one allocation (the kernels'
+    symmetric outputs, the plain versions' row blocks), as one (W·m, ...)
+    view."""
+    from triton_distributed_tpu_torch.lang.shmem import require_stacked
+
+    st = require_stacked(shards, "the model's row shards")
+    return st.reshape(-1, *st.shape[2:])
+
+
+def _fill_cache(cache, kv):
+    """Write prefill's (B, Hkv, S', D) K or V into a cache's first S'
+    positions, in place: a tensor, an int8 dict (quantized per row), or
+    per-rank slices of the sequence (rank r takes positions [r·S/W,
+    (r+1)·S/W) of ``kv``)."""
+    if isinstance(cache, dict):
+        from triton_distributed_tpu_torch.kernels.flash_decode import (
+            quantize_kv,
+        )
+
+        q, sc = quantize_kv(kv)
+        planes = ((cache["q"], q), (cache["scale"], sc))
+    else:
+        planes = ((cache, kv),)
+    s = kv.shape[2]
+    for dst, val in planes:
+        if not isinstance(dst, list):
+            dst[:, :, :s] = val.to(dst.dtype)
+            continue
+        s_loc = dst[0].shape[2]
+        for r, shard in enumerate(dst):
+            n = min(s - r * s_loc, s_loc)
+            if n > 0:
+                shard[:, :, :n] = val[:, :, r * s_loc:r * s_loc + n].to(
+                    shard.dtype)
 
 
 def _serving_capacity(caches, block_table=None):
@@ -908,15 +1168,6 @@ def _serving_capacity(caches, block_table=None):
     return r * pps * _cache_capacity(caches)
 
 
-def _update_q8(cache, q_new, s_new):
-    """Write a quantized (B, Hkv, S', …) prefix into an int8 cache dict,
-    in place."""
-    s = q_new.shape[2]
-    cache["q"][:, :, :s] = q_new
-    cache["scale"][:, :, :s] = s_new.to(cache["scale"].dtype)
-    return cache
-
-
 def _leaf_from_numpy(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -925,14 +1176,16 @@ def _leaf_from_numpy(a, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(tree, cfg: TransformerConfig, device=None):
+def params_from_numpy(tree, cfg: TransformerConfig, device=None,
+                      mesh: Mesh | None = None):
     """A JAX parameter tree, passed as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), as the port's parameter dict
     on ``device``. Plain trees and trees already put through
     ``quantize_dense_weights`` or ``quantize_moe_weights`` (int8
     ``{"q", "scale"}`` dicts), MoE blocks included, carry over bit for
-    bit; dtypes are kept."""
-    dev = resolve_device(device)
+    bit; dtypes are kept. With ``mesh``, JAX's global arrays land on the
+    mesh's device as :meth:`Transformer.shard_params` places them."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if len(tree["blocks"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['blocks'])} blocks, config "
                          f"{cfg.n_layers}")
@@ -947,19 +1200,31 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
             return [conv(v) for v in node]
         return _leaf_from_numpy(node, dev)
 
-    return conv(tree)
+    if mesh is None:
+        return conv(tree)
+    return Transformer(cfg, mesh=mesh, device=device).shard_params(conv(tree))
 
 
-def caches_from_numpy(caches, device=None):
+def caches_from_numpy(caches, device=None, mesh: Mesh | None = None):
     """A JAX per-layer cache list, passed as numpy arrays (contiguous
     caches or page pools, plain arrays or int8 ``{"q", "scale"}``
     dicts), as the port's list of (k, v) pairs on ``device``, bit for
-    bit."""
-    dev = resolve_device(device)
+    bit. With ``mesh``, each global contiguous (B, Hkv, S[, D]) leaf is
+    sequence-sharded over its ``"tp"`` axis as
+    :meth:`Transformer.init_cache` shards it: W per-rank slices, views
+    of one allocation."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    n = 1 if mesh is None else one_axis(mesh, TP_AXIS)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return _leaf_from_numpy(node, dev)
+        t = _leaf_from_numpy(node, dev)
+        if mesh is None:
+            return t
+        if t.shape[2] % n:
+            raise ValueError(f"capacity {t.shape[2]} does not split over "
+                             f"{n} ranks")
+        return list(torch.stack(t.chunk(n, dim=2)).unbind(0))
 
     return [(conv(k), conv(v)) for k, v in caches]

@@ -13,9 +13,11 @@ presets), and presets with ``dense_weight_quant`` draw and quantize each
 matrix on the device. MoE presets (``deepseek_moe_16b``,
 ``mixtral_8x7b``) prefill through their MoE blocks and decode EP blocks
 over the persistent workspaces of ``init_decode_state``, threaded
-through the warm step and ``generate``. It runs on the card unless
-``--device cpu`` is given. ``main(argv)`` returns the timings as a
-dict.
+through the warm step and ``generate``. ``--tp N`` runs the
+tensor-parallel path over a loopback mesh of N ranks on the device (the
+counterpart of the JAX CLI's all-devices ``tp`` mesh; dense presets). It
+runs on the card unless ``--device cpu`` is given. ``main(argv)``
+returns the timings as a dict.
 """
 
 from __future__ import annotations
@@ -58,19 +60,29 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA device)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: above 1, a loopback mesh of "
+                        "that many ranks on the device")
     args = p.parse_args(argv)
 
     import torch
 
     from triton_distributed_tpu_torch.models import Transformer
+    from triton_distributed_tpu_torch.runtime import Mesh
 
     cfg = _config(args.preset)
     cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
-    model = Transformer(cfg, device=args.device)
+    mesh = None
+    if args.tp > 1:
+        mesh = Mesh.loopback(args.tp, args.device)
+        print(f"mesh: loopback, {args.tp} ranks along 'tp' on {mesh.device}")
+    model = Transformer(cfg, mesh=mesh, device=args.device)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, quantize=cfg.dense_weight_quant is not None)
     params = model.quantize_moe_weights(params)
+    if mesh is not None:
+        params = model.shard_params(params)
     cap = args.capacity or -(-(args.prompt_len + args.steps) // 128) * 128
     prompt = torch.randint(
         0, cfg.vocab, (args.batch, args.prompt_len), dtype=torch.int32,
@@ -106,13 +118,14 @@ def main(argv=None) -> dict:
     toks = model.generate(params, caches, lens, first, args.steps,
                           moe_state=moe_state)[0].cpu()
     t_decode = time.perf_counter() - t0
-    res = dict(preset=args.preset, device=str(dev), batch=args.batch,
+    res = dict(preset=args.preset, device=str(dev), tp=args.tp,
+               batch=args.batch,
                prompt_len=args.prompt_len, steps=args.steps,
                prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3,
                ms_per_step=t_decode / args.steps * 1e3,
                tok_s=args.batch * args.steps / t_decode,
                tokens=toks.tolist())
-    print(f"preset={args.preset} device={dev} B={args.batch} "
+    print(f"preset={args.preset} device={dev} tp={args.tp} B={args.batch} "
           f"prompt={args.prompt_len} steps={args.steps}")
     print(f"prefill: {res['prefill_ms']:.1f} ms "
           f"({args.batch * args.prompt_len / t_prefill:.0f} tok/s)")
