@@ -160,6 +160,21 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/allgather.cu",
         replaces="triton_distributed_tpu/kernels/allgather.py:42"),
+    # the MoE path over the mesh: the all-to-all across 4 ranks (barrier
+    # and LL modes) and the two MoE-TP kernels' mesh forms, each launch
+    # covering every rank (the rows above are their one-rank forms)
+    "chunked_a2a_mesh": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_dispatch.cu",
+        replaces="triton_distributed_tpu/kernels/moe_dispatch.py:346"),
+    "ag_group_gemm_mesh": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:172"),
+    "moe_reduce_rs_mesh": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:285"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -188,6 +203,24 @@ TP_PREFILL_RTOL = 1e-3
 # 1.6 % of the largest logit, and losing the partial of a rank that
 # holds positions at least 24 %: 5 % lies between
 TP_DECODE_RTOL = 0.05
+# the same for DeepSeek-MoE-16B at tp = 4 (W8A8 projections, int8 KV,
+# top-6 routing): a last-bit difference of the per-rank sums can move an
+# int8 activation code or a routing choice, which moves a row's logits
+# far more than in the bf16 Llama path, so the steps are held by the
+# largest difference and by the relative rms of the difference over
+# every logit. On an H100 the 32 steps of either flavour read at most
+# 10.2 % and 6.7 %, losing any rank's share of the MoE output at least
+# 17.9 % and 17.0 %: 14 % and 10 % lie between
+MOE_TP_DECODE_RTOL = 0.14
+MOE_TP_DECODE_RMS = 0.10
+#: the MoE path over the mesh: DeepSeek-MoE-16B at tp = 4 in both
+#: flavours, from the MoE generation path's weights and prompts. The
+#: MoE-TP mesh rows' launches come from its TP prefill (27 a kernel), the
+#: all-to-all's from its EP run's timed greedy steps (54 a step)
+MOE_MESH_ROWS = ("ag_group_gemm_mesh", "moe_reduce_rs_mesh")
+# the reference's published dispatch: 128 tokens a rank, top-8, hidden
+# 7168, fp8, on 32 H800s (SURVEY.md section 6)
+REF_DISPATCH_US = 137.0
 # the decode path: 8 rows, prompts of 128-1024 tokens padded to 1024,
 # caches of capacity 2048, pages of 128, 64 greedy steps
 DEC_B, DEC_PROMPT, DEC_CAP, DEC_PAGE, DEC_STEPS = 8, 1024, 2048, 128, 64
@@ -888,6 +921,13 @@ PATH_KERNELS = {
     "deepseek_moe_16b tp": ("ag_gemm_n1", "gemm_rs_n1", "ag_group_gemm",
                             "moe_reduce_rs", "ggemm_w8a8", "ggemm_w8a16",
                             "flash_decode", "paged_decode"),
+    # the MoE path over the mesh (prefill and timed steps together)
+    "deepseek_moe_16b ep tp4": ("ag_gemm", "gemm_rs", "ggemm_bf16",
+                                "chunked_a2a_mesh", "ggemm_w8a8",
+                                "ggemm_w8a16", "flash_decode", "all_gather"),
+    "deepseek_moe_16b tp tp4": ("ag_gemm", "gemm_rs", "ag_group_gemm_mesh",
+                                "moe_reduce_rs_mesh", "ggemm_w8a8",
+                                "ggemm_w8a16", "flash_decode", "all_gather"),
     "llama_7b": ("ggemm_w8a8", "ggemm_w8a16", "ragged_paged_attention"),
     "deepseek_moe_16b": ("ggemm_w8a8", "ggemm_w8a16",
                          "ragged_paged_attention", "chunked_a2a"),
@@ -1459,6 +1499,324 @@ def check_mesh_kernels(res: Results, dev):
         del ins, x, got
 
 
+def a2a_mesh_inputs(dev, m_rank: int, seed: int):
+    """Every rank's staged exchange at the EP path's geometry on a
+    loopback mesh of ``TP`` ranks: ``m_rank`` bf16 token rows a rank
+    routed by seeded softmax logits over 64 experts (top-6), staged for
+    the fp8 wire exactly as ``ops.ep_moe`` stages them, and the combine
+    leg returning what arrived. Returns the exchange's context and, per
+    leg, (the transport's arguments, ``know_recv``, the (W, W) chunks
+    receiver r gets in slot p)."""
+    import torch
+
+    from triton_distributed_tpu_torch import ops
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+    from triton_distributed_tpu_torch.kernels.moe_utils import select_experts
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    ctx = ops.create_ep_moe_context(
+        num_experts=MOE_E, topk=MOE_K, max_m=m_rank * MOE_K, hidden=MOE_H,
+        dtype=torch.bfloat16, block_m=64, quant="fp8", act_quant="int8",
+        mesh=Mesh.loopback(TP, dev))
+    a2a = ctx.a2a
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((TP, m_rank, MOE_H), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    logits = torch.randn((TP * m_rank, MOE_E), generator=g, device=dev)
+    _, ids = select_experts(logits, MOE_K)
+    flat_e = ids.reshape(TP, -1)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    splits = torch.zeros((TP, MOE_E), dtype=torch.int32, device=dev)
+    splits.scatter_add_(1, flat_e.long(), torch.ones_like(flat_e))
+    _, offs, offs_al, sendk = md.send_plan(a2a, splits)
+    _, dest = md.assignment_dest(a2a, flat_e.gather(1, order), offs, offs_al)
+    payload, scales = md.stage_aligned(a2a, x, order // MOE_K, dest,
+                                       flat_e.shape[1])
+    meta = md.meta_payload(a2a, splits, scales, offs_al, sendk)
+    tok, tmeta = md.dispatch_device(a2a, payload, offs_al, sendk, meta)
+    toks, rspl = md.recv_view(a2a, tok, tmeta)
+    y_tok, y_meta = md.stage_return(a2a, toks)
+    retk = (-(-rspl.sum(-1) // md.chunk_rows(a2a))).to(torch.int32)
+    dispatch = (payload, meta.reshape(TP, -1, 128),
+                (offs_al // md.align(a2a)).to(torch.int32), sendk,
+                torch.zeros_like(sendk))
+    combine = (y_tok, y_meta.reshape(TP, -1, 128),
+               md._slot_offs(a2a, (TP,), dev), retk, sendk)
+    return a2a, {"dispatch": (dispatch, False, sendk.t()),
+                 "combine": (combine, True, sendk)}
+
+
+def check_a2a_mesh(res: Results, dev, n_moe: int):
+    """The all-to-all at n = 4 against its plain version, byte for byte:
+    both legs, LL mode (both parities) and barrier mode, over windows
+    pre-filled with a sentinel byte (the rows past the shipped chunks
+    keep it), at the EP tp = 4 decode's shape (8 tokens, 2 a rank) and at
+    the reference's benchmark size (128 tokens a rank; top-6 and hidden
+    2048 here); each timed from a CUDA graph. The decode's shape makes
+    the row, 27 launches a leg and step."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+
+    par0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for what, m_rank, seed, on_path in (
+            ("EP tp=4 decode", DEC_B // TP, 21, True),
+            ("128 tokens a rank", 128, 22, False)):
+        a2a, legs = a2a_mesh_inputs(dev, m_rank, seed)
+        sp, mr, ck = md.slot_pad(a2a), md.meta_rows(a2a), md.chunk_rows(a2a)
+
+        def windows(nw):
+            tok = torch.full((TP, nw * TP * sp, MOE_H), 0xA5,
+                             dtype=torch.uint8, device=dev).view(
+                                 a2a.wire_dtype)
+            meta = torch.full((TP, nw * TP * mr, 128), -0x5A5A5A5B,
+                              dtype=torch.int32, device=dev)
+            return tok, meta
+
+        for leg, (args, know, counts) in legs.items():
+            rows = torch.arange(TP * sp, device=dev)
+            slot_rows = counts.long().repeat_interleave(sp, dim=1) * ck
+            shipped = (rows % sp)[None, :] < slot_rows         # (W, W·sp)
+            for mode, nw, pars in (("LL", 2, (0, 1)), ("barrier", 1, (0,))):
+                got, want = windows(nw), windows(nw)
+                for par in pars:
+                    p = torch.tensor([par], dtype=torch.int32, device=dev)
+                    md.chunked_a2a(a2a, *args, *got, p, know_recv=know)
+                    md.chunked_a2a_plain(a2a, *args, *want, p,
+                                         know_recv=know)
+                torch.cuda.synchronize()
+                bad = int((got[0].view(torch.uint8) != want[0].view(
+                    torch.uint8)).sum()) + int((got[1] != want[1]).sum())
+                kept = got[0].view(torch.uint8).reshape(TP, nw, TP * sp, -1)
+                bad += int((kept[~shipped[:, None].expand(-1, nw, -1)]
+                            != 0xA5).sum())
+                res.check("chunked_a2a_mesh", bad, 0, f"{what} {leg} {mode} "
+                          f"({int(shipped.sum())} of {TP * TP * sp} rows "
+                          "shipped)", metric="bytes_differing")
+            res.kernel("chunked_a2a_mesh", err=0.0)
+            # timed from a CUDA graph (the wrapper's host work is longer
+            # than the kernel), each call on one of 6 payload/window sets
+            pays = [args[0].clone() for _ in range(6)]
+            wss = [windows(2) for _ in range(6)]
+
+            def kernel(i, args=args, know=know, pays=pays, wss=wss):
+                md.chunked_a2a(a2a, pays[i % 6], *args[1:], *wss[i % 6],
+                               par0, know_recv=know)
+
+            ms = graph_time_ms(kernel)
+            ws = wss[0]
+            plain = time_ms(lambda: md.chunked_a2a_plain(
+                a2a, *args, *ws, par0, know_recv=know), 5)
+            row_b = MOE_H * a2a.wire_itemsize
+            moved = int(counts.sum()) * ck * row_b + TP * TP * mr * 512
+            srcs = [torch.empty(moved, dtype=torch.uint8, device=dev)
+                    for _ in range(6)]
+            dsts = [torch.empty_like(t) for t in srcs]
+            lib = graph_time_ms(lambda i: dsts[i % 6].copy_(srcs[i % 6]))
+            nbytes = 2 * moved
+            b, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+            note = (f" (the reference: {REF_DISPATCH_US:.0f} us for 128 "
+                    "tokens a rank, top-8, hidden 7168, fp8 on 32 H800s; a "
+                    "loopback mesh on one card crosses no link, so the two "
+                    "are not comparable)" if not on_path else
+                    f" ({n_moe}/step)")
+            log(f"time chunked_a2a_mesh {what} {leg} fp8, {TP} ranks, "
+                f"{moved} bytes moved: kernel_ms={ms:.4f} (graph) "
+                f"plain_ms={plain:.4f} library_ms={lib:.4f} (one copy_, "
+                f"graph) bound_ms={b:.5f} ({by}){note}")
+            if on_path:
+                res.shape("chunked_a2a_mesh", n_moe, ms, plain, lib, nbytes,
+                          0.0, H100_BF16_OPS)
+            del pays, wss
+
+
+def check_moe_tp_mesh_kernels(res: Results, dev, n_moe: int):
+    """The mesh forms of the two MoE-TP kernels against their plain
+    versions: at the DeepSeek-MoE-16B tp = 4 prefill's shapes in bf16 (8
+    prompts of 1024 tokens, 2048 a rank, top-6 over 64 experts, each
+    shard aligned on its own at block_m 128: 20480 sorted rows a shard;
+    up K 2048 N 352 a rank, down K 352 a rank N 2048), timed, and in f32
+    at 256 tokens a rank with an empty expert."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+    from triton_distributed_tpu_torch.kernels import moe_utils as mu
+    from triton_distributed_tpu_torch.lang.shmem import stacked
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    mesh = Mesh.loopback(TP, dev)
+    fl = MOE_F // TP
+    for what, m_s, dt, empty in (
+            ("bf16 prefill", DEC_B * DEC_PROMPT // TP, torch.bfloat16, None),
+            ("f32 expert 5 empty", 256, torch.float32, 5)):
+        g = torch.Generator(device=dev).manual_seed(13)
+        logits = torch.randn((TP * m_s, MOE_E), generator=g, device=dev)
+        if empty is not None:
+            logits[:, empty] = -1e4
+        _, ids = mu.select_experts(logits, MOE_K)
+        sti, be, splits = mu.moe_align_block_size(
+            ids.reshape(TP, m_s, MOE_K), MOE_E, MOE_TP_BM)
+        if empty is not None and int(splits[:, empty].sum()) != 0:
+            res.failures.append(f"moe_tp mesh {what}: expert {empty} not "
+                                "empty")
+        cap_s, nb = sti.shape[1], be.shape[1]
+        used = int(torch.unique(be).numel())
+        x = list(torch.randn((TP, m_s, MOE_H), generator=g, device=dev,
+                             dtype=dt).unbind(0))
+        w_up = list((torch.randn((TP, MOE_E, MOE_H, fl), generator=g,
+                                 device=dev, dtype=dt)
+                     / math.sqrt(MOE_H)).unbind(0))
+        w_down = list((torch.randn((TP, MOE_E, fl, MOE_H), generator=g,
+                                   device=dev, dtype=dt)
+                       / math.sqrt(MOE_F)).unbind(0))
+        hs = F.silu(stacked(mtf.ag_group_gemm_mesh(
+            x, sti, be, w_up, MOE_K, mesh)).float()).to(dt)
+        h = list(hs.unbind(0))
+        valid = TP * m_s * MOE_K
+        cases = {
+            "ag_group_gemm_mesh": (
+                lambda: mtf.ag_group_gemm_mesh(x, sti, be, w_up, MOE_K,
+                                               mesh),
+                lambda **kw: mtf.ag_group_gemm_mesh_plain(
+                    x, sti, be, w_up, MOE_K, mesh, **kw),
+                MOE_H, fl, "up"),
+            "moe_reduce_rs_mesh": (
+                lambda: mtf.moe_reduce_rs_mesh(h, be, w_down, mesh),
+                lambda **kw: mtf.moe_reduce_rs_mesh_plain(
+                    h, be, w_down, mesh, **kw),
+                fl, MOE_H, "down"),
+        }
+        for name, (fn, plain, k, n, leg) in cases.items():
+            out = fn()
+            ref = plain(out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            scale = max(r.abs().max().item() for r in ref)
+            rt = GG_RTOL if dt == torch.bfloat16 else 0.0
+            err = excess = 0.0
+            for o, r in zip(out, ref):
+                diff = (o.float() - r).abs()
+                err = max(err, diff.max().item())
+                excess = max(excess, (diff - rt * r.abs()).max().item())
+            del ref
+            tag = (f"{what} {leg} {TP} ranks x {m_s} tokens cap_s={cap_s} "
+                   f"K={k} N={n} a rank")
+            res.check(name, excess, GG_ATOL * scale, tag,
+                      metric=f"max(|err|-{rt:g}|ref|)")
+            res.kernel(name, err=err)
+            if leg == "up":
+                pad = sti.reshape(-1) >= m_s * MOE_K
+                if not all(bool((o[pad] == 0).all()) for o in out):
+                    res.failures.append(f"{name} {tag}: padding rows not 0")
+            del out
+            if empty is not None:
+                continue
+            ms = time_ms(fn, 5)
+            plain_ms = time_ms(plain, 1)
+            # yardstick: bmm over every shard's 128-row blocks on the
+            # concatenated operands (the weights of all ranks side by
+            # side, gathered per block)
+            be_all = be.reshape(-1).long()
+            if leg == "up":
+                rows = torch.clamp(sti.long() // MOE_K, 0, m_s - 1)
+                xg = torch.cat([xs[r] for xs, r in zip(x, rows)]).reshape(
+                    TP * nb, MOE_TP_BM, MOE_H)
+                wg = torch.cat(w_up, dim=2)[be_all]
+                lib = time_ms(lambda: torch.bmm(xg, wg), 3)
+                a_bytes = 2 * TP * m_s * MOE_H + 4 * TP * cap_s
+                out_b = 2 * TP * cap_s * MOE_F
+                del xg
+            else:
+                yg = torch.cat(h, dim=1).reshape(TP * nb, MOE_TP_BM, MOE_F)
+                wg = torch.cat(w_down, dim=1)[be_all]
+                lib = time_ms(lambda: torch.bmm(yg, wg), 3)
+                a_bytes = 2 * TP * cap_s * MOE_F
+                out_b = 2 * TP * cap_s * MOE_H
+                del yg
+            del wg
+            # bytes: A once, the used experts' weights of every rank once,
+            # every output once; operations: the valid rows' products
+            nbytes = a_bytes + 2 * used * MOE_H * MOE_F + 4 * TP * nb + out_b
+            flops = 2.0 * valid * MOE_H * MOE_F
+            b, by = bound_ms(nbytes, flops, H100_BF16_OPS)
+            log(f"time {name} {tag} ({used} experts, {n_moe}/prefill, one "
+                f"launch for {TP} ranks): kernel_ms={ms:.4f} plain_ms="
+                f"{plain_ms:.4f} library_ms={lib:.4f} (bmm on the "
+                f"concatenated operands, weights gathered per block) "
+                f"bound_ms={b:.4f} ({by}) max_abs_err={err:.6g}")
+            res.shape(name, n_moe, ms, plain_ms, lib, nbytes, flops,
+                      H100_BF16_OPS)
+        del x, h, hs, w_up, w_down
+
+
+def check_tiny_moe_tp4(res: Results, dev):
+    """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and in
+    its TP flavour at tp = 4 on a loopback mesh, on the card and on the
+    CPU (plain versions) from the same weights, B = 3 (the EP decode
+    pads it to 4): prefill and 16 greedy steps (EP over its persistent
+    workspaces) must give equal token streams, and the card's run must
+    launch the mesh kernels of its path and none of their one-rank
+    forms."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    #        name, preset overrides, kernels of prefill, kernels of decode
+    cases = (("ep", {}, ("chunked_a2a_mesh", "ggemm_f32", "ag_gemm"),
+              ("chunked_a2a_mesh", "ggemm_w8a8", "all_gather")),
+             ("tp", dict(moe="tp", moe_weight_quant=None, moe_act_quant=None),
+              MOE_MESH_ROWS, ("flash_decode", "all_gather")))
+    for name, kw, pre_k, dec_k in cases:
+        cfg = presets.tiny(presets.deepseek_moe_16b(**kw))
+        one = Transformer(cfg, device="cpu")
+        params = one.quantize_moe_weights(one.quantize_dense_weights(
+            one.init(torch.Generator().manual_seed(0))))
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab, (3, 24)).astype(np.int32)
+        lens = np.array([24, 17, 5], np.int32)
+        streams = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = Transformer(cfg, mesh=Mesh.loopback(TP, d))
+            p = model.shard_params(_to(params, d))
+            reset_launch_counts()
+            last, caches, kl = model.prefill(
+                p, model.init_cache(3, 48), torch.as_tensor(toks, device=d),
+                torch.as_tensor(lens, device=d))
+            pre = launch_counts()
+            reset_launch_counts()
+            out = model.generate(p, caches, kl,
+                                 torch.argmax(last, -1).to(torch.int32), 16,
+                                 moe_state=model.init_decode_state(3))
+            streams[where] = out[0].cpu().tolist()
+            if where == "card":
+                dec = launch_counts()
+                log(f"launches tiny moe {name} tp{TP} prefill " + " ".join(
+                    f"{k}={v}" for k, v in pre.items() if v) + " decode "
+                    + " ".join(f"{k}={v}" for k, v in dec.items() if v))
+                for counts, kernels, phase in ((pre, pre_k, "prefill"),
+                                               (dec, dec_k, "decode")):
+                    for k in kernels:
+                        if counts[k] == 0:
+                            res.failures.append(f"tiny moe {name} tp{TP}: {k}"
+                                                f" never launched in {phase}")
+                    for k in ("chunked_a2a", "ag_group_gemm", "moe_reduce_rs",
+                              "ag_gemm_n1", "gemm_rs_n1"):
+                        if counts[k]:
+                            res.failures.append(f"tiny moe {name} tp{TP}: "
+                                                f"{k} launched in {phase}")
+        same = streams["card"] == streams["cpu"]
+        log(f"check tiny moe {name} tp{TP}: token streams card == cpu: "
+            f"{same} ({3 * 16} tokens)")
+        if not same:
+            res.failures.append(f"tiny moe {name} tp{TP}: token streams "
+                                "differ")
+
+
 def check_tiny_tp(res: Results, dev):
     """The tiny int8 model (int8 KV, W8A8) at tp = 4 on a loopback mesh,
     on the card and on the CPU (plain versions) from the same weights:
@@ -1900,6 +2258,208 @@ def run_tp_path(res: Results, dev, one, profile=False):
     return counts
 
 
+def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
+    """DeepSeek-MoE-16B at tp = 4 on a loopback mesh of the card, from
+    the MoE generation path's tp = 1 run ``one`` (:func:`run_decode_path`
+    with ``keep``) in the same flavour: its weights sharded (EP: the
+    experts split over the ranks; TP: their F dim), its prompts prefilled
+    into sequence-sharded caches (the TP prefill must launch each mesh
+    MoE-TP kernel once a MoE layer; the EP prefill the all-to-all over
+    the mesh twice a MoE layer; no one-rank MoE form), the first step's
+    logits within ``TP_PREFILL_RTOL`` of the tp = 1 prefill's, then
+    ``TP_STEPS`` steps in lockstep with the tp = 1 model (the EP decode
+    of each over its own persistent workspaces, 54 all-to-all launches a
+    step at tp = 4), both fed its greedy tokens, as :func:`run_tp_path`
+    holds them; the last step again with one rank's combine chunks lost
+    (EP) or its partial lost (TP) must break the tolerance, for every
+    rank. Then ``TP_STEPS`` timed greedy steps, their device ops a step
+    (torch.profiler) and the peak memory. Returns {kernel: launches} of
+    the prefill and of the timed steps."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    m1, kl = one["model"], one["kl"]
+    cfg = m1.config
+    n_moe = len(cfg.moe_layers)
+    name = f"{name} tp{TP}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, mesh=Mesh.loopback(TP, dev))
+    params = model.shard_params(one["params"])
+    caches = model.init_cache(DEC_B, DEC_CAP)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    last, caches, kl4 = model.prefill(params, caches, one["tokens"],
+                                      one["lens"])
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = launch_counts()
+    log(f"path {name} prefill launches " + " ".join(
+        f"{k}={v}" for k, v in pre.items() if v))
+    want = {"ag_gemm": cfg.n_layers + 1, "gemm_rs": cfg.n_layers + 1,
+            "chunked_a2a": 0, "ag_group_gemm": 0, "moe_reduce_rs": 0}
+    if cfg.moe == "tp":
+        want.update(ag_group_gemm_mesh=n_moe, moe_reduce_rs_mesh=n_moe,
+                    chunked_a2a_mesh=0)
+    else:
+        want.update(chunked_a2a_mesh=2 * n_moe, ag_group_gemm_mesh=0,
+                    moe_reduce_rs_mesh=0)
+    for k, v in want.items():
+        if pre[k] != v:
+            res.failures.append(f"{name}: {pre[k]} {k} launches in the "
+                                f"prefill, expected {v}")
+    if not torch.equal(kl4, kl):
+        res.failures.append(f"{name}: prefill lengths differ")
+    scale = one["last"].abs().max().item()
+    lerr = (last - one["last"]).abs().max().item()
+    res.check(name, lerr, TP_PREFILL_RTOL * scale,
+              "first-step logits tp4 vs tp1")
+    tol = MOE_TP_DECODE_RTOL * scale
+    l1, l4, k1, k4 = one["last"], last, kl, kl4
+    c1 = one["caches"]
+    s1, s4 = m1.init_decode_state(DEC_B), model.init_decode_state(DEC_B)
+    compared = equal = agree = 0
+    drift, rms = [], []
+    reset_launch_counts()
+    for i in range(TP_STEPS + 1):
+        top2 = torch.topk(l1, 2, dim=-1).values
+        gate = (top2[:, 0] - top2[:, 1]) > tol
+        t1 = torch.argmax(l1, -1).to(torch.int32)
+        compared += int(gate.sum())
+        equal += int((gate & (torch.argmax(l4, -1) == t1)).sum())
+        agree += int((torch.argmax(l4, -1) == t1).sum())
+        if i == TP_STEPS:
+            break
+        prev = (k4, t1, s4)
+        r1 = m1.decode_step(one["params"], c1, k1, t1, moe_state=s1)
+        r4 = model.decode_step(params, caches, k4, t1, moe_state=s4)
+        (l1, c1, k1), (l4, caches, k4) = r1[:3], r4[:3]
+        if s1 is not None:
+            s1, s4 = r1[3], r4[3]
+        drift.append((l4 - l1).abs().max().item())
+        rms.append(_rel_rms(l4, l1))
+    lock = launch_counts()
+    if cfg.moe == "ep" and lock["chunked_a2a_mesh"] != 2 * n_moe * TP_STEPS:
+        res.failures.append(f"{name}: {lock['chunked_a2a_mesh']} all-to-all "
+                            f"launches in {TP_STEPS} lockstep steps, "
+                            f"expected {2 * n_moe} a step")
+    res.check(name, max(drift), tol, f"teacher-forced decode logits tp4 vs "
+              f"tp1, {TP_STEPS} steps x {DEC_B} rows")
+    res.check(name, max(rms), MOE_TP_DECODE_RMS, "teacher-forced decode "
+              "logits tp4 vs tp1", metric="relative_rms")
+    log(f"check {name} teacher-forced: max|logits tp4-tp1| by step "
+        + " ".join(f"{x:.4g}" for x in drift) + "; relative rms by step "
+        + " ".join(f"{x:.4g}" for x in rms) + f"; tokens equal on "
+        f"{equal}/{compared} gated (row, step) pairs (gate: tp1 top-2 "
+        f"margin > {tol:.4g}), on {agree} of all "
+        f"{DEC_B * (TP_STEPS + 1)}")
+    if compared == 0 or equal != compared:
+        res.failures.append(f"{name}: {compared - equal} of {compared} "
+                            "gated tokens differ from tp = 1")
+    # the check's power: the last step again with one rank's share lost,
+    # against the same tp = 1 logits
+    for r in range(TP):
+        with _lost_moe_rank(r, cfg.moe):
+            lf = model.decode_step(params, caches, *prev[:2],
+                                   moe_state=prev[2])[0]
+        err, rel = (lf - l1).abs().max().item(), _rel_rms(lf, l1)
+        what = "combine chunks" if cfg.moe == "ep" else "partial"
+        log(f"check {name} rank {r}'s {what} lost at the last step: "
+            f"max|logits - tp1|={err:.6g} (tol {tol:.4g}) relative rms "
+            f"{rel:.4g} (tol {MOE_TP_DECODE_RMS:g})")
+        if not (err > tol and rel > MOE_TP_DECODE_RMS):
+            res.failures.append(f"{name}: losing rank {r}'s {what} moves the"
+                                f" logits by {err} (relative rms {rel}), "
+                                "within the tolerances")
+    first = torch.argmax(last, -1).to(torch.int32)
+    st = model.init_decode_state(DEC_B)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(params, caches, kl4, first, TP_STEPS, moe_state=st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dec = launch_counts()
+    toks, klen = out[0], out[2]
+    log(f"path {name} decode contiguous: {TP_STEPS} steps ms_per_step="
+        f"{wall / TP_STEPS * 1e3:.3f} tok_s={DEC_B * TP_STEPS / wall:.2f} "
+        "launches " + " ".join(f"{k}={v}" for k, v in dec.items() if v))
+    per_step = {"flash_decode": cfg.n_layers, "all_gather": 2 * cfg.n_layers,
+                "chunked_a2a_mesh": 2 * n_moe if cfg.moe == "ep" else 0,
+                "chunked_a2a": 0, "ag_group_gemm_mesh": 0}
+    for k, v in per_step.items():
+        if dec[k] != v * TP_STEPS:
+            res.failures.append(f"{name}: {dec[k]} {k} launches in "
+                                f"{TP_STEPS} steps, expected {v} a step")
+    if toks.shape != (DEC_B, TP_STEPS) or int(klen.max()) != int(
+            kl4.max()) + TP_STEPS:
+        res.failures.append(f"{name}: wrong tokens or lengths")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path {name} layers={cfg.n_layers}: setup_s={setup:.2f} "
+        f"prefill_ms={prefill_ms:.2f} ({DEC_B} x {DEC_PROMPT} rows, "
+        f"prefill_tok_s={int(one['lens'].sum()) / prefill_ms * 1e3:.1f}) "
+        f"decode ms_per_step={wall / TP_STEPS * 1e3:.3f} first-step logits "
+        f"max|tp4-tp1|={lerr:.6g} (max|logit| {scale:.4g}) "
+        f"peak_mem_gib={peak:.2f} (both weight sets and both caches)")
+    # device ops a step: a short profiled window of the served decode
+    profile_decode(name, model, params, caches, kl4, first, steps=4,
+                   moe_state=model.init_decode_state(DEC_B))
+    if profile:
+        profile_prefill(name, model, params, one["tokens"], one["lens"])
+    return pre, dec
+
+
+def _rel_rms(a, b) -> float:
+    """rms(a - b) / rms(b) over every row and column."""
+    d = (a.float() - b.float()).pow(2).mean().sqrt()
+    return (d / b.float().pow(2).mean().sqrt()).item()
+
+
+@contextlib.contextmanager
+def _lost_moe_rank(rank: int, flavour: str):
+    """Within the block, the MoE blocks lose ``rank``'s share (a fault
+    made for the check's power): EP, the combine leg loses the chunks
+    ``rank`` returns (every source reads zeros for its assignments
+    there); TP, the decode's sum over the ranks loses ``rank``'s partial
+    product."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+    from triton_distributed_tpu_torch.models import transformer as tf
+
+    if flavour == "ep":
+        mod, attr = md, "combine_view"
+        orig = md.combine_view
+
+        def lossy(ctx, comb_tok, comb_meta, peer, dest, offs_al, n_valid):
+            rows = orig(ctx, comb_tok, comb_meta, peer, dest, offs_al,
+                        n_valid)
+            return torch.where((peer == rank)[..., None],
+                               torch.zeros_like(rows), rows)
+    else:
+        mod, attr = tf, "_sum_rank_partials"
+        orig = tf._sum_rank_partials
+
+        def lossy(parts):
+            keep = torch.ones(parts.shape[0], device=parts.device)
+            keep[rank] = 0
+            return orig(parts * keep.to(parts.dtype).reshape(
+                -1, *([1] * (parts.dim() - 1))))
+
+    setattr(mod, attr, lossy)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
 @contextlib.contextmanager
 def _lost_partial(rank: int):
     """Within the block, the sequence-parallel decode loses ``rank``'s
@@ -1949,18 +2509,26 @@ def profile_prefill(name, model, params, tokens, lens):
     log_rows(f"{name} prefill", busy, rows)
 
 
-def profile_decode(name, model, params, caches, kl, first, steps: int = 8):
+def profile_decode(name, model, params, caches, kl, first, steps: int = 8,
+                   moe_state=None):
     """Device time by kernel and the device's idle share over ``steps``
     contiguous decode steps (torch.profiler, CUDA activity), and the
-    host's enqueue time of a step (its return, before a synchronize)."""
+    host's enqueue time of a step (its return, before a synchronize);
+    an EP model's workspaces ``moe_state`` threaded from step to step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    state = [moe_state]
 
     def run():
         lens, toks, enq = kl, first, 0.0
         for _ in range(steps):
             t = time.perf_counter()
-            logits, _, lens = model.decode_step(params, caches, lens, toks)
+            out = model.decode_step(params, caches, lens, toks,
+                                    moe_state=state[0])
+            logits, _, lens = out[:3]
+            if state[0] is not None:
+                state[0] = out[3]
             enq += time.perf_counter() - t
             toks = torch.argmax(logits, -1).to(torch.int32)
         torch.cuda.synchronize()
@@ -2055,11 +2623,15 @@ def main() -> int:
     check_n1_gemms(res, dev)
     check_moe_tp_kernels(res, dev)
     check_mesh_kernels(res, dev)
+    n_moe = len(deepseek.moe_layers)
+    check_a2a_mesh(res, dev, n_moe)
+    check_moe_tp_mesh_kernels(res, dev, n_moe)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
     check_tiny_moe_decode(res, dev)
     check_tiny_tp(res, dev)
+    check_tiny_moe_tp4(res, dev)
 
     run_path(res, dev, "llama_7b", llama)
     bf16_counts, bf16_steps = run_path(
@@ -2086,26 +2658,46 @@ def main() -> int:
     # the MoE generation path: DeepSeek-MoE-16B at full width and depth
     # as served (EP: int8 W8A8 experts over an fp8 wire, int8 KV, W8A8
     # dense) and in the TP flavour with bf16 experts, whose prefill runs
-    # the two MoE-TP kernels once a MoE layer
-    n_moe = len(deepseek.moe_layers)
+    # the two MoE-TP kernels once a MoE layer; then each flavour at
+    # tp = 4 on a loopback mesh from the same weights and prompts (the
+    # MoE path over the mesh), each freed before the next
     moe_counts = {}
+    mesh_counts = {}
+    none_mesh = {"chunked_a2a_mesh": (0, 0), "ag_group_gemm_mesh": (0, 0),
+                 "moe_reduce_rs_mesh": (0, 0)}
     for name, cfg, expect in (
             ("deepseek_moe_16b ep", deepseek,
              {"ggemm_bf16": (2 * n_moe, 0),
               "chunked_a2a": (2 * n_moe, 2 * n_moe),
-              "ag_group_gemm": (0, 0), "moe_reduce_rs": (0, 0)}),
+              "ag_group_gemm": (0, 0), "moe_reduce_rs": (0, 0),
+              **none_mesh}),
             ("deepseek_moe_16b tp", presets.deepseek_moe_16b(
                 moe="tp", moe_weight_quant=None, moe_act_quant=None),
              {"ag_group_gemm": (n_moe, 0), "moe_reduce_rs": (n_moe, 0),
-              "chunked_a2a": (0, 0)})):
-        counts = run_decode_path(res, dev, name, cfg, steps=MOE_GEN_STEPS,
-                                 expect=expect, profile=opts.profile)
+              "chunked_a2a": (0, 0), **none_mesh})):
+        counts, one = run_decode_path(res, dev, name, cfg,
+                                      steps=MOE_GEN_STEPS, expect=expect,
+                                      profile=opts.profile, keep=True)
         for k in PATH_KERNELS[name]:
             if counts[k] == 0:
                 res.failures.append(f"{name}: {k} never launched")
         for k, v in counts.items():
             moe_counts[k] = moe_counts.get(k, 0) + v
+        pre, dec = run_moe_tp4_path(res, dev, name, one,
+                                    profile=opts.profile)
+        # the rows: the MoE-TP mesh kernels from the TP prefill, the
+        # all-to-all over the mesh from the EP run's timed steps
+        for k in MOE_MESH_ROWS:
+            mesh_counts[k] = mesh_counts.get(k, 0) + pre[k]
+        mesh_counts["chunked_a2a_mesh"] = mesh_counts.get(
+            "chunked_a2a_mesh", 0) + dec["chunked_a2a_mesh"]
+        for k in PATH_KERNELS[f"{name} tp{TP}"]:
+            if pre[k] + dec[k] == 0:
+                res.failures.append(f"{name} tp{TP}: {k} never launched")
+        del one
+        torch.cuda.empty_cache()
     run_generate_cli(res, dev, "deepseek_moe_16b")
+    run_generate_cli(res, dev, "deepseek_moe_16b", tp=TP)
     # each serving row's launches come from the main path; the bf16
     # grouped GEMM runs only where the experts are bf16. The decode rows'
     # come from the decode path: flash_decode / paged_decode 32 a step in
@@ -2130,6 +2722,10 @@ def main() -> int:
             n, steps = tp_counts[name], 1
         elif name == "all_gather":
             n, steps = tp_counts[name], TP_STEPS
+        elif name in MOE_MESH_ROWS:
+            n, steps = mesh_counts[name], 1
+        elif name == "chunked_a2a_mesh":
+            n, steps = mesh_counts[name], TP_STEPS
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

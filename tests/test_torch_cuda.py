@@ -858,3 +858,322 @@ def test_generate_cli_tp_on_the_default_device(dev, capsys):
         capsys.readouterr().out)
     for k in ("ag_gemm", "gemm_rs", "all_gather"):
         assert after[k] > before[k]
+
+
+# ------------------------------------------------------- MoE over a mesh
+
+def _moe_mesh_inputs(seed, dev, w, m_s, topk, e, k, n, block_m, dtype):
+    """W shards of ``m_s`` tokens routed over ``e`` experts (expert 1
+    empty, expert 0 given several blocks), each shard aligned on its own
+    at ``block_m``: x's W (m_s, k) row shards (views of one allocation),
+    the stacked (W, cap_s) / (W, cap_s / block_m) tables, and W (e, k, n)
+    weight shards."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((w * m_s, e)).astype(np.float32)
+    logits[:, 1] = -1e4
+    logits[::2, 0] += 6.0
+    _, ids = mu.select_experts(torch.from_numpy(logits), topk)
+    sti, be, splits = mu.moe_align_block_size(ids.reshape(w, m_s, topk), e,
+                                              block_m)
+    assert int(splits[:, 1].sum()) == 0 and int((be == 0).sum()) >= w
+    x = list(_t(rng.standard_normal((w, m_s, k)), dev, dtype).unbind(0))
+    ws = list((_t(rng.standard_normal((w, e, k, n)), dev, dtype)
+               / np.sqrt(k)).unbind(0))
+    return x, sti.to(dev), be.to(dev), ws
+
+
+#: (tokens a shard, top-k, experts, K, N, block_m): K and N not multiples
+#: of 8, 16-byte rows with several blocks an expert, and the DeepSeek-
+#: MoE-16B tp = 4 prefill's up projection (N = F / 4 = 352, 2.75 tiles of
+#: 128) at 64 tokens a shard
+MOE_MESH_SHAPES = [(60, 2, 6, 70, 33, 64), (150, 2, 8, 136, 72, 64),
+                   (64, 6, 64, 2048, 352, 128)]
+
+
+class TestMoEMeshKernels:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", MOE_MESH_SHAPES)
+    def test_ag_group_gemm_mesh_matches_plain(self, dev, shape, w, dtype):
+        """Every rank's rows of every shard (the token's rank, then its
+        sorted row) within f32 summation order (and one bf16 rounding)
+        of the plain version, the padding rows exactly zero; one launch
+        of ``tdt_ag_group_gemm_mesh`` for all ranks."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, k, n, bm = shape
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        x, sti, be, ws = _moe_mesh_inputs(30, dev, w, m_s, topk, e, k, n,
+                                          bm, tdt)
+        before = launch_counts()
+        got = mtf.ag_group_gemm_mesh(x, sti, be, ws, topk, mesh)
+        after = launch_counts()
+        assert after["ag_group_gemm_mesh"] == (
+            before["ag_group_gemm_mesh"] + 1)
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = mtf.ag_group_gemm_mesh_plain(x, sti, be, ws, topk, mesh,
+                                            out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        pad = sti.reshape(-1) >= m_s * topk
+        assert pad.any()
+        for g, ref in zip(got, want):
+            assert g.dtype == tdt and g.shape == (w * sti.shape[1], n)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol(ref, k, dtype == "bfloat16")).all()
+            assert (g[pad] == 0).all()
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", MOE_MESH_SHAPES)
+    def test_moe_reduce_rs_mesh_matches_plain(self, dev, shape, w, dtype):
+        """Rank r's sorted rows summed over the ranks' F shards (here
+        F_q = N of the shape, H = its K: the tp = 4 prefill's down K of
+        352 a rank): f32 sums over ranks and K in another order than the
+        plain version and, in bf16, one rounding; one launch."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, h, f, bm = shape
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        _, sti, be, ws = _moe_mesh_inputs(31, dev, w, m_s, topk, e, f, h,
+                                          bm, tdt)
+        rng = np.random.default_rng(32)
+        y = list(_t(rng.standard_normal((w, w * sti.shape[1], f)), dev,
+                    tdt).unbind(0))
+        before = launch_counts()
+        got = mtf.moe_reduce_rs_mesh(y, be, ws, mesh)
+        after = launch_counts()
+        assert after["moe_reduce_rs_mesh"] == (
+            before["moe_reduce_rs_mesh"] + 1)
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = mtf.moe_reduce_rs_mesh_plain(y, be, ws, mesh,
+                                            out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == tdt and g.shape == (sti.shape[1], h)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol(ref, w * f, dtype == "bfloat16")).all()
+
+    def test_wrappers_refuse_what_the_kernels_do_not_take(self, dev):
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(2, dev)
+        x, sti, be, ws = _moe_mesh_inputs(33, dev, 2, 60, 2, 6, 64, 32, 64,
+                                          torch.bfloat16)
+        with pytest.raises(ValueError, match="int32 tables"):
+            mtf.ag_group_gemm_mesh(x, sti.long(), be, ws, 2, mesh)
+        with pytest.raises(ValueError, match="operands both"):
+            mtf.ag_group_gemm_mesh(x, sti, be, [t.float() for t in ws], 2,
+                                   mesh)
+        with pytest.raises(ValueError, match="lists of 2"):
+            mtf.ag_group_gemm_mesh(x[:1], sti, be, ws, 2, mesh)
+        y = [torch.zeros((2 * sti.shape[1] + 1, 64), device=dev,
+                         dtype=torch.bfloat16)] * 2
+        with pytest.raises(ValueError, match="sorted rows"):
+            mtf.moe_reduce_rs_mesh(y, be, ws, mesh)
+
+
+def _staged_a2a_mesh(dev, w, quant, dtype, seed, skew):
+    """Every rank's staged payload and metadata for a seeded routing of
+    100 tokens a rank (top-2 over 16 experts, some assignments masked);
+    with ``skew`` rank 0 sends every assignment to expert 0, so it
+    ships nothing to the other peers."""
+    ctx = ma.MoEAllToAllContext(n=w, max_m=200, hidden=96,
+                                experts_per_rank=16 // w, dtype=dtype,
+                                quant=quant)
+    rng = np.random.default_rng(seed)
+    flat_e = rng.integers(0, 17, (w, 200)).astype(np.int32)
+    if skew:
+        flat_e[0] = 0
+    flat_e = _t(flat_e, dev)
+    x = _t(rng.standard_normal((w, 100, 96)), dev, dtype)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    valid = flat_e < 16
+    splits = torch.zeros((w, 16), dtype=torch.int32, device=dev)
+    splits.scatter_add_(1, torch.clamp(flat_e, 0, 15).long(),
+                        valid.to(torch.int32))
+    _, offs, offs_al, sendk = md.send_plan(ctx, splits)
+    _, dest = md.assignment_dest(ctx, flat_e.gather(1, order), offs, offs_al)
+    payload, scales = md.stage_aligned(ctx, x, order // 2, dest,
+                                       valid.sum(1))
+    meta = md.meta_payload(ctx, splits, scales, offs_al, sendk)
+    return ctx, payload, offs_al, sendk, meta
+
+
+class TestChunkedA2AMesh:
+    @pytest.mark.parametrize("skew", [False, True])
+    @pytest.mark.parametrize("wire", [("fp8", torch.float32),
+                                      ("int8", torch.bfloat16),
+                                      (None, torch.bfloat16)])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    def test_windows_are_byte_exact(self, dev, w, wire, skew):
+        """Both legs, barrier mode and LL mode over two calls (parity 0
+        then 1), windows pre-filled with random bytes: every receiver's
+        window equals the plain version's byte for byte, the rows past
+        the shipped chunks untouched; one launch for all ranks."""
+        quant, dtype = wire
+        ctx, payload, offs_al, sendk, meta = _staged_a2a_mesh(
+            dev, w, quant, dtype, 40, skew)
+        a = md.align(ctx)
+        sp, mr = md.slot_pad(ctx), md.meta_rows(ctx)
+        y = torch.randn((w, w, sp, 96), generator=torch.Generator(
+            device=dev).manual_seed(41), device=dev).to(dtype)
+        y_tok, y_meta = md.stage_return(ctx, y)
+        legs = {
+            "dispatch": ((payload, meta.reshape(w, -1, 128),
+                          (offs_al // a).to(torch.int32), sendk,
+                          torch.zeros_like(sendk)), False),
+            # what rank r dispatched to p comes back: r's self slot reads
+            # its own sendk (= retk), the others recvk = sendk
+            "combine": ((y_tok, y_meta.reshape(w, -1, 128),
+                         md._slot_offs(ctx, (w,), dev),
+                         sendk.t().contiguous(), sendk), True),
+        }
+        name = "chunked_a2a" if w == 1 else "chunked_a2a_mesh"
+        g = torch.Generator(device=dev).manual_seed(42)
+        for leg, (args, know) in legs.items():
+            for nw in (1, 2):
+                raw = torch.randint(0, 256, (w, nw * w * sp,
+                                             96 * ctx.wire_itemsize),
+                                    generator=g, device=dev,
+                                    dtype=torch.uint8)
+                rawm = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                     (w, nw * w * mr, 128), generator=g,
+                                     device=dev, dtype=torch.int32)
+                got = (raw.clone().view(ctx.wire_dtype), rawm.clone())
+                want = (raw.clone().view(ctx.wire_dtype), rawm.clone())
+                for par in range(nw):
+                    p = torch.tensor([par], dtype=torch.int32, device=dev)
+                    before = launch_counts()[name]
+                    md.chunked_a2a(ctx, *args, *got, p, know_recv=know)
+                    assert launch_counts()[name] == before + 1
+                    md.chunked_a2a_plain(ctx, *args, *want, p,
+                                         know_recv=know)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0].view(torch.uint8),
+                                   want[0].view(torch.uint8)), (leg, nw)
+                assert torch.equal(got[1], want[1]), (leg, nw)
+                changed = (got[0].view(torch.uint8) != raw).any(dim=-1)
+                rows = torch.arange(nw * w * sp, device=dev)
+                for r in range(w):
+                    allowed = torch.zeros_like(changed[r])
+                    for par in range(nw):
+                        for q in range(w):
+                            s0 = (par * w + q) * sp
+                            # dispatch: sender q's count for r; combine:
+                            # what r dispatched to q comes back
+                            k = int(sendk[q, r] if leg == "dispatch"
+                                    else sendk[r, q])
+                            allowed |= (rows >= s0) & (
+                                rows < s0 + k * md.chunk_rows(ctx))
+                    assert not (changed[r] & ~allowed).any()
+
+    def test_replays_from_a_cuda_graph(self, dev):
+        """The peer tables ride the launch's parameters: a CUDA graph of
+        the n = 4 dispatch replays it onto the windows it captured."""
+        ctx, payload, offs_al, sendk, meta = _staged_a2a_mesh(
+            dev, 4, "fp8", torch.bfloat16, 43, False)
+        (tshape, tdt), (mshape, _) = md.ll_workspace_shapes(ctx)
+        ws = (torch.zeros((4, *tshape), dtype=torch.uint8,
+                          device=dev).view(tdt),
+              torch.zeros((4, *mshape), dtype=torch.int32, device=dev))
+        par = torch.zeros((1,), dtype=torch.int32, device=dev)
+        run = lambda: md.dispatch_ll_device(  # noqa: E731
+            ctx, payload, offs_al, sendk, meta, par, *ws)
+        run()
+        torch.cuda.synchronize()
+        want = (ws[0].view(torch.uint8).clone(), ws[1].clone())
+        ws[0].view(torch.uint8).zero_()
+        ws[1].zero_()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ws[0].view(torch.uint8), want[0])
+        assert torch.equal(ws[1], want[1])
+
+    def test_wrapper_refuses_what_the_kernel_does_not_take(self, dev):
+        ctx, payload, offs_al, sendk, meta = _staged_a2a_mesh(
+            dev, 2, "fp8", torch.bfloat16, 44, False)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            md.dispatch_device(ctx, payload[0], offs_al[0], sendk[0],
+                               meta[0])
+        own = [payload[0].clone(), payload[1].clone()]
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            md.chunked_a2a(ctx, own, meta.reshape(2, -1, 128),
+                           (offs_al // md.align(ctx)).to(torch.int32),
+                           sendk, sendk, *md._fresh_window(ctx, (2,), dev),
+                           torch.zeros((1,), dtype=torch.int32,
+                                       device=dev))
+        with pytest.raises(ValueError, match="int32"):
+            md.chunked_a2a(ctx, payload, meta.reshape(2, -1, 128),
+                           (offs_al // md.align(ctx)).long(), sendk, sendk,
+                           *md._fresh_window(ctx, (2,), dev),
+                           torch.zeros((1,), dtype=torch.int32,
+                                       device=dev))
+
+
+def test_moe_tp4_prefill_generate_on_card_equals_cpu(dev):
+    """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and
+    its TP flavour at tp = 4 on a loopback mesh, on the card and on the
+    CPU from the same weights, B = 3 (not a multiple of 4: the EP
+    decode pads): the prefill logits within 1e-4 (f32 GEMMs summed in
+    another order), then 6 greedy steps in lockstep, the tokens equal on
+    every row while its CPU top-2 margin stays above 1e-2. The card's TP
+    prefill launches each mesh MoE-TP kernel once a MoE layer, the EP
+    prefill and every EP decode step the all-to-all over the mesh twice
+    a MoE layer, and no world-size-1 form runs."""
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    for kw in ({}, dict(moe="tp", moe_weight_quant=None,
+                        moe_act_quant=None)):
+        cfg = presets.tiny(presets.deepseek_moe_16b(**kw))
+        one = Transformer(cfg, device="cpu")
+        params = one.quantize_moe_weights(one.quantize_dense_weights(
+            one.init(torch.Generator().manual_seed(0))))
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab, (3, 16)).astype(np.int32)
+        lens = np.array([16, 9, 5], np.int32)
+        n_moe = len(cfg.moe_layers)
+        runs = []
+        for d in ("cpu", dev):
+            model = Transformer(cfg, mesh=Mesh.loopback(4, d))
+            p = model.shard_params(_to(params, d))
+            before = launch_counts()
+            last, caches, kl = model.prefill(p, model.init_cache(3, 32),
+                                             _t(toks, d), _t(lens, d))
+            mid = launch_counts()
+            runs.append([model, p, caches, kl, last,
+                         model.init_decode_state(3)])
+            assert (runs[-1][-1] is None) == (cfg.moe == "tp")
+            if d != "cpu":
+                want = ({"ag_group_gemm_mesh": n_moe,
+                         "moe_reduce_rs_mesh": n_moe} if cfg.moe == "tp"
+                        else {"chunked_a2a_mesh": 2 * n_moe})
+                for k, v in want.items():
+                    assert mid[k] - before[k] == v, k
+                for k in ("chunked_a2a", "ag_group_gemm", "moe_reduce_rs"):
+                    assert mid[k] == before[k], k
+        (mc, pc, cc, kc, lc, sc), (mg, pg, cg, kg, lg, sg) = runs
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        gate = torch.ones((3,), dtype=torch.bool)
+        mid = launch_counts()
+        for _ in range(6):
+            top2 = torch.topk(lc, 2, dim=-1).values
+            gate &= (top2[:, 0] - top2[:, 1]) > 1e-2
+            assert gate.any(), "degenerate: every row near-tied"
+            tc = torch.argmax(lc, -1).to(torch.int32)
+            tg = torch.argmax(lg, -1).to(torch.int32)
+            assert torch.equal(tc[gate], tg.cpu()[gate])
+            res_c = mc.decode_step(pc, cc, kc, tc, moe_state=sc)
+            res_g = mg.decode_step(pg, cg, kg, tg, moe_state=sg)
+            (lc, cc, kc), (lg, cg, kg) = res_c[:3], res_g[:3]
+            if sc is not None:
+                sc, sg = res_c[3], res_g[3]
+        after = launch_counts()
+        if cfg.moe == "ep":
+            assert (after["chunked_a2a_mesh"] - mid["chunked_a2a_mesh"]
+                    == 2 * n_moe * 6)

@@ -479,12 +479,16 @@ class TestMesh:
         assert lang.peer_table(own).tolist() == [t.data_ptr() for t in own]
 
     def test_model_refusals(self, tmesh):
-        """What waits for later slices raises: MoE over a mesh, KV heads
-        that do not split, paged caches and the serving step at tp > 1,
-        prompts whose B·S rows do not shard."""
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            Transformer(presets.tiny(presets.deepseek_moe_16b()),
-                        mesh=tmesh)
+        """The tiny DeepSeek-MoE preset builds on the mesh in both
+        flavours (MoE over a mesh is ported; tests/test_torch_moe_mesh.py
+        holds it against JAX); what waits for later slices raises: KV
+        heads that do not split, paged caches and the serving step at
+        tp > 1, prompts whose B·S rows do not shard."""
+        for kw in ({}, dict(moe="tp", moe_weight_quant=None,
+                            moe_act_quant=None)):
+            tm = Transformer(presets.tiny(presets.deepseek_moe_16b(**kw)),
+                             mesh=tmesh)
+            assert tm.tp == W and tm.config.moe_layers
         with pytest.raises(ValueError, match="n_kv_heads"):
             Transformer(presets.tiny(n_kv_heads=2), mesh=tmesh)
         tm = Transformer(presets.tiny(), mesh=tmesh)

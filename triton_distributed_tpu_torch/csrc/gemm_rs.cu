@@ -46,7 +46,7 @@ int tdt_gemm_rs(const void* a_peers, const void* w_peers,
   const PeerSum rows{static_cast<const unsigned long long*>(a_peers),
                      static_cast<const unsigned long long*>(w_peers),
                      static_cast<const unsigned long long*>(out_peers),
-                     m, world, rank0, K};
+                     m, world, rank0, K, /*grouped=*/false};
   // the kernel's own A, w and out are unused: the rows source reads
   // the peer tables
   return launch_float_ggemm_z(nullptr, nullptr, static_cast<const int*>(zero),

@@ -1,7 +1,7 @@
 // The float and W8A16 tile loops of the grouped GEMM, shared by
 // group_gemm.cu (tdt_ggemm_f, tdt_ggemm_w8a16), moe_tp_fused.cu
-// (tdt_ag_group_gemm, tdt_moe_reduce_rs), ag_gemm.cu (tdt_ag_gemm) and
-// gemm_rs.cu (tdt_gemm_rs).
+// (tdt_ag_group_gemm, tdt_moe_reduce_rs and their mesh forms),
+// ag_gemm.cu (tdt_ag_gemm) and gemm_rs.cu (tdt_gemm_rs).
 //
 // out (M, N) = A (M, K) @ w[block_expert[m / block_m]] (K, N): output
 // row m's A row is read from wherever a row source says, so the same
@@ -20,13 +20,16 @@
 //
 // The mesh traits read the rank from blockIdx.z (one launch covers
 // every rank on the device) and their operands from peer tables (the
-// ranks' data pointers): w_base / out_base pick the rank's weight and
-// output. PeerRows gathers A's rows over the ranks' shards (row g of the
-// gathered A is row g % m of rank g / m; its reference is the row's
-// address); PeerSum runs the K loop over (rank q, k-block) with kParts,
-// A and w both from rank q, looked up once a part. DenseRows and
-// GatherRows have one part and return the kernel's pointers, so their
-// loops compile as before.
+// ranks' data pointers): w_expert / out_base pick the rank's weight (the
+// block's expert of it) and output. PeerRows gathers A's rows over the
+// ranks' shards (row g of the gathered A is row g % m of rank g / m; its
+// reference is the row's address); PeerGatherRows composes that with
+// GatherRows (row t of the gathered expert-sorted slab is token
+// sti[t] / topk of rank t / cap_s's shard); PeerSum runs the K loop over
+// (rank q, k-block) with kParts, A and w both from rank q, looked up once
+// a part, and with `grouped` reads each rank's own rows of a stacked
+// block -> expert table. DenseRows and GatherRows have one part and
+// return the kernel's pointers, so their loops compile as before.
 //
 // Two loops: fma_kernel (64 x 64 tiles, 256 threads with 4 x 4 FMA
 // micro-tiles, both operands widened to f32 in shared memory; f32 or
@@ -56,12 +59,17 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
     return x;                                                               \
   }                                                                         \
   template <typename T>                                                     \
-  __device__ __forceinline__ const T* w_base(const T* w) const {            \
-    return w;                                                               \
+  __device__ __forceinline__ const T* w_expert(const T* w, int e, int K,    \
+                                               int N) const {               \
+    return w + static_cast<size_t>(e) * K * N;                              \
   }                                                                         \
   template <typename T>                                                     \
   __device__ __forceinline__ T* out_base(T* out) const { return out; }      \
-  __device__ __forceinline__ int orow(int m) const { return m; }
+  __device__ __forceinline__ int orow(int m) const { return m; }            \
+  __device__ __forceinline__ int expert(const int* be, int m0,              \
+                                        int block_m) const {                \
+    return be[m0 / block_m];                                                \
+  }
 
 // row m of a dense (M, K) A; nothing to look up
 struct DenseRows {
@@ -128,12 +136,65 @@ struct PeerRows {
     return reinterpret_cast<const T*>(r);
   }
   template <typename T>
-  __device__ __forceinline__ const T* w_base(const T*) const {
-    return reinterpret_cast<const T*>(w_peers[rank()]);
+  __device__ __forceinline__ const T* w_expert(const T*, int e, int K,
+                                               int N) const {
+    return reinterpret_cast<const T*>(w_peers[rank()]) +
+           static_cast<size_t>(e) * K * N;
   }
   template <typename T>
   __device__ __forceinline__ T* out_base(T*) const {
     return reinterpret_cast<T*>(out_peers[rank()]);
+  }
+  __device__ __forceinline__ int expert(const int* be, int m0,
+                                        int block_m) const {
+    return be[m0 / block_m];
+  }
+};
+
+// MoE AG + grouped GEMM over a mesh: rank r = rank0 + blockIdx.z computes
+// out_r (W * cap_s, N) whose row t = s * cap_s + i is token sti[t] / topk
+// of rank s's row shard x_s (zeros where sti[t] is the padding sentinel,
+// >= total = tokens a shard * topk) times w_r[block_expert[t / block_m]]:
+// every shard's expert-sorted slab, gathered, never written out. sti and
+// block_expert are the W shards' tables stacked; w_r (E, K, N) is rank r's
+// column shard of every expert. The reference is the row's first byte.
+struct PeerGatherRows {
+  static constexpr bool kLookup = true;
+  static constexpr bool kParts = false;
+  using Ref = const char*;  // the row's first byte; nullptr for zeros
+  const unsigned long long* __restrict__ a_peers;
+  const unsigned long long* __restrict__ w_peers;
+  const unsigned long long* __restrict__ out_peers;
+  const int* __restrict__ sti;
+  int cap_s, world, rank0, K, esize, topk, total;
+  __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
+  __device__ __forceinline__ Ref at(int t) const {
+    if (t >= world * cap_s) return nullptr;
+    const int v = sti[t];
+    if (v < 0 || v >= total) return nullptr;
+    return reinterpret_cast<const char*>(a_peers[t / cap_s]) +
+           static_cast<size_t>(v / topk) * K * esize;
+  }
+  __device__ __forceinline__ bool ok(Ref r) const { return r != nullptr; }
+  __device__ __forceinline__ size_t off(Ref) const { return 0; }
+  template <typename T>
+  __device__ __forceinline__ const T* a_base(const T*, Ref r) const {
+    return reinterpret_cast<const T*>(r);
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* w_expert(const T*, int e, int K,
+                                               int N) const {
+    return reinterpret_cast<const T*>(w_peers[rank()]) +
+           static_cast<size_t>(e) * K * N;
+  }
+  template <typename T>
+  __device__ __forceinline__ T* out_base(T*) const {
+    return reinterpret_cast<T*>(out_peers[rank()]);
+  }
+  __device__ __forceinline__ int orow(int t) const { return t; }
+  __device__ __forceinline__ int expert(const int* be, int m0,
+                                        int block_m) const {
+    return be[m0 / block_m];
   }
 };
 
@@ -142,7 +203,10 @@ struct PeerRows {
 // K) holds rank q's K columns and w_q (K, N) its weight rows. The K loop
 // runs over (rank q, k-block) with kParts: part q's A and w come from
 // part_a(q) / part_w(q), looked up once a part; f32 sums across ranks and
-// K, one rounding at the store.
+// K, one rounding at the store. With `grouped` (the MoE grouped GEMM +
+// RS) w_q is (E, K, N) and output row i of rank r takes expert
+// block_expert[(r * m + i) / block_m], the W ranks' block tables stacked;
+// without it block_expert is the one expert 0.
 struct PeerSum {
   static constexpr bool kLookup = false;
   static constexpr bool kParts = true;
@@ -151,6 +215,7 @@ struct PeerSum {
   const unsigned long long* __restrict__ w_peers;
   const unsigned long long* __restrict__ out_peers;
   int m, world, rank0, K;
+  bool grouped;
   __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
   __device__ __forceinline__ int parts() const { return world; }
   template <typename T>
@@ -158,8 +223,13 @@ struct PeerSum {
     return reinterpret_cast<const T*>(a_peers[q]);
   }
   template <typename T>
-  __device__ __forceinline__ const T* part_w(int q) const {
-    return reinterpret_cast<const T*>(w_peers[q]);
+  __device__ __forceinline__ const T* part_w(int q, int e, int N) const {
+    return reinterpret_cast<const T*>(w_peers[q]) +
+           static_cast<size_t>(e) * K * N;
+  }
+  __device__ __forceinline__ int expert(const int* be, int m0,
+                                        int block_m) const {
+    return grouped ? be[(rank() * m + m0) / block_m] : be[0];
   }
   __device__ __forceinline__ Ref at(int i) const { return i; }
   __device__ __forceinline__ bool ok(Ref i) const { return i < m; }
@@ -171,8 +241,9 @@ struct PeerSum {
     return x;
   }
   template <typename T>
-  __device__ __forceinline__ const T* w_base(const T* w) const {
-    return w;
+  __device__ __forceinline__ const T* w_expert(const T* w, int, int,
+                                               int) const {
+    return w;  // unused: the parts carry the weights
   }
   template <typename T>
   __device__ __forceinline__ T* out_base(T*) const {
@@ -198,8 +269,8 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int e = block_expert[m0 / block_m];
-  const WT* __restrict__ we = w + static_cast<size_t>(e) * K * N;
+  const int e = rows.expert(block_expert, m0, block_m);
+  const WT* __restrict__ we = rows.w_expert(w, e, K, N);
   if constexpr (Rows::kLookup) {
     if (tid < BM) a_ref[tid] = rows.at(m0 + tid);
     __syncthreads();
@@ -224,7 +295,7 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
                      ? tdt_to_f<XT>(rows.a_base(xa, ref)[rows.off(ref) + k])
                      : 0.f;
     }
-    const WT* __restrict__ wp = rows.w_base(wa);
+    const WT* __restrict__ wp = wa;
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
       const int c = idx / BN, n = idx % BN;
       const int k = k0 + c, nn = n0 + n;
@@ -250,7 +321,7 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
   if constexpr (Rows::kParts) {
     for (int q = 0; q < rows.parts(); ++q) {
       const XT* __restrict__ xq = rows.template part_a<XT>(q);
-      const WT* __restrict__ wq = rows.template part_w<WT>(q);
+      const WT* __restrict__ wq = rows.template part_w<WT>(q, e, N);
       for (int k0 = 0; k0 < K; k0 += BK) step(xq, wq, k0);
     }
   } else {
@@ -337,8 +408,8 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
   const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int e = block_expert[m0 / block_m];
-  const unsigned short* __restrict__ we = w + static_cast<size_t>(e) * K * N;
+  const int e = rows.expert(block_expert, m0, block_m);
+  const unsigned short* __restrict__ we = rows.w_expert(w, e, K, N);
   // the two A rows this thread loads (rows idx >> 2 of gload below)
   const typename Rows::Ref a_ref[2] = {rows.at(m0 + (tid >> 2)),
                                        rows.at(m0 + ((tid + TC_THREADS) >> 2))};
@@ -363,7 +434,7 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
       ra[i] = load8(rows.a_base(xa, a_ref[i]), rows.off(a_ref[i]), k0 + c,
                     K, rows.ok(a_ref[i]), vec_a);
     }
-    const unsigned short* __restrict__ wp = rows.w_base(wa);
+    const unsigned short* __restrict__ wp = wa;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // B: 32 rows x 16 vectors
       const int idx = tid + i * TC_THREADS, r = idx >> 4, c = (idx & 15) * 8;
@@ -392,7 +463,7 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
   for (int part = 0; part < nparts; ++part) {
     if constexpr (Rows::kParts) {
       xa = rows.template part_a<unsigned short>(part);
-      wa = rows.template part_w<unsigned short>(part);
+      wa = rows.template part_w<unsigned short>(part, e, N);
     }
     gload(0);
     sstore(0);

@@ -38,7 +38,9 @@ __all__ = [
 def _counters() -> dict:
     """Each CUDA kernel's name → (the wrapper that launches it, the
     attribute that counts its launches). The float grouped GEMM's
-    wrapper launches two kernels: bf16 on tensor cores, f32 on FMA."""
+    wrapper launches two kernels: bf16 on tensor cores, f32 on FMA; the
+    all-to-all's counts its launches at one rank and over a mesh
+    apart."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import allgather as ag
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
@@ -64,6 +66,9 @@ def _counters() -> dict:
         "ag_gemm": (agg._ag_gemm_mesh_cuda, "launches"),
         "gemm_rs": (grs._gemm_rs_mesh_cuda, "launches"),
         "all_gather": (ag._all_gather_cuda, "launches"),
+        "chunked_a2a_mesh": (md._chunked_a2a_cuda, "launches_mesh"),
+        "ag_group_gemm_mesh": (mtf._ag_group_gemm_mesh_cuda, "launches"),
+        "moe_reduce_rs_mesh": (mtf._moe_reduce_rs_mesh_cuda, "launches"),
     }
 
 

@@ -7,8 +7,10 @@ exchange's static geometry, the per-token wire quantizers, and the
 per-peer offsets and receive-count clamp. The padded-slot transport
 (``dispatch_stage``, ``pack_slots`` and their inverses) is not ported.
 
-There is no mesh: ``n`` is the number of EP ranks, and the port runs
-``n == 1`` (one GPU owns every expert).
+``n`` is the number of EP ranks: 1 (one GPU owns every expert), or the
+size of the mesh axis the experts are split over. Over a mesh every
+function here takes the ranks' tensors stacked on a leading dim, so one
+op serves all ranks; the per-peer helpers work on any leading dims.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from triton_distributed_tpu_torch.config import to_torch_dtype
 from triton_distributed_tpu_torch.kernels.moe_utils import exclusive_cumsum
+from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 
 _WIRE = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
 
@@ -31,7 +34,8 @@ class MoEAllToAllContext:
     full ``M·topk``); ``quant``: the wire format, ``"fp8"`` (e4m3) or
     ``"int8"`` with one f32 scale per token in the metadata, or None for
     tokens in ``dtype``; ``chunk_m``: the transport's chunk granule in
-    rows (None → max(tile, 64))."""
+    rows (None → max(tile, 64)); ``mesh`` / ``axis``: the mesh whose
+    axis the ``n`` ranks are (None at one rank)."""
 
     n: int
     max_m: int
@@ -40,9 +44,14 @@ class MoEAllToAllContext:
     dtype: torch.dtype = torch.bfloat16
     quant: str | None = None
     chunk_m: int | None = None
+    mesh: Mesh | None = None
+    axis: str = "tp"
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
+        if self.mesh is not None and one_axis(self.mesh, self.axis) != self.n:
+            raise ValueError(f"n={self.n} is not the size of the mesh's "
+                             f"{self.axis!r} axis {self.mesh.shape}")
         if self.quant not in (None, "fp8", "int8"):
             raise ValueError(
                 f"quant must be None|'fp8'|'int8', got {self.quant!r}")
@@ -88,18 +97,19 @@ def dequantize_rows(ctx: MoEAllToAllContext, q, scale):
 
 
 def peer_offsets(ctx: MoEAllToAllContext, splits):
-    """(counts (n,), exclusive offsets (n,)) of this rank's assignments
-    per peer; ``splits`` (num_experts,) counts per global expert
-    (experts [j·epr, (j+1)·epr) live on peer j)."""
-    counts = splits.reshape(ctx.n, ctx.experts_per_rank).sum(
-        dim=1, dtype=torch.int32)
+    """(counts (..., n), exclusive offsets (..., n)) of a rank's
+    assignments per peer; ``splits`` (..., num_experts) counts per
+    global expert (experts [j·epr, (j+1)·epr) live on peer j)."""
+    counts = splits.reshape(*splits.shape[:-1], ctx.n,
+                            ctx.experts_per_rank).sum(dim=-1,
+                                                      dtype=torch.int32)
     return counts, exclusive_cumsum(counts)
 
 
 def clamp_recv_splits(ctx: MoEAllToAllContext, spl):
-    """Receiver splits clamped to what fits the ``max_m`` capacity (a
-    sender past it shipped only its first ``max_m`` rows, in expert
-    order)."""
-    cum = torch.clamp(torch.cumsum(spl, dim=1, dtype=torch.int32),
+    """Receiver splits (..., epr) clamped to what fits the ``max_m``
+    capacity (a sender past it shipped only its first ``max_m`` rows, in
+    expert order)."""
+    cum = torch.clamp(torch.cumsum(spl, dim=-1, dtype=torch.int32),
                       max=ctx.max_m)
-    return torch.diff(cum, dim=1, prepend=torch.zeros_like(cum[:, :1]))
+    return torch.diff(cum, dim=-1, prepend=torch.zeros_like(cum[..., :1]))

@@ -23,10 +23,10 @@ def round_up_to_block(x, block: int):
 
 
 def exclusive_cumsum(x):
-    """[0, x0, x0+x1, ...] as int32: segment starts from segment sizes."""
-    c = torch.cumsum(x, dim=0, dtype=torch.int32)
-    return torch.cat([torch.zeros((1,), dtype=torch.int32, device=x.device),
-                      c[:-1]])
+    """[0, x0, x0+x1, ...] as int32 along the last dim: segment starts
+    from segment sizes (each leading index on its own)."""
+    c = torch.cumsum(x, dim=-1, dtype=torch.int32)
+    return torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)
 
 
 def select_experts(gate_logits, topk: int, *, renormalize: bool = True):
@@ -55,39 +55,46 @@ def moe_align_block_size(topk_ids, num_experts: int, block_m: int):
     ``row*k + slot`` per padded position, the sentinel ``M*k`` at
     padding; ``block_expert`` (cap // block_m,) int32 — the owning
     expert of each block; ``splits`` (num_experts,) int32 — the true
-    count per expert."""
-    m, k = topk_ids.shape
+    count per expert.
+
+    A leading dim (S, M, k) aligns S shards, each on its own (JAX's
+    ``vmap`` of this function), in one pass: every result gains the
+    leading S."""
+    if topk_ids.dim() == 2:
+        return tuple(t[0] for t in moe_align_block_size(
+            topk_ids[None], num_experts, block_m))
+    s, m, k = topk_ids.shape
     dev = topk_ids.device
     total = m * k
     cap = aligned_capacity(total, num_experts, block_m)
-    flat = topk_ids.reshape(-1).to(torch.int64)
+    flat = topk_ids.reshape(s, total).to(torch.int64)
 
-    # index_add_, not bincount: a CUDA bincount reads the max id back to
-    # the host to size its output
-    splits = torch.zeros((num_experts,), dtype=torch.int32, device=dev)
-    splits.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    # scatter_add_, not bincount: a CUDA bincount reads the max id back
+    # to the host to size its output
+    splits = torch.zeros((s, num_experts), dtype=torch.int32, device=dev)
+    splits.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
     padded = round_up_to_block(splits, block_m)
     padded_offs = exclusive_cumsum(padded)
     offs = exclusive_cumsum(splits)
 
-    order = torch.argsort(flat, stable=True)                     # (total,)
-    sorted_experts = flat[order]
+    order = torch.argsort(flat, dim=1, stable=True)            # (s, total)
+    sorted_experts = flat.gather(1, order)
     rank_in_expert = (torch.arange(total, device=dev)
-                      - offs[sorted_experts])
-    dest = padded_offs[sorted_experts] + rank_in_expert
+                      - offs.gather(1, sorted_experts))
+    dest = padded_offs.gather(1, sorted_experts) + rank_in_expert
     # every dest is below cap by construction; anything else would land
     # in the dropped slot at cap (JAX drops out-of-bounds scatters)
     dest = torch.where((dest >= 0) & (dest < cap), dest, cap).long()
-    sti = torch.full((cap + 1,), total, dtype=torch.int32, device=dev)
-    sti.scatter_(0, dest, order.to(torch.int32))
-    sorted_token_ids = sti[:cap]
+    sti = torch.full((s, cap + 1), total, dtype=torch.int32, device=dev)
+    sti.scatter_(1, dest, order.to(torch.int32))
+    sorted_token_ids = sti[:, :cap].contiguous()
 
     nblocks = cap // block_m
     block_start = torch.arange(nblocks, dtype=torch.int64,
                                device=dev) * block_m
     block_expert = torch.searchsorted(
-        torch.cumsum(padded, dim=0, dtype=torch.int64), block_start,
-        right=True)
+        torch.cumsum(padded, dim=1, dtype=torch.int64),
+        block_start.expand(s, nblocks).contiguous(), right=True)
     block_expert = torch.clamp(block_expert, 0, num_experts - 1)
     return sorted_token_ids, block_expert.to(torch.int32), splits
 
@@ -103,15 +110,33 @@ def gather_sorted(x, sorted_token_ids, topk: int):
 
 
 def scatter_combine(y_sorted, sorted_token_ids, weights, m: int):
-    """Weighted scatter-add of expert outputs back to token order:
-    (cap, H) padded-sorted rows and (M, k) router weights → (M, H) f32."""
-    k = weights.shape[1]
+    """Weighted sum of expert outputs back in token order: (..., cap, H)
+    padded-sorted rows and (..., M, k) router weights → (..., M, H) f32
+    (a leading dim: shards, each on its own).
+
+    JAX scatter-adds the rows; here each (token, slot) assignment finds
+    its sorted row through the inverse of ``sorted_token_ids`` (every
+    assignment has exactly one, so the inverse is a plain scatter) and a
+    token's k rows are summed in slot order. The result does not depend
+    on the order threads run in (a CUDA ``index_add_`` adds with atomics,
+    so its low bits would change from run to run)."""
+    k = weights.shape[-1]
     total = m * k
+    cap = sorted_token_ids.shape[-1]
     valid = sorted_token_ids < total
-    safe = torch.where(valid, sorted_token_ids, 0).long()
-    w = weights.reshape(-1)[safe] * valid                      # (cap,)
-    rows = torch.where(valid, safe // k, m)                    # sentinel → m
-    out = torch.zeros((m + 1, y_sorted.shape[1]), dtype=torch.float32,
-                      device=y_sorted.device)
-    out.index_add_(0, rows, y_sorted.float() * w[:, None])
-    return out[:m]
+    pos = torch.arange(cap, device=y_sorted.device).expand_as(
+        sorted_token_ids)
+    # the sentinel's writes land in the dropped slot at ``total``
+    slot = torch.where(valid, sorted_token_ids, total).long()
+    inv = torch.zeros((*sorted_token_ids.shape[:-1], total + 1),
+                      dtype=torch.int64, device=y_sorted.device)
+    inv.scatter_(-1, slot, pos)
+    inv = inv[..., :total]
+    if y_sorted.dim() == 2:
+        rows = y_sorted[inv]
+    else:
+        lead = torch.arange(y_sorted.shape[0], device=y_sorted.device)
+        rows = y_sorted[lead[:, None], inv]
+    w = weights.reshape(*weights.shape[:-2], total, 1).float()
+    out = (rows.float() * w).reshape(*rows.shape[:-2], m, k, -1)
+    return out.sum(dim=-2)

@@ -2,7 +2,8 @@
 
 Port of ``EPMoEMLP`` of ``triton_distributed_tpu/layers/moe.py``: the
 f32 router, then :func:`~triton_distributed_tpu_torch.ops.moe.ep_moe`
-on the layer's context. ``MoETPMLP`` (the composed,
+on the layer's context (over its mesh when it has one: the experts, and
+the token rows, split over the ranks). ``MoETPMLP`` (the composed,
 differentiable TP path) comes with training, and ``EPAll2AllLayer``
 (the padded-slot ``pallas`` transport) with the collectives.
 """

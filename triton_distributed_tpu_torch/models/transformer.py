@@ -20,7 +20,7 @@ ragged paged-attention kernel, and an ``moe="ep"`` block through
 on the fused transport (the chunked all-to-all and grouped-GEMM
 kernels).
 
-**Tensor parallelism** (``Transformer(config, mesh=...)``, dense blocks,
+**Tensor parallelism** (``Transformer(config, mesh=...)``,
 ``attn="tp"``): the prefill → decode path over the ``tp`` axis of a
 loopback mesh (:class:`~triton_distributed_tpu_torch.runtime.topology.
 Mesh`), single-controller as in JAX. :meth:`Transformer.shard_params`
@@ -42,6 +42,15 @@ sequence-parallel flash decode (local decode, ``all_gather`` of the
 partials, combine), and appends each token on the rank that owns its
 position. Replicated activations are one shared tensor on the loopback
 mesh.
+
+MoE blocks run over the mesh in both flavours. EP splits the experts
+(rank r owns experts [r·E/W, (r+1)·E/W)): the prefill and the decode
+route every rank's tokens (row block r) through ``ep_moe`` across the
+ranks, one all-to-all launch a leg for all of them, the decode over B
+padded up to a multiple of W as JAX pads it. TP splits the experts' F
+dim: the prefill runs ``moe_tp_mlp_overlapped`` on the mesh forms of
+the two MoE-TP kernels, the decode's per-token loop sums the ranks'
+partial products in f32.
 
 Parameters are a plain dict with exactly the JAX layout::
 
@@ -148,6 +157,7 @@ class TransformerConfig:
 
 
 _DENSE_QUANT_KEYS = ("wqkv", "wo", "up", "down")
+_EXPERT_KEYS = ("moe_up", "moe_down")
 
 #: the mesh axis the tensor-parallel path runs over
 TP_AXIS = "tp"
@@ -192,9 +202,11 @@ class Transformer:
     docstring).
 
     ``mesh``: a loopback mesh whose ``"tp"`` axis the prefill → decode
-    path runs tensor-parallel over (dense blocks, ``attn="tp"``; the
-    device is the mesh's). It needs ``n_heads``, ``n_kv_heads`` and
-    ``ffn`` to split over the ranks."""
+    path runs tensor-parallel over (``attn="tp"``; the device is the
+    mesh's): dense blocks, and MoE blocks in both flavours, EP with the
+    experts split over the ranks and TP with their F dim split. It needs
+    ``n_heads``, ``n_kv_heads`` and ``ffn`` (and an EP model's
+    ``num_experts``) to split over the ranks."""
 
     def __init__(self, config: TransformerConfig, mesh: Mesh | None = None,
                  device=None):
@@ -213,12 +225,11 @@ class Transformer:
                              f"{self.device}")
         self.tp = one_axis(mesh, TP_AXIS)
         c = config
-        if c.moe != "none":
-            raise NotImplementedError(
-                "MoE blocks over a mesh (tp > 1: MoE-TP's reduce_scatter, "
-                "EP across ranks) are ROADMAP Queue 1 item 14")
-        for name, v in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
-                        ("ffn", c.ffn)):
+        split = [("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
+                 ("ffn", c.ffn)]
+        if c.moe == "ep" and c.moe_layers:
+            split.append(("num_experts", c.num_experts))
+        for name, v in split:
             if v % self.tp:
                 raise ValueError(
                     f"{name} = {v} does not split over tp = {self.tp} (KV-"
@@ -329,7 +340,9 @@ class Transformer:
         """(dim, per-rank index tensors) of a tensor-parallel weight:
         ``wqkv`` by columns, rank r's q columns of its Hq/W heads then k
         and v columns of its Hkv/W heads; ``up`` by column blocks;
-        ``wo`` and ``down`` by the matching rows."""
+        ``wo`` and ``down`` by the matching rows; the experts
+        (``moe_up``, ``moe_down``) by expert blocks (EP) or by F blocks
+        (TP: ``moe_up``'s columns, ``moe_down``'s rows)."""
         c, n = self.config, self.tp
 
         def blocks(size):
@@ -343,14 +356,19 @@ class Transformer:
                        for r in range(n)]
         if name == "wo":
             return 0, blocks(c.q_dim)
+        if name in _EXPERT_KEYS:
+            if c.moe == "ep":
+                return 0, blocks(c.num_experts)
+            return (2 if name == "moe_up" else 1), blocks(c.ffn)
         return (1 if name == "up" else 0), blocks(c.ffn)
 
     def shard_params(self, params):
         """Place a parameter dict on the model's mesh (the counterpart of
         ``shardings()`` followed by ``device_put``): each
-        tensor-parallel leaf (``wqkv``, ``wo``, ``up``, ``down``, and both
-        leaves of their int8 dicts) becomes a list of W per-rank shards,
-        views of one allocation; every other leaf stays one shared
+        tensor-parallel leaf (``wqkv``, ``wo``, ``up``, ``down``, the
+        experts ``moe_up`` / ``moe_down``, and both leaves of their int8
+        dicts) becomes a list of W per-rank shards, views of one
+        allocation; every other leaf (the router too) stays one shared
         tensor. ``wqkv`` is cut per head (see :meth:`_shard_index`)."""
         if self.mesh is None:
             raise ValueError("shard_params needs the model's mesh")
@@ -365,12 +383,17 @@ class Transformer:
         out["blocks"] = []
         for blk in params["blocks"]:
             blk = dict(blk)
-            for name in _DENSE_QUANT_KEYS:
+            for name in _DENSE_QUANT_KEYS + _EXPERT_KEYS:
                 if name not in blk:
                     continue
                 dim, idx = self._shard_index(name)
                 w = blk[name]
-                if isinstance(w, dict):
+                if isinstance(w, dict) and name in _EXPERT_KEYS:
+                    # (E, N) expert scales follow the expert blocks (EP;
+                    # int8 experts are EP only)
+                    blk[name] = {"q": shard(w["q"], dim, idx),
+                                 "scale": shard(w["scale"], 0, idx)}
+                elif isinstance(w, dict):
                     # out-channel scales follow column shards; row shards
                     # keep every column, and its scale
                     sc = (shard(w["scale"], 0, idx) if dim == 1 else
@@ -483,7 +506,14 @@ class Transformer:
 
     def _expert_w(self, w):
         """Expert weights for a dense consumer: widen a quantized dict,
-        cast a plain tensor."""
+        cast a plain tensor. An EP model's sharded leaf is taken as the
+        (E, ...) view of its shards; a TP model's F shards stay a list,
+        each cast."""
+        from triton_distributed_tpu_torch.ops.moe import whole_experts
+
+        if self.config.moe == "tp" and isinstance(w, list):
+            return [t.to(self.config.dtype) for t in w]
+        w = whole_experts(w)
         if isinstance(w, dict):
             from triton_distributed_tpu_torch.kernels.group_gemm import (
                 dequantize_grouped_weights,
@@ -503,7 +533,7 @@ class Transformer:
         c = self.config
         return create_ag_group_gemm_context(
             num_experts=c.num_experts, topk=c.topk, block_m=PREFILL_BLOCK_M,
-            dtype=c.dtype)
+            dtype=c.dtype, mesh=self.mesh, axis=TP_AXIS)
 
     def _moe_ep_ctx(self, m_local: int, inference: bool = False,
                     weights_quantized: bool | None = None):
@@ -514,14 +544,17 @@ class Transformer:
         Otherwise (prefill) the full precision of JAX's off-TPU ``xla``
         context: no wire quantization, no W8A8, ``PREFILL_BLOCK_M``; the
         caller hands float experts, so both GEMMs run the float mode
-        over the same sorted rows (at one rank the exchange of either
-        transport is the identity). ``weights_quantized``: whether the
-        leaves in hand are quantized dicts (None → trust the config)."""
+        over the same sorted rows (either transport carries each row to
+        its expert unchanged). ``m_local``: a rank's tokens; over a mesh
+        the experts split over its ranks. ``weights_quantized``: whether
+        the leaves in hand are quantized dicts (None → trust the
+        config)."""
         from triton_distributed_tpu_torch.ops import create_ep_moe_context
 
         c = self.config
         kw = dict(num_experts=c.num_experts, topk=c.topk,
-                  max_m=m_local * c.topk, hidden=c.hidden, dtype=c.dtype)
+                  max_m=m_local * c.topk, hidden=c.hidden, dtype=c.dtype,
+                  mesh=self.mesh, axis=TP_AXIS)
         if not inference:
             return create_ep_moe_context(block_m=PREFILL_BLOCK_M, **kw)
         wq = c.moe_weight_quant
@@ -536,53 +569,77 @@ class Transformer:
     def init_decode_state(self, batch: int):
         """Per-layer persistent workspaces of the barrier-free EP MoE
         transport (:class:`~triton_distributed_tpu_torch.ops.EPMoEState`)
-        sized for ``batch`` tokens: one per MoE layer, None elsewhere;
-        None when the model has no EP layers."""
+        sized for ``batch`` tokens (over a mesh ceil(batch / tp) a rank,
+        one window pair a rank): one per MoE layer, None elsewhere; None
+        when the model has no EP layers."""
         from triton_distributed_tpu_torch.ops import create_ep_moe_state
 
         c = self.config
         if c.moe != "ep" or not c.moe_layers:
             return None
-        ctx = self._moe_ep_ctx(batch, inference=True)
+        ctx = self._moe_ep_ctx(-(-batch // self.tp), inference=True)
         return [create_ep_moe_state(ctx, self.device)
                 if i in c.moe_layers else None for i in range(c.n_layers)]
 
     def _decode_moe_ep(self, blk, xn, state=None):
         """One EP MoE block on the (T, H) normed rows: the f32 router,
         then :func:`~triton_distributed_tpu_torch.ops.ep_moe` (over the
-        persistent workspaces when ``state`` is given). Returns
-        ``(y, state')``."""
+        persistent workspaces when ``state`` is given). Over a mesh T is
+        padded with zero rows up to a multiple of tp (JAX's padding to
+        the token shards), whose results are dropped. Returns ``(y,
+        state')``."""
         from triton_distributed_tpu_torch.ops import ep_moe
+        from triton_distributed_tpu_torch.ops.moe import whole_experts
 
         c = self.config
-        logits = xn.float() @ blk["router"].float()
-        wq = isinstance(blk["moe_up"], dict)
-        ctx = self._moe_ep_ctx(xn.shape[0], inference=True,
+        b = xn.shape[0]
+        pad = (-b) % self.tp
+        xp = F.pad(xn, (0, 0, 0, pad)) if pad else xn
+        logits = xp.float() @ blk["router"].float()
+        w_up, w_down = (whole_experts(w) for w in (blk["moe_up"],
+                                                   blk["moe_down"]))
+        wq = isinstance(w_up, dict)
+        ctx = self._moe_ep_ctx(xp.shape[0] // self.tp, inference=True,
                                weights_quantized=wq)
         w_up, w_down = (w if isinstance(w, dict) else w.to(c.dtype)
-                        for w in (blk["moe_up"], blk["moe_down"]))
+                        for w in (w_up, w_down))
         if state is not None:
-            return ep_moe(xn, logits, w_up, w_down, ctx, state=state)
-        return ep_moe(xn, logits, w_up, w_down, ctx), None
+            y, state = ep_moe(xp, logits, w_up, w_down, ctx, state=state)
+        else:
+            y = ep_moe(xp, logits, w_up, w_down, ctx)
+        return y[:b], state
 
     def _moe_tp(self, blk, xn):
-        """The TP-flavour MoE block: every expert on this card, each
-        token's top-k expert MLPs run on its gathered (H, F) weights
-        (plain tensor math)."""
+        """The TP-flavour MoE block: each token's top-k expert MLPs run
+        on its gathered (H, F) weights (plain tensor math). Over a mesh
+        every rank's F shard at once: the up product's column shards,
+        then the down product's per-rank partials summed in f32 and cast,
+        as :meth:`_dmm_tp` sums row shards."""
         from triton_distributed_tpu_torch.kernels.moe_utils import (
             select_experts,
         )
+        from triton_distributed_tpu_torch.lang.shmem import require_stacked
 
         c = self.config
         logits_r = xn.float() @ blk["router"].float()
         w, ids = select_experts(logits_r, c.topk)
         y = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
+        up, down = blk["moe_up"], blk["moe_down"]
+        if self.mesh is not None:
+            up = require_stacked(up, "the MoE-TP decode's experts")
+            down = require_stacked(down, "the MoE-TP decode's experts")
         for tt in range(c.topk):
             e = ids[:, tt].long()
-            hh = F.silu(torch.einsum("bh,bhf->bf", xn,
-                                     blk["moe_up"][e].to(c.dtype)))
-            y += w[:, tt:tt + 1] * torch.einsum(
-                "bf,bfh->bh", hh, blk["moe_down"][e].to(c.dtype)).float()
+            if self.mesh is None:
+                hh = F.silu(torch.einsum("bh,bhf->bf", xn,
+                                         up[e].to(c.dtype)))
+                yt = torch.einsum("bf,bfh->bh", hh, down[e].to(c.dtype))
+            else:
+                hh = F.silu(torch.einsum("bh,wbhf->wbf", xn,
+                                         up[:, e].to(c.dtype)))
+                yt = _sum_rank_partials(torch.einsum(
+                    "wbf,wbfh->wbh", hh, down[:, e].to(c.dtype)))
+            y += w[:, tt:tt + 1] * yt.float()
         return y
 
     def _rmsnorm(self, x, w):
@@ -829,10 +886,12 @@ class Transformer:
         """The block's MLP on (T, H) rows. Dense: ``ag_gemm`` → silu →
         ``gemm_rs``. MoE (the experts widened to ``config.dtype``, one
         layer at a time): EP through ``EPMoEMLP`` in full precision
-        (:meth:`_moe_ep_ctx`); TP routes once in f32 and, with ``inference``, runs
-        ``moe_tp_mlp_overlapped`` (the MoE-TP kernels). The
-        differentiable TP path (``MoETPMLP``) raises until training is
-        ported."""
+        (:meth:`_moe_ep_ctx`); TP routes once in f32 and, with
+        ``inference``, runs ``moe_tp_mlp_overlapped`` (the MoE-TP
+        kernels). Over a mesh, row block r of ``x`` is rank r's tokens
+        and both flavours run over the mesh (the all-to-all across the
+        ranks, the mesh MoE-TP kernels). The differentiable TP path
+        (``MoETPMLP``) raises until training is ported."""
         c = self.config
         if "up" in blk:
             p = {"up": {"w": self._dense_w(blk["up"])},
@@ -846,7 +905,7 @@ class Transformer:
         if c.moe == "ep":
             from triton_distributed_tpu_torch.layers import EPMoEMLP
 
-            return EPMoEMLP(self._moe_ep_ctx(x.shape[0]))(moe, x)
+            return EPMoEMLP(self._moe_ep_ctx(x.shape[0] // self.tp))(moe, x)
         if not inference:
             raise NotImplementedError(
                 "the differentiable MoE-TP block (MoETPMLP, moe_tp_mlp) "
@@ -1109,6 +1168,12 @@ class Transformer:
         if moe_state is None:
             return toks, caches, kv_lens
         return toks, caches, kv_lens, moe_state
+
+
+def _sum_rank_partials(parts):
+    """The ranks' (W, ...) partial products summed in f32 and cast back:
+    the TP MoE decode's counterpart of GSPMD's all-reduce."""
+    return parts.sum(0, dtype=torch.float32).to(parts.dtype)
 
 
 def _cache_capacity(caches):

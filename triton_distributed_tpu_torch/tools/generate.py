@@ -15,8 +15,15 @@ matrix on the device. MoE presets (``deepseek_moe_16b``,
 over the persistent workspaces of ``init_decode_state``, threaded
 through the warm step and ``generate``. ``--tp N`` runs the
 tensor-parallel path over a loopback mesh of N ranks on the device (the
-counterpart of the JAX CLI's all-devices ``tp`` mesh; dense presets). It
-runs on the card unless ``--device cpu`` is given. ``main(argv)``
+counterpart of the JAX CLI's all-devices ``tp`` mesh), dense and MoE
+presets alike: an EP preset splits its experts over the ranks and runs
+its all-to-all across them, a TP one (``moe="tp"``) splits the experts'
+F dim::
+
+    python -m triton_distributed_tpu_torch.tools.generate \
+        --preset deepseek_moe_16b --tp 4 --batch 4 --prompt-len 512
+
+It runs on the card unless ``--device cpu`` is given. ``main(argv)``
 returns the timings as a dict.
 """
 
