@@ -25,6 +25,12 @@ Phases, all run every time:
    path's shapes, four ranks of a loopback mesh in each launch: the
    AG-GEMM and GEMM-RS over the mesh (bf16, the prefill's wqkv / up and
    wo / down) and the all-gather of the decode's attention partials
+   (byte-exact); and the quantized wires at the wire path's shapes
+   (Llama-2-7B's widths at tp = 4, an outlier row a shard): the wire
+   quantizer (byte-exact), the AG-GEMM on fp8 / int8 (wqkv, up; the
+   bf16 GEMM's excess check) and int8-mxu (bit-exact), the GEMM-RS on
+   fp8 / int8 (wo, down; the fold on the plain partials bit-exact, the
+   whole within a stated bound of code steps) and the fp8 all-gather
    (byte-exact). The kernels line reports each kernel at the shapes of
    the path that launches it, its times averaged over them by their
    launches a step;
@@ -60,8 +66,17 @@ Phases, all run every time:
    bf16 tolerance, the tokens equal on the rows whose top-2 margin
    exceeds it; the last step again with one rank's partial lost must
    break that tolerance), and 32 timed greedy steps (the all-gather
-   twice a layer and step). Then the port's ``tools.generate`` CLI on
-   its default device once in bf16, and once with ``--tp 4``;
+   twice a layer and step). Then the wire path: the tensor-parallel
+   layers (``ColumnParallelLinear`` wqkv, ``RowParallelLinear`` wo,
+   ``ParallelMLP``) of all 32 layers (seeded bf16 weights) on 4 x 2048
+   rows at tp = 4, on the bf16, fp8, int8 and int8-mxu wires, each
+   wire's outputs within JAX's pinned relative errors of the bf16
+   wire's, and the last MLP output all-gathered on the ring on 'auto'
+   (fp8); on the
+   loopback mesh no byte crosses a link, so this shows the wires'
+   numerics and cost, not a bandwidth gain. Then the port's
+   ``tools.generate`` CLI on its default device once in bf16, and once
+   with ``--tp 4``;
 7. the MoE generation path, DeepSeek-MoE-16B at full width and depth as
    served (EP: fp8 wire, W8A8 int8 experts, int8 KV, W8A8 dense) and in
    its TP flavour with bf16 experts: the same batch, caches and layouts
@@ -175,6 +190,35 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
         replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:285"),
+    # the quantized wires over the mesh. JAX quantizes the AG side's
+    # shards with lang/wire.py's quantize_slab on the XLA side, in front
+    # of the fused kernels; the port's quantizer is a kernel of its own
+    "wire_quantize": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/wire.cu",
+        replaces="triton_distributed_tpu/lang/wire.py:171"),
+    "ag_gemm_wire": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/ag_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/ag_gemm.py:266"),
+    "ag_gemm_mx": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/ag_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/ag_gemm.py:309"),
+    # the GEMM-RS wire in two kernels: every rank's partials, then the
+    # hop-by-hop fold (the in-kernel requantizing ring of :281)
+    "gemm_rs_wire": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:281"),
+    "gemm_rs_fold": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:281"),
+    "all_gather_wire": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/allgather.cu",
+        replaces="triton_distributed_tpu/kernels/allgather.py:87"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -228,6 +272,21 @@ DEC_B, DEC_PROMPT, DEC_CAP, DEC_PAGE, DEC_STEPS = 8, 1024, 2048, 128, 64
 MOE_GEN_STEPS = 32
 # its prefill's MoE-TP GEMMs at block_m 128: 8192 tokens, top-6
 MOE_TP_BM = 128
+
+#: the quantized-wire path: Llama-2-7B's widths at tp = 4 on a loopback
+#: mesh, all 32 layers' seeded weights, 4 x 2048 rows; each layer's
+#: wqkv (ColumnParallelLinear), wo (RowParallelLinear) and MLP
+#: (ParallelMLP) on every wire, then the last MLP output all-gathered
+#: on 'auto' over the ring. Its rows' launches and shapes come from that
+#: one run
+WIRES = (None, "fp8", "int8", "int8-mxu")
+WIRE_ROWS = ("wire_quantize", "ag_gemm_wire", "ag_gemm_mx", "gemm_rs_wire",
+             "gemm_rs_fold", "all_gather_wire")
+# JAX's pinned relative errors against the bf16 wire (tests/test_wire.py):
+# the AG side quantizes once, the RS side at each of the W - 1 hops
+WIRE_AG_TOL = {"fp8": 0.06, "int8": 0.02, "int8-mxu": 0.04}
+WIRE_RS_TOL = {"fp8": 0.15, "int8": 0.04, "int8-mxu": 0.04}
+WIRE_MX_TWIN_TOL = 0.03      # int8-mxu against the dequantizing int8 wire
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -1499,6 +1558,275 @@ def check_mesh_kernels(res: Results, dev):
         del ins, x, got
 
 
+def wire_operands(dev, g, shape, scale=1.0, outlier=False):
+    """TP per-rank bf16 shards of ``shape`` from the generator ``g``;
+    with ``outlier``, row 1 of every shard x1000, the per-chunk scale's
+    worst case (tests/test_wire.py:277-299)."""
+    import torch
+
+    t = torch.randn((TP, *shape), generator=g, device=dev,
+                    dtype=torch.bfloat16) * scale
+    if outlier:
+        t[:, 1] *= 1000.0
+    return list(t.unbind(0))
+
+
+def _row_excess(out, ref):
+    """The bf16 GEMM excess check with its absolute term taken per row:
+    (the largest ``max(|out - ref| - 2^-8·|ref|)`` of a row over that
+    row's largest ``|ref|``, which must stay within GG_ATOL; max |out -
+    ref|), so that the x1000 outlier row does not loosen the others'
+    limit. A row of zeros must come out exact."""
+    over, err = float("-inf"), 0.0
+    for o, r in zip(out, ref):
+        diff = (o.float() - r).abs()
+        err = max(err, diff.max().item())
+        excess = (diff - GG_RTOL * r.abs()).amax(1)
+        over = max(over, (excess / r.abs().amax(1).clamp_min(1e-30))
+                   .max().item())
+    return over, err
+
+
+def check_wire_kernels(res: Results, dev):
+    """The quantized-wire kernels over a loopback mesh of 4 ranks at the
+    wire path's shapes (Llama-2-7B's widths, 4 x 2048 rows, an outlier
+    row a shard), each alone against its plain version on the same
+    inputs, timed: the wire quantizer (codes and scales byte-exact,
+    chunks of 64 rows and of one); the AG-GEMM on fp8 / int8 (the bf16
+    GEMM's excess check, per row: the plain version dequantizes the same
+    codes) and int8-mxu (bit-exact: s32 sums) for wqkv and up; the
+    GEMM-RS wire's partials for wo and down (the bf16 GEMM's excess
+    check, per row) and its fold on fp8 / int8 (bit-exact against the
+    plain fold of the kernel's own partials, as is the whole wire); the
+    all-gather on fp8 (byte-exact). Each row weighs its shapes by their
+    launches in the wire path's run; a wrapper's whole call (the
+    quantizer included, and for int8-mxu the per-column quantization of
+    B in torch ops) is logged as call_ms beside its kernel's time."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import ag_gemm as agm
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.kernels import wire as wk
+    from triton_distributed_tpu_torch.lang import wire as tw
+    from triton_distributed_tpu_torch.runtime import AllGatherMethod, Mesh
+
+    mesh = Mesh.loopback(TP, dev)
+    m, h, f = DEC_B * DEC_PROMPT // TP, 4096, 11008
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = wire_operands(dev, g, (m, h), outlier=True)
+    tag0 = f"llama_7b tp={TP} wire"
+
+    # the quantizer: the AG-GEMMs' chunks (fp8 on one pass, int8 on the
+    # int8 and int8-mxu passes, 64 launches a pass) and the all-gather's
+    # rows (fp8, once a wire)
+    wired = {}
+    for wire, cr, per_run in (("fp8", 64, 64), ("int8", 64, 128),
+                              ("fp8", 1, len(WIRES))):
+        fmt = tw.WireFormat(wire, cr)
+        q, sc = wk.quantize_shards(x, fmt)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(q[r].view(torch.uint8),
+                                want[0].view(torch.uint8))
+                    and torch.equal(sc[r], want[1])
+                    for r, want in enumerate(tw.quantize_slab(xr, fmt)
+                                             for xr in x))
+        what = f"{tag0} quantize {wire} chunk_rows={cr} {TP} x {(m, h)} bf16"
+        res.check("wire_quantize", 0.0 if exact else 1.0, 0.0, what,
+                  metric="bytes differ")
+        res.kernel("wire_quantize", err=0.0)
+        ms = time_ms(lambda: wk.quantize_shards(x, fmt), 10)
+        plain_ms = time_ms(lambda: [tw.quantize_slab(xr, fmt) for xr in x],
+                           2)
+        # bytes: every shard read once, its codes and scales written once
+        nbytes = TP * m * h * 3 + 4 * TP * m // cr
+        bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time wire_quantize {what} ({per_run}/run, one launch for "
+            f"{TP} ranks): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=None (no one PyTorch call) bound_ms={bnd:.4f} "
+            f"({by})")
+        res.shape("wire_quantize", per_run, ms, plain_ms, None, nbytes, 0.0,
+                  H100_BF16_OPS)
+        wired[(wire, cr)] = (fmt, q, sc)
+
+    # the AG-GEMMs: wqkv and up, 32 launches each in a pass over the
+    # layers; fp8 and int8 one pass each (ag_gemm_wire), int8-mxu one
+    for what, n in (("wqkv", 3 * h // TP), ("up", f // TP)):
+        b = wire_operands(dev, g, (h, n), h ** -0.5)
+        b_cat = torch.cat(b, dim=1)
+        ops = 2.0 * TP * m * h * TP * n
+        for wire in ("fp8", "int8", "int8-mxu"):
+            mx = wire == "int8-mxu"
+            name = "ag_gemm_mx" if mx else "ag_gemm_wire"
+            fmt, q, sc = wired[(tw.wire_payload(wire), 64)]
+            pairs = list(zip(q, sc))
+            tag = (f"{tag0} {wire} {what} A {TP} x {(m, h)} B {TP} x "
+                   f"{(h, n)}")
+            call_ms = time_ms(lambda: agm.ag_gemm(x, b, mesh,
+                                                  wire_dtype=wire), 3)
+            if mx:
+                bqt, bs = agm.quantize_cols_shards(b)
+                cols = [tw.quantize_cols(br) for br in b]
+                out = agm.ag_gemm_mx_launch(q, sc, bqt, bs, mesh,
+                                            fmt.chunk_rows, bf16)
+                ref = agm.ag_gemm_wired_plain(x, pairs, cols, fmt, bf16,
+                                              mx=True)
+                torch.cuda.synchronize()
+                err = max((o.float() - r.float()).abs().max().item()
+                          for o, r in zip(out, ref))
+                res.check(name, err, 0.0, tag + " (bit-exact: s32 sums)")
+                ms = time_ms(lambda: agm.ag_gemm_mx_launch(
+                    q, sc, bqt, bs, mesh, fmt.chunk_rows, bf16), 3)
+                plain_ms = time_ms(lambda: agm.ag_gemm_wired_plain(
+                    x, pairs, cols, fmt, bf16, mx=True), 1)
+                cols_ms = time_ms(lambda: agm.quantize_cols_shards(b), 3)
+                codes = q.reshape(-1, h)
+                rs = sc.repeat_interleave(fmt.chunk_rows, 1).reshape(-1, 1)
+                # every rank's columns, column-major for _int_mm
+                bcol = bqt.reshape(-1, h).t()
+                bsc = bs.reshape(1, -1)
+                lib = time_ms(lambda: (torch._int_mm(codes, bcol).float()
+                                       * rs * bsc).to(bf16), 3)
+                libwhat = "torch._int_mm + epilogue, all ranks' columns"
+                # every slab's codes and scales, B's codes and scales
+                # read once, every output written once
+                nbytes = (TP * m * h + 4 * TP * m // 64 + h * TP * n
+                          + 4 * TP * n + 2 * TP * TP * m * n)
+                peak = H100_INT8_OPS
+                extra = (f" (B's per-column quantization in torch ops "
+                         f"{cols_ms:.4f} ms of it)")
+                del cols, codes, rs, bcol, bqt, bs
+            else:
+                out = agm.ag_gemm_w_launch(x, q, sc, b, mesh, fmt, bf16)
+                ref = agm.ag_gemm_wired_plain(x, pairs, b, fmt,
+                                              torch.float32)
+                torch.cuda.synchronize()
+                over, err = _row_excess(out, ref)
+                res.check(name, over, GG_ATOL, tag, metric="max over rows "
+                          "of max(|err|-2^-8|ref|)/rowmax|ref|")
+                ms = time_ms(lambda: agm.ag_gemm_w_launch(
+                    x, q, sc, b, mesh, fmt, bf16), 3)
+                plain_ms = time_ms(lambda: agm.ag_gemm_wired_plain(
+                    x, pairs, b, fmt, bf16), 1)
+                a_deq = torch.cat([tw.dequantize_slab(qr, sr, fmt, bf16)
+                                   for qr, sr in pairs])
+                lib = time_ms(lambda: torch.matmul(a_deq, b_cat), 3)
+                libwhat = ("torch.matmul on the dequantized gathered A, all "
+                           "ranks' columns")
+                # the own shards and every slab's codes and scales, B
+                # read once, every output written once
+                nbytes = (2 * TP * m * h + TP * m * h + 4 * TP * m // 64
+                          + 2 * h * TP * n + 2 * TP * TP * m * n)
+                peak = H100_BF16_OPS
+                extra = ""
+                del a_deq
+            res.kernel(name, err=err)
+            bnd, by = bound_ms(nbytes, ops, peak)
+            log(f"time {name} {tag} (32/pass, one launch for {TP} ranks): "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                f"{lib:.4f} ({libwhat}) bound_ms={bnd:.4f} ({by}) "
+                f"max_abs_err={err:.6g}; call_ms={call_ms:.4f} (the "
+                f"wrapper: quantizer + kernel{extra})")
+            res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, peak)
+            del out, ref
+        del b, b_cat
+
+    # the GEMM-RS wire: wo and down, 32 calls each a pass, on fp8, int8
+    # and int8-mxu (its int8 payload); each call runs the partials, then
+    # the fold
+    for what, k in (("wo", h // TP), ("down", f // TP)):
+        a = wire_operands(dev, g, (TP * m, k), outlier=True)
+        b = wire_operands(dev, g, (k, h), (TP * k) ** -0.5)
+        a_st, b_st = torch.stack(a), torch.stack(b)
+        tag = f"{tag0} {what} A_q {TP} x {(TP * m, k)} B_q {TP} x {(k, h)}"
+        parts = grs.gemm_rs_partials(a, b, mesh, bf16)
+        ref = [aq.float() @ bq.float() for aq, bq in zip(a, b)]
+        torch.cuda.synchronize()
+        over, err = _row_excess(parts, ref)
+        del ref
+        res.check("gemm_rs_wire", over, GG_ATOL, tag + " partials",
+                  metric="max over rows of max(|err|-2^-8|ref|)/"
+                  "rowmax|ref|")
+        res.kernel("gemm_rs_wire", err=err)
+        ms = time_ms(lambda: grs.gemm_rs_partials(a, b, mesh, bf16), 3)
+        plain_ms = time_ms(lambda: [(aq.float() @ bq.float()).to(bf16)
+                                    for aq, bq in zip(a, b)], 1)
+        lib = time_ms(lambda: torch.bmm(a_st, b_st), 3)
+        ops = 2.0 * TP * m * TP * k * h
+        nbytes = 2 * (TP * TP * m * k + TP * k * h + TP * TP * m * h)
+        bnd, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+        log(f"time gemm_rs_wire {tag} partials (32/pass, 3 passes, one "
+            f"launch for {TP} ranks): kernel_ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} library_ms={lib:.4f} (torch.bmm of every "
+            f"rank's A_q @ B_q) bound_ms={bnd:.4f} ({by}) "
+            f"max_abs_err={err:.6g}")
+        res.shape("gemm_rs_wire", 3 * 32, ms, plain_ms, lib, nbytes, ops,
+                  H100_BF16_OPS)
+        for wire, passes in (("fp8", 1), ("int8", 2)):
+            fmt = tw.make_wire_format(wire, m)
+            folded = grs.gemm_rs_fold(parts, mesh, fmt, bf16)
+            whole = grs.gemm_rs(a, b, mesh, wire_dtype=wire)
+            want = grs.gemm_rs_fold_plain(parts, fmt, bf16)
+            torch.cuda.synchronize()
+            for got, part in ((folded, "fold"),
+                               (whole, "whole wire (partials + fold)")):
+                same = all(torch.equal(o, r) for o, r in zip(got, want))
+                res.check("gemm_rs_fold", 0.0 if same else 1.0, 0.0,
+                          f"{tag} {wire} {part} = the plain fold of the "
+                          "kernel's partials", metric="bytes differ")
+            res.kernel("gemm_rs_fold", err=0.0)
+            del folded, whole, want
+            ms = time_ms(lambda: grs.gemm_rs_fold(parts, mesh, fmt, bf16), 5)
+            plain_ms = time_ms(lambda: grs.gemm_rs_fold_plain(parts, fmt,
+                                                              bf16), 1)
+            call_ms = time_ms(lambda: grs.gemm_rs(a, b, mesh,
+                                                  wire_dtype=wire), 3)
+            # every partial read once, every output written once
+            nbytes = 2 * (TP * TP * m * h + TP * m * h)
+            bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+            log(f"time gemm_rs_fold {tag} {wire} (32/pass, {passes} "
+                f"pass(es), one launch for {TP} ranks): kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch "
+                f"call) bound_ms={bnd:.4f} ({by}); call_ms={call_ms:.4f} "
+                "(the wrapper: partials + fold)")
+            res.shape("gemm_rs_fold", 32 * passes, ms, plain_ms, None,
+                      nbytes, 0.0, H100_BF16_OPS)
+        del a, b, a_st, b_st, parts
+
+    # the all-gather of the last MLP output on 'auto' over the ring
+    # (16 MiB a shard: fp8), once a wire's pass
+    fmt, q, sc = wired[("fp8", 1)]
+    pairs = list(zip(q, sc))
+    got = agk.all_gather_w_launch(x, q, sc, mesh, fmt)
+    whole = agk.all_gather(x, mesh, method=AllGatherMethod.RING_1D,
+                           wire_dtype="auto")
+    want = agk.all_gather_wired_plain(x, pairs, fmt)
+    torch.cuda.synchronize()
+    tag = f"{tag0} all_gather fp8 {TP} x {(m, h)} bf16"
+    for out, part in ((got, "kernel"), (whole, "'auto' on the ring")):
+        exact = all(torch.equal(o, r) for o, r in zip(out, want))
+        res.check("all_gather_wire", 0.0 if exact else 1.0, 0.0,
+                  f"{tag} {part}", metric="bytes differ")
+    res.kernel("all_gather_wire", err=0.0)
+    del got, whole, want
+    ms = time_ms(lambda: agk.all_gather_w_launch(x, q, sc, mesh, fmt), 10)
+    plain_ms = time_ms(lambda: agk.all_gather_wired_plain(x, pairs, fmt), 2)
+    call_ms = time_ms(lambda: agk.all_gather(x, mesh, wire_dtype="fp8"), 10)
+    lib = time_ms(lambda: torch.cat(x * TP), 10)
+    # the own shards and every slab's codes and scales read once, every
+    # rank's gathered copy written once
+    nbytes = 2 * TP * m * h + TP * m * h + 4 * TP * m + 2 * TP * TP * m * h
+    bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+    log(f"time all_gather_wire {tag} (1/pass, one launch for {TP} ranks): "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} "
+        f"(one torch.cat of every rank's copy) bound_ms={bnd:.4f} ({by}); "
+        f"call_ms={call_ms:.4f} (the wrapper: quantizer + kernel)")
+    res.shape("all_gather_wire", len(WIRES), ms, plain_ms, lib, nbytes, 0.0,
+              H100_BF16_OPS)
+    del x, wired, pairs, q, sc
+
+
 def a2a_mesh_inputs(dev, m_rank: int, seed: int):
     """Every rank's staged exchange at the EP path's geometry on a
     loopback mesh of ``TP`` ranks: ``m_rank`` bf16 token rows a rank
@@ -2258,6 +2586,123 @@ def run_tp_path(res: Results, dev, one, profile=False):
     return counts
 
 
+def _rel_err(a, b) -> float:
+    """max |a - b| / max |b| over every rank's tensor."""
+    num = max((x.float() - y.float()).abs().max().item()
+              for x, y in zip(a, b))
+    return num / max(y.float().abs().max().item() for y in b)
+
+
+def run_wire_path(res: Results, dev):
+    """The tensor-parallel layers on every wire at Llama-2-7B's widths,
+    tp = 4 on a loopback mesh of the card: all 32 layers' weights (bf16,
+    drawn from a seed a layer) applied to the same seeded inputs, 4 x
+    2048 rows of hidden 4096 (an outlier row x1000 a shard) and, for wo,
+    the attention output's 4 x (8192, 1024) column shards: each layer's
+    ``ColumnParallelLinear`` (wqkv), ``RowParallelLinear`` (wo) and
+    ``ParallelMLP`` (up -> silu -> down) on the bf16 wire, fp8, int8 and
+    int8-mxu, every wire's output within JAX's pinned relative error of
+    the bf16 wire's (int8-mxu also of the int8 wire's); then the last
+    layer's MLP output, on each wire, all-gathered on 'auto' over the
+    ring (16 MiB a shard: fp8) within 0.06. Counts every launch of the run: each wire
+    kernel must launch 32 times a layer op it carries, the plain GEMMs
+    never. Returns {kernel: launches}. On the loopback mesh no byte
+    crosses a link: the run shows the wires' numerics and cost."""
+    import torch
+
+    from triton_distributed_tpu_torch import layers, ops
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.runtime import AllGatherMethod, Mesh
+
+    name = f"llama_7b tp{TP} wires"
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    m, h, f, n_layers = DEC_B * DEC_PROMPT // TP, 4096, 11008, 32
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = wire_operands(dev, g, (m, h), outlier=True)
+    attn = wire_operands(dev, g, (TP * m, h // TP))
+
+    def stack(wire):
+        ctx = ops.OverlapContext(mesh, "tp", wire_dtype=wire)
+        return (layers.ColumnParallelLinear(ctx),
+                layers.RowParallelLinear(ctx),
+                layers.ParallelMLP(layers.ColumnParallelLinear(ctx),
+                                   layers.RowParallelLinear(ctx),
+                                   activation="silu"))
+
+    stacks = {w: stack(w) for w in WIRES}
+    worst = {(w, op): 0.0 for w in WIRES[1:] for op in ("wqkv", "wo", "mlp")}
+    worst.update({("twin", op): 0.0 for op in ("wqkv", "wo", "mlp")})
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for layer in range(n_layers):
+        gl = torch.Generator(device=dev).manual_seed(1000 + layer)
+        p = {"wqkv": {"w": wire_operands(dev, gl, (h, 3 * h // TP),
+                                         h ** -0.5)},
+             "wo": {"w": wire_operands(dev, gl, (h // TP, h), h ** -0.5)},
+             "mlp": {"up": {"w": wire_operands(dev, gl, (h, f // TP),
+                                               h ** -0.5)},
+                     "down": {"w": wire_operands(dev, gl, (f // TP, h),
+                                                 f ** -0.5)}}}
+        outs = {}
+        for wire in WIRES:
+            col, row, mlp = stacks[wire]
+            outs[wire] = {"wqkv": col(p["wqkv"], x), "wo": row(p["wo"], attn),
+                          "mlp": mlp(p["mlp"], x)}
+        for op in ("wqkv", "wo", "mlp"):
+            for wire in WIRES[1:]:
+                worst[(wire, op)] = max(worst[(wire, op)], _rel_err(
+                    outs[wire][op], outs[None][op]))
+            worst[("twin", op)] = max(worst[("twin", op)], _rel_err(
+                outs["int8-mxu"][op], outs["int8"][op]))
+        last = {w: outs[w]["mlp"] for w in WIRES}
+        del p, outs
+    gathered = {w: agk.all_gather(last[w], mesh,
+                                  method=AllGatherMethod.RING_1D,
+                                  wire_dtype="auto") for w in WIRES}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"path {name}: {n_layers} layers x {len(WIRES)} wires x (wqkv, wo, "
+        f"mlp) in {wall:.2f} s (weights drawn on the card inside); launches "
+        + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    per_wire = 2 * n_layers       # 2 AG-GEMMs and 2 GEMM-RS a layer
+    # the quantizer once an AG-GEMM call on a wire and once a gather
+    expect = {"ag_gemm": per_wire, "gemm_rs": per_wire,
+              "wire_quantize": 3 * per_wire + len(WIRES),
+              "ag_gemm_wire": 2 * per_wire, "ag_gemm_mx": per_wire,
+              "gemm_rs_wire": 3 * per_wire, "gemm_rs_fold": 3 * per_wire,
+              "all_gather": 0, "all_gather_wire": len(WIRES)}
+    for k, v in counts.items():
+        if v != expect.get(k, 0):
+            res.failures.append(f"{name}: {v} {k} launches, expected "
+                                f"{expect.get(k, 0)}")
+    for (wire, op), err in worst.items():
+        if wire == "twin":
+            res.check(name, err, WIRE_MX_TWIN_TOL, f"int8-mxu vs int8 {op} "
+                      f"(worst of {n_layers} layers)", metric="max_rel_err")
+            continue
+        tol = (WIRE_AG_TOL if op == "wqkv" else WIRE_RS_TOL)[wire]
+        res.check(name, err, tol, f"{wire} vs bf16 wire {op} (worst of "
+                  f"{n_layers} layers)", metric="max_rel_err")
+    for wire in WIRES:
+        want = torch.cat(last[wire])
+        err = _rel_err(gathered[wire], [want] * TP)
+        res.check(name, err, WIRE_AG_TOL["fp8"], f"all_gather auto (fp8) of "
+                  f"the {wire or 'bf16'} wire's last MLP output",
+                  metric="max_rel_err")
+        for r, o in enumerate(gathered[wire]):
+            if not torch.equal(o[r * m:(r + 1) * m], last[wire][r]):
+                res.failures.append(f"{name}: rank {r}'s own slab is not "
+                                    "exact after the wire all-gather")
+    return counts
+
+
 def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
     """DeepSeek-MoE-16B at tp = 4 on a loopback mesh of the card, from
     the MoE generation path's tp = 1 run ``one`` (:func:`run_decode_path`
@@ -2623,6 +3068,7 @@ def main() -> int:
     check_n1_gemms(res, dev)
     check_moe_tp_kernels(res, dev)
     check_mesh_kernels(res, dev)
+    check_wire_kernels(res, dev)
     n_moe = len(deepseek.moe_layers)
     check_a2a_mesh(res, dev, n_moe)
     check_moe_tp_mesh_kernels(res, dev, n_moe)
@@ -2649,6 +3095,7 @@ def main() -> int:
         profile=opts.profile, keep=True)
     tp_counts = run_tp_path(res, dev, one, profile=opts.profile)
     del one
+    wire_counts = run_wire_path(res, dev)
     for k, v in run_decode_path(res, dev, "llama_7b int8", llama,
                                 profile=opts.profile).items():
         decode_counts[k] += v
@@ -2726,6 +3173,8 @@ def main() -> int:
             n, steps = mesh_counts[name], 1
         elif name == "chunked_a2a_mesh":
             n, steps = mesh_counts[name], TP_STEPS
+        elif name in WIRE_ROWS:
+            n, steps = wire_counts[name], 1
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

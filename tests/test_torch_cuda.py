@@ -786,6 +786,269 @@ class TestMeshKernels:
             ag.all_gather([t.t() for t in a], mesh)
 
 
+# ------------------------------------------------------- quantized wires
+
+def _gemm_tol_rows(want, k, bf16_out):
+    """:func:`_gemm_tol` with the summation term taken per row, so that
+    an outlier row (x1000) does not loosen the limit of the others."""
+    return ((2.0 ** -8 * want.abs() if bf16_out else 0.0)
+            + 1e-5 * np.sqrt(k) * want.abs().amax(1, keepdim=True))
+
+
+def _wire_shards(dev, w, rows, cols, dtype, seed, separate=False):
+    """W (rows, cols) shards with an outlier row (x1000) in shard 0 and
+    a chunk of zeros at the end of the last shard: views of one
+    allocation, or (``separate``) tensors of their own."""
+    rng = np.random.default_rng(seed)
+    full = rng.standard_normal((w, rows, cols)).astype(np.float32)
+    full[0, 1] *= 1000.0
+    full[-1, -min(rows, 8):] = 0.0
+    full = _t(full, dev, dtype)
+    if separate:
+        return [full[r].clone() for r in range(w)]
+    return list(full.unbind(0))
+
+
+def test_quantizers_round_as_on_the_cpu(dev):
+    """Every quantizer gives the card the CPU's scales and codes bit for
+    bit (the CPU's are JAX's: tests/test_torch_wire.py and the parity
+    files). PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which rounded half the scales apart in the last bit
+    before ``config.div_scalar``."""
+    from triton_distributed_tpu_torch.lang import wire as tw
+
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn((64, 512), generator=g) * 3.0
+    w = torch.randn((3, 64, 96), generator=g)
+    ctx = {q: ma.MoEAllToAllContext(n=1, max_m=64, hidden=512,
+                                    experts_per_rank=2, quant=q)
+           for q in ("fp8", "int8")}
+    fmt = {q: tw.make_wire_format(q, 64) for q in ("fp8", "int8")}
+    cases = [("quantize_act_rows", gg.quantize_act_rows, (x,)),
+             ("quantize_grouped_weights", gg.quantize_grouped_weights, (w,)),
+             ("quantize_kv", quantize_kv, (x.reshape(2, 4, 16, 256),)),
+             ("quantize_cols", tw.quantize_cols, (x,))]
+    for q in ("fp8", "int8"):
+        cases += [(f"quantize_rows {q}", lambda t, q=q: ma.quantize_rows(
+                      ctx[q], t), (x,)),
+                  (f"quantize_slab {q}", lambda t, q=q: tw.quantize_slab(
+                      t, fmt[q]), (x,))]
+    for name, fn, args in cases:
+        want = fn(*args)
+        got = fn(*(a.to(dev) for a in args))
+        for gt, wt in zip(got, want):
+            gt = gt.cpu()
+            if gt.dtype == torch.float8_e4m3fn:
+                gt, wt = gt.view(torch.uint8), wt.view(torch.uint8)
+            assert torch.equal(gt, wt), name
+
+
+class TestWireKernels:
+    """The quantized-wire kernels against their plain versions, at small
+    shapes: 16-byte rows and ragged ones (the scalar paths), one and
+    several chunks a shard, an outlier row and a zero chunk."""
+
+    @pytest.mark.parametrize("chunk", [None, 1])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("quant", ["fp8", "int8"])
+    @pytest.mark.parametrize("shape", [(96, 72), (40, 70)])
+    def test_quantize_is_byte_exact(self, dev, shape, quant, dtype, chunk):
+        """``tdt_quantize_slab`` over every shard: codes and scales equal
+        ``lang.wire.quantize_slab``'s byte for byte (chunks of 32 / 40
+        rows, or one row)."""
+        from triton_distributed_tpu_torch.lang import wire as tw
+
+        rows, cols = shape
+        x = _wire_shards(dev, 3, rows, cols, getattr(torch, dtype), 30,
+                         separate=True)
+        fmt = (tw.make_wire_format(quant, rows) if chunk is None
+               else tw.WireFormat(quant, chunk))
+        from triton_distributed_tpu_torch.kernels import wire as wk
+
+        before = launch_counts()["wire_quantize"]
+        q, s = wk.quantize_shards(x, fmt)
+        assert launch_counts()["wire_quantize"] == before + 1
+        torch.cuda.synchronize()
+        for r, xr in enumerate(x):
+            wq, ws = tw.quantize_slab(xr, fmt)
+            assert torch.equal(q[r].view(torch.uint8), wq.view(torch.uint8))
+            assert torch.equal(s[r], ws)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(37, 72, 40), (64, 70, 136)])
+    def test_ag_gemm_w_matches_plain(self, dev, shape, w, wire, dtype):
+        """Rank r's own shard exact, its peers' dequantized: the same A
+        as the plain version, so f32 summation order (per row) and one
+        bf16 rounding apart; two launches counted, the quantizer's
+        (``wire_quantize``) and the product's (``ag_gemm_wire``)."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n = shape
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, m, k, tdt, 31)
+        rng = np.random.default_rng(32)
+        b = [x / np.sqrt(k) for x in _mesh_shards(rng, dev, w, (k, n), tdt,
+                                                  False)]
+        before = launch_counts()
+        got = agm.ag_gemm(a, b, mesh, wire_dtype=wire)
+        after = launch_counts()
+        assert after["ag_gemm_wire"] == before["ag_gemm_wire"] + 1
+        assert after["wire_quantize"] == before["wire_quantize"] + 1
+        assert sum(after.values()) == sum(before.values()) + 2
+        want = agm.ag_gemm_plain(a, b, mesh, out_dtype=torch.float32,
+                                 wire=wire)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == tdt and g.shape == (w * m, n)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, dtype == "bfloat16")).all()
+
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(37, 72, 40), (64, 256, 136)])
+    def test_ag_gemm_mx_is_exact(self, dev, shape, w, out):
+        """s32 sums are exact in any order and the epilogue is the plain
+        version's, (acc · row scale) · column scale: bit for bit (K 72:
+        the byte loads; K 256: 16-byte rows, N past one 128-wide tile)."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n = shape
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, m, k, torch.bfloat16, 33)
+        rng = np.random.default_rng(34)
+        b = _mesh_shards(rng, dev, w, (k, n), torch.bfloat16, False)
+        kw = dict(out_dtype=getattr(torch, out))
+        before = launch_counts()["ag_gemm_mx"]
+        got = agm.ag_gemm(a, b, mesh, wire_dtype="int8-mxu", **kw)
+        assert launch_counts()["ag_gemm_mx"] == before + 1
+        want = agm.ag_gemm_plain(a, b, mesh, wire="int8-mxu", **kw)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            torch.testing.assert_close(g, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(32, 50, 196), (64, 136, 72)])
+    def test_gemm_rs_w(self, dev, shape, w, wire, dtype):
+        """The partials (``tdt_gemm_rs_partials``) within f32 summation
+        order (per row) and one rounding of the plain partials; the fold
+        (``tdt_gemm_rs_fold``) on the kernel's own partials equals the
+        plain fold of them bit for bit, and so does the whole wire, one
+        launch of each kernel."""
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n = shape
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        rng = np.random.default_rng(35)
+        a = _mesh_shards(rng, dev, w, (w * m, k), tdt, False)
+        a[0][3] *= 1000.0
+        b = [x / np.sqrt(w * k) for x in _mesh_shards(rng, dev, w, (k, n),
+                                                      tdt, False)]
+        fmt = tw.make_wire_format(wire, m)
+        parts = grs.gemm_rs_partials(a, b, mesh, tdt)
+        folded = grs.gemm_rs_fold(parts, mesh, fmt, tdt)
+        before = launch_counts()
+        got = grs.gemm_rs(a, b, mesh, wire_dtype=wire)
+        after = launch_counts()
+        assert after["gemm_rs_wire"] == before["gemm_rs_wire"] + 1
+        assert after["gemm_rs_fold"] == before["gemm_rs_fold"] + 1
+        assert sum(after.values()) == sum(before.values()) + 2
+        want = grs.gemm_rs_fold_plain(parts, fmt, tdt)
+        torch.cuda.synchronize()
+        for p, aq, bq in zip(parts, a, b):
+            ref = aq.float() @ bq.float()
+            assert p.dtype == tdt and p.shape == (w * m, n)
+            assert ((p.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, dtype == "bfloat16")).all()
+        for d in range(w):
+            assert got[d].dtype == tdt and got[d].shape == (m, n)
+            assert torch.equal(folded[d], want[d])
+            assert torch.equal(got[d], want[d])
+
+    @pytest.mark.parametrize("separate", [False, True])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(13, 520, "bfloat16"),
+                                       (16, 700, "float32")])
+    def test_all_gather_w_is_byte_exact(self, dev, shape, w, wire, separate):
+        """Every rank's result equals the plain version's byte for byte:
+        its own shard exact, the peers' per-row codes · scale."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, cols, dtype = shape
+        mesh = Mesh.loopback(w, dev)
+        x = _wire_shards(dev, w, m, cols, getattr(torch, dtype), 36,
+                         separate)
+        before = launch_counts()["all_gather_wire"]
+        got = ag.all_gather(x, mesh, wire_dtype=wire)
+        assert launch_counts()["all_gather_wire"] == before + 1
+        want = ag.all_gather_plain(x, mesh, wire=wire)
+        torch.cuda.synchronize()
+        for r, (g, ref) in enumerate(zip(got, want)):
+            assert torch.equal(g, ref)
+            assert torch.equal(g[r * m:(r + 1) * m], x[r])
+
+    def test_wires_on_the_card_never_run_the_plain_versions(self, dev,
+                                                            monkeypatch):
+        """Every wire on CUDA tensors launches its kernel: with the plain
+        versions and the plain quantizer made to raise, each op counts
+        exactly one launch of its wire kernel and nothing else."""
+        from triton_distributed_tpu_torch import ops
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        def boom(*a, **k):
+            raise AssertionError("a plain version ran on CUDA tensors")
+
+        for mod, name in ((agm, "ag_gemm_plain"),
+                          (agm, "ag_gemm_wired_plain"),
+                          (grs, "gemm_rs_plain"), (grs, "gemm_rs_fold_plain"),
+                          (grs, "wire_fold_plain"), (ag, "all_gather_plain"),
+                          (ag, "all_gather_wired_plain"),
+                          (tw, "quantize_slab"), (tw, "dequantize_slab")):
+            monkeypatch.setattr(mod, name, boom)
+        mesh = Mesh.loopback(4, dev)
+        x = _wire_shards(dev, 4, 64, 256, torch.bfloat16, 37)
+        up = [t / 16 for t in _wire_shards(dev, 4, 256, 128, torch.bfloat16,
+                                           38)]
+        down = [t / 16 for t in _wire_shards(dev, 4, 128, 256,
+                                             torch.bfloat16, 39)]
+        for wire, ag_row in (("fp8", "ag_gemm_wire"), ("int8", "ag_gemm_wire"),
+                             ("int8-mxu", "ag_gemm_mx")):
+            ctx = ops.OverlapContext(mesh, "tp", wire_dtype=wire)
+            before = launch_counts()
+            h = ops.ag_gemm(x, up, ctx)
+            y = ops.gemm_rs(h, down, ctx)
+            after = launch_counts()
+            moved = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            assert moved == {"wire_quantize": 1, ag_row: 1,
+                             "gemm_rs_wire": 1, "gemm_rs_fold": 1}
+            assert all(t.isfinite().all() for t in y)
+        # 'auto' on the ring: 128 KiB shards stay raw, 256 KiB go on
+        # fp8; with no method, 256 KiB stay raw at 4 ranks (JAX's pick,
+        # the bidirectional ring, carries no wire)
+        from triton_distributed_tpu_torch.runtime import AllGatherMethod
+
+        xa = _wire_shards(dev, 4, 64, 1024, torch.bfloat16, 40)
+        xb = [t.repeat(2, 1) for t in xa]
+        ring = AllGatherMethod.RING_1D
+        before = launch_counts()
+        ag.all_gather(xa, mesh, method=ring, wire_dtype="auto")
+        ag.all_gather(xb, mesh, method=ring, wire_dtype="auto")
+        ag.all_gather(xb, mesh, wire_dtype="auto")
+        after = launch_counts()
+        assert after["all_gather"] == before["all_gather"] + 2
+        assert after["all_gather_wire"] == before["all_gather_wire"] + 1
+        assert after["wire_quantize"] == before["wire_quantize"] + 1
+
+
 def test_tp_prefill_generate_on_card_equals_cpu(dev):
     """The tiny f32 and int8 models at tp = 4 on a loopback mesh on the
     card and on the CPU, from the same weights: the prefill logits within

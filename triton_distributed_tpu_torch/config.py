@@ -1,4 +1,5 @@
-"""Device resolution, dtype names and the kernel build directory.
+"""Device resolution, dtype names, the kernel build directory, and the
+division the quantizers use (:func:`div_scalar`).
 
 The port's entry points run on the card unless the caller asks for the
 CPU: :func:`resolve_device` turns ``None`` into the current CUDA device
@@ -58,6 +59,15 @@ def indexed(dev: torch.device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def div_scalar(x, c: float):
+    """``x / c`` as an IEEE division on every device. PyTorch's CUDA
+    kernels turn a division by a Python scalar into a multiplication by
+    its reciprocal, which rounds apart from the CPU's (and JAX's)
+    division in the last bit for many values; a quantizer's scales must
+    not, or the card's codes drift from the reference's."""
+    return x / x.new_full((), c)
 
 
 def build_dir() -> Path:

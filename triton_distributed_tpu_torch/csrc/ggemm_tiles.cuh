@@ -1,7 +1,8 @@
 // The float and W8A16 tile loops of the grouped GEMM, shared by
 // group_gemm.cu (tdt_ggemm_f, tdt_ggemm_w8a16), moe_tp_fused.cu
 // (tdt_ag_group_gemm, tdt_moe_reduce_rs and their mesh forms),
-// ag_gemm.cu (tdt_ag_gemm) and gemm_rs.cu (tdt_gemm_rs).
+// ag_gemm.cu (tdt_ag_gemm, tdt_ag_gemm_w) and gemm_rs.cu (tdt_gemm_rs,
+// tdt_gemm_rs_partials).
 //
 // out (M, N) = A (M, K) @ w[block_expert[m / block_m]] (K, N): output
 // row m's A row is read from wherever a row source says, so the same
@@ -29,7 +30,11 @@
 // (rank q, k-block) with kParts, A and w both from rank q, looked up once
 // a part, and with `grouped` reads each rank's own rows of a stacked
 // block -> expert table. DenseRows and GatherRows have one part and
-// return the kernel's pointers, so their loops compile as before.
+// return the kernel's pointers, so their loops compile as before. The
+// wires: PeerRowsQ (kQuant) is PeerRows with each peer's rows read from
+// its 1-byte wire codes and dequantized in the load (wire.cuh), the own
+// shard exact; PeerLocal runs each rank's own dense product into its own
+// output.
 //
 // Two loops: fma_kernel (64 x 64 tiles, 256 threads with 4 x 4 FMA
 // micro-tiles, both operands widened to f32 in shared memory; f32 or
@@ -41,7 +46,7 @@
 // 64, so a tile never straddles two experts.
 #pragma once
 
-#include "tdt_common.cuh"
+#include "wire.cuh"
 
 namespace {
 
@@ -75,6 +80,7 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 struct DenseRows {
   static constexpr bool kLookup = false;
   static constexpr bool kParts = false;
+  static constexpr bool kQuant = false;
   using Ref = int;
   int M, K;
   __device__ __forceinline__ Ref at(int m) const { return m; }
@@ -91,6 +97,7 @@ struct DenseRows {
 struct GatherRows {
   static constexpr bool kLookup = true;
   static constexpr bool kParts = false;
+  static constexpr bool kQuant = false;
   using Ref = long long;
   const int* __restrict__ sti;
   int M, K, topk, total;
@@ -114,6 +121,7 @@ struct GatherRows {
 struct PeerRows {
   static constexpr bool kLookup = true;
   static constexpr bool kParts = false;
+  static constexpr bool kQuant = false;
   using Ref = const char*;  // the row's first byte; nullptr past the rows
   const unsigned long long* __restrict__ a_peers;
   const unsigned long long* __restrict__ w_peers;
@@ -161,6 +169,7 @@ struct PeerRows {
 struct PeerGatherRows {
   static constexpr bool kLookup = true;
   static constexpr bool kParts = false;
+  static constexpr bool kQuant = false;
   using Ref = const char*;  // the row's first byte; nullptr for zeros
   const unsigned long long* __restrict__ a_peers;
   const unsigned long long* __restrict__ w_peers;
@@ -210,6 +219,7 @@ struct PeerGatherRows {
 struct PeerSum {
   static constexpr bool kLookup = false;
   static constexpr bool kParts = true;
+  static constexpr bool kQuant = false;
   using Ref = int;
   const unsigned long long* __restrict__ a_peers;
   const unsigned long long* __restrict__ w_peers;
@@ -252,6 +262,109 @@ struct PeerSum {
   __device__ __forceinline__ int orow(int i) const { return i; }
 };
 
+// GEMM-RS on a quantized wire, its partials: rank r = rank0 + blockIdx.z
+// computes out_r (M, N) = A_r (M, K) @ w_r, its own A (all W * m rows of
+// its K columns) against its own weight rows, into its own slab of
+// partials (the fold of gemm_rs.cu then replays the ring's hops).
+struct PeerLocal {
+  static constexpr bool kLookup = false;
+  static constexpr bool kParts = false;
+  static constexpr bool kQuant = false;
+  using Ref = int;
+  const unsigned long long* __restrict__ a_peers;
+  const unsigned long long* __restrict__ w_peers;
+  const unsigned long long* __restrict__ out_peers;
+  int M, K, rank0;
+  __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
+  __device__ __forceinline__ Ref at(int m) const { return m; }
+  __device__ __forceinline__ bool ok(Ref m) const { return m < M; }
+  __device__ __forceinline__ size_t off(Ref m) const {
+    return static_cast<size_t>(m) * K;
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* a_base(const T*, Ref) const {
+    return reinterpret_cast<const T*>(a_peers[rank()]);
+  }
+  template <typename T>
+  __device__ __forceinline__ const T* w_expert(const T*, int, int,
+                                               int) const {
+    return reinterpret_cast<const T*>(w_peers[rank()]);
+  }
+  template <typename T>
+  __device__ __forceinline__ T* out_base(T*) const {
+    return reinterpret_cast<T*>(out_peers[rank()]);
+  }
+  __device__ __forceinline__ int orow(int m) const { return m; }
+  __device__ __forceinline__ int expert(const int*, int, int) const {
+    return 0;
+  }
+};
+
+// AG-GEMM on a quantized wire (kQuant): PeerRows' gathered, rotated rows,
+// but only rank r's own shard is read exact, from its rows of A's dtype;
+// a peer's rows are its wire codes (fp8 or int8, q: (W, m, K) bytes)
+// times its chunk's scale (s: (W, m / chunk_rows) f32), rounded to A's
+// dtype as the receiver's dequantize does, then fed to the same product.
+struct PeerRowsQ {
+  static constexpr bool kLookup = true;
+  static constexpr bool kParts = false;
+  static constexpr bool kQuant = true;
+  struct Ref {
+    const char* p;  // the row's first byte; nullptr past the rows
+    float s;        // a peer row's scale
+    bool q;         // a peer row: codes
+  };
+  const unsigned long long* __restrict__ a_peers;
+  const uint8_t* __restrict__ q;
+  const float* __restrict__ s;
+  const unsigned long long* __restrict__ w_peers;
+  const unsigned long long* __restrict__ out_peers;
+  int m, world, rank0, K, esize, chunk_rows, quant;
+  __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
+  __device__ __forceinline__ int orow(int t) const {
+    return (t + rank() * m) % (world * m);
+  }
+  __device__ __forceinline__ Ref at(int t) const {
+    if (t >= world * m) return Ref{nullptr, 0.f, false};
+    const int g = orow(t), src = g / m, i = g % m;
+    if (src == rank())
+      return Ref{reinterpret_cast<const char*>(a_peers[src]) +
+                     static_cast<size_t>(i) * K * esize,
+                 0.f, false};
+    return Ref{reinterpret_cast<const char*>(q) +
+                   (static_cast<size_t>(src) * m + i) * K,
+               s[static_cast<size_t>(src) * (m / chunk_rows) + i / chunk_rows],
+               true};
+  }
+  __device__ __forceinline__ bool ok(Ref r) const { return r.p != nullptr; }
+  // element k of a row as f32, a peer's rounded to XT first
+  template <typename XT>
+  __device__ __forceinline__ float load_f(Ref r, int k) const {
+    if (!r.q) return tdt_to_f<XT>(reinterpret_cast<const XT*>(r.p)[k]);
+    const float v = wire_value(reinterpret_cast<const uint8_t*>(r.p)[k], r.s,
+                               quant);
+    return tdt_to_f<XT>(tdt_from_f<XT>(v));
+  }
+  // 8 bf16 of a row from column col (zero past ncols or the rows); vec:
+  // K % 8 == 0 and 16-byte aligned shards
+  __device__ __forceinline__ uint4 qload8(Ref r, int col, int ncols,
+                                          bool vec) const;
+  template <typename T>
+  __device__ __forceinline__ const T* w_expert(const T*, int e, int K_,
+                                               int N) const {
+    return reinterpret_cast<const T*>(w_peers[rank()]) +
+           static_cast<size_t>(e) * K_ * N;
+  }
+  template <typename T>
+  __device__ __forceinline__ T* out_base(T*) const {
+    return reinterpret_cast<T*>(out_peers[rank()]);
+  }
+  __device__ __forceinline__ int expert(const int* be, int m0,
+                                        int block_m) const {
+    return be[m0 / block_m];
+  }
+};
+
 // ------------------------------------------------------ W8A16 and f32
 constexpr int BK = 32;
 
@@ -291,9 +404,14 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
       if constexpr (Rows::kLookup) ref = a_ref[r];
       else ref = rows.at(m0 + r);
       const int k = k0 + c;
-      As[r][c] = (rows.ok(ref) && k < K)
-                     ? tdt_to_f<XT>(rows.a_base(xa, ref)[rows.off(ref) + k])
-                     : 0.f;
+      if constexpr (Rows::kQuant)
+        As[r][c] = (rows.ok(ref) && k < K)
+                       ? rows.template load_f<XT>(ref, k)
+                       : 0.f;
+      else
+        As[r][c] = (rows.ok(ref) && k < K)
+                       ? tdt_to_f<XT>(rows.a_base(xa, ref)[rows.off(ref) + k])
+                       : 0.f;
     }
     const WT* __restrict__ wp = wa;
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
@@ -396,6 +514,36 @@ __device__ __forceinline__ uint4 load8(const unsigned short* __restrict__ base,
   return t.u;
 }
 
+__device__ __forceinline__ uint4 PeerRowsQ::qload8(Ref r, int col, int ncols,
+                                                  bool vec) const {
+  if (!r.q)
+    return load8(reinterpret_cast<const unsigned short*>(r.p), 0, col, ncols,
+                 r.p != nullptr, vec);
+  union {
+    uint2 u;
+    uint8_t b[8];
+  } c;
+  c.u = make_uint2(0, 0);  // code 0 is the value 0 in both wires
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(r.p) + col;
+  if (vec && col + 8 <= ncols) {
+    c.u = *reinterpret_cast<const uint2*>(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (col + i < ncols) c.b[i] = p[i];
+  }
+  // pairs: one conversion of two fp8 codes, one rounding of two f32 to
+  // bf16 (the element of the lower address in the lower half)
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = wire_value2(c.b[2 * i], c.b[2 * i + 1], r.s, quant);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 template <typename OutT, typename Rows>
 __global__ void __launch_bounds__(TC_THREADS)
 bf16_mma_kernel(const unsigned short* __restrict__ x,
@@ -431,8 +579,11 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {  // A: 64 rows x 4 vectors
       const int c = ((tid + i * TC_THREADS) & 3) * 8;
-      ra[i] = load8(rows.a_base(xa, a_ref[i]), rows.off(a_ref[i]), k0 + c,
-                    K, rows.ok(a_ref[i]), vec_a);
+      if constexpr (Rows::kQuant)
+        ra[i] = rows.qload8(a_ref[i], k0 + c, K, vec_a);
+      else
+        ra[i] = load8(rows.a_base(xa, a_ref[i]), rows.off(a_ref[i]), k0 + c,
+                      K, rows.ok(a_ref[i]), vec_a);
     }
     const unsigned short* __restrict__ wp = wa;
 #pragma unroll

@@ -3,8 +3,11 @@ the wrapper of its hand-written CUDA kernel (``csrc/``). The attention
 wrapper is not re-exported here: its name is its module's. The MoE
 modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``), the
 decode entries of ``flash_decode``, ``ag_gemm`` / ``gemm_rs`` (at world
-size 1 and over a mesh), ``allgather`` and the MoE-TP GEMMs
-(``moe_tp_fused``) are imported by name."""
+size 1 and over a mesh, on the raw and the quantized wires), ``allgather``
+and the MoE-TP GEMMs (``moe_tp_fused``) are imported by name. The wire
+quantizer ``tdt_quantize_slab`` (``csrc/wire.cu``, :mod:`.wire`) is
+launched by the AG-GEMM and all-gather wire wrappers and counted on its
+own."""
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -40,7 +43,9 @@ def _counters() -> dict:
     attribute that counts its launches). The float grouped GEMM's
     wrapper launches two kernels: bf16 on tensor cores, f32 on FMA; the
     all-to-all's counts its launches at one rank and over a mesh
-    apart."""
+    apart. Every counter counts one kernel's launches where it is
+    launched: a wire call launches the quantizer (``wire_quantize``) and
+    its product, or the GEMM-RS wire's partials and fold."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import allgather as ag
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
@@ -49,6 +54,7 @@ def _counters() -> dict:
     from triton_distributed_tpu_torch.kernels import moe_dispatch as md
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
+    from triton_distributed_tpu_torch.kernels import wire
 
     return {
         "ggemm_w8a8": (gg._w8a8_cuda, "launches"),
@@ -69,6 +75,12 @@ def _counters() -> dict:
         "chunked_a2a_mesh": (md._chunked_a2a_cuda, "launches_mesh"),
         "ag_group_gemm_mesh": (mtf._ag_group_gemm_mesh_cuda, "launches"),
         "moe_reduce_rs_mesh": (mtf._moe_reduce_rs_mesh_cuda, "launches"),
+        "wire_quantize": (wire.quantize_shards, "launches"),
+        "ag_gemm_wire": (agg.ag_gemm_w_launch, "launches"),
+        "ag_gemm_mx": (agg.ag_gemm_mx_launch, "launches"),
+        "gemm_rs_wire": (grs.gemm_rs_partials, "launches"),
+        "gemm_rs_fold": (grs.gemm_rs_fold, "launches"),
+        "all_gather_wire": (ag.all_gather_w_launch, "launches"),
     }
 
 

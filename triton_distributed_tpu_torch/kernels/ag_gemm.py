@@ -20,8 +20,25 @@ Two forms:
   tile loads its A rows from the peer rank that holds them, through the
   peer table (:mod:`~triton_distributed_tpu_torch.lang.shmem`).
 
-On CPU tensors :func:`ag_gemm` runs :func:`ag_gemm_plain`. The wire
-variants (``_fused_kernel_w``, ``_mx``) are ROADMAP Queue 2 item 16.
+**Quantized wires** (``wire_dtype``, over a mesh of more than one
+rank; :func:`resolve_ag_gemm_wire` says which wire runs): ``'fp8'`` /
+``'int8'`` ship each shard once as 1-byte codes with one f32 scale a
+chunk of rows (:mod:`~triton_distributed_tpu_torch.lang.wire`); a rank
+reads its own shard exact and a peer's dequantized to A's dtype
+(``_fused_kernel_w``, ``:266``; on the card ``tdt_ag_gemm_w``).
+``'int8-mxu'`` quantizes every shard, the own one too, and B per output
+column (``quantize_cols``), and multiplies the int8 codes with s32 sums,
+``(acc · row scale) · column scale`` in f32 (``_fused_kernel_mx``,
+``:309``; ``tdt_ag_gemm_mx``). The numerics are those of JAX's XLA ring
+twin ``ag_gemm_device`` (``:672-795``), with the chunk rows of
+:func:`~triton_distributed_tpu_torch.lang.wire.make_wire_format` for
+every wire: JAX's fused int8-mxu kernel pins ``chunk_rows`` to its row
+block (``:432``), a VMEM tiling choice (ROADMAP Queue 3). ``'auto'``
+needs the wire tuner and perf model of ``tune/`` and raises (ROADMAP
+Queue 1 step 10).
+
+On CPU tensors :func:`ag_gemm` runs :func:`ag_gemm_plain`; on CUDA
+tensors it launches the kernel of the resolved wire or raises.
 """
 
 from __future__ import annotations
@@ -29,9 +46,10 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.config import to_torch_dtype
+from triton_distributed_tpu_torch.kernels.group_gemm import _DT_CODE
+from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE, quantize_shards
+from triton_distributed_tpu_torch.lang import wire as wirelib
 from triton_distributed_tpu_torch.runtime.topology import one_axis
-
-_DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _is_shards(a) -> bool:
@@ -71,30 +89,99 @@ def check_shards(a, b, mesh, axis, what):
     return n
 
 
-def ag_gemm_plain(a, b, mesh=None, axis: str = "tp", *, out_dtype=None):
+def _auto_refused(op: str):
+    return NotImplementedError(
+        f"{op} wire_dtype='auto' needs the wire tuner and the perf model "
+        "of tune/ (ROADMAP Queue 1 step 10); pass 'fp8', 'int8', "
+        "'int8-mxu' or None")
+
+
+def resolve_ag_gemm_wire(mesh, axis, a, b, *, wire_dtype=None):
+    """The wire :func:`ag_gemm` ships for these arguments (JAX
+    ``resolve_ag_gemm_wire``, ``:988``): None for the raw wire and at
+    world size 1 (tensors, or a mesh of one rank: nothing crosses a
+    wire), else the explicit 'fp8' / 'int8' / 'int8-mxu' when an A shard
+    (m, K) can carry it (:func:`~triton_distributed_tpu_torch.lang.wire.
+    wire_blockable`), and ``ValueError`` when it cannot: a pinned wire
+    is a contract. 'auto' raises ``NotImplementedError``."""
+    w = wirelib.normalize_wire(wire_dtype)
+    if w is None or not _is_shards(a) or one_axis(mesh, axis) == 1:
+        return None
+    if w == "auto":
+        raise _auto_refused("ag_gemm")
+    rows, k = a[0].shape
+    if not wirelib.wire_blockable(rows, k, w):
+        raise ValueError(
+            f"ag_gemm wire_dtype={w!r}: slab ({rows}, {k}) admits no legal "
+            "wire chunking/blocking (a pinned wire format is a contract); "
+            "use the bf16 wire")
+    return w
+
+
+def ag_gemm_plain(a, b, mesh=None, axis: str = "tp", *, out_dtype=None,
+                  wire=None):
     """Plain PyTorch version. Tensors: ``a @ b`` in f32, cast to
     ``out_dtype`` (default a's dtype). Shard lists: for each rank r,
-    ``cat(A) @ B_r`` in f32, cast."""
+    ``cat(A) @ B_r`` in f32, cast; with ``wire`` (a resolved wire, see
+    :func:`resolve_ag_gemm_wire`) as JAX's ``ag_gemm_device``: 'fp8' /
+    'int8' replace every peer shard by its dequantized codes (rank r's
+    own shard exact); 'int8-mxu' multiplies every shard's int8 codes by
+    ``quantize_cols(B_r)`` with exact integer sums (in f64), then
+    ``(acc · row scale) · column scale`` in f32."""
     if not _is_shards(a):
         _check(a, b, mesh, axis, "ag_gemm")
         return (a.float() @ b.float()).to(to_torch_dtype(out_dtype or a.dtype))
     check_shards(a, b, mesh, axis, "ag_gemm")
     out_dtype = to_torch_dtype(out_dtype or a[0].dtype)
-    gathered = torch.cat(list(a), dim=0).float()
-    return [(gathered @ br.float()).to(out_dtype) for br in b]
+    if wire is None:
+        gathered = torch.cat(list(a), dim=0).float()
+        return [(gathered @ br.float()).to(out_dtype) for br in b]
+    fmt = wirelib.make_wire_format(wire, a[0].shape[0])
+    wired = [wirelib.quantize_slab(aq, fmt) for aq in a]
+    if wire == "int8-mxu":
+        return ag_gemm_wired_plain(a, wired, [wirelib.quantize_cols(br)
+                                              for br in b], fmt, out_dtype,
+                                   mx=True)
+    return ag_gemm_wired_plain(a, wired, b, fmt, out_dtype)
 
 
-def ag_gemm(a, b, mesh=None, axis: str = "tp", *, out_dtype=None):
+def ag_gemm_wired_plain(a, wired, b, fmt, out_dtype, mx=False):
+    """The plain version's product from the shards' wire form: ``wired``
+    holds every rank's (codes, scales) of ``fmt``. 'fp8' / 'int8': ``b``
+    is the W weight shards, rank r reads its own A shard exact and its
+    peers' dequantized to A's dtype. ``mx`` (int8-mxu): ``b`` is the W
+    shards' ``quantize_cols`` pairs, every slab's codes multiply with
+    exact integer sums (in f64), then ``(acc · row scale) · column
+    scale`` in f32."""
+    if mx:
+        codes = torch.cat([q for q, _ in wired]).double()
+        row_scale = torch.cat([s.repeat_interleave(fmt.chunk_rows)
+                               for _, s in wired])[:, None]
+        # exact: |acc| < 2^53
+        return [((codes @ bq.double()).float() * row_scale * bs)
+                .to(out_dtype) for bq, bs in b]
+    peers = [wirelib.dequantize_slab(q, s, fmt, aq.dtype)
+             for (q, s), aq in zip(wired, a)]
+    return [(torch.cat([a[q] if q == r else peers[q] for q in range(len(a))])
+             .float() @ br.float()).to(out_dtype) for r, br in enumerate(b)]
+
+
+def ag_gemm(a, b, mesh=None, axis: str = "tp", *, out_dtype=None,
+            wire_dtype=None):
     """AllGather(A) @ B (column-parallel).
 
     World size 1: a (M, K), b (K, N) tensors → (M, N). Over a mesh: a a
     list of W row shards (m, K), b a list of W column shards (K, N) →
     a list of W (W·m, N) outputs, rank r's the gathered A times B_r.
     A and B both bf16 or both f32 on the card; ``out_dtype`` (default
-    A's dtype) f32 or bf16. On CPU tensors this is :func:`ag_gemm_plain`;
-    on CUDA tensors it launches the kernel or raises."""
+    A's dtype) f32 or bf16. ``wire_dtype``: None / 'bf16', 'fp8',
+    'int8', 'int8-mxu' (see the module docstring and
+    :func:`resolve_ag_gemm_wire`). On CPU tensors this is
+    :func:`ag_gemm_plain`; on CUDA tensors it launches the kernel or
+    raises."""
     if not _is_shards(a):
         _check(a, b, mesh, axis, "ag_gemm")
+        resolve_ag_gemm_wire(mesh, axis, a, b, wire_dtype=wire_dtype)
         if a.device.type == "cpu":
             return ag_gemm_plain(a, b, out_dtype=out_dtype)
         return _ag_gemm_cuda(a, b, out_dtype)
@@ -102,8 +189,14 @@ def ag_gemm(a, b, mesh=None, axis: str = "tp", *, out_dtype=None):
     if a[0].shape[1] != b[0].shape[0]:
         raise ValueError(f"ag_gemm: contract dim mismatch "
                          f"{tuple(a[0].shape)} @ {tuple(b[0].shape)}")
+    wire = resolve_ag_gemm_wire(mesh, axis, a, b, wire_dtype=wire_dtype)
     if a[0].device.type == "cpu":
-        return ag_gemm_plain(a, b, mesh, axis, out_dtype=out_dtype)
+        return ag_gemm_plain(a, b, mesh, axis, out_dtype=out_dtype,
+                             wire=wire)
+    if wire == "int8-mxu":
+        return _ag_gemm_mx_cuda(a, b, mesh, out_dtype)
+    if wire is not None:
+        return _ag_gemm_w_cuda(a, b, mesh, out_dtype, wire)
     return _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype)
 
 
@@ -115,6 +208,22 @@ def _ag_gemm_cuda(a, b, out_dtype):
     return out
 
 
+def check_mesh_operands(entry, a, b, out_dtype, need_b=True):
+    """The dtype and layout checks of the mesh GEMM kernels; returns
+    (out_dtype, aligned: every shard on a 16-byte boundary)."""
+    dtype = a[0].dtype
+    out_dtype = to_torch_dtype(out_dtype or dtype)
+    if dtype not in _DT_CODE or (need_b and b[0].dtype != dtype):
+        raise ValueError(f"{entry} takes A and B both f32 or both bf16, got "
+                         f"{dtype} and {b[0].dtype}")
+    if out_dtype not in _DT_CODE:
+        raise ValueError(f"{entry}: out_dtype must be f32 or bf16, got "
+                         f"{out_dtype}")
+    if any(not s.is_contiguous() for s in (*a, *b)):
+        raise ValueError(f"{entry}'s kernel needs contiguous shards")
+    return out_dtype, all(s.data_ptr() % 16 == 0 for s in (*a, *b))
+
+
 def launch_mesh_gemm(entry, a, b, mesh, n, m, out_rows, out_dtype):
     """Launch ``tdt_ag_gemm`` or ``tdt_gemm_rs`` (``m``: rows of an A
     shard, or of an output shard) over every rank of the loopback mesh
@@ -123,19 +232,9 @@ def launch_mesh_gemm(entry, a, b, mesh, n, m, out_rows, out_dtype):
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
 
-    dtype = a[0].dtype
-    out_dtype = to_torch_dtype(out_dtype or dtype)
-    if dtype not in _DT_CODE or b[0].dtype != dtype:
-        raise ValueError(f"{entry} takes A and B both f32 or both bf16, got "
-                         f"{dtype} and {b[0].dtype}")
-    if out_dtype not in _DT_CODE:
-        raise ValueError(f"{entry}: out_dtype must be f32 or bf16, got "
-                         f"{out_dtype}")
-    if any(not s.is_contiguous() for s in (*a, *b)):
-        raise ValueError(f"{entry}'s kernel needs contiguous shards")
+    out_dtype, aligned = check_mesh_operands(entry, a, b, out_dtype)
     dev = mesh.device
     zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-    aligned = all(s.data_ptr() % 16 == 0 for s in (*a, *b))
     out = symm_empty(mesh, (out_rows, b[0].shape[1]), out_dtype)
     # the tables (and ``zero``) stay referenced until the launch is
     # enqueued: one freed earlier could be handed to the next allocation
@@ -144,7 +243,7 @@ def launch_mesh_gemm(entry, a, b, mesh, n, m, out_rows, out_dtype):
     fn = _build.function(entry, "pppp" + "i" * 9 + "p")
     rc = fn(_build.ptr(a_peers), _build.ptr(b_peers),
             _build.ptr(out.peers), _build.ptr(zero), m, a[0].shape[1],
-            b[0].shape[1], n, 0, n, _DT_CODE[dtype], _DT_CODE[out_dtype],
+            b[0].shape[1], n, 0, n, _DT_CODE[a[0].dtype], _DT_CODE[out_dtype],
             int(aligned), _build.stream(dev))
     _build.check(rc, entry)
     return out.shards
@@ -158,7 +257,88 @@ def _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype):
     return out
 
 
+def _ag_gemm_w_cuda(a, b, mesh, out_dtype, wire):
+    """The fp8 / int8 wire: every shard quantized (:func:`~triton_
+    distributed_tpu_torch.kernels.wire.quantize_shards`), then
+    :func:`ag_gemm_w_launch`."""
+    fmt = wirelib.make_wire_format(wire, a[0].shape[0])
+    q, s = quantize_shards(a, fmt)
+    return ag_gemm_w_launch(a, q, s, b, mesh, fmt, out_dtype)
+
+
+def ag_gemm_w_launch(a, q, s, b, mesh, fmt, out_dtype):
+    """``tdt_ag_gemm_w`` for every rank in one launch: the A shards
+    ``a`` with their wire form q (W, m, K) codes and s (W, m /
+    chunk_rows) scales, the weight shards ``b`` → the W (W·m, N)
+    outputs."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
+
+    out_dtype, aligned = check_mesh_operands("tdt_ag_gemm_w", a, b,
+                                             out_dtype)
+    n, (m, k) = len(a), a[0].shape
+    dev = mesh.device
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    out = symm_empty(mesh, (n * m, b[0].shape[1]), out_dtype)
+    a_peers, b_peers = peer_table(a), peer_table(b)
+    fn = _build.function("tdt_ag_gemm_w", "pppppp" + "i" * 11 + "p")
+    rc = fn(_build.ptr(a_peers), _build.ptr(q), _build.ptr(s),
+            _build.ptr(b_peers), _build.ptr(out.peers), _build.ptr(zero), m,
+            k, b[0].shape[1], n, 0, n, fmt.chunk_rows, WIRE_CODE[fmt.quant],
+            _DT_CODE[a[0].dtype], _DT_CODE[out_dtype], int(aligned),
+            _build.stream(dev))
+    _build.check(rc, "tdt_ag_gemm_w")
+    ag_gemm_w_launch.launches += 1
+    return out.shards
+
+
+def quantize_cols_shards(b):
+    """``quantize_cols`` of every rank's (K, N) weight shard → ((W, N, K)
+    int8 codes, transposed, (W, N) f32 scales): the int8-mxu kernel's
+    stacked operands (its tiles load B k-contiguous). Torch ops, as JAX
+    quantizes B on the XLA side; they run on every int8-mxu call."""
+    from triton_distributed_tpu_torch.lang.shmem import stacked
+
+    bst = stacked(b)
+    q, s = wirelib.quantize_cols(torch.stack(list(b)) if bst is None else bst)
+    return q.transpose(1, 2).contiguous(), s.squeeze(1)
+
+
+def ag_gemm_mx_launch(q, s, bqt, bs, mesh, chunk_rows, out_dtype):
+    """``tdt_ag_gemm_mx`` for every rank in one launch: q (W, m, K) int8
+    codes of every shard with s (W, m / chunk_rows) scales, bqt (W, N, K)
+    int8 weights (transposed) with bs (W, N) column scales → the W
+    (W·m, N) outputs."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.lang.shmem import symm_empty
+
+    n, m, k = q.shape
+    out = symm_empty(mesh, (n * m, bqt.shape[1]), out_dtype)
+    fn = _build.function("tdt_ag_gemm_mx", "ppppp" + "i" * 8 + "p")
+    rc = fn(_build.ptr(q), _build.ptr(s), _build.ptr(bqt), _build.ptr(bs),
+            _build.ptr(out.peers), m, k, bqt.shape[1], n, 0, n, chunk_rows,
+            _DT_CODE[out_dtype], _build.stream(mesh.device))
+    _build.check(rc, "tdt_ag_gemm_mx")
+    ag_gemm_mx_launch.launches += 1
+    return out.shards
+
+
+def _ag_gemm_mx_cuda(a, b, mesh, out_dtype):
+    """The int8-mxu wire: every shard quantized (``quantize_shards``), B
+    per column (:func:`quantize_cols_shards`), then
+    :func:`ag_gemm_mx_launch`."""
+    out_dtype, _ = check_mesh_operands("tdt_ag_gemm_mx", a, b, out_dtype,
+                                       need_b=False)
+    fmt = wirelib.make_wire_format("int8-mxu", a[0].shape[0])
+    q, s = quantize_shards(a, fmt)
+    bqt, bs = quantize_cols_shards(b)
+    return ag_gemm_mx_launch(q, s, bqt, bs, mesh, fmt.chunk_rows, out_dtype)
+
+
 #: launch counts of the kernels (plain ints on the wrappers): the world-
-#: size-1 GEMM, and the kernel over a mesh
+#: size-1 GEMM, the kernel over a mesh, and its two quantized wires (the
+#: wire quantizer counts its own launches)
 _ag_gemm_cuda.launches = 0
 _ag_gemm_mesh_cuda.launches = 0
+ag_gemm_w_launch.launches = 0
+ag_gemm_mx_launch.launches = 0

@@ -41,6 +41,8 @@ import math
 
 import torch
 
+from triton_distributed_tpu_torch.config import div_scalar
+
 NEG_INF = -1.0e30  # finite -inf stand-in: exp(NEG_INF - m) == 0, no NaNs
 
 #: positions per step of the KV walk, in the CUDA kernels
@@ -57,7 +59,8 @@ def quantize_kv(x):
     as the JAX version does."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
-    s = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    s = torch.where(amax > 0.0, div_scalar(amax, 127.0),
+                    torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / s[..., None]), -127.0, 127.0)
     return q.to(torch.int8), s
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from triton_distributed_tpu_torch.config import to_torch_dtype
+from triton_distributed_tpu_torch.config import div_scalar, to_torch_dtype
 
 #: the CUDA kernel's M tile: with more than one M-block, block_m must be
 #: a multiple of it (one tile never straddles two experts)
@@ -41,7 +41,8 @@ def quantize_act_rows(x):
     even, as ``jnp.round`` does, so the values are bit-identical."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    s = torch.where(amax > 0.0, div_scalar(amax, 127.0),
+                    torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8)
     return q, s
 
@@ -54,7 +55,7 @@ def quantize_grouped_weights(w, mode: str = "int8"):
         raise ValueError(f"weight quant mode must be int8, got {mode!r}")
     wf = w.float()
     amax = wf.abs().amax(dim=1)                                # (E, N)
-    scale = torch.clamp(amax, min=1e-30) / 127.0
+    scale = div_scalar(torch.clamp(amax, min=1e-30), 127.0)
     q = torch.round(wf / scale[:, None, :])
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from triton_distributed_tpu_torch.config import to_torch_dtype
+from triton_distributed_tpu_torch.config import div_scalar, to_torch_dtype
 from triton_distributed_tpu_torch.kernels.moe_utils import exclusive_cumsum
 from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 
@@ -82,7 +82,7 @@ def quantize_rows(ctx: MoEAllToAllContext, toks):
     even, as ``jnp.float8_e4m3fn`` does."""
     f = toks.float()
     amax = f.abs().amax(dim=-1)
-    scale = torch.clamp(amax, min=1e-12) / ctx.quant_max
+    scale = div_scalar(torch.clamp(amax, min=1e-12), ctx.quant_max)
     q = f / scale[..., None]
     if ctx.quant == "int8":
         q = torch.clamp(torch.round(q), -127, 127).to(torch.int8)

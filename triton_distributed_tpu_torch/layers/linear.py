@@ -5,7 +5,10 @@ params dict in the JAX layout (``{"w": (in, out)}``; the MLP's
 ``{"up": {"w"}, "down": {"w"}}``), forward only. At world size 1 ``x``
 and ``w`` are tensors; over a mesh they are lists of per-rank shards:
 ``x`` row shards (m, in) for the column layer and the MLP, ``w`` the
-column (``up``) or row (``down``) shards of the weight.
+column (``up``) or row (``down``) shards of the weight. A quantized
+wire comes through the context (``OverlapContext(wire_dtype=...)``:
+'fp8', 'int8' or 'int8-mxu', see :mod:`~triton_distributed_tpu_torch.
+ops.overlap`); the layers take no argument of their own for it.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
 """Context-managed AG-GEMM / GEMM-RS, forward only.
 
 Port of ``triton_distributed_tpu/ops/overlap.py``: the context and the
-two ops that the model's prefill projections call. The context carries
-the mesh and axis (``:62``, ``:105``, ``:110``) and the output dtype; a
+two ops that the model's prefill projections and the tensor-parallel
+layers call. The context carries the mesh and axis (``:62``, ``:105``,
+``:110``), the output dtype and the forward's quantized wire
+(``wire_dtype``, ``:73-75``: None / 'bf16', 'fp8', 'int8' or 'int8-mxu',
+passed to :func:`~triton_distributed_tpu_torch.kernels.ag_gemm.ag_gemm`
+and :func:`~triton_distributed_tpu_torch.kernels.gemm_rs.gemm_rs`); a
 context without a mesh is world size 1, where the ops take tensors.
-Over a mesh the ops take lists of per-rank shards (see
-:mod:`~triton_distributed_tpu_torch.kernels.ag_gemm` and
-:mod:`~triton_distributed_tpu_torch.kernels.gemm_rs`). The engine choice
-(``method``), the wires and the custom VJPs (``:200-347``) come with
-the ring variants and with training.
+Over a mesh the ops take lists of per-rank shards. The engine choice
+(``method``) comes with the ring variants; the backward wire
+(``bwd_wire_dtype``) and the custom VJPs (``:200-347``) with training
+(ROADMAP Queue 1 step 9).
 """
 
 from __future__ import annotations
@@ -17,17 +20,30 @@ from dataclasses import dataclass
 
 from triton_distributed_tpu_torch.kernels.ag_gemm import ag_gemm as _ag_gemm_raw
 from triton_distributed_tpu_torch.kernels.gemm_rs import gemm_rs as _gemm_rs_raw
+from triton_distributed_tpu_torch.lang.wire import normalize_wire
 from triton_distributed_tpu_torch.runtime.topology import Mesh
 
 
 @dataclass(frozen=True)
 class OverlapContext:
     """Shared context of the TP overlap ops: ``mesh`` None is world
-    size 1."""
+    size 1; ``wire_dtype`` the forward's wire; ``bwd_wire_dtype`` the
+    backward duals' (only None: training is not ported)."""
 
     mesh: Mesh | None = None
     axis: str = "tp"
     out_dtype: object = None
+    wire_dtype: object = None
+    bwd_wire_dtype: object = None
+
+    def __post_init__(self):
+        # fail at the context's build on a spelling outside lang.wire's
+        normalize_wire(self.wire_dtype)
+        if normalize_wire(self.bwd_wire_dtype) is not None:
+            raise NotImplementedError(
+                f"bwd_wire_dtype={self.bwd_wire_dtype!r}: the backward duals "
+                "come with the training step (ROADMAP Queue 1 step 9); the "
+                "port's overlap ops are forward only")
 
 
 def create_ag_gemm_context(mesh=None, axis="tp", **kw) -> OverlapContext:
@@ -41,12 +57,14 @@ def create_gemm_rs_context(mesh=None, axis="tp", **kw) -> OverlapContext:
 def ag_gemm(a, b, ctx: OverlapContext):
     """AllGather(A) @ B (column-parallel): tensors a (M, K), b (K, N) at
     world size 1; lists of W row shards of A and column shards of B over
-    the context's mesh."""
-    return _ag_gemm_raw(a, b, ctx.mesh, ctx.axis, out_dtype=ctx.out_dtype)
+    the context's mesh, on the context's wire."""
+    return _ag_gemm_raw(a, b, ctx.mesh, ctx.axis, out_dtype=ctx.out_dtype,
+                        wire_dtype=ctx.wire_dtype)
 
 
 def gemm_rs(a, b, ctx: OverlapContext):
     """(A @ B) → ReduceScatter (row-parallel): tensors a (M, K), b (K, N)
     at world size 1; lists of W column shards of A and row shards of B
-    over the context's mesh."""
-    return _gemm_rs_raw(a, b, ctx.mesh, ctx.axis, out_dtype=ctx.out_dtype)
+    over the context's mesh, on the context's wire."""
+    return _gemm_rs_raw(a, b, ctx.mesh, ctx.axis, out_dtype=ctx.out_dtype,
+                        wire_dtype=ctx.wire_dtype)

@@ -2,6 +2,7 @@
 
 Port of the parts of ``triton_distributed_tpu/runtime/topology.py`` that
 the tensor-parallel path needs: ``AllGatherMethod`` (``:24``),
+``auto_allgather_method`` (``:86``), ``auto_allgather_wire`` (``:99``),
 ``mesh_axes_size`` (``:117``) and ``ring_neighbors`` (``:125``), plus
 :class:`Mesh`, the port's counterpart of ``jax.sharding.Mesh``.
 
@@ -106,6 +107,30 @@ class Mesh:
             raise ValueError(f"mesh has no axis {axis!r} (axes "
                              f"{self.axis_names})")
         return self.shape[axis]
+
+
+def auto_allgather_method(n: int, nbytes_per_shard: int,
+                          small_msg_threshold: int = 1 << 16
+                          ) -> AllGatherMethod:
+    """The method JAX's all-gather picks when the caller names none
+    (``auto_allgather_method``, JAX ``:86-96``, on one slice: the
+    loopback mesh has no DCN leg): ``LL_SMALL`` up to 64 KiB a shard,
+    else ``RING_BIDIR`` on 4 or more ranks and ``RING_1D`` below."""
+    if nbytes_per_shard <= small_msg_threshold:
+        return AllGatherMethod.LL_SMALL
+    if n >= 4:
+        return AllGatherMethod.RING_BIDIR
+    return AllGatherMethod.RING_1D
+
+
+def auto_allgather_wire(nbytes_per_shard: int,
+                        threshold: int = 1 << 18) -> str | None:
+    """The wire of a standalone all-gather asked for 'auto' (JAX
+    ``:99-116``): 'fp8' from ``threshold`` bytes a shard (256 KiB), None
+    below, where the quantize and dequantize passes cost more than the
+    bytes they save. int8 is never picked: the same bytes as fp8 with
+    coarser numerics."""
+    return "fp8" if nbytes_per_shard >= threshold else None
 
 
 def mesh_axes_size(mesh: Mesh, axes) -> int:
