@@ -31,9 +31,14 @@ Phases, all run every time:
    bf16 GEMM's excess check) and int8-mxu (bit-exact), the GEMM-RS on
    fp8 / int8 (wo, down; the fold on the plain partials bit-exact, the
    whole within a stated bound of code steps) and the fp8 all-gather
-   (byte-exact). The kernels line reports each kernel at the shapes of
-   the path that launches it, its times averaged over them by their
-   launches a step;
+   (byte-exact); and the MoE-TP wires at the MoE wire path's shapes
+   (DeepSeek-MoE-16B at tp = 4, 20480 sorted rows a shard, an outlier
+   token a shard): the quantizer on the sorted slabs (byte-exact), the
+   AG kernels on fp8 / int8 (the bf16 GEMM's excess check, per row) and
+   int8-mxu (bit-exact), the reduce's partials (the excess check) and
+   its fold on fp8 / int8 (bit-exact, as is the whole wire). The kernels
+   line reports each kernel at the shapes of the path that launches it,
+   its times averaged over them by their launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
    its float-expert variant, each served on the card and on the CPU
    from the same weights; the tiny f32 and int8 models, and the tiny
@@ -74,8 +79,14 @@ Phases, all run every time:
    wire's, and the last MLP output all-gathered on the ring on 'auto'
    (fp8); on the
    loopback mesh no byte crosses a link, so this shows the wires'
-   numerics and cost, not a bandwidth gain. Then the port's
-   ``tools.generate`` CLI on its default device once in bf16, and once
+   numerics and cost, not a bandwidth gain. Then the MoE wire path:
+   DeepSeek-MoE-16B's 27 MoE layers at tp = 4 (seeded bf16 expert
+   weights and router a layer, 4 x 2048 tokens with an outlier token a
+   shard), each layer's ``moe_tp_mlp_overlapped`` on the bf16, fp8, int8
+   and int8-mxu wires with the plain versions made to raise, the launch
+   counts asserted, each wire's output within JAX's pinned reduce-wire
+   limit of the bf16 wire's and its up projection within the AG-wire
+   limit. Then the port's ``tools.generate`` CLI on its default device once in bf16, and once
    with ``--tp 4``;
 7. the MoE generation path, DeepSeek-MoE-16B at full width and depth as
    served (EP: fp8 wire, W8A8 int8 experts, int8 KV, W8A8 dense) and in
@@ -219,6 +230,25 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/allgather.cu",
         replaces="triton_distributed_tpu/kernels/allgather.py:87"),
+    # the MoE-TP wires over the mesh: the AG side on fp8 / int8 and on
+    # int8-mxu (its s8 loop in s8_tiles.cuh), the reduce side's partials,
+    # and its fold, the GEMM-RS wire's kernel counted apart
+    "ag_group_gemm_wire": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:208"),
+    "ag_group_gemm_mx": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:243"),
+    "moe_reduce_rs_wire": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/moe_tp_fused.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:322"),
+    "moe_reduce_rs_fold": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:322"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -287,6 +317,16 @@ WIRE_ROWS = ("wire_quantize", "ag_gemm_wire", "ag_gemm_mx", "gemm_rs_wire",
 WIRE_AG_TOL = {"fp8": 0.06, "int8": 0.02, "int8-mxu": 0.04}
 WIRE_RS_TOL = {"fp8": 0.15, "int8": 0.04, "int8-mxu": 0.04}
 WIRE_MX_TWIN_TOL = 0.03      # int8-mxu against the dequantizing int8 wire
+#: the MoE-TP wire path: DeepSeek-MoE-16B's 27 MoE layers at tp = 4 on a
+#: loopback mesh, each layer's expert weights drawn from a seed, 4 x 2048
+#: tokens (an outlier token x1000 a shard), each layer's
+#: moe_tp_mlp_overlapped on every wire. JAX pins no MoE-wire limits of its
+#: own: the path holds each wire's MLP output by WIRE_RS_TOL (the reduce
+#: wire it carries), its up projection by WIRE_AG_TOL, and int8-mxu by
+#: WIRE_MX_TWIN_TOL against int8. Its rows' launches and shapes come from
+#: that one run (the quantizer's also from the wire path's)
+MOE_WIRE_ROWS = ("ag_group_gemm_wire", "ag_group_gemm_mx",
+                 "moe_reduce_rs_wire", "moe_reduce_rs_fold")
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -2077,6 +2117,264 @@ def check_moe_tp_mesh_kernels(res: Results, dev, n_moe: int):
         del x, h, hs, w_up, w_down
 
 
+def moe_wire_tokens(dev, g):
+    """The MoE wire path's tokens: TP x 2048 rows of hidden 2048 in bf16,
+    row 1 of every shard x1000 (the chunk scale's worst case)."""
+    import torch
+
+    x = torch.randn((TP, DEC_B * DEC_PROMPT // TP, MOE_H), generator=g,
+                    device=dev, dtype=torch.bfloat16)
+    x[:, 1] *= 1000.0
+    return x.reshape(-1, MOE_H)
+
+
+def moe_wire_layer(dev, g, x):
+    """One MoE layer's seeded weights at tp = 4 and its routing of ``x``:
+    (router weights, top-k ids, W up shards (E, H, F/4), W down shards
+    (E, F/4, H)), bf16."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import moe_utils as mu
+
+    fl = MOE_F // TP
+    gate = torch.randn((MOE_H, MOE_E), generator=g, device=dev) * MOE_H ** -0.5
+    wts, ids = mu.select_experts(x.float() @ gate, MOE_K)
+    w_up = list((torch.randn((TP, MOE_E, MOE_H, fl), generator=g, device=dev,
+                             dtype=torch.bfloat16) * MOE_H ** -0.5).unbind(0))
+    w_down = list((torch.randn((TP, MOE_E, fl, MOE_H), generator=g,
+                               device=dev, dtype=torch.bfloat16)
+                   * MOE_F ** -0.5).unbind(0))
+    return wts, ids, w_up, w_down
+
+
+def check_moe_wire_kernels(res: Results, dev, n_moe: int):
+    """The MoE-TP wire kernels over a loopback mesh of 4 ranks at the MoE
+    wire path's shapes (DeepSeek-MoE-16B, 4 x 2048 tokens with an outlier
+    token a shard, top-6 over 64 experts, each shard aligned on its own at
+    block_m 128: 20480 sorted rows a shard; up K 2048 N 352 a rank, down
+    K 352 a rank N 2048), each alone against its plain version on the
+    same inputs, timed: the quantizer on the sorted slabs (byte-exact;
+    fp8 / int8 chunks of 64 rows, int8-mxu of 128); the AG kernels on
+    fp8 / int8 (the bf16 GEMM's excess check, per row) and int8-mxu
+    (bit-exact: s32 sums), the padding rows 0; the reduce's partials (the
+    excess check, per row) and its fold on fp8 / int8 (bit-exact against
+    the plain fold of the kernel's own partials, as is the whole wire).
+    Each row weighs its shapes by their launches in the MoE wire path's
+    run; an op's whole call (the gather and the quantizer, for int8-mxu
+    the experts' quantization in torch ops; the partials and the fold) is
+    logged as call_ms beside its kernel's time."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch import ops
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+    from triton_distributed_tpu_torch.kernels import moe_utils as mu
+    from triton_distributed_tpu_torch.kernels import wire as wk
+    from triton_distributed_tpu_torch.lang import wire as tw
+    from triton_distributed_tpu_torch.lang.shmem import stacked
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    m_s, fl, bf16 = DEC_B * DEC_PROMPT // TP, MOE_F // TP, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(15)
+    x_cat = moe_wire_tokens(dev, g)
+    _, ids, w_up, w_down = moe_wire_layer(dev, g, x_cat)
+    x = list(x_cat.chunk(TP))
+    ctx = {w: ops.MoETPContext(num_experts=MOE_E, topk=MOE_K,
+                               block_m=MOE_TP_BM, dtype=bf16, mesh=mesh,
+                               wire_dtype=w) for w in WIRES}
+    routing = ops.align_routing_sharded(ctx[None], ids)
+    sti, be = routing.sti, routing.be
+    cap_s, nb = routing.cap_s, be.shape[1]
+    used = int(torch.unique(be).numel())
+    valid = TP * m_s * MOE_K
+    pad = sti.reshape(-1) >= m_s * MOE_K
+    be_all = be.reshape(-1).long()
+    tag0 = (f"deepseek_moe_16b tp={TP} moe wire {TP} x {m_s} tokens "
+            f"cap_s={cap_s}")
+    slabs = list(mu.gather_sorted(stacked(x), sti, MOE_K).unbind(0))
+    flops = 2.0 * valid * MOE_H * MOE_F
+
+    # the quantizer on the sorted slabs: fp8 / int8 at 64-row chunks and
+    # int8-mxu at 128, once a layer each
+    wired = {}
+    for wire in ("fp8", "int8", "int8-mxu"):
+        fmt = mtf._wire_fmt(wire, cap_s, MOE_TP_BM)
+        q, sc = mtf.quantize_sorted(x, sti, MOE_K, fmt)
+        wq, wsc = wk.quantize_shards_plain(slabs, fmt)
+        torch.cuda.synchronize()
+        exact = (torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+                 and torch.equal(sc, wsc))
+        del wq, wsc
+        what = (f"{tag0} quantize sorted slabs {wire} chunk_rows="
+                f"{fmt.chunk_rows} {TP} x {(cap_s, MOE_H)} bf16")
+        res.check("wire_quantize", 0.0 if exact else 1.0, 0.0, what,
+                  metric="bytes differ")
+        ms = time_ms(lambda: wk.quantize_shards(slabs, fmt), 10)
+        plain_ms = time_ms(lambda: wk.quantize_shards_plain(slabs, fmt), 2)
+        call_ms = time_ms(lambda: mtf.quantize_sorted(x, sti, MOE_K, fmt), 5)
+        # every slab read once, its codes and scales written once
+        nbytes = TP * cap_s * MOE_H * 3 + 4 * TP * cap_s // fmt.chunk_rows
+        bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time wire_quantize {what} ({n_moe}/run, one launch for {TP} "
+            f"ranks): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=None (no one PyTorch call) bound_ms={bnd:.4f} "
+            f"({by}); call_ms={call_ms:.4f} (the gather of the sorted "
+            "slabs + the quantizer)")
+        res.shape("wire_quantize", n_moe, ms, plain_ms, None, nbytes, 0.0,
+                  H100_BF16_OPS)
+        wired[wire] = (fmt, q, sc)
+    del slabs
+
+    # the AG side: fp8 and int8 (ag_group_gemm_wire), int8-mxu
+    wg = torch.cat(w_up, dim=2)[be_all]
+    for wire in ("fp8", "int8", "int8-mxu"):
+        mx = wire == "int8-mxu"
+        name = "ag_group_gemm_mx" if mx else "ag_group_gemm_wire"
+        fmt, q, sc = wired[wire]
+        tag = (f"{tag0} {wire} up K={MOE_H} N={fl} a rank ({used} experts, "
+               f"{n_moe}/run, one launch for {TP} ranks)")
+        call_ms = time_ms(lambda: ops.ag_group_gemm_fused(
+            x_cat, routing, w_up, ctx[wire]), 3)
+        if mx:
+            wq, wsc = mtf.quantize_expert_shards(w_up)
+            out = mtf.ag_group_gemm_mesh_mx(q, sc, be, wq, wsc, mesh,
+                                            out_dtype=bf16)
+            ref = mtf.ag_group_gemm_mesh_mx_plain(q, sc, be, wq, wsc, mesh,
+                                                  out_dtype=bf16)
+            torch.cuda.synchronize()
+            err = max((o.float() - r.float()).abs().max().item()
+                      for o, r in zip(out, ref))
+            res.check(name, err, 0.0, tag + " (bit-exact: s32 sums)")
+            ms = time_ms(lambda: mtf.ag_group_gemm_mesh_mx(
+                q, sc, be, wq, wsc, mesh, out_dtype=bf16), 5)
+            plain_ms = time_ms(lambda: mtf.ag_group_gemm_mesh_mx_plain(
+                q, sc, be, wq, wsc, mesh, out_dtype=bf16), 1)
+            w_ms = time_ms(lambda: mtf.quantize_expert_shards(w_up), 3)
+            lib, libwhat = None, ("none: no PyTorch call multiplies int8 "
+                                  "blocks by a per-block expert (no CUDA "
+                                  "int8 bmm; torch._int_mm takes one "
+                                  "matrix)")
+            # the codes and scales, the used experts' int8 weights and
+            # scales of every rank once, every output once
+            nbytes = (TP * cap_s * MOE_H + 4 * TP * nb + used * MOE_H * MOE_F
+                      + 4 * used * MOE_F + 4 * TP * nb
+                      + 2 * TP * TP * cap_s * fl)
+            peak = H100_INT8_OPS
+            extra = (f"; the experts' quantization and transposed copy in "
+                     f"torch ops {w_ms:.4f} ms of it")
+            del wq, wsc
+        else:
+            out = mtf.ag_group_gemm_mesh_w(x, q, sc, sti, be, w_up, MOE_K,
+                                           mesh, fmt)
+            ref = mtf.ag_group_gemm_mesh_w_plain(x, q, sc, sti, be, w_up,
+                                                 MOE_K, mesh, fmt,
+                                                 out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            over, err = _row_excess(out, ref)
+            res.check(name, over, GG_ATOL, tag, metric="max over rows "
+                      "of max(|err|-2^-8|ref|)/rowmax|ref|")
+            ms = time_ms(lambda: mtf.ag_group_gemm_mesh_w(
+                x, q, sc, sti, be, w_up, MOE_K, mesh, fmt), 5)
+            plain_ms = time_ms(lambda: mtf.ag_group_gemm_mesh_w_plain(
+                x, q, sc, sti, be, w_up, MOE_K, mesh, fmt), 1)
+            a_deq = torch.cat([tw.dequantize_slab(qr, sr, fmt, bf16)
+                               for qr, sr in zip(q, sc)]).reshape(
+                TP * nb, MOE_TP_BM, MOE_H)
+            lib = time_ms(lambda: torch.bmm(a_deq, wg), 3)
+            libwhat = ("bmm on the dequantized sorted rows, every rank's "
+                       "columns, weights gathered per block")
+            del a_deq
+            # the own tokens, every slab's codes and scales, the used
+            # experts' weights of every rank once, every output once
+            nbytes = (2 * TP * m_s * MOE_H + TP * cap_s * MOE_H
+                      + 4 * TP * cap_s // fmt.chunk_rows + 4 * TP * cap_s
+                      + 4 * TP * nb + 2 * used * MOE_H * MOE_F
+                      + 2 * TP * TP * cap_s * fl)
+            peak = H100_BF16_OPS
+            extra = ""
+        if not all(bool((o[pad] == 0).all()) for o in out):
+            res.failures.append(f"{name} {tag}: padding rows not 0")
+        res.kernel(name, err=err)
+        bnd, by = bound_ms(nbytes, flops, peak)
+        log(f"time {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib if lib is None else f'{lib:.4f}'} ({libwhat}) "
+            f"bound_ms={bnd:.4f} ({by}) max_abs_err={err:.6g}; call_ms="
+            f"{call_ms:.4f} (the op: gather + quantizer + kernel{extra})")
+        res.shape(name, n_moe, ms, plain_ms, lib, nbytes, flops, peak)
+        del out, ref
+    del wg, wired
+
+    # the reduce side: every rank's partials (fp8, int8 and int8-mxu's
+    # int8 payload), then the fold on fp8 / int8
+    hs = F.silu(stacked(ops.ag_group_gemm_fused(
+        x_cat, routing, w_up, ctx[None])).float()).to(bf16)
+    y = list(hs.unbind(0))
+    tag = (f"{tag0} down K={fl} a rank x {TP} N={MOE_H} ({used} experts, "
+           f"one launch for {TP} ranks)")
+    parts = mtf.moe_reduce_rs_partials(y, be, w_down, mesh)
+    ref = mtf.moe_reduce_rs_partials_plain(y, be, w_down, mesh,
+                                           out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    over, err = _row_excess(parts, ref)
+    del ref
+    res.check("moe_reduce_rs_wire", over, GG_ATOL, tag + " partials",
+              metric="max over rows of max(|err|-2^-8|ref|)/rowmax|ref|")
+    res.kernel("moe_reduce_rs_wire", err=err)
+    ms = time_ms(lambda: mtf.moe_reduce_rs_partials(y, be, w_down, mesh), 5)
+    plain_ms = time_ms(lambda: mtf.moe_reduce_rs_partials_plain(
+        y, be, w_down, mesh), 1)
+    yg = torch.cat(y, dim=1).reshape(TP * nb, MOE_TP_BM, MOE_F)
+    wg = torch.cat(w_down, dim=1)[be_all]
+    lib = time_ms(lambda: torch.bmm(yg, wg), 3)
+    del yg, wg
+    # every rank's rows and the used experts' weights once, every partial
+    # slab once
+    nbytes = (2 * TP * TP * cap_s * fl + 4 * TP * nb
+              + 2 * used * MOE_F * MOE_H + 2 * TP * TP * cap_s * MOE_H)
+    bnd, by = bound_ms(nbytes, flops, H100_BF16_OPS)
+    log(f"time moe_reduce_rs_wire {tag} partials ({3 * n_moe}/run): "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} "
+        f"(bmm on the concatenated operands, weights gathered per block: "
+        f"the sum over ranks in one product) bound_ms={bnd:.4f} ({by}) "
+        f"max_abs_err={err:.6g}")
+    res.shape("moe_reduce_rs_wire", 3 * n_moe, ms, plain_ms, lib, nbytes,
+              flops, H100_BF16_OPS)
+    for wire, passes in (("fp8", 1), ("int8", 2)):
+        fmt = mtf._wire_fmt(wire, cap_s)
+        folded = mtf.moe_reduce_rs_fold(parts, mesh, fmt, bf16)
+        whole = mtf.moe_reduce_rs_mesh_w(y, be, w_down, mesh, fmt)
+        want = grs.gemm_rs_fold_plain(parts, fmt, bf16)
+        torch.cuda.synchronize()
+        for got, part in ((folded, "fold"),
+                          (whole, "whole wire (partials + fold)")):
+            same = all(torch.equal(o, r) for o, r in zip(got, want))
+            res.check("moe_reduce_rs_fold", 0.0 if same else 1.0, 0.0,
+                      f"{tag} {wire} {part} = the plain fold of the "
+                      "kernel's partials", metric="bytes differ")
+        res.kernel("moe_reduce_rs_fold", err=0.0)
+        del folded, whole, want
+        ms = time_ms(lambda: mtf.moe_reduce_rs_fold(parts, mesh, fmt, bf16),
+                     5)
+        plain_ms = time_ms(lambda: grs.gemm_rs_fold_plain(parts, fmt, bf16),
+                           1)
+        call_ms = time_ms(lambda: mtf.moe_reduce_rs_mesh_w(
+            y, be, w_down, mesh, fmt), 3)
+        # every partial slab read once, every output written once
+        nbytes = 2 * (TP * TP * cap_s * MOE_H + TP * cap_s * MOE_H)
+        bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time moe_reduce_rs_fold {tag} {wire} chunk_rows="
+            f"{fmt.chunk_rows} ({passes * n_moe}/run): kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call "
+            f"requantizes each hop) bound_ms={bnd:.4f} ({by}); call_ms="
+            f"{call_ms:.4f} (the wrapper: partials + fold)")
+        res.shape("moe_reduce_rs_fold", passes * n_moe, ms, plain_ms, None,
+                  nbytes, 0.0, H100_BF16_OPS)
+    del parts, y, hs, x, x_cat, w_up, w_down
+
+
 def check_tiny_moe_tp4(res: Results, dev):
     """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and in
     its TP flavour at tp = 4 on a loopback mesh, on the card and on the
@@ -2703,6 +3001,144 @@ def run_wire_path(res: Results, dev):
     return counts
 
 
+@contextlib.contextmanager
+def _plain_versions_raise():
+    """Within the block, the MoE-TP plain versions and the plain wire
+    quantizers raise: a path on CUDA tensors must launch the kernels."""
+    from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+    from triton_distributed_tpu_torch.kernels import wire as wk
+    from triton_distributed_tpu_torch.lang import wire as tw
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    names = [(mtf, n) for n in (
+        "ag_group_gemm_mesh_plain", "moe_reduce_rs_mesh_plain",
+        "ag_group_gemm_mesh_w_plain", "ag_group_gemm_mesh_mx_plain",
+        "moe_reduce_rs_partials_plain", "moe_reduce_rs_fold_plain",
+        "moe_reduce_rs_mesh_w_plain", "gemm_rs_fold_plain")]
+    names += [(wk, "quantize_shards_plain"), (tw, "quantize_slab"),
+              (tw, "dequantize_slab")]
+    saved = [(m, n, getattr(m, n)) for m, n in names]
+    for m, n in names:
+        setattr(m, n, boom)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def run_moe_wire_path(res: Results, dev, n_moe: int):
+    """DeepSeek-MoE-16B's TP MoE layers on every wire, tp = 4 on a
+    loopback mesh of the card: the 27 MoE layers' expert weights (bf16,
+    drawn from a seed a layer, freed after it) and a router a layer
+    applied to the same seeded tokens, 4 x 2048 of hidden 2048 (an
+    outlier token x1000 a shard); each layer's ``moe_tp_mlp_overlapped``
+    (``MoETPContext(mesh=, wire_dtype=)``) on the bf16 wire, fp8, int8
+    and int8-mxu, every wire's output within JAX's pinned reduce-wire
+    limit of the bf16 wire's (int8-mxu also within the twin limit of the
+    int8 wire's), its up projection within the AG-wire limit. Counts
+    every launch of the run with the plain versions made to raise: a
+    layer launches the quantizer, the AG kernel, the partials and the
+    fold once on each quantized wire, the two mesh kernels on bf16.
+    Returns {kernel: launches}. On the loopback mesh no byte crosses a
+    link: the run shows the wires' numerics and cost."""
+    import torch
+
+    from triton_distributed_tpu_torch import ops
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.ops import moe_tp
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    name = f"deepseek_moe_16b tp{TP} moe wires"
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = moe_wire_tokens(dev, g)
+    ctx = {w: ops.MoETPContext(num_experts=MOE_E, topk=MOE_K,
+                               block_m=MOE_TP_BM, dtype=torch.bfloat16,
+                               mesh=mesh, wire_dtype=w) for w in WIRES}
+    ups = {}
+    fused = moe_tp.ag_group_gemm_fused
+
+    def recorded(x_, routing, w, c):
+        ups[c.wire_dtype] = fused(x_, routing, w, c)
+        return ups[c.wire_dtype]
+
+    worst = {(w, op): 0.0 for w in (*WIRES[1:], "twin")
+             for op in ("up", "mlp")}
+    call_ms = {w: 0.0 for w in WIRES}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    moe_tp.ag_group_gemm_fused = recorded
+    try:
+        with _plain_versions_raise():
+            for layer in range(n_moe):
+                gl = torch.Generator(device=dev).manual_seed(2000 + layer)
+                wts, ids, w_up, w_down = moe_wire_layer(dev, gl, x)
+                outs, ev = {}, []
+                for wire in WIRES:
+                    ev.append(torch.cuda.Event(enable_timing=True))
+                    ev[-1].record()
+                    outs[wire] = ops.moe_tp_mlp_overlapped(
+                        x, ids, wts, w_up, w_down, ctx[wire])
+                ev.append(torch.cuda.Event(enable_timing=True))
+                ev[-1].record()
+                torch.cuda.synchronize()
+                for i, wire in enumerate(WIRES):
+                    call_ms[wire] += ev[i].elapsed_time(ev[i + 1])
+                for wire in WIRES[1:]:
+                    worst[(wire, "up")] = max(worst[(wire, "up")], _rel_err(
+                        ups[wire], ups[None]))
+                    worst[(wire, "mlp")] = max(worst[(wire, "mlp")],
+                                               _rel_err([outs[wire]],
+                                                        [outs[None]]))
+                worst[("twin", "up")] = max(worst[("twin", "up")], _rel_err(
+                    ups["int8-mxu"], ups["int8"]))
+                worst[("twin", "mlp")] = max(worst[("twin", "mlp")],
+                                             _rel_err([outs["int8-mxu"]],
+                                                      [outs["int8"]]))
+                if not all(o.isfinite().all() for o in outs.values()):
+                    res.failures.append(f"{name}: layer {layer} has "
+                                        "non-finite outputs")
+                ups.clear()
+                del wts, ids, w_up, w_down, outs
+    finally:
+        moe_tp.ag_group_gemm_fused = fused
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"path {name}: {n_moe} layers x {len(WIRES)} wires in {wall:.2f} s "
+        "(weights drawn on the card inside); the calls on the device's "
+        "clock, a pass over the layers: " + " ".join(
+            f"{w or 'bf16'}={call_ms[w]:.2f} ms" for w in WIRES)
+        + "; launches " + " ".join(f"{k}={v}" for k, v in counts.items()
+                                   if v))
+    expect = {"ag_group_gemm_mesh": n_moe, "moe_reduce_rs_mesh": n_moe,
+              "wire_quantize": 3 * n_moe, "ag_group_gemm_wire": 2 * n_moe,
+              "ag_group_gemm_mx": n_moe, "moe_reduce_rs_wire": 3 * n_moe,
+              "moe_reduce_rs_fold": 3 * n_moe}
+    for k, v in counts.items():
+        if v != expect.get(k, 0):
+            res.failures.append(f"{name}: {v} {k} launches, expected "
+                                f"{expect.get(k, 0)}")
+    for (wire, op), err in worst.items():
+        if wire == "twin":
+            tol, what = WIRE_MX_TWIN_TOL, f"int8-mxu vs int8 {op}"
+        else:
+            tol = (WIRE_AG_TOL if op == "up" else
+                   WIRE_RS_TOL)[wire]
+            what = f"{wire} vs bf16 wire {op}"
+        res.check(name, err, tol, f"{what} (worst of {n_moe} layers)",
+                  metric="max_rel_err")
+    return counts
+
+
 def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
     """DeepSeek-MoE-16B at tp = 4 on a loopback mesh of the card, from
     the MoE generation path's tp = 1 run ``one`` (:func:`run_decode_path`
@@ -3072,6 +3508,7 @@ def main() -> int:
     n_moe = len(deepseek.moe_layers)
     check_a2a_mesh(res, dev, n_moe)
     check_moe_tp_mesh_kernels(res, dev, n_moe)
+    check_moe_wire_kernels(res, dev, n_moe)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
@@ -3096,6 +3533,7 @@ def main() -> int:
     tp_counts = run_tp_path(res, dev, one, profile=opts.profile)
     del one
     wire_counts = run_wire_path(res, dev)
+    moe_wire_counts = run_moe_wire_path(res, dev, n_moe)
     for k, v in run_decode_path(res, dev, "llama_7b int8", llama,
                                 profile=opts.profile).items():
         decode_counts[k] += v
@@ -3173,8 +3611,12 @@ def main() -> int:
             n, steps = mesh_counts[name], 1
         elif name == "chunked_a2a_mesh":
             n, steps = mesh_counts[name], TP_STEPS
+        elif name == "wire_quantize":
+            n, steps = wire_counts[name] + moe_wire_counts[name], 1
         elif name in WIRE_ROWS:
             n, steps = wire_counts[name], 1
+        elif name in MOE_WIRE_ROWS:
+            n, steps = moe_wire_counts[name], 1
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

@@ -1237,6 +1237,226 @@ class TestMoEMeshKernels:
             mtf.moe_reduce_rs_mesh(y, be, ws, mesh)
 
 
+class TestMoEWireKernels:
+    """The MoE-TP wire kernels against their plain versions at
+    ``MOE_MESH_SHAPES`` (the last one the DeepSeek-MoE-16B tp = 4
+    prefill's up projection at 64 tokens a shard: fp8 / int8 chunks of 64
+    sorted rows, int8-mxu of 128), token 1 of shard 0 x1000."""
+
+    @staticmethod
+    def _inputs(seed, dev, w, shape, dtype):
+        m_s, topk, e, k, n, bm = shape
+        x, sti, be, ws = _moe_mesh_inputs(seed, dev, w, m_s, topk, e, k, n,
+                                          bm, dtype)
+        x[0][1] *= 1000.0
+        return x, sti, be, ws
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", MOE_MESH_SHAPES)
+    def test_ag_group_gemm_w_matches_plain(self, dev, shape, w, wire, dtype):
+        """The sorted slabs' codes and scales (one ``tdt_quantize_slab``
+        launch) equal the plain quantizer's byte for byte; rank r's own
+        rows exact and its peers' dequantized are the plain version's A,
+        so ``tdt_ag_group_gemm_w`` is within f32 summation order (per
+        row) and one bf16 rounding of it; the padding rows exactly 0."""
+        from triton_distributed_tpu_torch.kernels import wire as wk
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        topk = shape[1]
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        x, sti, be, ws = self._inputs(40, dev, w, shape, tdt)
+        cap_s = sti.shape[1]
+        fmt = mtf._wire_fmt(wire, cap_s)
+        before = launch_counts()
+        q, s = mtf.quantize_sorted(x, sti, topk, fmt)
+        got = mtf.ag_group_gemm_mesh_w(x, q, s, sti, be, ws, topk, mesh, fmt)
+        after = launch_counts()
+        assert after["wire_quantize"] == before["wire_quantize"] + 1
+        assert after["ag_group_gemm_wire"] == (
+            before["ag_group_gemm_wire"] + 1)
+        assert sum(after.values()) == sum(before.values()) + 2
+        slabs = [mu.gather_sorted(xr, sr, topk) for xr, sr in zip(x, sti)]
+        wq, wsc = wk.quantize_shards_plain(slabs, fmt)
+        want = mtf.ag_group_gemm_mesh_w_plain(x, q, s, sti, be, ws, topk,
+                                              mesh, fmt,
+                                              out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
+        assert torch.equal(s, wsc)
+        pad = sti.reshape(-1) >= shape[0] * topk
+        assert pad.any()
+        for g, ref in zip(got, want):
+            assert g.dtype == tdt and g.shape == (w * cap_s, shape[4])
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, shape[3],
+                                      dtype == "bfloat16")).all()
+            assert (g[pad] == 0).all()
+
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", MOE_MESH_SHAPES)
+    def test_ag_group_gemm_mx_is_exact(self, dev, shape, w, out):
+        """s32 sums are exact in any order and the epilogue is the plain
+        version's, acc · (row scale · column scale): bit for bit, the
+        padding rows 0 (K 70 / 136: the byte loads; K 2048: 16-byte
+        rows). One rank is the one-rank form."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        topk, bm = shape[1], shape[5]
+        mesh = Mesh.loopback(w, dev)
+        x, sti, be, ws = self._inputs(41, dev, w, shape, torch.bfloat16)
+        fmt = mtf._wire_fmt("int8-mxu", sti.shape[1], bm)
+        q, s = mtf.quantize_sorted(x, sti, topk, fmt)
+        wq, wsc = mtf.quantize_expert_shards(ws)
+        kw = dict(out_dtype=getattr(torch, out))
+        before = launch_counts()["ag_group_gemm_mx"]
+        if w == 1:
+            got = [mtf.ag_group_gemm_mx(q[0], s[0], be[0], wq[0], wsc[0],
+                                        **kw)]
+        else:
+            got = mtf.ag_group_gemm_mesh_mx(q, s, be, wq, wsc, mesh, **kw)
+        assert launch_counts()["ag_group_gemm_mx"] == before + 1
+        want = mtf.ag_group_gemm_mesh_mx_plain(q, s, be, wq, wsc, mesh, **kw)
+        torch.cuda.synchronize()
+        pad = sti.reshape(-1) >= shape[0] * topk
+        for g, ref in zip(got, want):
+            torch.testing.assert_close(g, ref, rtol=0, atol=0)
+            assert (g[pad] == 0).all()
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", MOE_MESH_SHAPES)
+    def test_moe_reduce_rs_w(self, dev, shape, w, wire, dtype):
+        """The partials (``tdt_moe_reduce_rs_partials``) within f32
+        summation order (per row) and one rounding of the plain partials;
+        the fold on the kernel's own partials equals the plain fold of
+        them bit for bit, and so does the whole wire, one launch of each
+        kernel (here F_q = N of the shape, H = its K)."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, h, f, bm = shape
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        _, sti, be, ws = _moe_mesh_inputs(42, dev, w, m_s, topk, e, f, h, bm,
+                                          tdt)
+        cap_s = sti.shape[1]
+        rng = np.random.default_rng(43)
+        yf = rng.standard_normal((w, w * cap_s, f))
+        yf[0, 5] *= 1000.0
+        y = list(_t(yf, dev, tdt).unbind(0))
+        fmt = mtf._wire_fmt(wire, cap_s)
+        parts = mtf.moe_reduce_rs_partials(y, be, ws, mesh)
+        folded = mtf.moe_reduce_rs_fold(parts, mesh, fmt, tdt)
+        before = launch_counts()
+        got = mtf.moe_reduce_rs_mesh_w(y, be, ws, mesh, fmt)
+        after = launch_counts()
+        assert after["moe_reduce_rs_wire"] == (
+            before["moe_reduce_rs_wire"] + 1)
+        assert after["moe_reduce_rs_fold"] == (
+            before["moe_reduce_rs_fold"] + 1)
+        assert sum(after.values()) == sum(before.values()) + 2
+        ref_parts = mtf.moe_reduce_rs_partials_plain(y, be, ws, mesh,
+                                                     out_dtype=torch.float32)
+        want = grs.gemm_rs_fold_plain(parts, fmt, tdt)
+        torch.cuda.synchronize()
+        for p, ref in zip(parts, ref_parts):
+            assert p.dtype == tdt and p.shape == (w * cap_s, h)
+            assert ((p.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, f, dtype == "bfloat16")).all()
+        for d in range(w):
+            assert got[d].shape == (cap_s, h)
+            assert torch.equal(folded[d], want[d])
+            assert torch.equal(got[d], want[d])
+
+    @pytest.mark.parametrize("wire", ["fp8", "int8", "int8-mxu"])
+    def test_moe_wires_on_the_card_never_run_the_plain_versions(
+            self, dev, monkeypatch, wire):
+        """``moe_tp_mlp_overlapped`` on a wire over 4 ranks of the card:
+        with the plain versions and the plain quantizers made to raise,
+        one layer launches the quantizer, its AG kernel, the partials and
+        the fold, once each, and nothing else."""
+        from triton_distributed_tpu_torch import ops
+        from triton_distributed_tpu_torch.kernels import wire as wk
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        def boom(*a, **k):
+            raise AssertionError("a plain version ran on CUDA tensors")
+
+        for mod, name in ((mtf, "ag_group_gemm_mesh_w_plain"),
+                          (mtf, "ag_group_gemm_mesh_mx_plain"),
+                          (mtf, "moe_reduce_rs_partials_plain"),
+                          (mtf, "moe_reduce_rs_fold_plain"),
+                          (mtf, "moe_reduce_rs_mesh_w_plain"),
+                          (mtf, "gemm_rs_fold_plain"),
+                          (wk, "quantize_shards_plain"),
+                          (tw, "quantize_slab"), (tw, "dequantize_slab")):
+            monkeypatch.setattr(mod, name, boom)
+        mesh = Mesh.loopback(4, dev)
+        m_s, topk, e, hid, f = 64, 6, 16, 256, 512
+        x, sti, _, w_up = _moe_mesh_inputs(44, dev, 4, m_s, topk, e, hid,
+                                           f // 4, 64, torch.bfloat16)
+        rng = np.random.default_rng(45)
+        w_down = list((_t(rng.standard_normal((4, e, f // 4, hid)), dev,
+                          torch.bfloat16) / np.sqrt(f)).unbind(0))
+        logits = _t(rng.standard_normal((4 * m_s, e)), dev)
+        wts, ids = mu.select_experts(logits, topk)
+        ctx = ops.MoETPContext(num_experts=e, topk=topk, block_m=64,
+                               mesh=mesh, wire_dtype=wire)
+        before = launch_counts()
+        out = ops.moe_tp_mlp_overlapped(torch.cat(x), ids, wts, w_up,
+                                        w_down, ctx)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        ag_row = "ag_group_gemm_mx" if wire == "int8-mxu" else \
+            "ag_group_gemm_wire"
+        assert moved == {"wire_quantize": 1, ag_row: 1,
+                         "moe_reduce_rs_wire": 1, "moe_reduce_rs_fold": 1}
+        assert out.shape == (4 * m_s, hid) and out.isfinite().all()
+
+    def test_one_rank_int8_mxu_equals_the_cpu(self, dev):
+        """At tp = 1 int8-mxu runs the own slab's codes through the s8
+        kernel: the card's up projection equals the CPU's bit for bit (the
+        quantizers round as on the CPU, the s32 sums are exact), and the
+        whole MLP launches the quantizer, ``ag_group_gemm_mx`` and the
+        one-rank reduce."""
+        from triton_distributed_tpu_torch import ops
+
+        m, topk, e, hid, f = 200, 2, 8, 256, 320
+        rng = np.random.default_rng(46)
+        x = rng.standard_normal((m, hid)).astype(np.float32)
+        x[7] *= 1000.0
+        w_up = rng.standard_normal((e, hid, f)) / np.sqrt(hid)
+        w_down = rng.standard_normal((e, f, hid)) / np.sqrt(f)
+        wts, ids = mu.select_experts(torch.from_numpy(
+            rng.standard_normal((m, e)).astype(np.float32)), topk)
+        outs = []
+        for d in ("cpu", dev):
+            ctx = ops.MoETPContext(num_experts=e, topk=topk, block_m=64,
+                                   wire_dtype="int8-mxu")
+            r = ops.align_routing_sharded(ctx, ids.to(d))
+            bf = torch.bfloat16
+            outs.append(ops.ag_group_gemm_fused(_t(x, d, bf), r,
+                                                _t(w_up, d, bf), ctx).cpu())
+            if d != "cpu":
+                before = launch_counts()
+                y = ops.moe_tp_mlp_overlapped(_t(x, d, bf), ids.to(d),
+                                              wts.to(d), _t(w_up, d, bf),
+                                              _t(w_down, d, bf), ctx)
+                after = launch_counts()
+                moved = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+                assert moved == {"wire_quantize": 1, "ag_group_gemm_mx": 1,
+                                 "moe_reduce_rs": 1}
+                assert y.isfinite().all()
+        torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+
+
 def _staged_a2a_mesh(dev, w, quant, dtype, seed, skew):
     """Every rank's staged payload and metadata for a seeded routing of
     100 tokens a rank (top-2 over 16 experts, some assignments masked);

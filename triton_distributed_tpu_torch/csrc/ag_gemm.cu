@@ -40,186 +40,10 @@
 // a link: the card shows what the wire costs and its numerics, not a
 // bandwidth gain. At the tp = 4 prefill the _mx product is 2 * 8192 *
 // 4096 * N int8 operations (0.42 / 0.37 ms at 1979 TOP/s for wqkv / up).
-// Its loop, s8_mma_kernel below, is the bf16 loop's shape on int8:
-// 64 x 128 tiles, four warps of 32 x 64, mma.sync m16n8k32 s8 -> s32 fed
-// by ldmatrix, K steps of 64 bytes loaded into registers while the
-// current one multiplies. An s8 fragment along k is byte for byte a bf16
-// one, so A's ldmatrix is the bf16 loop's; B's cannot be transposed by
-// ldmatrix (it moves 16-bit words), so the wrapper hands B over
-// transposed, (N, K) a rank, and both tiles load k-contiguous rows.
+// Its loop is s8_mma_kernel (s8_tiles.cuh), over the PeerRowsMx rows;
+// the wrapper hands B over transposed, (N, K) a rank.
 
-#include "ggemm_tiles.cuh"
-
-namespace {
-
-// int8-mxu rows: every row of the gathered A is wire codes (int8; the
-// rank's own shard quantized too, q: (W, m, K)) with its chunk's scale
-// (s: (W, m / chunk_rows)); rank r = rank0 + blockIdx.z multiplies its
-// per-column quantized weight (wt: (W, N, K) int8, transposed; ws: (W,
-// N) f32) into out_r, rows rotated as in PeerRows.
-struct PeerRowsMx {
-  struct Ref {
-    const int8_t* p;  // the row's codes; nullptr past the rows
-    float s;
-  };
-  const int8_t* __restrict__ q;
-  const float* __restrict__ s;
-  const unsigned long long* __restrict__ out_peers;
-  int m, world, rank0, chunk_rows;
-  __device__ __forceinline__ int rank() const { return rank0 + blockIdx.z; }
-  __device__ __forceinline__ int orow(int t) const {
-    return (t + rank() * m) % (world * m);
-  }
-  __device__ __forceinline__ Ref at(int t, int K) const {
-    if (t >= world * m) return Ref{nullptr, 0.f};
-    const int g = orow(t), src = g / m, i = g % m;
-    return Ref{q + (static_cast<size_t>(src) * m + i) * K,
-               s[static_cast<size_t>(src) * (m / chunk_rows) +
-                 i / chunk_rows]};
-  }
-};
-
-constexpr int QBK = 64;         // K bytes a stage
-constexpr int QPAD = QBK + 16;  // 80-byte rows: 16-byte aligned, and the
-                                // ldmatrix rows conflict-free
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes of a row from byte col, zero past ncols or on no row; one
-// 16-byte load when it is inside and the rows are 16-byte aligned
-__device__ __forceinline__ uint4 load16b(const int8_t* row, int col,
-                                         int ncols, bool vec) {
-  union {
-    uint4 u;
-    int8_t b[16];
-  } t;
-  t.u = make_uint4(0, 0, 0, 0);
-  if (row == nullptr) return t.u;
-  const int8_t* p = row + col;
-  if (vec && col + 16 <= ncols) return *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    if (col + i < ncols) t.b[i] = p[i];
-  return t.u;
-}
-
-// out_r (M = W * m, N) = codes (M, K) @ wt_r^T, s32 sums, epilogue
-// (acc * row scale) * column scale; vec: K % 16 == 0 (16-byte rows)
-template <typename OutT>
-__global__ void __launch_bounds__(TC_THREADS)
-s8_mma_kernel(const int8_t* __restrict__ wt, const float* __restrict__ ws,
-              int M, int K, int N, bool vec, PeerRowsMx rows) {
-  __shared__ __align__(16) int8_t As[2][TBM][QPAD];
-  __shared__ __align__(16) int8_t Bs[2][TBN][QPAD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int r = rows.rank();
-  const int8_t* __restrict__ wr = wt + static_cast<size_t>(r) * N * K;
-  // the two A rows this thread loads (rows idx >> 2 of gload below)
-  const PeerRowsMx::Ref a_ref[2] = {rows.at(m0 + (tid >> 2), K),
-                                    rows.at(m0 + ((tid + TC_THREADS) >> 2), K)};
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
-
-  uint4 ra[2], rb[4];
-  auto gload = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // A: 64 rows x 4 vectors
-      const int c = ((tid + i * TC_THREADS) & 3) * 16;
-      ra[i] = load16b(a_ref[i].p, k0 + c, K, vec);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // B^T: 128 rows (n) x 4 vectors
-      const int idx = tid + i * TC_THREADS, n = n0 + (idx >> 2);
-      rb[i] = load16b(n < N ? wr + static_cast<size_t>(n) * K : nullptr,
-                      k0 + (idx & 3) * 16, K, vec);
-    }
-  };
-  auto sstore = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * TC_THREADS;
-      *reinterpret_cast<uint4*>(&As[buf][idx >> 2][(idx & 3) * 16]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * TC_THREADS;
-      *reinterpret_cast<uint4*>(&Bs[buf][idx >> 2][(idx & 3) * 16]) = rb[i];
-    }
-  };
-
-  const int nk = (K + QBK - 1) / QBK;
-  gload(0);
-  sstore(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) gload((t + 1) * QBK);  // in flight during the mma
-#pragma unroll
-    for (int kk = 0; kk < QBK; kk += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], &As[buf][wm + mi * 16 + (lane & 15)]
-                           [kk + (lane >> 4) * 16]);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        // x4 over 16 (n) x 32 (k) bytes: registers 0/1 are the k 0-15 /
-        // 16-31 halves of n-tile 2nj, registers 2/3 of 2nj + 1
-        uint32_t bf[4];
-        ldsm_x4(bf, &Bs[buf][wn + nj * 16 + (lane & 7) + ((lane >> 4) << 3)]
-                           [kk + ((lane >> 3) & 1) * 16]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_s8(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma_s8(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-    if (t + 1 < nk) sstore(buf ^ 1);
-    __syncthreads();
-  }
-
-  OutT* __restrict__ out = reinterpret_cast<OutT*>(rows.out_peers[r]);
-  const float* __restrict__ wsr = ws + static_cast<size_t>(r) * N;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + mi * 16 + (lane >> 2) + h * 8;
-      if (m >= M) continue;
-      const float sx = rows.at(m, K).s;
-      const size_t orow = static_cast<size_t>(rows.orow(m)) * N;
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + nj * 8 + (lane & 3) * 2 + e;
-          if (n >= N) continue;
-          // (acc * row scale) * column scale, the order of the TPU
-          // epilogue
-          float v = static_cast<float>(acc[mi][nj][h * 2 + e]) * sx;
-          v = v * wsr[n];
-          out[orow + n] = tdt_from_f<OutT>(v);
-        }
-    }
-}
-
-}  // namespace
+#include "s8_tiles.cuh"
 
 extern "C" {
 
@@ -295,22 +119,13 @@ int tdt_ag_gemm_mx(const void* q, const void* s, const void* wt,
                         static_cast<const unsigned long long*>(out_peers),
                         m, world, rank0, chunk_rows};
   const int M = world * m;
-  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM, nranks);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* w = static_cast<const int8_t*>(wt);
-  const float* wsf = static_cast<const float*>(ws);
   const bool vec = K % 16 == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
                      reinterpret_cast<uintptr_t>(wt)) & 15) == 0;
-  if (out_dtype == TDT_BF16)
-    s8_mma_kernel<__nv_bfloat16><<<grid, TC_THREADS, 0, st>>>(
-        w, wsf, M, K, N, vec, rows);
-  else if (out_dtype == TDT_F32)
-    s8_mma_kernel<float><<<grid, TC_THREADS, 0, st>>>(w, wsf, M, K, N, vec,
-                                                      rows);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return launch_s8_mma(static_cast<const int8_t*>(wt),
+                       static_cast<const float*>(ws), nullptr, M, K, N, M,
+                       vec, out_dtype, static_cast<cudaStream_t>(stream),
+                       rows, nranks);
 }
 
 }  // extern "C"

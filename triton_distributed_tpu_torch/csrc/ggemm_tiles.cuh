@@ -1,6 +1,6 @@
 // The float and W8A16 tile loops of the grouped GEMM, shared by
 // group_gemm.cu (tdt_ggemm_f, tdt_ggemm_w8a16), moe_tp_fused.cu
-// (tdt_ag_group_gemm, tdt_moe_reduce_rs and their mesh forms),
+// (tdt_ag_group_gemm, tdt_moe_reduce_rs, their mesh forms and wires),
 // ag_gemm.cu (tdt_ag_gemm, tdt_ag_gemm_w) and gemm_rs.cu (tdt_gemm_rs,
 // tdt_gemm_rs_partials).
 //
@@ -33,7 +33,8 @@
 // return the kernel's pointers, so their loops compile as before. The
 // wires: PeerRowsQ (kQuant) is PeerRows with each peer's rows read from
 // its 1-byte wire codes and dequantized in the load (wire.cuh), the own
-// shard exact; PeerLocal runs each rank's own dense product into its own
+// shard exact, and PeerGatherRowsQ the same on PeerGatherRows' sorted
+// rows; PeerLocal runs each rank's own (grouped) product into its own
 // output.
 //
 // Two loops: fma_kernel (64 x 64 tiles, 256 threads with 4 x 4 FMA
@@ -263,9 +264,13 @@ struct PeerSum {
 };
 
 // GEMM-RS on a quantized wire, its partials: rank r = rank0 + blockIdx.z
-// computes out_r (M, N) = A_r (M, K) @ w_r, its own A (all W * m rows of
-// its K columns) against its own weight rows, into its own slab of
-// partials (the fold of gemm_rs.cu then replays the ring's hops).
+// computes out_r (M, N) = A_r (M, K) @ w_r[block_expert[m / block_m]], its
+// own A (all W * m rows of its K columns) against its own weight rows,
+// into its own slab of partials (the fold of gemm_rs.cu then replays the
+// ring's hops). The dense GEMM-RS passes one expert (block_m = M, the
+// table one 0); the MoE grouped GEMM-RS w_r (E, K, N) and the W shards'
+// block tables stacked, so that row m = d * cap_s + i (destination d's
+// sorted row i) takes expert be[d, i / block_m].
 struct PeerLocal {
   static constexpr bool kLookup = false;
   static constexpr bool kParts = false;
@@ -286,17 +291,19 @@ struct PeerLocal {
     return reinterpret_cast<const T*>(a_peers[rank()]);
   }
   template <typename T>
-  __device__ __forceinline__ const T* w_expert(const T*, int, int,
-                                               int) const {
-    return reinterpret_cast<const T*>(w_peers[rank()]);
+  __device__ __forceinline__ const T* w_expert(const T*, int e, int K_,
+                                               int N) const {
+    return reinterpret_cast<const T*>(w_peers[rank()]) +
+           static_cast<size_t>(e) * K_ * N;
   }
   template <typename T>
   __device__ __forceinline__ T* out_base(T*) const {
     return reinterpret_cast<T*>(out_peers[rank()]);
   }
   __device__ __forceinline__ int orow(int m) const { return m; }
-  __device__ __forceinline__ int expert(const int*, int, int) const {
-    return 0;
+  __device__ __forceinline__ int expert(const int* be, int m0,
+                                        int block_m) const {
+    return be[m0 / block_m];
   }
 };
 
@@ -362,6 +369,31 @@ struct PeerRowsQ {
   __device__ __forceinline__ int expert(const int* be, int m0,
                                         int block_m) const {
     return be[m0 / block_m];
+  }
+};
+
+// MoE AG + grouped GEMM on a quantized wire (kQuant): PeerGatherRows'
+// sorted layout (row t = s * cap_s + i is shard s's sorted row i, not
+// rotated; m is cap_s), with PeerRowsQ's loads: rank r's own shard is
+// read exact from its tokens (x_r[sti[t] / topk]); a peer shard's row is
+// its wire codes (q: (W, cap_s, K), the shard's materialized sorted slab
+// quantized) times its chunk's scale (s: (W, cap_s / chunk_rows)),
+// rounded to x's dtype. A row at the padding sentinel (>= total = tokens
+// a shard * topk) is zeros on both, as its codes are.
+struct PeerGatherRowsQ : PeerRowsQ {
+  const int* __restrict__ sti;
+  int topk, total;
+  __device__ __forceinline__ int orow(int t) const { return t; }
+  __device__ __forceinline__ Ref at(int t) const {
+    if (t >= world * m) return Ref{nullptr, 0.f, false};
+    const int v = sti[t];
+    if (v < 0 || v >= total) return Ref{nullptr, 0.f, false};
+    if (t / m == rank())
+      return Ref{reinterpret_cast<const char*>(a_peers[t / m]) +
+                     static_cast<size_t>(v / topk) * K * esize,
+                 0.f, false};
+    return Ref{reinterpret_cast<const char*>(q) + static_cast<size_t>(t) * K,
+               s[t / chunk_rows], true};
   }
 };
 

@@ -52,8 +52,38 @@
 // At the DeepSeek-MoE-16B tp = 4 prefill N_r = F / 4 = 352 (up) and the
 // down K a rank is 352: the tile loops mask the ragged N edge (352 = 2.75
 // tiles of 128) and the K loop takes 11 whole steps of 32.
+//
+// The quantized wires (MoETPContext.wire_dtype) replace
+// ag_group_gemm_kernel_w (:208), ag_group_gemm_kernel_mx (:243) with its
+// gmm_q8_pipeline (:114), and moe_reduce_rs_kernel_w (:322). As JAX
+// quantizes the materialized sorted slab on the XLA side, the wrapper
+// gathers every shard's slab (W x (cap_s, K), padding rows zero) and
+// quantizes all W in one tdt_quantize_slab launch (wire.cu): fp8 / int8
+// at the chunk rows of make_wire_format(cap_s), int8-mxu at one chunk a
+// routing block (block_m rows).
+//   * tdt_ag_group_gemm_w: the tile loops over PeerGatherRowsQ, rank r's
+//     own shard exact from its tokens, a peer's sorted rows its codes
+//     times the chunk scale rounded to x's dtype (what JAX's
+//     dequant_pipeline writes into the bf16 workspace), f32 sums, one
+//     rounding.
+//   * tdt_ag_group_gemm_mx: every slab's codes, the own one too, through
+//     s8_mma_kernel (s8_tiles.cuh) over PeerSortedMx against the block's
+//     expert of the rank's per-(expert, column) int8 weight (the wrapper
+//     quantizes it on every call, as JAX does, and hands it over (E, N,
+//     K)), exact s32 sums, epilogue acc * (row scale * column scale).
+//   * tdt_moe_reduce_rs_partials: every rank's grouped partials y_q @
+//     w_q[be] over all W * cap_s rows (PeerLocal, grouped), each rounded
+//     once to the output type as JAX's partial_into writes its slab; then
+//     gemm_rs.cu's tdt_gemm_rs_fold (m = cap_s) replays the reduce ring's
+//     requantizing hops, rank d - 1's partial first and the own last. On
+//     the loopback mesh no byte crosses a link: a hop's codes are made
+//     and consumed in registers.
+// What bounds them at the tp = 4 prefill: the tensor cores, over the
+// 49152 real sorted rows (2 * 49152 * 2048 * 1408 operations: 0.29 ms at
+// 989 TFLOP/s bf16, 0.14 ms at 1979 TOP/s int8); the fold, device memory
+// (16 partial slabs of 20480 x 2048 bf16 read once, ~0.5 ms).
 
-#include "ggemm_tiles.cuh"
+#include "s8_tiles.cuh"
 
 extern "C" {
 
@@ -136,6 +166,94 @@ int tdt_moe_reduce_rs_mesh(const void* y_peers, const void* w_peers,
                               cap_s, F, H, block_m, x_dtype, out_dtype,
                               static_cast<cudaStream_t>(stream), rows,
                               aligned != 0, aligned != 0, nranks);
+}
+
+// The fp8 / int8 wire: x_peers, sti, block_expert, w_peers, out_peers as
+// for tdt_ag_group_gemm_mesh (rank r's own shard read exact from its
+// tokens); q: (world, cap_s, K) wire codes of every shard's sorted slab,
+// s: (world, cap_s / chunk_rows) f32 scales; quant TDT_WIRE_FP8 or
+// TDT_WIRE_INT8.
+int tdt_ag_group_gemm_w(const void* x_peers, const void* q, const void* s,
+                        const void* w_peers, const void* out_peers,
+                        const void* sti, const void* block_expert, int m_tok,
+                        int topk, int cap_s, int K, int N, int block_m,
+                        int world, int rank0, int nranks, int chunk_rows,
+                        int quant, int x_dtype, int out_dtype, int aligned,
+                        void* stream) {
+  cudaGetLastError();
+  if (cap_s <= 0 || N <= 0 || nranks <= 0) return 0;
+  if (chunk_rows <= 0 || cap_s % chunk_rows ||
+      (quant != TDT_WIRE_FP8 && quant != TDT_WIRE_INT8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PeerGatherRowsQ rows{
+      {static_cast<const unsigned long long*>(x_peers),
+       static_cast<const uint8_t*>(q), static_cast<const float*>(s),
+       static_cast<const unsigned long long*>(w_peers),
+       static_cast<const unsigned long long*>(out_peers), cap_s, world,
+       rank0, K, x_dtype == TDT_BF16 ? 2 : 4, chunk_rows, quant},
+      static_cast<const int*>(sti), topk, m_tok * topk};
+  return launch_float_ggemm_z(nullptr, nullptr,
+                              static_cast<const int*>(block_expert), nullptr,
+                              world * cap_s, K, N, block_m, x_dtype,
+                              out_dtype, static_cast<cudaStream_t>(stream),
+                              rows, aligned != 0, aligned != 0, nranks);
+}
+
+// The int8-mxu wire: q: (world, cap_s, K) int8 codes of every shard's
+// sorted slab, s: (world, cap_s / chunk_rows) f32 scales (chunk_rows =
+// block_m, or cap_s); block_expert (world * cap_s / block_m,) int32, the
+// shards' tables stacked; wt: (world, E, N, K) int8 per-(expert, column)
+// quantized weights, transposed; ws: (world, E, N) f32; out_peers:
+// (world,) pointers to out_r (world * cap_s, N) of out_dtype (TDT_BF16 or
+// TDT_F32). Writes out_r for r in [rank0, rank0 + nranks); world 1 is the
+// one-rank form.
+int tdt_ag_group_gemm_mx(const void* q, const void* s,
+                         const void* block_expert, const void* wt,
+                         const void* ws, const void* out_peers, int cap_s,
+                         int K, int N, int experts, int block_m, int world,
+                         int rank0, int nranks, int chunk_rows,
+                         int out_dtype, void* stream) {
+  cudaGetLastError();
+  if (cap_s <= 0 || N <= 0 || nranks <= 0) return 0;
+  if (chunk_rows <= 0 || cap_s % chunk_rows || block_m <= 0 ||
+      cap_s % block_m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PeerSortedMx rows{static_cast<const int8_t*>(q),
+                          static_cast<const float*>(s),
+                          static_cast<const unsigned long long*>(out_peers),
+                          cap_s, world, rank0, chunk_rows, experts};
+  const bool vec = K % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) |
+                     reinterpret_cast<uintptr_t>(wt)) & 15) == 0;
+  return launch_s8_mma(static_cast<const int8_t*>(wt),
+                       static_cast<const float*>(ws),
+                       static_cast<const int*>(block_expert), world * cap_s,
+                       K, N, block_m, vec, out_dtype,
+                       static_cast<cudaStream_t>(stream), rows, nranks);
+}
+
+// The fp8 / int8 wire's partials: y_peers: (world,) pointers to y_q
+// (world * cap_s, F); w_peers: to w_q (E, F, H); part_peers: to each
+// rank's partial slab (world * cap_s, H) of out_dtype, rank q's y_q @
+// w_q[be] over all its rows; block_expert (world * cap_s / block_m,)
+// int32, the shards' tables stacked. Every rank's partials feed every
+// destination's fold, so the launch covers all ranks.
+int tdt_moe_reduce_rs_partials(const void* y_peers, const void* w_peers,
+                               const void* part_peers,
+                               const void* block_expert, int cap_s, int F,
+                               int H, int block_m, int world, int x_dtype,
+                               int out_dtype, int aligned, void* stream) {
+  cudaGetLastError();
+  if (cap_s <= 0 || H <= 0 || world <= 0) return 0;
+  const PeerLocal rows{static_cast<const unsigned long long*>(y_peers),
+                       static_cast<const unsigned long long*>(w_peers),
+                       static_cast<const unsigned long long*>(part_peers),
+                       world * cap_s, F, 0};
+  return launch_float_ggemm_z(nullptr, nullptr,
+                              static_cast<const int*>(block_expert), nullptr,
+                              world * cap_s, F, H, block_m, x_dtype,
+                              out_dtype, static_cast<cudaStream_t>(stream),
+                              rows, aligned != 0, aligned != 0, world);
 }
 
 }  // extern "C"

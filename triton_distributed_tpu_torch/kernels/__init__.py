@@ -6,8 +6,8 @@ decode entries of ``flash_decode``, ``ag_gemm`` / ``gemm_rs`` (at world
 size 1 and over a mesh, on the raw and the quantized wires), ``allgather``
 and the MoE-TP GEMMs (``moe_tp_fused``) are imported by name. The wire
 quantizer ``tdt_quantize_slab`` (``csrc/wire.cu``, :mod:`.wire`) is
-launched by the AG-GEMM and all-gather wire wrappers and counted on its
-own."""
+launched by the AG-GEMM, all-gather and MoE-TP wire wrappers and
+counted on its own."""
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -45,7 +45,9 @@ def _counters() -> dict:
     all-to-all's counts its launches at one rank and over a mesh
     apart. Every counter counts one kernel's launches where it is
     launched: a wire call launches the quantizer (``wire_quantize``) and
-    its product, or the GEMM-RS wire's partials and fold."""
+    its product, or the GEMM-RS wire's partials and fold; the MoE-TP
+    wires' fold is the GEMM-RS wire's kernel, counted apart
+    (``moe_reduce_rs_fold``)."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import allgather as ag
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
@@ -81,6 +83,10 @@ def _counters() -> dict:
         "gemm_rs_wire": (grs.gemm_rs_partials, "launches"),
         "gemm_rs_fold": (grs.gemm_rs_fold, "launches"),
         "all_gather_wire": (ag.all_gather_w_launch, "launches"),
+        "ag_group_gemm_wire": (mtf._ag_group_gemm_w_cuda, "launches"),
+        "ag_group_gemm_mx": (mtf._ag_group_gemm_mx_cuda, "launches"),
+        "moe_reduce_rs_wire": (mtf._moe_reduce_rs_partials_cuda, "launches"),
+        "moe_reduce_rs_fold": (mtf._moe_reduce_rs_fold_cuda, "launches"),
     }
 
 

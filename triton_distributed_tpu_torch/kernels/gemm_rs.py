@@ -219,11 +219,13 @@ def gemm_rs_partials(a, b, mesh, out_dtype):
     return parts.shards
 
 
-def gemm_rs_fold(parts, mesh, fmt, out_dtype):
-    """``tdt_gemm_rs_fold`` over the W ranks' partial slabs ``parts``
-    (W tensors (W·m, N) of ``out_dtype``, rank q's A_q @ B_q), one block
-    a (destination, chunk) → the W (m, N) outputs:
-    :func:`gemm_rs_fold_plain`, bit for bit."""
+def launch_fold(parts, mesh, fmt, out_dtype):
+    """Launch ``tdt_gemm_rs_fold`` over the W ranks' partial slabs
+    ``parts`` (W tensors (W·m, N) of ``out_dtype``, rank q's partials of
+    every destination's rows, destination d's at d·m), one block a
+    (destination, chunk) → the W (m, N) outputs: :func:`gemm_rs_fold_plain`,
+    bit for bit. Counts nothing: :func:`gemm_rs_fold` and the MoE-TP
+    wire's fold count their own launches."""
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
 
@@ -237,8 +239,15 @@ def gemm_rs_fold(parts, mesh, fmt, out_dtype):
             fmt.chunk_rows, WIRE_CODE[fmt.quant], _DT_CODE[out_dtype],
             int(aligned), _build.stream(mesh.device))
     _build.check(rc, "tdt_gemm_rs_fold")
-    gemm_rs_fold.launches += 1
     return out.shards
+
+
+def gemm_rs_fold(parts, mesh, fmt, out_dtype):
+    """The GEMM-RS wire's fold: :func:`launch_fold` of the ranks' partial
+    slabs (rank q's A_q @ B_q)."""
+    out = launch_fold(parts, mesh, fmt, out_dtype)
+    gemm_rs_fold.launches += 1
+    return out
 
 
 def _gemm_rs_w_cuda(a, b, mesh, out_dtype, wire):

@@ -33,9 +33,28 @@ for every rank (``csrc/moe_tp_fused.cu``).
 
 All take bf16 (tensor cores) or f32 (FMA) operands, sum in f32 and
 store to ``out_dtype``. On a CPU tensor each runs its ``*_plain``
-version; on a CUDA tensor it launches the kernel or raises. The
-quantized-wire twins (``_w``, ``_mx``, ``moe_reduce_rs_kernel_w``)
-come with the collectives (ROADMAP Queue 2 item 18).
+version; on a CUDA tensor it launches the kernel or raises.
+
+**Quantized wires** (JAX ``ag_group_gemm_kernel_w`` ``:208``,
+``ag_group_gemm_kernel_mx`` ``:243``, ``moe_reduce_rs_kernel_w``
+``:322``; the format :func:`_wire_fmt`, ``:356-375``). The AG side ships
+each shard's materialized sorted slab (:func:`quantize_sorted`: the
+gather, padding rows zero, then every shard quantized in one launch of
+``tdt_quantize_slab``):
+
+* :func:`ag_group_gemm_mesh_w` (fp8 / int8): rank r reads its own
+  shard's rows exact from its tokens and a peer's as its codes times the
+  chunk scale, rounded to x's dtype (``tdt_ag_group_gemm_w``);
+* :func:`ag_group_gemm_mesh_mx` (int8-mxu, and :func:`ag_group_gemm_mx`
+  at one rank): every slab's codes, the own one too, chunked a routing
+  block each, against the rank's per-(expert, column) int8 weights
+  (:func:`quantize_expert_shards`), s32 sums, ``acc · (row scale ·
+  column scale)`` in f32 (``tdt_ag_group_gemm_mx``);
+* :func:`moe_reduce_rs_mesh_w` (fp8 / int8, and int8-mxu's int8
+  payload): every rank's partial slabs (``tdt_moe_reduce_rs_partials``,
+  each rounded once to the output type), then the reduce ring's
+  requantizing hops replayed by the GEMM-RS wire's fold
+  (``tdt_gemm_rs_fold``, counted apart: :func:`moe_reduce_rs_fold`).
 """
 
 from __future__ import annotations
@@ -50,8 +69,22 @@ from triton_distributed_tpu_torch.kernels.group_gemm import (
     _cuda_common,
     grouped_matmul_plain,
 )
+from triton_distributed_tpu_torch.kernels.gemm_rs import (
+    gemm_rs_fold_plain,
+    launch_fold,
+)
+from triton_distributed_tpu_torch.kernels.group_gemm import (
+    quantize_grouped_weights,
+)
 from triton_distributed_tpu_torch.kernels.moe_utils import gather_sorted
-from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
+from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE, quantize_shards
+from triton_distributed_tpu_torch.lang import wire as wirelib
+from triton_distributed_tpu_torch.lang.shmem import (
+    peer_table,
+    stacked,
+    symm_empty,
+)
+from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 
 
 def pick_gg_blocks(block_m: int, cap: int):
@@ -164,8 +197,6 @@ def _check_mesh(x, sti, be, w, mesh, axis, what):
     """W same-shaped 2-D shards ``x`` and 3-D shards ``w`` on the mesh's
     device, the shards' stacked int32 tables; returns (W, cap_s,
     block_m)."""
-    from triton_distributed_tpu_torch.runtime.topology import one_axis
-
     n = one_axis(mesh, axis)
     if not (isinstance(x, (list, tuple)) and isinstance(w, (list, tuple))
             and len(x) == n and len(w) == n):
@@ -323,9 +354,351 @@ def _moe_reduce_rs_mesh_cuda(y, be, w, mesh, axis, out_dtype):
     return out.shards
 
 
+# ------------------------------------------------------ quantized wires
+
+def _wire_fmt(wire, rows: int, block_m: int | None = None):
+    """The wire format of a sorted slab of ``rows`` rows (JAX
+    ``_wire_fmt``, ``:356-375``): None for the bf16 wire; 'fp8' / 'int8'
+    at :func:`~triton_distributed_tpu_torch.lang.wire.make_wire_format`'s
+    chunking; 'int8-mxu' int8 at one chunk a routing block (``block_m``
+    rows), so that row block i's scale is the i-th. A slab that admits
+    no legal chunking raises ``ValueError``: a pinned wire is a
+    contract."""
+    if wire is None:
+        return None
+    if wire == "int8-mxu":
+        if not block_m or rows % block_m:
+            raise ValueError(
+                f"moe_tp wire='int8-mxu': {rows} sorted rows do not cut "
+                f"into chunks of block_m={block_m}; use the bf16 wire")
+        return wirelib.WireFormat(quant="int8", chunk_rows=block_m)
+    fmt = wirelib.make_wire_format(wire, rows)
+    if fmt is None:
+        raise ValueError(f"moe_tp wire={wire!r}: slab of {rows} rows admits "
+                         "no legal scale chunking; use the bf16 wire")
+    return fmt
+
+
+def _as_stack(shards):
+    """The (W, ...) tensor of W same-shaped shards (a view where they are
+    views of one allocation)."""
+    st = stacked(shards)
+    return torch.stack(list(shards)) if st is None else st
+
+
+def quantize_sorted(x, sti, topk: int, fmt):
+    """Every shard's sorted slab on the wire: x W row shards (M_s, K), sti
+    (W, cap_s) their tables → ((W, cap_s, K) codes of ``fmt.wire_dtype``,
+    (W, cap_s / chunk_rows) f32 scales). The slabs are materialized
+    (``gather_sorted``, padding rows zero: JAX's XLA
+    ``_build_gather_sorted``) and quantized together
+    (:func:`~triton_distributed_tpu_torch.kernels.wire.quantize_shards`:
+    one ``tdt_quantize_slab`` launch on the card), so a chunk of padding
+    rows gets codes 0 and the scale 1e-12 / QMAX, as JAX's does."""
+    slabs = gather_sorted(_as_stack(x), sti, topk)
+    return quantize_shards(list(slabs.unbind(0)), fmt)
+
+
+def quantize_expert_shards(w):
+    """``quantize_grouped_weights(w_r, "int8")`` of every rank's (E, K, N)
+    expert shard → ((W, E, N, K) int8 codes, transposed for the s8 loop's
+    B tiles, (W, E, N) f32 per-(expert, column) scales). Torch ops, run
+    on every int8-mxu call, as JAX quantizes the weights inside its call
+    (``ops/moe_tp.py:301``)."""
+    wst = _as_stack(w)
+    n, e, k, nn = wst.shape
+    q, sc = quantize_grouped_weights(wst.reshape(n * e, k, nn), "int8")
+    return (q.reshape(n, e, k, nn).transpose(2, 3).contiguous(),
+            sc.reshape(n, e, nn))
+
+
+def _check_wire(q, s, n, cap_s, k, fmt, what):
+    if (q.dtype != fmt.wire_dtype or tuple(q.shape) != (n, cap_s, k)
+            or s.dtype != torch.float32
+            or tuple(s.shape) != (n, fmt.chunks(cap_s))):
+        raise ValueError(
+            f"{what}: the wire form must be ({n}, {cap_s}, {k}) "
+            f"{fmt.wire_dtype} codes and ({n}, {fmt.chunks(cap_s)}) f32 "
+            f"scales, got {q.dtype} {tuple(q.shape)} and {s.dtype} "
+            f"{tuple(s.shape)}")
+
+
+def ag_group_gemm_mesh_w_plain(x, q, s, sti, be, w, topk: int, mesh, fmt,
+                               axis="tp", *, out_dtype=None):
+    """Plain PyTorch version of :func:`ag_group_gemm_mesh_w`: the peers'
+    slabs dequantized to x's dtype (``dequantize_slab``, as JAX's
+    ``dequant_pipeline`` writes its workspace), the own slab exact
+    (``gather_sorted``), stacked, then the grouped GEMM's plain version
+    against each rank's columns."""
+    what = "ag_group_gemm_mesh_w"
+    n, cap_s, _ = _check_mesh(x, sti, be, w, mesh, axis, what)
+    _check_wire(q, s, n, cap_s, x[0].shape[1], fmt, what)
+    out_dtype = to_torch_dtype(out_dtype or x[0].dtype)
+    peers = [wirelib.dequantize_slab(qs, ss, fmt, x[0].dtype)
+             for qs, ss in zip(q, s)]
+    be_all = be.reshape(-1)
+    out = symm_empty(mesh, (n * cap_s, w[0].shape[2]), out_dtype)
+    for r, (o, wr) in enumerate(zip(out.shards, w)):
+        slab = torch.cat([gather_sorted(x[r], sti[r], topk) if t == r
+                          else peers[t] for t in range(n)])
+        o.copy_(grouped_matmul_plain(slab, wr, be_all, out_dtype=out_dtype))
+    return out.shards
+
+
+def ag_group_gemm_mesh_w(x, q, s, sti, be, w, topk: int, mesh, fmt,
+                         axis="tp", *, out_dtype=None):
+    """AllGather ⊕ grouped GEMM on the fp8 / int8 wire: as
+    :func:`ag_group_gemm_mesh` (x, sti, be, w), with q (W, cap_s, K) and
+    s (W, cap_s / chunk_rows) every shard's sorted slab on the wire
+    (:func:`quantize_sorted` at ``fmt``): rank r's rows of shard s ≠ r
+    are the codes times their chunk's scale, rounded to x's dtype; its
+    own rows are exact."""
+    if x[0].device.type == "cpu":
+        return ag_group_gemm_mesh_w_plain(x, q, s, sti, be, w, topk, mesh,
+                                          fmt, axis, out_dtype=out_dtype)
+    return _ag_group_gemm_w_cuda(x, q, s, sti, be, w, topk, mesh, fmt,
+                                 axis, out_dtype)
+
+
+def _ag_group_gemm_w_cuda(x, q, s, sti, be, w, topk, mesh, fmt, axis,
+                          out_dtype):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    what = "ag_group_gemm_mesh_w"
+    n, cap_s, block_m = _check_mesh(x, sti, be, w, mesh, axis, what)
+    k, nn = x[0].shape[1], w[0].shape[2]
+    _check_wire(q, s, n, cap_s, k, fmt, what)
+    dev, aligned = _mesh_launch_common(x, w, (sti, be, q, s), be, block_m,
+                                       what)
+    aligned = aligned and q.data_ptr() % 16 == 0
+    out_dtype = _out_dtype(out_dtype, x[0], what)
+    out = symm_empty(mesh, (n * cap_s, nn), out_dtype)
+    x_peers, w_peers = peer_table(x), peer_table(w)
+    fn = _build.function("tdt_ag_group_gemm_w", "p" * 7 + "i" * 14 + "p")
+    rc = fn(_build.ptr(x_peers), _build.ptr(q), _build.ptr(s),
+            _build.ptr(w_peers), _build.ptr(out.peers), _build.ptr(sti),
+            _build.ptr(be), x[0].shape[0], topk, cap_s, k, nn, block_m, n,
+            0, n, fmt.chunk_rows, WIRE_CODE[fmt.quant], _DT_CODE[x[0].dtype],
+            _DT_CODE[out_dtype], int(aligned), _build.stream(dev))
+    _build.check(rc, "tdt_ag_group_gemm_w")
+    _ag_group_gemm_w_cuda.launches += 1
+    return out.shards
+
+
+def _check_mx(q, s, be, wq, ws, mesh, axis):
+    """The int8-mxu operands; returns (W, cap_s, block_m)."""
+    what = "ag_group_gemm_mesh_mx"
+    n = one_axis(mesh, axis)
+    if (q.dtype != torch.int8 or q.dim() != 3 or q.shape[0] != n
+            or wq.dtype != torch.int8 or wq.dim() != 4 or wq.shape[0] != n
+            or wq.shape[3] != q.shape[2]):
+        raise ValueError(f"{what}: q must be ({n}, cap_s, K) int8 codes and "
+                         f"wq ({n}, E, N, K) int8, got {tuple(q.shape)} "
+                         f"{q.dtype} and {tuple(wq.shape)} {wq.dtype}")
+    if be.dtype != torch.int32 or be.dim() != 2 or be.shape[0] != n:
+        raise ValueError(f"{what}: block_expert must be the {n} shards' "
+                         "int32 tables stacked")
+    cap_s, nb = q.shape[1], be.shape[1]
+    if nb < 1 or cap_s % nb:
+        raise ValueError(f"{what}: {cap_s} rows a shard do not split into "
+                         f"{nb} equal M-blocks")
+    if (s.dtype != torch.float32 or tuple(s.shape) != (n, nb)
+            or ws.dtype != torch.float32
+            or tuple(ws.shape) != tuple(wq.shape[:3])):
+        raise ValueError(f"{what}: s must be ({n}, {nb}) f32 (one scale a "
+                         f"routing block) and ws {tuple(wq.shape[:3])} f32")
+    for t in (q, s, be, wq, ws):
+        if t.device != mesh.device:
+            raise ValueError(f"{what}: operand on {t.device}, the mesh is "
+                             f"on {mesh.device}")
+    return n, cap_s, cap_s // nb
+
+
+def _mx_rows_plain(codes, scales, be_all, wq, ws, out_dtype):
+    """codes (R, K) int8 in M-blocks of one scale and expert each
+    (scales, be_all (R / block_m,)), wq (E, N, K) int8, ws (E, N) → (R,
+    N): exact integer sums (int64 on the CPU, float64 on a card, exact
+    below 2^53), then ``acc · (row scale · column scale)`` in f32."""
+    rows = codes.shape[0]
+    block_m = rows // be_all.shape[0]
+    acc_t = torch.int64 if codes.device.type == "cpu" else torch.float64
+    out = torch.empty((rows, wq.shape[1]), dtype=out_dtype,
+                      device=codes.device)
+    for b, e in enumerate(be_all.tolist()):
+        blk = slice(b * block_m, (b + 1) * block_m)
+        acc = codes[blk].to(acc_t) @ wq[e].to(acc_t).t()
+        out[blk] = (acc.float() * (scales[b] * ws[e])[None, :]).to(out_dtype)
+    return out
+
+
+def ag_group_gemm_mesh_mx_plain(q, s, be, wq, ws, mesh, axis="tp", *,
+                                out_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`ag_group_gemm_mesh_mx`."""
+    n, cap_s, _ = _check_mx(q, s, be, wq, ws, mesh, axis)
+    out_dtype = to_torch_dtype(out_dtype)
+    codes, scales = q.reshape(n * cap_s, -1), s.reshape(-1)
+    be_all = be.reshape(-1)
+    out = symm_empty(mesh, (n * cap_s, wq.shape[2]), out_dtype)
+    for r, o in enumerate(out.shards):
+        o.copy_(_mx_rows_plain(codes, scales, be_all, wq[r], ws[r],
+                               out_dtype))
+    return out.shards
+
+
+def ag_group_gemm_mesh_mx(q, s, be, wq, ws, mesh, axis="tp", *,
+                          out_dtype=torch.bfloat16):
+    """AllGather ⊕ grouped GEMM on the int8-mxu wire over ``mesh``'s
+    ``axis`` (W ranks): q (W, cap_s, K) int8 every shard's sorted slab's
+    codes, s (W, cap_s / block_m) their scales, one a routing block (the
+    :func:`_wire_fmt` of 'int8-mxu'), be (W, cap_s / block_m) int32, wq
+    (W, E, N, K) / ws (W, E, N) every rank's per-(expert, column) int8
+    weights, transposed (:func:`quantize_expert_shards`) → a list of W
+    (W·cap_s, N) outputs: rank r's row t is ``codes[t] @ wq[r,
+    be[t / block_m]]`` summed in s32, times ``(row scale · column
+    scale)`` in f32, stored to ``out_dtype`` (f32 or bf16)."""
+    if q.device.type == "cpu":
+        return ag_group_gemm_mesh_mx_plain(q, s, be, wq, ws, mesh, axis,
+                                           out_dtype=out_dtype)
+    return _ag_group_gemm_mx_cuda(q, s, be, wq, ws, mesh, axis, out_dtype)
+
+
+def ag_group_gemm_mx(q, s, be, wq, ws, *, out_dtype=torch.bfloat16):
+    """The int8-mxu product at world size 1, JAX's ring at n = 1 (the own
+    slab's codes through the s8 kernel): q (cap, K), s and be (cap /
+    block_m,), wq (E, N, K), ws (E, N) → (cap, N); the one-rank launch of
+    :func:`ag_group_gemm_mesh_mx`."""
+    mesh = Mesh.loopback(1, q.device)
+    return ag_group_gemm_mesh_mx(q[None], s[None], be[None], wq[None],
+                                 ws[None], mesh, out_dtype=out_dtype)[0]
+
+
+def _ag_group_gemm_mx_cuda(q, s, be, wq, ws, mesh, axis, out_dtype):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    what = "ag_group_gemm_mesh_mx"
+    n, cap_s, block_m = _check_mx(q, s, be, wq, ws, mesh, axis)
+    if any(not t.is_contiguous() for t in (q, s, be, wq, ws)):
+        raise ValueError(f"{what}'s kernel needs contiguous tensors")
+    if be.shape[1] > 1 and block_m % KERNEL_BM:
+        raise ValueError(f"{what}: block_m={block_m} must be a multiple of "
+                         f"{KERNEL_BM} when there is more than one M-block")
+    out_dtype = _out_dtype(out_dtype, q, what)
+    _, e, nn, k = wq.shape
+    out = symm_empty(mesh, (n * cap_s, nn), out_dtype)
+    fn = _build.function("tdt_ag_group_gemm_mx", "p" * 6 + "i" * 10 + "p")
+    rc = fn(_build.ptr(q), _build.ptr(s), _build.ptr(be), _build.ptr(wq),
+            _build.ptr(ws), _build.ptr(out.peers), cap_s, k, nn, e, block_m,
+            n, 0, n, block_m, _DT_CODE[out_dtype], _build.stream(mesh.device))
+    _build.check(rc, "tdt_ag_group_gemm_mx")
+    _ag_group_gemm_mx_cuda.launches += 1
+    return out.shards
+
+
+def moe_reduce_rs_partials_plain(y, be, w, mesh, axis="tp", *,
+                                 out_dtype=None):
+    """Plain PyTorch version of :func:`moe_reduce_rs_partials`: each
+    rank's grouped GEMM over all its rows, f32 sums rounded once."""
+    n, _, _ = _check_mesh(y, None, be, w, mesh, axis, "moe_reduce_rs_mesh_w")
+    out_dtype = to_torch_dtype(out_dtype or y[0].dtype)
+    be_all = be.reshape(-1)
+    return [grouped_matmul_plain(yq, wq, be_all, out_dtype=out_dtype)
+            for yq, wq in zip(y, w)]
+
+
+def moe_reduce_rs_partials(y, be, w, mesh, axis="tp", *, out_dtype=None):
+    """Every rank's partial slab y_q @ w_q[be] over all its W·cap_s rows
+    (destination d's at d·cap_s), f32 sums rounded once to ``out_dtype``
+    → W (W·cap_s, H) slabs; on the card one launch of
+    ``tdt_moe_reduce_rs_partials`` into symmetric slabs (the fold reads
+    its peers')."""
+    if y[0].device.type == "cpu":
+        return moe_reduce_rs_partials_plain(y, be, w, mesh, axis,
+                                            out_dtype=out_dtype)
+    return _moe_reduce_rs_partials_cuda(y, be, w, mesh, axis, out_dtype)
+
+
+def _moe_reduce_rs_partials_cuda(y, be, w, mesh, axis, out_dtype):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    what = "moe_reduce_rs_mesh_w"
+    n, cap_s, block_m = _check_mesh(y, None, be, w, mesh, axis, what)
+    dev, aligned = _mesh_launch_common(y, w, (be,), be, block_m, what)
+    out_dtype = _out_dtype(out_dtype, y[0], what)
+    f, h = y[0].shape[1], w[0].shape[2]
+    parts = symm_empty(mesh, (n * cap_s, h), out_dtype)
+    y_peers, w_peers = peer_table(y), peer_table(w)
+    fn = _build.function("tdt_moe_reduce_rs_partials", "pppp" + "i" * 8 + "p")
+    rc = fn(_build.ptr(y_peers), _build.ptr(w_peers), _build.ptr(parts.peers),
+            _build.ptr(be), cap_s, f, h, block_m, n, _DT_CODE[y[0].dtype],
+            _DT_CODE[out_dtype], int(aligned), _build.stream(dev))
+    _build.check(rc, "tdt_moe_reduce_rs_partials")
+    _moe_reduce_rs_partials_cuda.launches += 1
+    return parts.shards
+
+
+def moe_reduce_rs_fold_plain(parts, mesh, fmt, out_dtype):
+    """Plain PyTorch version of :func:`moe_reduce_rs_fold`:
+    ``gemm_rs_fold_plain`` (JAX's reduce ring: destination d starts from
+    rank d − 1's partial, and at each hop the running sum is quantized,
+    dequantized in f32, the next partial added in f32 and the sum
+    rounded to ``out_dtype``; the own partial last), into symmetric
+    outputs."""
+    red = gemm_rs_fold_plain(parts, fmt, out_dtype)
+    out = symm_empty(mesh, tuple(red[0].shape), out_dtype)
+    for o, r in zip(out.shards, red):
+        o.copy_(r)
+    return out.shards
+
+
+def moe_reduce_rs_fold(parts, mesh, fmt, out_dtype):
+    """The MoE-TP reduce ring's hops over the W ranks' partial slabs
+    (W·cap_s, H) → the W (cap_s, H) outputs; on the card the GEMM-RS
+    wire's fold (``tdt_gemm_rs_fold``, :func:`~triton_distributed_tpu_torch.
+    kernels.gemm_rs.launch_fold`, m = cap_s), counted apart from the
+    dense GEMM-RS's."""
+    if parts[0].device.type == "cpu":
+        return moe_reduce_rs_fold_plain(parts, mesh, fmt, out_dtype)
+    return _moe_reduce_rs_fold_cuda(parts, mesh, fmt, out_dtype)
+
+
+def _moe_reduce_rs_fold_cuda(parts, mesh, fmt, out_dtype):
+    out = launch_fold(parts, mesh, fmt, out_dtype)
+    _moe_reduce_rs_fold_cuda.launches += 1
+    return out
+
+
+def moe_reduce_rs_mesh_w_plain(y, be, w, mesh, fmt, axis="tp", *,
+                               out_dtype=None):
+    """Plain PyTorch version of :func:`moe_reduce_rs_mesh_w`: the plain
+    partials, then the plain fold."""
+    parts = moe_reduce_rs_partials_plain(y, be, w, mesh, axis,
+                                         out_dtype=out_dtype)
+    return moe_reduce_rs_fold_plain(parts, mesh, fmt, parts[0].dtype)
+
+
+def moe_reduce_rs_mesh_w(y, be, w, mesh, fmt, axis="tp", *,
+                         out_dtype=None):
+    """Grouped GEMM ⊕ reduce-scatter on the fp8 / int8 wire (``fmt``, the
+    :func:`_wire_fmt` of the (cap_s, H) slab the ring moves): as
+    :func:`moe_reduce_rs_mesh`, with each destination's partials folded
+    hop by hop in the reduce ring's order, each running sum requantized
+    (``moe_reduce_rs_kernel_w``): :func:`moe_reduce_rs_partials`, then
+    :func:`moe_reduce_rs_fold`."""
+    if y[0].device.type == "cpu":
+        return moe_reduce_rs_mesh_w_plain(y, be, w, mesh, fmt, axis,
+                                          out_dtype=out_dtype)
+    parts = _moe_reduce_rs_partials_cuda(y, be, w, mesh, axis, out_dtype)
+    return _moe_reduce_rs_fold_cuda(parts, mesh, fmt, parts[0].dtype)
+
+
 #: launch counts of the kernels (plain ints on the wrappers): at world
-#: size 1, and over a mesh (each launch covers every rank)
+#: size 1, over a mesh (each launch covers every rank), and the wires'
+#: (the one-rank int8-mxu form counts with its mesh form)
 _ag_group_gemm_cuda.launches = 0
 _moe_reduce_rs_cuda.launches = 0
 _ag_group_gemm_mesh_cuda.launches = 0
 _moe_reduce_rs_mesh_cuda.launches = 0
+_ag_group_gemm_w_cuda.launches = 0
+_ag_group_gemm_mx_cuda.launches = 0
+_moe_reduce_rs_partials_cuda.launches = 0
+_moe_reduce_rs_fold_cuda.launches = 0

@@ -101,12 +101,16 @@ def moe_align_block_size(topk_ids, num_experts: int, block_m: int):
 
 def gather_sorted(x, sorted_token_ids, topk: int):
     """Rows of ``x`` (M, H) in padded-sorted order, zeros at padding
-    (the row of flat id ``i`` is ``i // topk``)."""
-    total = x.shape[0] * topk
-    rows = torch.clamp(sorted_token_ids.long() // topk, 0, x.shape[0] - 1)
-    valid = (sorted_token_ids < total)[:, None]
-    return torch.where(valid, x[rows], torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    (the row of flat id ``i`` is ``i // topk``). A leading dim (S, M, H)
+    with (S, cap) ids gathers S shards' slabs, each from its own rows."""
+    total = x.shape[-2] * topk
+    rows = torch.clamp(sorted_token_ids.long() // topk, 0, x.shape[-2] - 1)
+    if x.dim() == 2:
+        out = x[rows]
+    else:
+        lead = torch.arange(x.shape[0], device=x.device)
+        out = x[lead[:, None], rows]
+    return out.masked_fill_((sorted_token_ids >= total)[..., None], 0)
 
 
 def scatter_combine(y_sorted, sorted_token_ids, weights, m: int):

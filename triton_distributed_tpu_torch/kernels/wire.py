@@ -8,8 +8,10 @@ functions of ``csrc/wire.cuh`` that the GEMM-RS fold also requantizes
 with, so that the card's codes and scales equal
 :func:`~triton_distributed_tpu_torch.lang.wire.quantize_slab`'s byte for
 byte. The wire wrappers of ``ag_gemm`` and ``allgather`` call
-:func:`quantize_shards` on CUDA tensors; on the CPU their plain versions
-call ``quantize_slab``.
+:func:`quantize_shards` on CUDA tensors (on the CPU their plain versions
+call ``quantize_slab``); the MoE-TP wires call it on the shards' sorted
+slabs on both devices, and on CPU tensors it runs
+:func:`quantize_shards_plain`.
 """
 
 from __future__ import annotations
@@ -17,9 +19,19 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.kernels.group_gemm import _DT_CODE
+from triton_distributed_tpu_torch.lang import wire as wirelib
 
 #: the C ABI's wire codes (csrc/wire.cuh TdtWire)
 WIRE_CODE = {"fp8": 1, "int8": 2}
+
+
+def quantize_shards_plain(x, fmt):
+    """Plain PyTorch version of :func:`quantize_shards`: each shard's
+    :func:`~triton_distributed_tpu_torch.lang.wire.quantize_slab`,
+    stacked."""
+    pairs = [wirelib.quantize_slab(s, fmt) for s in x]
+    return (torch.stack([q for q, _ in pairs]),
+            torch.stack([s for _, s in pairs]))
 
 
 def quantize_shards(x, fmt):
@@ -27,7 +39,9 @@ def quantize_shards(x, fmt):
     ``tdt_quantize_slab`` → ((W, rows, cols) codes of
     ``fmt.wire_dtype``, (W, rows / chunk_rows) f32 scales): per shard
     :func:`~triton_distributed_tpu_torch.lang.wire.quantize_slab`, byte
-    for byte."""
+    for byte. On CPU tensors :func:`quantize_shards_plain`."""
+    if x[0].device.type == "cpu":
+        return quantize_shards_plain(x, fmt)
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table
 

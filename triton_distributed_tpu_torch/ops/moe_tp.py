@@ -18,8 +18,21 @@ tables), the up projection gives every rank all shards' sorted rows
 against its F columns, and the reduce gives rank r the sum over ranks
 of its own sorted rows, which it combines into its token rows.
 
-Not ported: the quantized ring wires (JAX's ``wire_dtype``), which
-come with the collectives, and the composed differentiable path (``moe_tp_mlp``,
+The quantized ring wires (``MoETPContext.wire_dtype``, JAX ``:71-82``):
+'fp8' / 'int8' ship each shard's sorted token slab once as 1-byte codes
+with a scale a chunk of rows (each rank consumes its own slab exact) and
+every reduce hop's running partial requantized; 'int8-mxu' ends the AG
+wire at the tensor cores (every slab's int8 codes, the own one too,
+against the experts' per-(expert, column) int8 weights, quantized on
+every call as JAX does) and carries its int8 payload on the reduce side.
+An explicit opt-in, as in JAX: no 'auto'. Without a mesh the rings have
+one rank (``kernels/ring.py:141-145``, ``:269-271``): fp8 and int8
+consume the own slab exact, so they equal the bf16 wire, int8-mxu still
+runs its own slab's codes through the s8 kernel, and the reduce has no
+hop. Each op launches the kernels of
+:mod:`~triton_distributed_tpu_torch.kernels.moe_tp_fused`'s wires.
+
+Not ported: the composed differentiable path (``moe_tp_mlp``,
 ``ag_group_gemm`` / ``moe_reduce_rs``), which comes with training.
 """
 
@@ -32,6 +45,7 @@ import torch
 from triton_distributed_tpu_torch.config import to_torch_dtype
 from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
 from triton_distributed_tpu_torch.kernels import moe_utils as mu
+from triton_distributed_tpu_torch.lang import wire as wirelib
 from triton_distributed_tpu_torch.lang.shmem import require_stacked
 from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 
@@ -40,8 +54,10 @@ from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 class MoETPContext:
     """Static geometry of the MoE-TP pipeline: the experts, the top-k,
     the routing ``block_m`` (128 as in JAX; a multiple of the CUDA
-    kernels' 64-row tile), the compute dtype, and the ``mesh`` whose
-    ``axis`` splits F (None: ``tp == 1``)."""
+    kernels' 64-row tile), the compute dtype, the ``mesh`` whose
+    ``axis`` splits F (None: ``tp == 1``), and the ring ``wire_dtype``
+    (None / 'bf16', 'fp8', 'int8', 'int8-mxu'; see the module
+    docstring)."""
 
     num_experts: int
     topk: int
@@ -49,9 +65,17 @@ class MoETPContext:
     dtype: torch.dtype = torch.bfloat16
     mesh: Mesh | None = None
     axis: str = "tp"
+    wire_dtype: str | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
+        wire = wirelib.normalize_wire(self.wire_dtype)
+        if wire == "auto":
+            raise ValueError(
+                "MoETPContext: wire_dtype='auto' is not a MoE-TP wire (an "
+                "explicit opt-in, as in JAX); pass 'fp8', 'int8', "
+                "'int8-mxu' or None")
+        object.__setattr__(self, "wire_dtype", wire)
 
     @property
     def tp(self) -> int:
@@ -112,16 +136,36 @@ def ag_group_gemm_fused(x, routing: ShardedRouting, w, ctx: MoETPContext):
     a mesh x's row block s is shard s and w is a list of tp column
     shards (E, K, N/tp) → a list of tp (tp·cap_s, N/tp) outputs, rank
     r's every shard's sorted rows against its columns. x and w are cast
-    to ``ctx.dtype`` as JAX casts the slab."""
+    to ``ctx.dtype`` as JAX casts the slab; on the int8-mxu wire w is
+    quantized as given, as JAX quantizes it. ``ctx.wire_dtype`` picks the
+    wire (module docstring)."""
     _check_blocks(ctx, routing.cap_s)
-    dt = ctx.dtype
+    dt, wire = ctx.dtype, ctx.wire_dtype
+    fmt = mtf._wire_fmt(wire, routing.cap_s, ctx.block_m)
     if ctx.mesh is None:
+        if wire == "int8-mxu":
+            q, s = mtf.quantize_sorted([x.to(dt)], routing.sti[None],
+                                       ctx.topk, fmt)
+            wq, ws = mtf.quantize_expert_shards([w])
+            return mtf.ag_group_gemm_mx(q[0], s[0], routing.be, wq[0], ws[0],
+                                        out_dtype=dt)
+        # fp8 / int8 at one rank: the own slab is consumed exact
         return mtf.ag_group_gemm(x.to(dt).contiguous(), routing.sti,
                                  routing.be, w.to(dt), ctx.topk,
                                  out_dtype=dt)
-    return mtf.ag_group_gemm_mesh(
-        list(x.to(dt).contiguous().chunk(ctx.tp)), routing.sti, routing.be,
-        [t.to(dt) for t in w], ctx.topk, ctx.mesh, ctx.axis, out_dtype=dt)
+    xs = list(x.to(dt).contiguous().chunk(ctx.tp))
+    if wire is None:
+        return mtf.ag_group_gemm_mesh(
+            xs, routing.sti, routing.be, [t.to(dt) for t in w], ctx.topk,
+            ctx.mesh, ctx.axis, out_dtype=dt)
+    q, s = mtf.quantize_sorted(xs, routing.sti, ctx.topk, fmt)
+    if wire == "int8-mxu":
+        wq, ws = mtf.quantize_expert_shards(w)
+        return mtf.ag_group_gemm_mesh_mx(q, s, routing.be, wq, ws, ctx.mesh,
+                                         ctx.axis, out_dtype=dt)
+    return mtf.ag_group_gemm_mesh_w(
+        xs, q, s, routing.sti, routing.be, [t.to(dt) for t in w], ctx.topk,
+        ctx.mesh, fmt, ctx.axis, out_dtype=dt)
 
 
 def moe_reduce_rs_fused(y, routing: ShardedRouting, weights, w,
@@ -131,9 +175,11 @@ def moe_reduce_rs_fused(y, routing: ShardedRouting, weights, w,
     weights, w (E, F, H) → (M, H) in ``ctx.dtype``. Over a mesh y and w
     are lists of tp shards ((tp·cap_s, F/tp) and (E, F/tp, H)); rank r
     sums its rows over the ranks and combines them into its token rows,
-    row block r of the result."""
+    row block r of the result. On a wire the reduce ring's hops carry
+    its payload ('int8-mxu': int8)."""
     _check_blocks(ctx, routing.cap_s)
     dt = ctx.dtype
+    fmt = mtf._wire_fmt(wirelib.wire_payload(ctx.wire_dtype), routing.cap_s)
     if ctx.mesh is None:
         if y.shape[0] != routing.cap_s:
             raise ValueError(f"y has {y.shape[0]} rows, the routing "
@@ -145,8 +191,13 @@ def moe_reduce_rs_fused(y, routing: ShardedRouting, weights, w,
     if y[0].shape[0] != ctx.tp * routing.cap_s:
         raise ValueError(f"y has {y[0].shape[0]} rows a rank, the routing "
                          f"{ctx.tp} x {routing.cap_s}")
-    red = mtf.moe_reduce_rs_mesh([t.to(dt) for t in y], routing.be, [t.to(dt) for t in w],
-                                 ctx.mesh, ctx.axis, out_dtype=dt)
+    ys, ws = [t.to(dt) for t in y], [t.to(dt) for t in w]
+    if fmt is None:
+        red = mtf.moe_reduce_rs_mesh(ys, routing.be, ws, ctx.mesh, ctx.axis,
+                                     out_dtype=dt)
+    else:
+        red = mtf.moe_reduce_rs_mesh_w(ys, routing.be, ws, ctx.mesh, fmt,
+                                       ctx.axis, out_dtype=dt)
     # every rank combines its own sorted rows into its token rows
     out = mu.scatter_combine(
         require_stacked(red, "the reduce's output"), routing.sti,
@@ -162,7 +213,7 @@ def moe_tp_mlp_overlapped(x, topk_ids, topk_weights, w_up, w_down,
     combine. x (M, H), topk_ids / topk_weights (M, k), w_up (E, H, F),
     w_down (E, F, H) → (M, H) in ``ctx.dtype``; over a mesh w_up and
     w_down are lists of tp F shards and row block r of x and of the
-    result is rank r's."""
+    result is rank r's. Both rings ride ``ctx.wire_dtype``."""
     from triton_distributed_tpu_torch.ops.moe import _act
 
     routing = align_routing_sharded(ctx, topk_ids)
