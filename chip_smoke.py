@@ -36,9 +36,15 @@ Phases, all run every time:
    token a shard): the quantizer on the sorted slabs (byte-exact), the
    AG kernels on fp8 / int8 (the bf16 GEMM's excess check, per row) and
    int8-mxu (bit-exact), the reduce's partials (the excess check) and
-   its fold on fp8 / int8 (bit-exact, as is the whole wire). The kernels
-   line reports each kernel at the shapes of the path that launches it,
-   its times averaged over them by their launches a step;
+   its fold on fp8 / int8 (bit-exact, as is the whole wire); and the
+   collectives at the collectives path's shapes (4 ranks): the
+   reduce-scatter of the composed MoE-TP's stacked partials, 4 x 8192 x
+   2048 (the stream engine) and 4 x 1024 x 2048 (the VMEM ring), bit-exact
+   in bf16 and f32, its wire folds on fp8 / int8 at one scale a row and
+   at 64-row chunks (bit-exact), and the all-to-all at the padded-slot
+   EP transport's slot shapes (byte-exact). The kernels line reports each
+   kernel at the shapes of the path that launches it, its times averaged
+   over them by their launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
    its float-expert variant, each served on the card and on the CPU
    from the same weights; the tiny f32 and int8 models, and the tiny
@@ -86,8 +92,19 @@ Phases, all run every time:
    and int8-mxu wires with the plain versions made to raise, the launch
    counts asserted, each wire's output within JAX's pinned reduce-wire
    limit of the bf16 wire's and its up projection within the AG-wire
-   limit. Then the port's ``tools.generate`` CLI on its default device once in bf16, and once
-   with ``--tp 4``;
+   limit. Then the collectives path (``run_collectives_path``): the same
+   27 MoE layers at tp = 4 with the plain versions made to raise, (a)
+   the composed MoE-TP (``MoETPMLP(fused=False)``) on 4 x 2048 and
+   4 x 256 tokens, one reduce-scatter a layer (the stream engine and the
+   VMEM ring), held against ``MoETPMLP(fused=True)`` and
+   ``moe_tp_mlp_overlapped``, the partials reduced again at depth 3
+   (bit-equal) and, on the last layer, on the fp8 / int8 / 'auto' wires;
+   (b) EP on the padded-slot transport (``EPMoEMLP(transport=
+   "pallas")``, as served and in bf16) against the fused transport, the
+   fused context demoted at ``max_m`` 4096 (two all-to-alls a layer), and
+   ``EPAll2AllLayer`` round-tripping the sorted tokens byte for byte.
+   Then the port's ``tools.generate`` CLI on its default device once in
+   bf16, and once with ``--tp 4``;
 7. the MoE generation path, DeepSeek-MoE-16B at full width and depth as
    served (EP: fp8 wire, W8A8 int8 experts, int8 KV, W8A8 dense) and in
    its TP flavour with bf16 experts: the same batch, caches and layouts
@@ -119,6 +136,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_BF16_OPS = 989e12           # dense bf16 tensor-core rate
 H100_INT8_OPS = 1979e12          # dense int8 tensor-core rate
+H100_F32_OPS = 67e12             # float32 outside the tensor cores
 
 # attention against its plain version in f32:
 # |out - ref| <= ATTN_RTOL·|ref| + ATTN_ATOL, |lse - ref| <= ATTN_LSE_TOL
@@ -249,6 +267,23 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
         replaces="triton_distributed_tpu/kernels/moe_tp_fused.py:322"),
+    # the reduce-scatter under the composed MoE-TP: one pull kernel for
+    # the VMEM ring (:87) and the streaming rings (:153, :181)
+    "reduce_scatter": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/reduce_scatter.cu",
+        replaces="triton_distributed_tpu/kernels/reduce_scatter.py:87"),
+    # its wires: the GEMM-RS wire's fold at one scale a row (:103) and at
+    # the stream's chunk (:208, :246)
+    "reduce_scatter_fold": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/reduce_scatter.py:103"),
+    # the padded-slot EP transport's dense all-to-all
+    "all_to_all": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/all_to_all.cu",
+        replaces="triton_distributed_tpu/kernels/all_to_all.py:30"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -327,6 +362,25 @@ WIRE_MX_TWIN_TOL = 0.03      # int8-mxu against the dequantizing int8 wire
 #: that one run (the quantizer's also from the wire path's)
 MOE_WIRE_ROWS = ("ag_group_gemm_wire", "ag_group_gemm_mx",
                  "moe_reduce_rs_wire", "moe_reduce_rs_fold")
+#: the collectives path: DeepSeek-MoE-16B's 27 MoE layers at tp = 4 on a
+#: loopback mesh, each layer's weights drawn from a seed: the composed
+#: MoE-TP over the reduce-scatter at 4 x 2048 tokens (the stream engine)
+#: and 4 x 256 (the VMEM ring), and EP on the padded-slot transport at
+#: 4 x 2048 tokens (slots of 2048 · 6 rows; the fused context demoted at
+#: 4096). Its rows' launches and shapes come from that one run
+COLL_ROWS = ("reduce_scatter", "reduce_scatter_fold", "all_to_all")
+COLL_BIG, COLL_SMALL, COLL_DEMOTED_M = 2048, 256, 4096
+# the composed MoE-TP against the fused (moe_tp_mlp) and the overlapped
+# (moe_tp_mlp_overlapped) forms, relative to the largest output: the
+# composed one rounds each rank's partial and each of the ring's 3 hops
+# to bf16 (7 roundings of at most 2^-9 of the largest output, 1.4 %),
+# the others sum in f32 and round once, and the overlapped form applies
+# the activation in f32: 2 %
+COMPOSED_TOL = 0.02
+# the padded-slot EP transport against the fused one on the same weights:
+# the same rows meet the same experts with the same per-row arithmetic;
+# one bf16 rounding of the largest output is room for a summation order
+EP_PALLAS_TOL = 2.0 ** -8
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -2375,6 +2429,184 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
     del parts, y, hs, x, x_cat, w_up, w_down
 
 
+# ------------------------------------------------------------ collectives
+
+def coll_tokens(dev, g, per_rank):
+    """The collectives path's tokens: TP x ``per_rank`` bf16 rows of
+    hidden 2048."""
+    import torch
+
+    return torch.randn((TP * per_rank, MOE_H), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+
+
+def coll_layer(dev, g):
+    """One MoE layer's seeded weights: the router (H, E) f32, and the
+    experts (E, H, F), (E, F, H) in bf16 (1/sqrt(fan-in) scaled)."""
+    import torch
+
+    gate = torch.randn((MOE_H, MOE_E), generator=g, device=dev) * MOE_H ** -0.5
+    up = torch.randn((MOE_E, MOE_H, MOE_F), generator=g, device=dev,
+                     dtype=torch.bfloat16) * MOE_H ** -0.5
+    down = torch.randn((MOE_E, MOE_F, MOE_H), generator=g, device=dev,
+                       dtype=torch.bfloat16) * MOE_F ** -0.5
+    return gate, up, down
+
+
+def tp_shards(up, down):
+    """The experts' F dim over TP ranks: W (E, H, F/4) and (E, F/4, H)
+    shards, each rank's views of one allocation."""
+    import torch
+
+    fl = MOE_F // TP
+    return (list(torch.stack(up.split(fl, dim=2)).unbind(0)),
+            list(torch.stack(down.split(fl, dim=1)).unbind(0)))
+
+
+def rs_work(parts):
+    """(bytes, operations) of a reduce-scatter: every contribution read
+    once and every output written once; W - 1 adds an output element."""
+    w = len(parts)
+    n = parts[0].numel()
+    return (w + 1) * n * parts[0].element_size(), (w - 1) * n
+
+
+def check_collectives(res: Results, dev, n_moe: int):
+    """The reduce-scatter and the dense all-to-all over a loopback mesh of
+    4 ranks against their plain versions, at the collectives path's
+    shapes: the composed MoE-TP's stacked partials (4 x 8192 x 2048, the
+    stream engine, and 4 x 1024 x 2048, the VMEM ring), bit-exact in bf16
+    and in f32; the wire folds on fp8 / int8 at one scale a row (the VMEM
+    ring's) and at 64-row chunks (the stream's), bit-exact against
+    ``gemm_rs_fold_plain``; the all-to-all at the padded-slot transport's
+    three slot shapes (fp8 and bf16 at 12288 rows a slot, fp8 at 4096),
+    byte-exact. Each timed (CUDA events; the small reduce-scatter, the
+    fold and the all-to-all from a CUDA graph) beside its plain version,
+    one PyTorch call and the bound. The rows weigh each shape by its
+    launches in :func:`run_collectives_path`."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.kernels import moe_all_to_all as ma
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+    from triton_distributed_tpu_torch.lang import wire as tw
+    from triton_distributed_tpu_torch.lang.shmem import stacked
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    g = torch.Generator(device=dev).manual_seed(30)
+    for rows, dt, on_path in ((TP * COLL_BIG, torch.bfloat16, True),
+                              (TP * COLL_SMALL, torch.bfloat16, True),
+                              (TP * COLL_BIG, torch.float32, False),
+                              (TP * COLL_SMALL, torch.float32, False)):
+        full = torch.randn((TP, rows, MOE_H), generator=g, device=dev,
+                           dtype=dt) * 30
+        parts = list(full.unbind(0))
+        kern = rs.select_engine(TP, (rows, MOE_H), full.element_size(),
+                                None)[0]
+        got = rs.reduce_scatter(parts, mesh, stacked=True)
+        want = rs.reduce_scatter_plain(parts, mesh, stacked=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        what = (f"{TP} x ({rows}, {MOE_H}) {str(dt)[6:]} stacked partials "
+                f"({kern})")
+        res.check("reduce_scatter", 0.0 if same else 1.0, 0.0, what,
+                  metric="bits differ")
+        res.kernel("reduce_scatter", err=0.0)
+        del got, want
+        if not on_path:
+            continue
+        big = rows == TP * COLL_BIG
+        if big:
+            ms = time_ms(lambda: rs.reduce_scatter(parts, mesh,
+                                                   stacked=True), 10)
+        else:
+            ms = graph_time_ms(lambda i: rs.reduce_scatter(parts, mesh,
+                                                           stacked=True))
+        plain = time_ms(lambda: rs.reduce_scatter_plain(
+            parts, mesh, stacked=True), 3)
+        lib = time_ms(lambda: full.sum(0), 10)
+        nbytes, ops = rs_work(parts)
+        b, by = bound_ms(nbytes, ops, H100_F32_OPS)
+        n = 2 * n_moe if big else n_moe
+        log(f"time reduce_scatter {what} ({n}/run, one launch for {TP} "
+            f"ranks): kernel_ms={ms:.4f}{'' if big else ' (graph)'} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (one torch.sum over "
+            f"the stacked partials, then a cut) bound_ms={b:.4f} ({by})")
+        res.shape("reduce_scatter", n, ms, plain, lib, nbytes, ops,
+                  H100_F32_OPS)
+        # the wire folds on these partials, at the chunk their engine uses
+        fmt_rows = 1 if not big else tw.make_wire_format(
+            "fp8", rows // TP).chunk_rows
+        for wire, n_w in (("fp8", 3 if big else 2), ("int8", 2 if big else 1)):
+            fmt = tw.WireFormat(quant=wire, chunk_rows=fmt_rows)
+            flat = [p.view(rows, MOE_H) for p in parts]
+            out = grs.launch_fold(flat, mesh, fmt, dt)
+            ref = grs.gemm_rs_fold_plain(flat, fmt, dt)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            fwhat = (f"{TP} x ({rows}, {MOE_H}) bf16 {wire} chunk_rows="
+                     f"{fmt_rows}")
+            res.check("reduce_scatter_fold", 0.0 if same else 1.0, 0.0,
+                      fwhat, metric="bits differ")
+            res.kernel("reduce_scatter_fold", err=0.0)
+            del out, ref
+            fms = graph_time_ms(lambda i: grs.launch_fold(flat, mesh, fmt,
+                                                          dt), iters=8)
+            fplain = time_ms(lambda: grs.gemm_rs_fold_plain(flat, fmt, dt), 1)
+            # as for the GEMM-RS fold: every partial read once, every
+            # output written once
+            fbytes, fops = nbytes, 0.0
+            fb, fby = bound_ms(fbytes, fops, H100_F32_OPS)
+            log(f"time reduce_scatter_fold {fwhat} ({n_w}/run, one launch "
+                f"for {TP} ranks): kernel_ms={fms:.4f} (graph) plain_ms="
+                f"{fplain:.4f} library_ms=None (no one PyTorch call "
+                f"requantizes each hop) bound_ms={fb:.4f} ({fby}; "
+                f"{rows // TP // fmt_rows * TP} blocks of {fmt_rows * MOE_H} "
+                "elements)")
+            res.shape("reduce_scatter_fold", n_w, fms, fplain, None, fbytes,
+                      fops, H100_F32_OPS)
+        del full, parts
+
+    # the all-to-all at the padded-slot transport's slot shapes
+    for quant, max_m, n in (("fp8", COLL_BIG * MOE_K, 2 * n_moe),
+                            (None, COLL_BIG * MOE_K, 2 * n_moe + 2),
+                            ("fp8", COLL_DEMOTED_M, 2 * n_moe)):
+        ctx = ma.create_all_to_all_context(
+            mesh, max_m=max_m, hidden=MOE_H, experts_per_rank=MOE_E // TP,
+            dtype=torch.bfloat16, quant=quant)
+        shape = (TP, TP * ctx.slot_rows, ctx.ints_per_row)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                          device=dev, dtype=torch.int32)
+        got = a2a.all_to_all_device(x, mesh)
+        want = torch.stack(a2a.all_to_all_plain(list(x.unbind(0))))
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        what = (f"padded slots {quant or 'bf16'} max_m={max_m}: {TP} x "
+                f"{shape[1:]} int32")
+        res.check("all_to_all", bad, 0, what, metric="words differ")
+        res.kernel("all_to_all", err=0.0)
+        del got, want
+        # from a CUDA graph, as the other collectives are (4 calls a
+        # graph: each allocates its 135-805 MB output)
+        ms = graph_time_ms(lambda i: a2a.all_to_all_device(x, mesh),
+                           iters=4)
+        plain = time_ms(lambda: a2a.all_to_all_plain(list(x.unbind(0))), 3)
+        dst = torch.empty_like(x)
+        lib = graph_time_ms(lambda i: dst.copy_(x), iters=4)
+        nbytes = 2 * x.numel() * 4
+        b, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time all_to_all {what} ({n}/run, one launch for {TP} ranks, "
+            f"{x.numel() * 4} bytes moved): kernel_ms={ms:.4f} (graph) "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (one copy_ of the "
+            f"same bytes, graph) bound_ms={b:.4f} ({by})")
+        res.shape("all_to_all", n, ms, plain, lib, nbytes, 0.0,
+                  H100_BF16_OPS)
+        del x, dst
+
+
 def check_tiny_moe_tp4(res: Results, dev):
     """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and in
     its TP flavour at tp = 4 on a loopback mesh, on the card and on the
@@ -3003,9 +3235,14 @@ def run_wire_path(res: Results, dev):
 
 @contextlib.contextmanager
 def _plain_versions_raise():
-    """Within the block, the MoE-TP plain versions and the plain wire
-    quantizers raise: a path on CUDA tensors must launch the kernels."""
+    """Within the block, the MoE-TP plain versions, the plain wire
+    quantizers, the grouped GEMM's, the reduce-scatter's and the
+    all-to-all's plain versions raise: a path on CUDA tensors must launch
+    the kernels."""
+    from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
     from triton_distributed_tpu_torch.kernels import wire as wk
     from triton_distributed_tpu_torch.lang import wire as tw
 
@@ -3018,7 +3255,9 @@ def _plain_versions_raise():
         "moe_reduce_rs_partials_plain", "moe_reduce_rs_fold_plain",
         "moe_reduce_rs_mesh_w_plain", "gemm_rs_fold_plain")]
     names += [(wk, "quantize_shards_plain"), (tw, "quantize_slab"),
-              (tw, "dequantize_slab")]
+              (tw, "dequantize_slab"), (gg, "grouped_matmul_plain"),
+              (rs, "reduce_scatter_plain"), (rs, "gemm_rs_fold_plain"),
+              (a2a, "all_to_all_plain")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, boom)
@@ -3137,6 +3376,266 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
         res.check(name, err, tol, f"{what} (worst of {n_moe} layers)",
                   metric="max_rel_err")
     return counts
+
+
+def run_collectives_path(res: Results, dev, n_moe: int):
+    """DeepSeek-MoE-16B's MoE layers over the collectives, tp = 4 on a
+    loopback mesh of the card, the 27 MoE layers' weights (bf16, drawn
+    from a seed a layer, a router each, freed after it), the plain
+    versions made to raise:
+
+    (a) the composed MoE-TP, ``MoETPMLP(fused=False)`` (``ag_group_gemm``
+    → silu → ``moe_reduce_rs``, whose stacked partials go through the
+    reduce-scatter) on 4 x 2048 tokens (the stream engine) and 4 x 256
+    (the VMEM ring), each layer against ``MoETPMLP(fused=True)`` and
+    ``moe_tp_mlp_overlapped`` on the same weights within COMPOSED_TOL;
+    the 4 x 2048 partials reduced once more at
+    ``RingSchedule(depth=3)``, bit-equal; the last layer's partials on
+    the fp8, int8 and 'auto' wires (and on the stream at depth 3 too),
+    each within JAX's pinned reduce-wire limit of the raw wire's result;
+
+    (b) EP on the padded-slot transport: ``EPMoEMLP`` with
+    ``transport="pallas"`` on 4 x 2048 tokens as served (fp8 wire, W8A8
+    experts) and in bf16 (no wire quantization, bf16 experts), against
+    the fused transport on the same weights within EP_PALLAS_TOL; the
+    fused context at ``max_m`` 4096 (below M·topk, 12288) demoted to the
+    padded slots, two all-to-alls a layer; and ``EPAll2AllLayer``
+    dispatch → identity → combine on the last layer's routing, byte for
+    byte.
+
+    Each variant is timed with CUDA events, a pass over the layers. On
+    the loopback mesh no byte crosses a link: the path shows numerics and
+    the kernels' cost. Returns {kernel: launches}."""
+    import torch
+
+    from triton_distributed_tpu_torch import layers, ops
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        launches_by_tpu_kernel,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.kernels import moe_dispatch as md
+    from triton_distributed_tpu_torch.kernels import moe_utils as mu
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+    from triton_distributed_tpu_torch.kernels.group_gemm import (
+        quantize_grouped_weights,
+    )
+    from triton_distributed_tpu_torch.ops import moe_tp
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.tune import RingSchedule
+
+    name = f"deepseek_moe_16b tp{TP} collectives"
+    bf16 = torch.bfloat16
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    xs = {"stream": coll_tokens(dev, g, COLL_BIG),
+          "vmem": coll_tokens(dev, g, COLL_SMALL)}
+    ctx = ops.MoETPContext(num_experts=MOE_E, topk=MOE_K, block_m=MOE_TP_BM,
+                           dtype=bf16, mesh=mesh)
+    composed = layers.MoETPMLP(ctx, fused=False)
+    single = layers.MoETPMLP(ctx, fused=True)
+    recorded = {}
+    real_rs = moe_tp.reduce_scatter
+
+    def recording(parts, *a, **k):
+        recorded["parts"] = parts
+        recorded["out"] = real_rs(parts, *a, **k)
+        return recorded["out"]
+
+    def timed(fns):
+        """Run ``fns`` in order between CUDA events → (results, ms each)."""
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(fns) + 1)]
+        ev[0].record()
+        outs = []
+        for i, fn in enumerate(fns):
+            outs.append(fn())
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return outs, [ev[i].elapsed_time(ev[i + 1]) for i in range(len(fns))]
+
+    pass_ms, worst = {}, {}
+    same_d3, wire_err = True, {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    moe_tp.reduce_scatter = recording
+    try:
+        with _plain_versions_raise():
+            for layer in range(n_moe):
+                gl = torch.Generator(device=dev).manual_seed(3000 + layer)
+                gate, up, down = coll_layer(dev, gl)
+                w_up, w_down = tp_shards(up, down)
+                del up, down
+                p = {"up": w_up, "down": w_down}
+                for size, x in xs.items():
+                    wts, ids = mu.select_experts(x.float() @ gate, MOE_K)
+                    fns = [lambda: composed(p, x, ids, wts),
+                           lambda: single(p, x, ids, wts),
+                           lambda: ops.moe_tp_mlp_overlapped(
+                               x, ids, wts, w_up, w_down, ctx)]
+                    if size == "stream":
+                        fns.append(lambda: rs.reduce_scatter(
+                            recorded["parts"], mesh, stacked=True,
+                            schedule=RingSchedule(depth=3)))
+                    outs, ms = timed(fns)
+                    for key, t in zip(("composed", "fused", "overlapped",
+                                       "depth3 rs"), ms):
+                        pass_ms[(size, key)] = pass_ms.get((size, key),
+                                                           0.0) + t
+                    for ref, o in (("fused", outs[1]),
+                                   ("overlapped", outs[2])):
+                        worst[(size, ref)] = max(worst.get((size, ref), 0.0),
+                                                 _rel_err([outs[0]], [o]))
+                    if size == "stream":
+                        same_d3 &= all(torch.equal(a, b) for a, b in
+                                       zip(outs[3], recorded["out"]))
+                    if not all(o.isfinite().all() for o in outs[:3]):
+                        res.failures.append(f"{name}: layer {layer} {size} "
+                                            "has non-finite outputs")
+                    if layer == n_moe - 1:
+                        wires = [("fp8", None), ("int8", None), ("auto", None)]
+                        if size == "stream":
+                            wires += [("fp8", RingSchedule(depth=3)),
+                                      ("int8", RingSchedule(depth=3))]
+                        for wire, sched in wires:
+                            out = rs.reduce_scatter(
+                                recorded["parts"], mesh, stacked=True,
+                                wire_dtype=wire, schedule=sched)
+                            wire_err[(size, wire, sched is not None)] = \
+                                _rel_err(out, recorded["out"])
+                    del outs
+                del p, w_up, w_down, gate
+    finally:
+        moe_tp.reduce_scatter = real_rs
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    counts_a, by_a = launch_counts(), dict(launches_by_tpu_kernel())
+    recorded.clear()
+    log(f"path {name} (a) composed MoE-TP: {n_moe} layers x 2 sizes in "
+        f"{wall_a:.2f} s (weights drawn on the card inside); a pass over "
+        "the layers on the device's clock (no byte crosses a link on the "
+        "loopback mesh): " + " ".join(
+            f"{size}:{key}={t:.2f} ms" for (size, key), t in pass_ms.items())
+        + "; reduce-scatters by TPU kernel " + json.dumps(by_a)
+        + "; launches " + " ".join(f"{k}={v}" for k, v in counts_a.items()
+                                   if v))
+    expect = {"reduce_scatter": 3 * n_moe, "reduce_scatter_fold": 8,
+              "ag_group_gemm_mesh": 2 * n_moe,
+              "moe_reduce_rs_mesh": 2 * n_moe,
+              "ggemm_bf16": 2 * 2 * 2 * TP * n_moe}
+    for k, v in counts_a.items():
+        if v != expect.get(k, 0):
+            res.failures.append(f"{name} (a): {v} {k} launches, expected "
+                                f"{expect.get(k, 0)}")
+    want_by = {"_rs_stream_kernel": n_moe, "_ring_rs_kernel": n_moe,
+               "_rs_stream_kernel3": n_moe, "_rs_stream_kernel_w": 3,
+               "_rs_stream_kernel_w3": 2, "_ring_rs_kernel_w": 3}
+    if by_a != want_by:
+        res.failures.append(f"{name} (a): reduce-scatters by TPU kernel "
+                            f"{by_a}, expected {want_by}")
+    if not same_d3:
+        res.failures.append(f"{name} (a): depth 3 differs from depth 2")
+    for (size, ref), err in worst.items():
+        res.check(name, err, COMPOSED_TOL, f"(a) composed vs {ref} {size} "
+                  f"engine (worst of {n_moe} layers)", metric="max_rel_err")
+    for (size, wire, d3), err in wire_err.items():
+        tol = WIRE_RS_TOL["fp8" if wire == "auto" else wire]
+        res.check(name, err, tol, f"(a) reduce_scatter {wire} wire "
+                  f"{'depth 3 ' if d3 else ''}{size} vs the raw wire (the "
+                  "last layer's partials)", metric="max_rel_err")
+
+    # (b) EP on the padded-slot transport
+    x = xs["stream"]
+    del xs
+
+    def ep(transport, served, max_m=COLL_BIG * MOE_K):
+        return layers.EPMoEMLP(ops.create_ep_moe_context(
+            num_experts=MOE_E, topk=MOE_K, max_m=max_m, hidden=MOE_H,
+            dtype=bf16, block_m=MOE_TP_BM, quant="fp8" if served else None,
+            act_quant="int8" if served else None, mesh=mesh,
+            transport=transport))
+
+    runs = {("served", "pallas"): ep("pallas", True),
+            ("served", "fused"): ep("fused", True),
+            ("bf16", "pallas"): ep("pallas", False),
+            ("bf16", "fused"): ep("fused", False),
+            ("served", "demoted"): ep("fused", True, COLL_DEMOTED_M)}
+    ep_ms = {k: 0.0 for k in runs}
+    gap = {"served": 0.0, "bf16": 0.0}
+    demoted_a2a, layer_exact = 0, False
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _plain_versions_raise():
+        for layer in range(n_moe):
+            gl = torch.Generator(device=dev).manual_seed(4000 + layer)
+            gate, up, down = coll_layer(dev, gl)
+            params = {"bf16": {"router": gate, "up": up, "down": down}}
+            uq, us = quantize_grouped_weights(up)
+            dq, ds = quantize_grouped_weights(down)
+            params["served"] = {"router": gate, "up": {"q": uq, "scale": us},
+                                "down": {"q": dq, "scale": ds}}
+            outs = {}
+            for key, mlp in runs.items():
+                before = launch_counts()["all_to_all"]
+                (outs[key],), (ms,) = timed([lambda: mlp(params[key[0]], x)])
+                ep_ms[key] += ms
+                if key[1] == "demoted":
+                    demoted_a2a += launch_counts()["all_to_all"] - before
+            for kind in gap:
+                gap[kind] = max(gap[kind], _rel_err(
+                    [outs[(kind, "pallas")]], [outs[(kind, "fused")]]))
+            if not all(o.isfinite().all() for o in outs.values()):
+                res.failures.append(f"{name} (b): layer {layer} has "
+                                    "non-finite outputs")
+            if layer == n_moe - 1:
+                # the dispatch / combine pair around identity experts
+                a2a = runs[("bf16", "pallas")].ctx.a2a
+                _, ids = mu.select_experts(x.float() @ gate, MOE_K)
+                flat_e = ids.reshape(TP, -1)
+                order = torch.argsort(flat_e, dim=1, stable=True)
+                rows = md._take_rows(x.reshape(TP, -1, MOE_H), order // MOE_K)
+                splits = torch.zeros((TP, MOE_E), dtype=torch.int32,
+                                     device=dev)
+                splits.scatter_add_(1, flat_e.long(), torch.ones_like(flat_e))
+                layer_ = layers.EPAll2AllLayer(a2a)
+                toks, _ = layer_.dispatch(rows, splits)
+                back = layer_.combine(toks, splits, rows.shape[1])
+                torch.cuda.synchronize()
+                layer_exact = torch.equal(back, rows)
+                del toks, back, rows
+            del params, outs, up, down, uq, dq
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    counts_b = launch_counts()
+    log(f"path {name} (b) EP padded slots: {n_moe} layers x {len(runs)} runs "
+        f"in {wall_b:.2f} s (weights drawn and quantized on the card "
+        "inside); a pass over the layers on the device's clock (no byte "
+        "crosses a link on the loopback mesh): " + " ".join(
+            f"{k[0]}:{k[1]}={t:.2f} ms" for k, t in ep_ms.items())
+        + f"; pallas vs fused gap served={gap['served']:.6g} bf16="
+        f"{gap['bf16']:.6g} ({'both 0' if max(gap.values()) == 0 else 'not 0'}); "
+        f"the demoted runs launched {demoted_a2a} all-to-alls; launches "
+        + " ".join(f"{k}={v}" for k, v in counts_b.items() if v))
+    for kind, err in gap.items():
+        res.check(name, err, EP_PALLAS_TOL, f"(b) pallas vs fused transport "
+                  f"{kind} (worst of {n_moe} layers)", metric="max_rel_err")
+    if demoted_a2a != 2 * n_moe:
+        res.failures.append(f"{name} (b): the demoted fused context launched "
+                            f"{demoted_a2a} all-to-alls, expected "
+                            f"{2 * n_moe}")
+    expect = {"all_to_all": 6 * n_moe + 2, "chunked_a2a_mesh": 4 * n_moe}
+    for k in ("all_to_all", "chunked_a2a_mesh", "reduce_scatter",
+              "reduce_scatter_fold"):
+        if counts_b[k] != expect.get(k, 0):
+            res.failures.append(f"{name} (b): {counts_b[k]} {k} launches, "
+                                f"expected {expect.get(k, 0)}")
+    if not layer_exact:
+        res.failures.append(f"{name} (b): EPAll2AllLayer did not return the "
+                            "sorted tokens byte for byte")
+    return {k: counts_a[k] + counts_b[k] for k in COLL_ROWS}
 
 
 def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
@@ -3509,6 +4008,7 @@ def main() -> int:
     check_a2a_mesh(res, dev, n_moe)
     check_moe_tp_mesh_kernels(res, dev, n_moe)
     check_moe_wire_kernels(res, dev, n_moe)
+    check_collectives(res, dev, n_moe)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
@@ -3534,6 +4034,7 @@ def main() -> int:
     del one
     wire_counts = run_wire_path(res, dev)
     moe_wire_counts = run_moe_wire_path(res, dev, n_moe)
+    coll_counts = run_collectives_path(res, dev, n_moe)
     for k, v in run_decode_path(res, dev, "llama_7b int8", llama,
                                 profile=opts.profile).items():
         decode_counts[k] += v
@@ -3617,6 +4118,8 @@ def main() -> int:
             n, steps = wire_counts[name], 1
         elif name in MOE_WIRE_ROWS:
             n, steps = moe_wire_counts[name], 1
+        elif name in COLL_ROWS:
+            n, steps = coll_counts[name], 1
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

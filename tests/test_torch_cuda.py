@@ -1660,3 +1660,252 @@ def test_moe_tp4_prefill_generate_on_card_equals_cpu(dev):
         if cfg.moe == "ep":
             assert (after["chunked_a2a_mesh"] - mid["chunked_a2a_mesh"]
                     == 2 * n_moe * 6)
+
+
+# -------------------------------- reduce-scatter and the dense all-to-all
+
+def _rs_parts(dev, w, shape, dtype, seed, separate=False, offset=0):
+    """W contributions of ``shape`` (x30): views of one allocation, tensors
+    of their own (``separate``), or (``offset`` elements) views that start
+    off the 16-byte grid."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    flat = _t(rng.standard_normal(w * n + offset) * 30, dev,
+              getattr(torch, dtype))
+    parts = [flat[offset + r * n: offset + (r + 1) * n].view(shape)
+             for r in range(w)]
+    return [p.clone() for p in parts] if separate else parts
+
+
+class TestCollectiveKernels:
+    @pytest.mark.parametrize("layout", ["stacked", "separate", "unaligned",
+                                        "replicated"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(4 * 37, 9), (4 * 64, 256),
+                                       (4 * 32, 8, 24)])
+    def test_reduce_scatter_is_bit_exact(self, dev, shape, w, dtype, layout):
+        """Ragged rows (37 a rank, 9 columns: the element loop), aligned
+        2-D and 3-D contributions, shards of their own, views off the
+        16-byte grid and one replicated tensor: every rank's row block
+        equals ``reduce_scatter_plain`` (the ring's hop order, one
+        rounding a hop) bit for bit; one launch of ``tdt_reduce_scatter``
+        for all ranks, counted by the TPU kernel it stands for."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+        )
+        from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(w, dev)
+        rows = shape[0] // 4 * w
+        shape = (rows, *shape[1:])
+        parts = _rs_parts(dev, w, shape, dtype, 60,
+                          separate=layout == "separate",
+                          offset=3 if layout == "unaligned" else 0)
+        x, stacked = (parts[0], False) if layout == "replicated" else (
+            parts, True)
+        before, by = launch_counts(), dict(launches_by_tpu_kernel())
+        got = rs.reduce_scatter(x, mesh, stacked=stacked)
+        after = launch_counts()
+        assert after["reduce_scatter"] == before["reduce_scatter"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        kern = rs.select_engine(w, shape, parts[0].element_size(), None)[0]
+        assert launches_by_tpu_kernel()[kern] == by.get(kern, 0) + 1
+        want = rs.reduce_scatter_plain(x, mesh, stacked=stacked)
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            assert g.shape == (rows // w, *shape[1:]) and torch.equal(g, r)
+
+    @pytest.mark.parametrize("depth", [2, 3])
+    def test_reduce_scatter_engines(self, dev, monkeypatch, depth):
+        """The streaming engine (a budget of 1 byte) and the VMEM one run
+        the same kernel to the same bits; the counts name
+        ``_rs_stream_kernel`` / ``3`` and ``_ring_rs_kernel``."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+        from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+        from triton_distributed_tpu_torch.runtime import Mesh
+        from triton_distributed_tpu_torch.tune import RingSchedule
+
+        mesh = Mesh.loopback(4, dev)
+        parts = _rs_parts(dev, 4, (256, 512), "bfloat16", 61)
+        sched = RingSchedule(depth=depth)
+        reset_launch_counts()
+        vmem = rs.reduce_scatter(parts, mesh, stacked=True, schedule=sched)
+        monkeypatch.setenv("TDTPU_FUSED_VMEM_BUDGET", "1")
+        stream = rs.reduce_scatter(parts, mesh, stacked=True, schedule=sched)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(vmem, stream))
+        assert launches_by_tpu_kernel() == {
+            "_ring_rs_kernel": 1,
+            "_rs_stream_kernel" + ("3" if depth == 3 else ""): 1}
+
+    @pytest.mark.parametrize("wire", ["fp8", "int8", "int8-mxu"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("stream", [False, True])
+    def test_reduce_scatter_wire_is_bit_exact(self, dev, monkeypatch, stream,
+                                              dtype, wire):
+        """The wire on the VMEM ring (the fold at one scale a row) and on
+        the stream (at ``make_wire_format``'s chunk, depth 3 too): the
+        GEMM-RS fold equals ``gemm_rs_fold_plain`` bit for bit, one launch
+        counted as ``reduce_scatter_fold`` and by its TPU kernel."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+        from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+        from triton_distributed_tpu_torch.runtime import Mesh
+        from triton_distributed_tpu_torch.tune import RingSchedule
+
+        mesh = Mesh.loopback(4, dev)
+        parts = _rs_parts(dev, 4, (4 * 96, 1024), dtype, 62)
+        parts[1][5] *= 1000.0               # an outlier row
+        if stream:
+            monkeypatch.setenv("TDTPU_FUSED_VMEM_BUDGET", "1")
+        w = rs.resolve_rs_wire(wire, 4 * 96, 1024, 4, parts[0].element_size())
+        for sched in (None, RingSchedule(depth=3)) if stream else (None,):
+            kern, fmt = rs.select_engine(4, parts[0].shape,
+                                         parts[0].element_size(), w,
+                                         sched.depth if sched else 2)
+            assert fmt.chunk_rows == (32 if stream else 1)
+            reset_launch_counts()
+            got = rs.reduce_scatter(parts, mesh, stacked=True,
+                                    wire_dtype=wire, schedule=sched)
+            want = rs.reduce_scatter_plain(parts, mesh, stacked=True, fmt=fmt)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, r) for g, r in zip(got, want))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            assert counts == {"reduce_scatter_fold": 1}
+            assert launches_by_tpu_kernel() == {kern: 1}
+
+    @pytest.mark.parametrize("separate", [False, True])
+    @pytest.mark.parametrize("dtype", ["int32", "bfloat16", "int8",
+                                       "float32"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(4 * 7, 3), (4 * 64, 512)])
+    def test_all_to_all_is_byte_exact(self, dev, shape, w, dtype, separate):
+        """Blocks of 21 bytes-ish (off the 16-byte grid: the byte loop)
+        and of 128 KiB, in every dtype: each rank's output equals
+        ``all_to_all_plain`` byte for byte (the list and the stacked
+        forms), one launch of ``tdt_all_to_all`` for all ranks."""
+        from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        rng = np.random.default_rng(63)
+        mesh = Mesh.loopback(w, dev)
+        shape = (shape[0] // 4 * w, *shape[1:])
+        tdt = getattr(torch, dtype)
+        if dtype in ("int32", "int8"):
+            info = np.iinfo(np.dtype(dtype))
+            full = _t(rng.integers(info.min, info.max, (w, *shape)), dev, tdt)
+        else:
+            full = _t(rng.standard_normal((w, *shape)), dev, tdt)
+        x = ([full[r].clone() for r in range(w)] if separate
+             else list(full.unbind(0)))
+        before = launch_counts()
+        got = a2a.all_to_all(x, mesh)
+        after = launch_counts()
+        assert after["all_to_all"] == before["all_to_all"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = a2a.all_to_all_plain(x)
+        stacked = a2a.all_to_all_device(full, mesh)
+        torch.cuda.synchronize()
+        for g, s, r in zip(got, stacked.unbind(0), want):
+            assert torch.equal(g, r) and torch.equal(s, r)
+
+    def test_collective_paths_launch_their_kernels(self, dev, monkeypatch):
+        """With the plain versions made to raise: ``MoETPMLP(fused=False)``
+        over 4 ranks launches the reduce-scatter once (the stream engine
+        at a budget of 1 byte, else the VMEM ring), and ``ep_moe`` on the
+        fused transport with ``max_m`` below M·topk (demoted to the padded
+        slots) launches the all-to-all twice and the chunked one never."""
+        from triton_distributed_tpu_torch import layers, ops
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+        from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+        from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        def boom(*a, **k):
+            raise AssertionError("a plain version ran on CUDA tensors")
+
+        for mod, name in ((rs, "reduce_scatter_plain"),
+                          (rs, "gemm_rs_fold_plain"),
+                          (a2a, "all_to_all_plain"),
+                          (gg, "grouped_matmul_plain")):
+            monkeypatch.setattr(mod, name, boom)
+        mesh = Mesh.loopback(4, dev)
+        rng = np.random.default_rng(64)
+        m, e, k, hid, f = 4 * 64, 8, 2, 256, 512
+        x = _t(rng.standard_normal((m, hid)), dev, torch.bfloat16)
+        logits = _t(rng.standard_normal((m, e)), dev)
+        wts, ids = mu.select_experts(logits, k)
+        up = list((_t(rng.standard_normal((4, e, hid, f // 4)), dev,
+                      torch.bfloat16) / 16).unbind(0))
+        down = list((_t(rng.standard_normal((4, e, f // 4, hid)), dev,
+                        torch.bfloat16) / 16).unbind(0))
+        ctx = ops.MoETPContext(num_experts=e, topk=k, block_m=64, mesh=mesh)
+        for budget, kern in ((None, "_ring_rs_kernel"),
+                             ("1", "_rs_stream_kernel")):
+            if budget:
+                monkeypatch.setenv("TDTPU_FUSED_VMEM_BUDGET", budget)
+            reset_launch_counts()
+            out = layers.MoETPMLP(ctx, fused=False)(
+                {"up": up, "down": down}, x, ids, wts)
+            assert launches_by_tpu_kernel() == {kern: 1}
+            assert launch_counts()["reduce_scatter"] == 1
+            assert out.shape == (m, hid) and out.isfinite().all()
+        ep = ops.create_ep_moe_context(
+            num_experts=e, topk=k, max_m=64, hidden=hid, mesh=mesh,
+            quant="fp8", block_m=64)
+        reset_launch_counts()
+        out = ops.ep_moe(x, logits, torch.cat(up, dim=2),
+                         torch.cat(down, dim=1), ep)
+        counts = launch_counts()
+        assert counts["all_to_all"] == 2 and counts["chunked_a2a_mesh"] == 0
+        assert out.shape == (m, hid) and out.isfinite().all()
+
+    def test_wrappers_refuse_what_the_kernels_do_not_take(self, dev):
+        """A dtype the kernels do not take, non-contiguous contributions,
+        a mesh on another device: each raises, none falls back."""
+        from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+        from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(2, dev)
+        h = [torch.zeros((8, 16), device=dev, dtype=torch.float16)] * 2
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            rs.reduce_scatter(h, mesh, stacked=True)
+        t = [torch.zeros((16, 8), device=dev).t() for _ in range(2)]
+        with pytest.raises(ValueError, match="contiguous"):
+            rs.reduce_scatter(t, mesh, stacked=True)
+        with pytest.raises(ValueError, match="contiguous"):
+            a2a.all_to_all(t, mesh)
+        cpu = Mesh.loopback(2, "cpu")
+        with pytest.raises(ValueError, match="the mesh is on"):
+            a2a.all_to_all([torch.zeros(4, 2, device=dev)] * 2, cpu)
+        with pytest.raises(ValueError, match="the mesh is on"):
+            rs.reduce_scatter([torch.zeros(4, 2, device=dev)] * 2, cpu,
+                              stacked=True)
+
+    def test_a_failed_build_raises(self, dev, monkeypatch):
+        """A kernel that does not build raises on the call: nothing falls
+        back to the plain version."""
+        from triton_distributed_tpu_torch.kernels import _build
+        from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(2, dev)
+        x = [torch.zeros((4, 2), device=dev)] * 2
+
+        def no_lib():
+            raise RuntimeError("nvcc failed: (a failing build)")
+
+        monkeypatch.setattr(_build, "lib", no_lib)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            a2a.all_to_all(x, mesh)

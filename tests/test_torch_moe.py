@@ -536,6 +536,12 @@ def test_ep_moe_context_validation():
                                    hidden=3, quant="fp8")
     ctx = tops.create_ep_moe_context(num_experts=E, topk=TOPK, max_m=8,
                                      hidden=H)
+    # below M·topk the fused transport runs on the padded slots, as JAX's
+    # does; its persistent workspaces cannot, and raise
+    bf16 = torch.bfloat16
+    args = (torch.zeros((5, H)), torch.zeros((5, E)),
+            torch.zeros((E, H, 4), dtype=bf16),
+            torch.zeros((E, 4, H), dtype=bf16), ctx)
+    assert tops.ep_moe(*args).shape == (5, H)
     with pytest.raises(ValueError, match="capacity"):
-        tops.ep_moe(torch.zeros((5, H)), torch.zeros((5, E)),
-                    torch.zeros((E, H, 4)), torch.zeros((E, 4, H)), ctx)
+        tops.ep_moe(*args, state=tops.create_ep_moe_state(ctx, "cpu"))

@@ -1,5 +1,6 @@
-"""Device resolution, dtype names, the kernel build directory, and the
-division the quantizers use (:func:`div_scalar`).
+"""Device resolution, dtype names, the kernel build directory, the
+division the quantizers use (:func:`div_scalar`), and JAX's fused-engine
+budget (:func:`fused_vmem_budget`).
 
 The port's entry points run on the card unless the caller asks for the
 CPU: :func:`resolve_device` turns ``None`` into the current CUDA device
@@ -11,6 +12,8 @@ CPU. The CPU path exists for the parity tests, which pass
 
 from __future__ import annotations
 
+import logging
+import os
 from pathlib import Path
 
 import torch
@@ -68,6 +71,32 @@ def div_scalar(x, c: float):
     division in the last bit for many values; a quantizer's scales must
     not, or the card's codes drift from the reference's."""
     return x / x.new_full((), c)
+
+
+#: JAX's working-set budget of the fused single-kernel engines, 96 MiB
+#: (``triton_distributed_tpu/config.py:69``). The reduce-scatter keeps
+#: JAX's engine choice by it (``kernels/reduce_scatter.py``): on the card
+#: it decides which rows share a wire scale, not memory
+FUSED_VMEM_BUDGET = 96 * 1024 * 1024
+
+
+def fused_vmem_budget() -> int:
+    """:data:`FUSED_VMEM_BUDGET`, or ``TDTPU_FUSED_VMEM_BUDGET`` (bytes)
+    where the environment sets it, as JAX reads it."""
+    return int(float(os.environ.get("TDTPU_FUSED_VMEM_BUDGET",
+                                    str(FUSED_VMEM_BUDGET))))
+
+
+_WARNED: set = set()
+
+
+def warn_once(key, msg: str) -> None:
+    """Log ``msg`` as a warning the first time ``key`` is seen in this
+    process (the JAX package's ``_warn_once``): a demotion that changes
+    what a call runs says so once, not on every call."""
+    if key not in _WARNED:
+        _WARNED.add(key)
+        logging.getLogger("triton_distributed_tpu_torch").warning(msg)
 
 
 def build_dir() -> Path:

@@ -48,16 +48,7 @@ all_gather_kernel(const unsigned long long* __restrict__ in_peers,
   const long long stride = static_cast<long long>(gridDim.x) * AG_THREADS;
   const long long t0 = static_cast<long long>(blockIdx.x) * AG_THREADS +
                        threadIdx.x;
-  long long done = 0;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15) == 0) {
-    const long long nv = bytes / 16;
-    const uint4* __restrict__ s4 = reinterpret_cast<const uint4*>(src);
-    uint4* __restrict__ d4 = reinterpret_cast<uint4*>(dst);
-    for (long long i = t0; i < nv; i += stride) d4[i] = s4[i];
-    done = nv * 16;
-  }
-  for (long long i = done + t0; i < bytes; i += stride) dst[i] = src[i];
+  tdt_copy_bytes(dst, src, bytes, t0, stride);
 }
 
 // blockIdx.y the source rank q, blockIdx.z the destination r: out_r's

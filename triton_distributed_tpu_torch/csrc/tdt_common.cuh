@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: float conversions for the
-// element types the wrappers pass, and the dtype codes of the C ABI.
+// element types the wrappers pass, the dtype codes of the C ABI, and the
+// byte copy of the data-movement kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,4 +30,24 @@ __device__ __forceinline__ float tdt_from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 tdt_from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// Copy `bytes` bytes from src to dst as one thread of a grid-stride walk
+// (first index t0, stride `stride` threads): 16 bytes a step where both
+// pointers are 16-byte aligned, then byte by byte. Any dtype: the bytes
+// move unchanged.
+__device__ __forceinline__ void tdt_copy_bytes(char* __restrict__ dst,
+                                               const char* __restrict__ src,
+                                               long long bytes, long long t0,
+                                               long long stride) {
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15) == 0) {
+    const long long nv = bytes / 16;
+    const uint4* __restrict__ s4 = reinterpret_cast<const uint4*>(src);
+    uint4* __restrict__ d4 = reinterpret_cast<uint4*>(dst);
+    for (long long i = t0; i < nv; i += stride) d4[i] = s4[i];
+    done = nv * 16;
+  }
+  for (long long i = done + t0; i < bytes; i += stride) dst[i] = src[i];
 }

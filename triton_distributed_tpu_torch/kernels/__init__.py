@@ -4,10 +4,16 @@ wrapper is not re-exported here: its name is its module's. The MoE
 modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``), the
 decode entries of ``flash_decode``, ``ag_gemm`` / ``gemm_rs`` (at world
 size 1 and over a mesh, on the raw and the quantized wires), ``allgather``
-and the MoE-TP GEMMs (``moe_tp_fused``) are imported by name. The wire
-quantizer ``tdt_quantize_slab`` (``csrc/wire.cu``, :mod:`.wire`) is
-launched by the AG-GEMM, all-gather and MoE-TP wire wrappers and
-counted on its own."""
+the MoE-TP GEMMs (``moe_tp_fused``) are imported by name; so are the
+entries ``all_to_all`` and ``reduce_scatter``, which would shadow their
+modules, beside the exported stacked form and plain versions. The wire quantizer
+``tdt_quantize_slab`` (``csrc/wire.cu``, :mod:`.wire`) is launched by the
+AG-GEMM, all-gather and MoE-TP wire wrappers and counted on its own."""
+
+from triton_distributed_tpu_torch.kernels.all_to_all import (
+    all_to_all_device,
+    all_to_all_plain,
+)
 
 from triton_distributed_tpu_torch.kernels.flash_decode import quantize_kv
 from triton_distributed_tpu_torch.kernels.group_gemm import (
@@ -23,8 +29,14 @@ from triton_distributed_tpu_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention_plain,
     unpack_gqa_rows,
 )
+from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+    reduce_scatter_plain,
+    resolve_rs_wire,
+)
 
 __all__ = [
+    "all_to_all_device",
+    "all_to_all_plain",
     "auto_block_q",
     "dequantize_grouped_weights",
     "grouped_matmul",
@@ -34,6 +46,8 @@ __all__ = [
     "quantize_grouped_weights",
     "quantize_kv",
     "ragged_paged_attention_plain",
+    "reduce_scatter_plain",
+    "resolve_rs_wire",
     "unpack_gqa_rows",
 ]
 
@@ -47,8 +61,12 @@ def _counters() -> dict:
     launched: a wire call launches the quantizer (``wire_quantize``) and
     its product, or the GEMM-RS wire's partials and fold; the MoE-TP
     wires' fold is the GEMM-RS wire's kernel, counted apart
-    (``moe_reduce_rs_fold``)."""
+    (``moe_reduce_rs_fold``), and so is the reduce-scatter's wire fold
+    (``reduce_scatter_fold``). The reduce-scatter's two wrappers also
+    count their launches by the TPU kernel each stood for
+    (``by_tpu_kernel``)."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
+    from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as ag
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
@@ -56,6 +74,7 @@ def _counters() -> dict:
     from triton_distributed_tpu_torch.kernels import moe_dispatch as md
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
     from triton_distributed_tpu_torch.kernels import wire
 
     return {
@@ -87,6 +106,9 @@ def _counters() -> dict:
         "ag_group_gemm_mx": (mtf._ag_group_gemm_mx_cuda, "launches"),
         "moe_reduce_rs_wire": (mtf._moe_reduce_rs_partials_cuda, "launches"),
         "moe_reduce_rs_fold": (mtf._moe_reduce_rs_fold_cuda, "launches"),
+        "reduce_scatter": (rs._reduce_scatter_cuda, "launches"),
+        "reduce_scatter_fold": (rs._reduce_scatter_fold_cuda, "launches"),
+        "all_to_all": (a2a._all_to_all_cuda, "launches"),
     }
 
 
@@ -101,3 +123,13 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
         if hasattr(fn, "by_tpu_kernel"):
             fn.by_tpu_kernel.clear()
+
+
+def launches_by_tpu_kernel() -> dict:
+    """The reduce-scatter's launches since the last
+    :func:`reset_launch_counts`, by the TPU kernel each stood for (its
+    raw kernel and its wire fold together)."""
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+
+    return {**rs._reduce_scatter_cuda.by_tpu_kernel,
+            **rs._reduce_scatter_fold_cuda.by_tpu_kernel}

@@ -10,12 +10,18 @@ from triton_distributed_tpu_torch.layers.linear import (
     ParallelMLP,
     RowParallelLinear,
 )
-from triton_distributed_tpu_torch.layers.moe import EPMoEMLP
+from triton_distributed_tpu_torch.layers.moe import (
+    EPAll2AllLayer,
+    EPMoEMLP,
+    MoETPMLP,
+)
 
 __all__ = [
     "AllGatherLayer",
     "ColumnParallelLinear",
+    "EPAll2AllLayer",
     "EPMoEMLP",
+    "MoETPMLP",
     "ParallelMLP",
     "RaggedPagedAttention",
     "RowParallelLinear",

@@ -1,5 +1,6 @@
-"""The port's ops: the expert-parallel MoE MLP, the MoE-TP overlap
-GEMMs and the TP overlap GEMMs, at world size 1."""
+"""The port's ops: the expert-parallel MoE MLP (fused and padded-slot
+transports), the MoE-TP overlap GEMMs and the composed MoE-TP pipeline,
+and the TP overlap GEMMs."""
 
 from triton_distributed_tpu_torch.ops.moe import (
     EPMoEContext,
@@ -11,11 +12,17 @@ from triton_distributed_tpu_torch.ops.moe import (
 from triton_distributed_tpu_torch.ops.moe_tp import (
     MoETPContext,
     ShardedRouting,
+    ag_group_gemm,
+    ag_group_gemm_device,
     ag_group_gemm_fused,
+    align_routing,
     align_routing_sharded,
     create_ag_group_gemm_context,
     create_moe_rs_context,
+    moe_reduce_rs,
     moe_reduce_rs_fused,
+    moe_tp_mlp,
+    moe_tp_mlp_device,
     moe_tp_mlp_overlapped,
 )
 from triton_distributed_tpu_torch.ops.overlap import (
@@ -33,7 +40,10 @@ __all__ = [
     "OverlapContext",
     "ShardedRouting",
     "ag_gemm",
+    "ag_group_gemm",
+    "ag_group_gemm_device",
     "ag_group_gemm_fused",
+    "align_routing",
     "align_routing_sharded",
     "create_ag_gemm_context",
     "create_ag_group_gemm_context",
@@ -43,6 +53,9 @@ __all__ = [
     "create_moe_rs_context",
     "ep_moe",
     "gemm_rs",
+    "moe_reduce_rs",
     "moe_reduce_rs_fused",
+    "moe_tp_mlp",
+    "moe_tp_mlp_device",
     "moe_tp_mlp_overlapped",
 ]

@@ -1,13 +1,26 @@
 """Expert-parallel MoE MLP: route → dispatch → grouped GEMMs → combine.
 
-Port of ``triton_distributed_tpu/ops/moe.py`` on the fused
-(count-bounded chunked) transport only: route with
-:func:`~triton_distributed_tpu_torch.kernels.moe_utils.select_experts`,
-expert-sort the assignments, stage them into aligned segments in the
-wire dtype, dispatch them through the chunked all-to-all kernel, run the
-grouped expert MLP (W8A8, W8A16 or float grouped-GEMM kernels), stage
-the results back, combine through the same kernel, and sum each token's
-top-k results weighted by the router.
+Port of ``triton_distributed_tpu/ops/moe.py`` on its two in-kernel
+transports (``EPMoEContext.transport``):
+
+* ``"fused"`` (the default): the count-bounded chunked all-to-all of
+  :mod:`~triton_distributed_tpu_torch.kernels.moe_dispatch`. Route with
+  :func:`~triton_distributed_tpu_torch.kernels.moe_utils.select_experts`,
+  expert-sort the assignments, stage them into aligned segments in the
+  wire dtype, dispatch them through the chunked kernel, run the grouped
+  expert MLP (W8A8, W8A16 or float grouped-GEMM kernels), stage the
+  results back, combine through the same kernel, and sum each token's
+  top-k results weighted by the router. Its payload must hold every
+  assignment: with ``max_m < M·topk`` it demotes to the padded slots,
+  with one warning, as JAX does (``:490-511``), and raises with an
+  :class:`EPMoEState`, whose workspaces are sized by it;
+* ``"pallas"``: the padded-slot exchange of
+  :mod:`~triton_distributed_tpu_torch.kernels.moe_all_to_all`
+  (``dispatch_stage`` → ``pack_slots`` → the dense all-to-all,
+  ``tdt_all_to_all`` → ``recv_tokens_view``, and back through
+  ``combine_stage`` / ``combine_unpack`` / ``combine_unstage``): each
+  peer's slot holds ``max_m`` rows, a peer's overflow is dropped and
+  comes back as zeros, and the expert MLP runs over every slot row.
 
 Without a mesh one rank owns every expert. With one (``mesh=``) the
 experts are split over its axis, rank r owning experts [r·epr,
@@ -18,27 +31,27 @@ is one launch for all ranks, and the expert MLP is one grouped GEMM in
 which each rank's rows meet only its own experts.
 
 In barrier mode every call allocates its receive windows; with an
-:class:`EPMoEState` the two legs write the state's persistent
-double-buffered workspaces in place, in the window its device-side
-parity names, and the call returns the state with the parity flipped.
-Nothing reads a value back to the host.
+:class:`EPMoEState` the fused transport's two legs write the state's
+persistent double-buffered workspaces in place, in the window its
+device-side parity names, and the call returns the state with the
+parity flipped. Nothing reads a value back to the host.
 
 JAX's full-precision ``xla`` transport (``lax.all_to_all`` of padded
 slots) carries the same rows to the same experts, so a context with no
 wire quantization and no W8A8, on float experts, gives its values (the
-model's prefill runs so). Not ported: the hierarchical (DCN) exchange,
-the padded-slot (``pallas``) and ``xla`` transports, ``ep_moe_tuned``
-and the demotion probe of the health ledger.
+model's prefill runs so). Not ported: the ``xla`` transport itself (the
+differentiable path, ROADMAP Queue 1 step 3), the hierarchical (DCN)
+exchange, ``ep_moe_tuned`` and the demotion probe of the health ledger.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
 
-from triton_distributed_tpu_torch.config import to_torch_dtype
+from triton_distributed_tpu_torch.config import to_torch_dtype, warn_once
 from triton_distributed_tpu_torch.kernels import moe_all_to_all as ma
 from triton_distributed_tpu_torch.kernels import moe_dispatch as md
 from triton_distributed_tpu_torch.kernels import moe_utils as mu
@@ -51,13 +64,16 @@ from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
 
 @dataclass(frozen=True)
 class EPMoEContext:
-    """Static geometry of the EP MoE layer on the fused transport. The
-    experts are split over ``mesh``'s ``axis`` (``n`` ranks); without a
-    mesh one rank owns every expert. ``max_m`` is a rank's assignment
-    capacity (M·topk for its M tokens); ``block_m`` the grouped-GEMM
-    M-block (a multiple of the CUDA kernels' 64-row tile); ``quant`` the
-    wire format (None, "fp8" or "int8"); ``act_quant="int8"`` runs the
-    experts W8A8 when their weights are int8 dicts."""
+    """Static geometry of the EP MoE layer. The experts are split over
+    ``mesh``'s ``axis`` (``n`` ranks); without a mesh one rank owns every
+    expert. ``transport``: "fused" (the default; None means it) or
+    "pallas" (module docstring; "xla" is not ported). ``max_m``: on the
+    fused transport a rank's assignment capacity (M·topk for its M
+    tokens; smaller demotes to "pallas"), on "pallas" a peer's slot
+    capacity; ``block_m`` the grouped-GEMM M-block (a multiple of the
+    CUDA kernels' 64-row tile); ``quant`` the wire format (None, "fp8"
+    or "int8"); ``act_quant="int8"`` runs the experts W8A8 when their
+    weights are int8 dicts."""
 
     num_experts: int
     topk: int
@@ -70,9 +86,20 @@ class EPMoEContext:
     act_quant: str | None = None
     mesh: Mesh | None = None
     axis: str = "tp"
+    transport: str | None = "fused"
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
+        if self.transport is None:
+            object.__setattr__(self, "transport", "fused")
+        if self.transport == "xla":
+            raise NotImplementedError(
+                "EP transport 'xla' (lax.all_to_all, JAX's differentiable "
+                "path) is not ported (ROADMAP Queue 1 step 3); use 'fused' "
+                "or 'pallas'")
+        if self.transport not in ("fused", "pallas"):
+            raise ValueError(f"transport must be 'fused' or 'pallas', got "
+                             f"{self.transport!r}")
 
     @property
     def n(self) -> int:
@@ -133,6 +160,9 @@ def create_ep_moe_state(ctx: EPMoEContext, device=None) -> EPMoEState:
     mesh's device, one window pair a rank, as symmetric tensors)."""
     from triton_distributed_tpu_torch.lang.shmem import stacked, symm_empty
 
+    if ctx.transport != "fused":
+        raise ValueError("EPMoEState rides the fused transport (got "
+                         f"transport={ctx.transport!r})")
     (tok_shape, tok_dt), (meta_shape, meta_dt) = md.ll_workspace_shapes(
         ctx.a2a)
     if ctx.mesh is not None:
@@ -255,33 +285,36 @@ def _slot_tables(ctx: EPMoEContext, rspl, slot_m: int):
     return eid.reshape(*lead[:-1], -1), valid.reshape(*lead[:-1], -1)
 
 
-def _ep_assignments_device(ctx: EPMoEContext, x, flat_e, w_flat, out_rows,
-                           w_up, w_down, state=None):
-    """Pre-routed assignments of every rank → dispatch → grouped MLP →
-    combine → weighted sum (the fused transport).
+def _a2a(ctx: EPMoEContext, payload):
+    """The padded-slot exchange of every rank's int32 payload (W,
+    n·slot_rows, ints_per_row): slot j of rank i → slot i of rank j."""
+    return ma.fast_all_to_all(ctx.a2a, payload)
 
-    x: (W, R, H) rows of the W = ``ctx.n`` ranks; flat_e: (W, T) expert
-    per assignment (T = R·topk; the sentinel ``num_experts`` masks one);
-    w_flat: (W, T) f32 weights, 0 for masked assignments; w_up / w_down:
-    every rank's experts (:func:`whole_experts`). Returns (W, out_rows,
-    H) f32, and the next :class:`EPMoEState` when ``state`` is given."""
-    nw, total = flat_e.shape
-    if ctx.max_m < total:
-        raise ValueError(
-            f"ep_moe: max_m={ctx.max_m} < M·topk={total}; the fused "
-            "transport needs full-assignment capacity")
-    dev = x.device
+
+def _dispatch(ctx: EPMoEContext, x_sorted, splits):
+    """Stage + exchange (the ``pallas`` transport): every rank's
+    expert-sorted rows (W, T, H) and counts (W, E) → ((W, n, max_m, H)
+    received tokens, (W, n, epr) clamped counts)."""
     a2a = ctx.a2a
-    flat_e = flat_e.to(torch.int32)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    valid_a = flat_e < ctx.num_experts
-    n_valid = valid_a.sum(dim=-1, dtype=torch.int32)             # (W,)
-    splits = torch.zeros((nw, ctx.num_experts), dtype=torch.int32,
-                         device=dev)
-    splits.scatter_add_(
-        1, torch.clamp(flat_e, 0, ctx.num_experts - 1).long(),
-        valid_a.to(torch.int32))
+    toks, spl = ma.dispatch_stage(a2a, x_sorted, splits)
+    return ma.recv_tokens_view(a2a, _a2a(ctx, ma.pack_slots(a2a, toks, spl)))
 
+
+def _combine(ctx: EPMoEContext, y_slots, splits, total):
+    """Return-leg exchange + unstage (the ``pallas`` transport): the
+    processed slots (W, n, max_m, H) → (W, total, H) in sorted order."""
+    a2a = ctx.a2a
+    comb = _a2a(ctx, ma.combine_stage(a2a, y_slots))
+    return ma.combine_unstage(a2a, ma.combine_unpack(a2a, comb), splits,
+                              total)
+
+
+def _fused_transport(ctx: EPMoEContext, x, flat_e, order, splits, n_valid,
+                     w_up, w_down, state):
+    """The fused transport's legs → ((W, T, H) rows in sorted assignment
+    order, the next :class:`EPMoEState` or None)."""
+    nw = x.shape[0]
+    a2a = ctx.a2a
     _, offs, offs_al, sendk = md.send_plan(a2a, splits)
     peer, dest = md.assignment_dest(a2a, flat_e.gather(1, order), offs,
                                     offs_al)
@@ -319,8 +352,60 @@ def _ep_assignments_device(ctx: EPMoEContext, x, flat_e, w_flat, out_rows,
             parity=(state.parity + 1) % 2, disp_tok=state.disp_tok,
             disp_meta=state.disp_meta, comb_tok=state.comb_tok,
             comb_meta=state.comb_meta)
-    y_sorted = md.combine_view(a2a, comb_tok, comb_meta, peer, dest,
-                               offs_al, n_valid)
+    return md.combine_view(a2a, comb_tok, comb_meta, peer, dest, offs_al,
+                           n_valid), new_state
+
+
+def _ep_assignments_device(ctx: EPMoEContext, x, flat_e, w_flat, out_rows,
+                           w_up, w_down, state=None):
+    """Pre-routed assignments of every rank → dispatch → grouped MLP →
+    combine → weighted sum.
+
+    x: (W, R, H) rows of the W = ``ctx.n`` ranks; flat_e: (W, T) expert
+    per assignment (T = R·topk; the sentinel ``num_experts`` masks one);
+    w_flat: (W, T) f32 weights, 0 for masked assignments; w_up / w_down:
+    every rank's experts (:func:`whole_experts`). Returns (W, out_rows,
+    H) f32, and the next :class:`EPMoEState` when ``state`` is given
+    (the fused transport only)."""
+    nw, total = flat_e.shape
+    if ctx.transport == "fused" and ctx.max_m < total:
+        if state is not None:
+            raise ValueError(
+                f"ep_moe LL state: max_m={ctx.max_m} < M·topk={total} — "
+                "the fused transport needs full-assignment capacity and "
+                "the persistent workspaces are sized by it")
+        warn_once(("ep_moe", "fused_cap", ctx.max_m, total),
+                  f"ep_moe: max_m={ctx.max_m} < M·topk={total}; the fused "
+                  "window transport needs full-assignment capacity — using "
+                  "the padded-slot transport (overflow-clamping) instead")
+        ctx = replace(ctx, transport="pallas")
+    if state is not None and ctx.transport != "fused":
+        raise ValueError("ep_moe state= rides the fused transport only (got "
+                         f"transport={ctx.transport!r})")
+    dev = x.device
+    flat_e = flat_e.to(torch.int32)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    valid_a = flat_e < ctx.num_experts
+    n_valid = valid_a.sum(dim=-1, dtype=torch.int32)             # (W,)
+    splits = torch.zeros((nw, ctx.num_experts), dtype=torch.int32,
+                         device=dev)
+    splits.scatter_add_(
+        1, torch.clamp(flat_e, 0, ctx.num_experts - 1).long(),
+        valid_a.to(torch.int32))
+
+    new_state = None
+    if ctx.transport == "fused":
+        y_sorted, new_state = _fused_transport(
+            ctx, x, flat_e, order, splits, n_valid, w_up, w_down, state)
+    else:
+        x_sorted = md._take_rows(x, order // ctx.topk).to(ctx.dtype)
+        toks, rspl = _dispatch(ctx, x_sorted, splits)
+        eid, valid = _slot_tables(ctx, rspl, ctx.max_m)
+        y = _expert_mlp(ctx, toks.reshape(nw, ctx.n * ctx.max_m,
+                                          ctx.hidden), eid, valid, w_up,
+                        w_down)
+        y_sorted = _combine(ctx, y.reshape(nw, ctx.n, ctx.max_m, ctx.hidden),
+                            splits, total)
 
     # back to assignment order by the inverse permutation, then the
     # top-k groups summed: assignment t belongs to token t // topk

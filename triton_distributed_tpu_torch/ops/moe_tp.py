@@ -32,8 +32,25 @@ runs its own slab's codes through the s8 kernel, and the reduce has no
 hop. Each op launches the kernels of
 :mod:`~triton_distributed_tpu_torch.kernels.moe_tp_fused`'s wires.
 
-Not ported: the composed differentiable path (``moe_tp_mlp``,
-``ag_group_gemm`` / ``moe_reduce_rs``), which comes with training.
+The composed pipeline (JAX ``:98-211``, ``:412-470``), forward only
+(the port's grouped GEMM has no backward yet, ROADMAP Queue 1 step 9):
+
+* :func:`align_routing`: one alignment over every token (replicated);
+* :func:`ag_group_gemm`: the tokens' all-gather, on the single
+  controller the (M, K) tensor itself (JAX's ``lax.all_gather``), then
+  each rank's grouped GEMM over the sorted rows against its F columns
+  (:func:`ag_group_gemm_device`);
+* :func:`moe_reduce_rs`: each rank's down projection, its top-k combine
+  into token rows (``scatter_combine``), rounded to ``ctx.dtype``, then
+  :func:`~triton_distributed_tpu_torch.kernels.reduce_scatter.
+  reduce_scatter` of the stacked partials, which sums them in the ring's
+  order, rounding each hop as the TPU's ring does;
+* :func:`moe_tp_mlp` (JAX's ``MoETPMLP(fused=True)`` body): one sort,
+  both grouped GEMMs a rank, the combine, and ``psum_scatter`` as a plain
+  f32 sum of the ranks' partials, rounded once.
+
+DP axes beside ``axis`` (``batch_axes``) are refused (ROADMAP Queue 1
+step 8).
 """
 
 from __future__ import annotations
@@ -45,6 +62,8 @@ import torch
 from triton_distributed_tpu_torch.config import to_torch_dtype
 from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
 from triton_distributed_tpu_torch.kernels import moe_utils as mu
+from triton_distributed_tpu_torch.kernels.group_gemm import grouped_matmul
+from triton_distributed_tpu_torch.kernels.reduce_scatter import reduce_scatter
 from triton_distributed_tpu_torch.lang import wire as wirelib
 from triton_distributed_tpu_torch.lang.shmem import require_stacked
 from triton_distributed_tpu_torch.runtime.topology import Mesh, one_axis
@@ -55,9 +74,12 @@ class MoETPContext:
     """Static geometry of the MoE-TP pipeline: the experts, the top-k,
     the routing ``block_m`` (128 as in JAX; a multiple of the CUDA
     kernels' 64-row tile), the compute dtype, the ``mesh`` whose
-    ``axis`` splits F (None: ``tp == 1``), and the ring ``wire_dtype``
-    (None / 'bf16', 'fp8', 'int8', 'int8-mxu'; see the module
-    docstring)."""
+    ``axis`` splits F (None: ``tp == 1``), and the overlapped rings'
+    ``wire_dtype`` (None / 'bf16', 'fp8', 'int8', 'int8-mxu'; see the
+    module docstring). ``use_pallas_gemm`` (True: the grouped-GEMM
+    kernel), ``rs_collective_id`` / ``ag_collective_id`` (JAX's
+    semaphore ids; the pull kernels wait on none) and ``batch_axes``
+    (``()``) keep JAX's fields."""
 
     num_experts: int
     topk: int
@@ -66,9 +88,22 @@ class MoETPContext:
     mesh: Mesh | None = None
     axis: str = "tp"
     wire_dtype: str | None = None
+    use_pallas_gemm: bool = True
+    rs_collective_id: int = 12
+    ag_collective_id: int = 13
+    batch_axes: tuple = ()
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
+        if not self.use_pallas_gemm:
+            raise NotImplementedError(
+                "MoETPContext(use_pallas_gemm=False) picks JAX's ragged_dot "
+                "twin; the port's grouped GEMM is its kernel (its plain "
+                "version runs on CPU tensors)")
+        if tuple(self.batch_axes):
+            raise NotImplementedError(
+                f"MoETPContext(batch_axes={self.batch_axes!r}): DP axes "
+                "beside the TP axis are ROADMAP Queue 1 step 8 (dp_axes)")
         wire = wirelib.normalize_wire(self.wire_dtype)
         if wire == "auto":
             raise ValueError(
@@ -226,3 +261,102 @@ def moe_tp_mlp_overlapped(x, topk_ids, topk_weights, w_up, w_down,
                                              "output").float()).to(ctx.dtype)
         h = list(hs.unbind(0))
     return moe_reduce_rs_fused(h, routing, topk_weights, w_down, ctx)
+
+
+# ------------------------------------------------------ the composed path
+
+def align_routing(ctx: MoETPContext, topk_ids):
+    """(sorted token ids (cap,), block → expert (cap / block_m,), counts
+    (E,)) of every token's (M, k) ``topk_ids`` (JAX ``:116``): one
+    alignment, shared by :func:`ag_group_gemm` and :func:`moe_reduce_rs`."""
+    return mu.moe_align_block_size(topk_ids, ctx.num_experts, ctx.block_m)
+
+
+def _ranks(t, ctx: MoETPContext, what: str):
+    """A rank-split operand as a list of ``ctx.tp`` tensors."""
+    if ctx.mesh is None:
+        return [t]
+    if not isinstance(t, (list, tuple)) or len(t) != ctx.tp:
+        raise ValueError(f"{what} takes a list of {ctx.tp} per-rank shards "
+                         "over the mesh")
+    return list(t)
+
+
+def ag_group_gemm_device(a_full, sti, be, counts, w_loc, ctx: MoETPContext):
+    """One rank's body after the gather (JAX ``:128``): the (M, K)
+    tokens' rows in expert-sorted order (zeros at the padding) times the
+    rank's (E, K, N_r) expert columns → (cap, N_r) in ``ctx.dtype``."""
+    del counts
+    xs = mu.gather_sorted(a_full, sti, ctx.topk).to(ctx.dtype)
+    return grouped_matmul(xs, w_loc.to(ctx.dtype), be)
+
+
+def ag_group_gemm(a, routing, w, ctx: MoETPContext):
+    """The composed AG ⊕ up projection (JAX ``:149``): a (M, K) tokens,
+    row block r rank r's (gathered: every rank reads all of them), the
+    :func:`align_routing` triple, w (E, K, N) or over a mesh a list of
+    tp column shards (E, K, N/tp) → (cap, N) or a list of tp (cap, N/tp)
+    sorted rows."""
+    sti, be, counts = routing
+    out = [ag_group_gemm_device(a, sti, be, counts, wr, ctx)
+           for wr in _ranks(w, ctx, "ag_group_gemm")]
+    return out[0] if ctx.mesh is None else out
+
+
+def moe_reduce_rs(y, routing, weights, w, ctx: MoETPContext):
+    """The composed down projection ⊕ reduce-scatter (JAX ``:165``,
+    ``:183-211``): y (cap, F) sorted rows, or a list of tp (cap, F/tp);
+    the :func:`align_routing` triple; weights (M, k) router weights; w
+    (E, F, H) or a list of tp row shards (E, F/tp, H) → (M, H) token rows
+    in ``ctx.dtype``, over a mesh row block r summed over the ranks for
+    rank r (the ranks' combined partials, each rounded to ``ctx.dtype``,
+    through :func:`reduce_scatter` with ``stacked=True``)."""
+    sti, be, _ = routing
+    m = weights.shape[0]
+    ys, ws = _ranks(y, ctx, "moe_reduce_rs"), _ranks(w, ctx, "moe_reduce_rs")
+    parts = None
+    for r, (yr, wr) in enumerate(zip(ys, ws)):
+        part = grouped_matmul(yr.to(ctx.dtype), wr.to(ctx.dtype), be)
+        tok = mu.scatter_combine(part, sti, weights, m)
+        if parts is None:
+            parts = torch.empty((len(ys), m, tok.shape[-1]), dtype=ctx.dtype,
+                                device=tok.device)
+        parts[r] = tok
+    if ctx.mesh is None:
+        return parts[0]
+    out = reduce_scatter(list(parts.unbind(0)), ctx.mesh, ctx.axis,
+                         stacked=True, collective_id=ctx.rs_collective_id)
+    return torch.cat(out)
+
+
+def moe_tp_mlp_device(x_full, ids, weights, w_up_loc, w_down_loc,
+                      ctx: MoETPContext, activation: str = "silu"):
+    """One rank's body after the gathers (JAX ``:412``): sort every token
+    once, the rank's up projection, the activation (in ``ctx.dtype``),
+    its down projection and the top-k combine → the rank's (M, H) f32
+    partial, before the reduce-scatter."""
+    from triton_distributed_tpu_torch.ops.moe import _act
+
+    sti, be, _ = mu.moe_align_block_size(ids, ctx.num_experts, ctx.block_m)
+    xs = mu.gather_sorted(x_full, sti, ctx.topk).to(ctx.dtype)
+    h = _act(activation, grouped_matmul(xs, w_up_loc.to(ctx.dtype), be))
+    part = grouped_matmul(h.to(ctx.dtype), w_down_loc.to(ctx.dtype), be)
+    return mu.scatter_combine(part, sti, weights, x_full.shape[0])
+
+
+def moe_tp_mlp(x, topk_ids, topk_weights, w_up, w_down, ctx: MoETPContext,
+               activation: str = "silu"):
+    """The single-body TP MoE MLP (JAX ``:459``, ``MoETPMLP(fused=True)``):
+    x (M, K), topk_ids / topk_weights (M, k), w_up (E, K, F) / w_down
+    (E, F, H), over a mesh lists of tp F shards → (M, H) in
+    ``ctx.dtype``. Each rank's f32 partial (:func:`moe_tp_mlp_device`);
+    the ``psum_scatter`` is their f32 sum, cut into the ranks' row blocks
+    and rounded once."""
+    ups = _ranks(w_up, ctx, "moe_tp_mlp")
+    downs = _ranks(w_down, ctx, "moe_tp_mlp")
+    acc = None
+    for wu, wd in zip(ups, downs):
+        part = moe_tp_mlp_device(x, topk_ids, topk_weights, wu, wd, ctx,
+                                 activation)
+        acc = part if acc is None else acc + part
+    return acc.to(ctx.dtype)
