@@ -284,6 +284,29 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/all_to_all.cu",
         replaces="triton_distributed_tpu/kernels/all_to_all.py:30"),
+    # the int8-mxu GEMM-RS producers: the s8 partials stand for both TPU
+    # kernels (:317 here, :394 too), each fold for its own
+    "gemm_rs_mx": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:317"),
+    "gemm_rs_mxw_fold": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:317"),
+    "gemm_rs_mxr_fold": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
+        replaces="triton_distributed_tpu/kernels/gemm_rs.py:394"),
+    # the other all-gathers: the bidirectional ring and the persistent LL
+    "all_gather_bidir": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/allgather.cu",
+        replaces="triton_distributed_tpu/kernels/allgather.py:150"),
+    "all_gather_persist": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/allgather.cu",
+        replaces="triton_distributed_tpu/kernels/allgather.py:231"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -381,6 +404,27 @@ COMPOSED_TOL = 0.02
 # the same rows meet the same experts with the same per-row arithmetic;
 # one bf16 rounding of the largest output is room for a summation order
 EP_PALLAS_TOL = 2.0 ** -8
+
+#: the step-4 path: the int8-mxu GEMM-RS producers through the row
+#: layer on DeepSeek-MoE-16B's wo at tp = 4 (4 x 2048 rows a rank, K 512
+#: a rank, an outlier row x1000 a shard), cut to N 1024 and 512, the
+#: widest outputs JAX's gate admits (its hidden is 2048; no preset has a
+#: row-parallel output this narrow), on both epilogues, and at N 2048,
+#: where int8-mxu demotes to the int8 wire; then the bidirectional
+#: all-gather of Llama-2-7B's last MLP output at tp = 4 (4 x (2048, 4096)
+#: bf16, 16 MiB a shard) through all_gather(method=None) and at split8 2,
+#: 4, 6; and 32 calls of PersistentLLAllGather at the tp = 4 decode's
+#: partial shape (4 x (8, 4096) bf16, 64 KiB a shard). Its rows' launches
+#: and shapes come from that one run
+STEP4_ROWS = ("gemm_rs_mx", "gemm_rs_mxw_fold", "gemm_rs_mxr_fold",
+              "all_gather_bidir", "all_gather_persist")
+STEP4_M, STEP4_K, STEP4_NS, STEP4_DEMOTED = 2048, 512, (1024, 512), 2048
+STEP4_SPLITS = (None, 2, 4, 6)
+STEP4_LL_CALLS, STEP4_LL_SHAPE = 32, (DEC_B, 4096)
+STEP4_AG_SHAPE = (DEC_B * DEC_PROMPT // TP, 4096)
+# JAX's pinned int8-mxu contract (tests/test_wire.py): against the exact
+# product, and against the dequantizing int8 wire
+MX_EXACT_TOL, MX_TWIN_TOL = 0.04, 0.03
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -2607,6 +2651,187 @@ def check_collectives(res: Results, dev, n_moe: int):
         del x, dst
 
 
+def step4_operands(dev, g, n):
+    """The step-4 GEMM-RS's shards: A_q (TP·m, K) bf16 with an outlier
+    row (x1000) a shard, B_q (K, N) scaled to unit outputs."""
+    a = wire_operands(dev, g, (TP * STEP4_M, STEP4_K), outlier=True)
+    b = wire_operands(dev, g, (STEP4_K, n), (TP * STEP4_K) ** -0.5)
+    return a, b
+
+
+def check_step4_kernels(res: Results, dev):
+    """The step-4 kernels over a loopback mesh of 4 ranks against their
+    plain versions, at the step-4 path's shapes, each timed beside its
+    plain version, one PyTorch call (or none) and the bound: the int8-mxu
+    GEMM-RS's s8 partials (``tdt_gemm_rs_mx``, f32 slabs for the
+    accumulator epilogue, bf16 for the readback one) and its two folds,
+    bit-exact, at N 1024 and 512 (JAX's row block, 512 rows, is the
+    scale chunk); the bidirectional all-gather at 4 x (2048, 4096) bf16,
+    without a schedule and at split8 2, 4, 6, and the persistent LL
+    gather at 4 x (8, 4096) bf16 (from a CUDA graph: the launch bounds
+    it), byte-exact. The rows weigh each shape by its launches in
+    :func:`run_step4_path`."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import ag_gemm as agm
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.kernels import wire as wk
+    from triton_distributed_tpu_torch.lang import wire as tw
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.tune.schedule import GridSchedule
+
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(40)
+    m, k, rows = STEP4_M, STEP4_K, TP * STEP4_M
+    for n in STEP4_NS:
+        a, b = step4_operands(dev, g, n)
+        plan = grs.resolve_gemm_rs_plan(mesh, "tp", a, b,
+                                        wire_dtype="int8-mxu")
+        if plan.wire != "int8-mxu":
+            res.failures.append(f"step4 N {n}: int8-mxu resolved to "
+                                f"{plan.wire}, not the s8 producer")
+            continue
+        cr = plan.chunk_rows
+        fmt = tw.WireFormat("int8", cr)
+        q, s = wk.quantize_shards(a, fmt)
+        bqt, bs = agm.quantize_cols_shards(b)
+        tag = (f"deepseek_moe_16b wo tp={TP} N={n} A_q {TP} x {(rows, k)} "
+               f"B_q {TP} x {(k, n)} chunk_rows={cr}")
+        ops = 2.0 * TP * rows * k * n
+        # the partials' library call: each rank's torch._int_mm, then the
+        # epilogue (no one call takes every rank's own B)
+        codes = [qr.contiguous() for qr in q]
+        bcols = [br.t() for br in bqt]
+        rsc = [sr.repeat_interleave(cr)[:, None] for sr in s]
+
+        def lib_partials(pdt):
+            return [(torch._int_mm(c, bc).float() * (r * bsr[None, :]))
+                    .to(pdt) for c, bc, r, bsr in zip(codes, bcols, rsc, bs)]
+
+        parts = {}
+        for pdt, epi in ((f32, "accumulator"), (bf16, "readback")):
+            got = grs.gemm_rs_mx_partials(q, s, bqt, bs, mesh, cr, pdt)
+            want = grs.mx_partials_plain(q, s, bqt, bs, cr, pdt)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, want))
+            what = f"{tag} partials {str(pdt)[6:]} ({epi})"
+            res.check("gemm_rs_mx", 0.0 if same else 1.0, 0.0,
+                      what + " (bit-exact: s32 sums)", metric="bits differ")
+            res.kernel("gemm_rs_mx", err=0.0)
+            parts[epi] = got
+            del want
+            ms = time_ms(lambda: grs.gemm_rs_mx_partials(q, s, bqt, bs, mesh,
+                                                         cr, pdt), 5)
+            plain = time_ms(lambda: grs.mx_partials_plain(q, s, bqt, bs, cr,
+                                                          pdt), 1)
+            lib = time_ms(lambda: lib_partials(pdt), 5)
+            # every rank's codes and scales, B's codes and scales read
+            # once, every partial slab written once
+            nbytes = (TP * rows * k + 4 * TP * rows // cr + TP * n * k
+                      + 4 * TP * n + TP * rows * n * (4 if pdt == f32 else 2))
+            bnd, by = bound_ms(nbytes, ops, H100_INT8_OPS)
+            log(f"time gemm_rs_mx {what} (1/run, one launch for {TP} "
+                f"ranks): kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                f"library_ms={lib:.4f} (torch._int_mm + epilogue, rank by "
+                f"rank) bound_ms={bnd:.4f} ({by})")
+            res.shape("gemm_rs_mx", 1, ms, plain, lib, nbytes, ops,
+                      H100_INT8_OPS)
+        for epi, row in (("accumulator", "gemm_rs_mxw_fold"),
+                         ("readback", "gemm_rs_mxr_fold")):
+            p = parts[epi]
+            got = grs.gemm_rs_mx_fold(p, mesh, fmt, bf16, epi)
+            want = grs.gemm_rs_mx_fold_plain(p, fmt, bf16, epi)
+            whole = grs.gemm_rs(a, b, mesh, wire_dtype="int8-mxu",
+                                schedule=GridSchedule(epilogue=epi))
+            torch.cuda.synchronize()
+            for out, part in ((got, "fold"), (whole, "whole call")):
+                same = all(torch.equal(x, y) for x, y in zip(out, want))
+                res.check(row, 0.0 if same else 1.0, 0.0,
+                          f"{tag} {epi} {part} = the plain fold of the "
+                          "kernel's partials", metric="bits differ")
+            res.kernel(row, err=0.0)
+            del got, want, whole
+            ms = time_ms(lambda: grs.gemm_rs_mx_fold(p, mesh, fmt, bf16, epi),
+                         5)
+            plain = time_ms(lambda: grs.gemm_rs_mx_fold_plain(p, fmt, bf16,
+                                                              epi), 1)
+            call_ms = time_ms(lambda: grs.gemm_rs(
+                a, b, mesh, wire_dtype="int8-mxu",
+                schedule=GridSchedule(epilogue=epi)), 3)
+            # every partial read once, every output written once
+            nbytes = TP * rows * n * p[0].element_size() + 2 * TP * m * n
+            bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+            log(f"time {row} {tag} {epi} (1/run, one launch for {TP} ranks, "
+                f"{TP * m // cr} blocks): kernel_ms={ms:.4f} plain_ms="
+                f"{plain:.4f} library_ms=None (no one PyTorch call "
+                f"requantizes each hop) bound_ms={bnd:.4f} ({by}); "
+                f"call_ms={call_ms:.4f} (the wrapper: A's quantizer, B's "
+                "per-column quantization in torch ops, partials, fold)")
+            res.shape(row, 1, ms, plain, None, nbytes, 0.0, H100_BF16_OPS)
+        del a, b, q, s, bqt, bs, codes, bcols, rsc, parts
+
+    # the bidirectional all-gather at Llama-2-7B's last MLP output
+    x = wire_operands(dev, g, STEP4_AG_SHAPE)
+    want = torch.cat(x)
+    nb = x[0].numel() * x[0].element_size()
+    nbytes = TP * nb + TP * TP * nb
+    cols = STEP4_AG_SHAPE[1]
+    for split8 in STEP4_SPLITS:
+        kh = agk.bidir_split(cols, split8)
+        got = agk._all_gather_bidir_cuda(x, mesh, kh)
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, want) for o in got)
+        what = (f"llama_7b tp={TP} last MLP output {TP} x {STEP4_AG_SHAPE} "
+                f"bf16 split8={split8} (kh {kh})")
+        res.check("all_gather_bidir", 0.0 if same else 1.0, 0.0, what,
+                  metric="bytes differ")
+        res.kernel("all_gather_bidir", err=0.0)
+        del got
+        ms = time_ms(lambda: agk._all_gather_bidir_cuda(x, mesh, kh), 10)
+        plain = time_ms(lambda: agk.all_gather_bidir_plain(x, kh), 2)
+        lib = time_ms(lambda: torch.cat(x * TP), 10)
+        bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+        log(f"time all_gather_bidir {what} (1/run, one launch for {TP} "
+            f"ranks): kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms="
+            f"{lib:.4f} (one torch.cat of every rank's copy) bound_ms="
+            f"{bnd:.4f} ({by})")
+        res.shape("all_gather_bidir", 1, ms, plain, lib, nbytes, 0.0,
+                  H100_BF16_OPS)
+    del x, want
+
+    # the persistent LL gather at the tp = 4 decode's partial shape; 24
+    # inputs apart, so that the graph's calls stream from memory
+    ins = [wire_operands(dev, g, STEP4_LL_SHAPE) for _ in range(24)]
+    ll = agk.PersistentLLAllGather(mesh, "tp", STEP4_LL_SHAPE, bf16)
+    what = f"tp={TP} decode partial {TP} x {STEP4_LL_SHAPE} bf16"
+    for c in range(2):
+        got = ll(ins[c])
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, torch.cat(ins[c])) for o in got)
+        res.check("all_gather_persist", 0.0 if same else 1.0, 0.0,
+                  f"{what}, call {c}", metric="bytes differ")
+    res.kernel("all_gather_persist", err=0.0)
+    ws = [w.clone() for w in ll.workspace]
+    ms = graph_time_ms(lambda i: agk._ll_persist_cuda(ins[i], ll.ws, mesh,
+                                                      i % 2))
+    plain = time_ms(lambda: agk.ll_persist_plain(ins[0], ws, 0), 20)
+    lib = time_ms(lambda: torch.cat(ins[0] * TP), 20)
+    nb = ins[0][0].numel() * ins[0][0].element_size()
+    # the shards read once, every rank's window and output written once
+    nbytes = TP * nb + 2 * TP * TP * nb
+    bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+    log(f"time all_gather_persist {what} ({STEP4_LL_CALLS}/run, one "
+        f"launch for {TP} ranks): kernel_ms={ms:.4f} (graph) plain_ms="
+        f"{plain:.4f} library_ms={lib:.4f} (one torch.cat of every rank's "
+        f"copy) bound_ms={bnd:.6f} ({by}; the launch bounds it)")
+    res.shape("all_gather_persist", STEP4_LL_CALLS, ms, plain, lib, nbytes,
+              0.0, H100_BF16_OPS)
+    del ins, ll, ws
+
+
 def check_tiny_moe_tp4(res: Results, dev):
     """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and in
     its TP flavour at tp = 4 on a loopback mesh, on the card and on the
@@ -3236,10 +3461,13 @@ def run_wire_path(res: Results, dev):
 @contextlib.contextmanager
 def _plain_versions_raise():
     """Within the block, the MoE-TP plain versions, the plain wire
-    quantizers, the grouped GEMM's, the reduce-scatter's and the
-    all-to-all's plain versions raise: a path on CUDA tensors must launch
+    quantizers, the grouped GEMM's, the reduce-scatter's, the
+    all-to-all's, the GEMM-RS's (its int8-mxu producers too) and the
+    all-gathers' plain versions raise: a path on CUDA tensors must launch
     the kernels."""
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
@@ -3258,6 +3486,12 @@ def _plain_versions_raise():
               (tw, "dequantize_slab"), (gg, "grouped_matmul_plain"),
               (rs, "reduce_scatter_plain"), (rs, "gemm_rs_fold_plain"),
               (a2a, "all_to_all_plain")]
+    names += [(grs, n) for n in (
+        "gemm_rs_plain", "gemm_rs_fold_plain", "wire_fold_plain",
+        "gemm_rs_mx_plain", "mx_partials_plain", "mxw_fold_plain",
+        "gemm_rs_mx_fold_plain")]
+    names += [(agk, n) for n in ("all_gather_plain", "all_gather_bidir_plain",
+                                 "ll_persist_plain")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, boom)
@@ -3638,6 +3872,119 @@ def run_collectives_path(res: Results, dev, n_moe: int):
     return {k: counts_a[k] + counts_b[k] for k in COLL_ROWS}
 
 
+def run_step4_path(res: Results, dev):
+    """The step-4 path through the entry points a user calls, with the
+    plain versions made to raise: ``RowParallelLinear`` on an
+    ``OverlapContext(wire_dtype='int8-mxu')`` (no method: JAX's fused
+    engine) at N 1024 and 512, the s8 producer with the accumulator
+    epilogue, and ``gemm_rs(..., schedule=GridSchedule(epilogue=
+    'readback'))`` on the same operands; each within JAX's pinned
+    int8-mxu limits of the exact product and of the int8 wire. At N 2048
+    the row layer's int8-mxu is the int8 wire bit for bit (the
+    demotion). Then ``all_gather(method=None)`` of Llama-2-7B's last MLP
+    output at tp = 4 (the bidirectional ring; also at split8 2, 4, 6) and
+    32 calls of ``PersistentLLAllGather`` at the decode's partial shape,
+    byte-exact, the workspace windows holding the last two calls' rows.
+    Counts every launch of the run. Returns {kernel: launches}."""
+    import torch
+
+    from triton_distributed_tpu_torch import layers, ops
+    from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        launches_by_tpu_kernel,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.runtime import AllGatherMethod, Mesh
+    from triton_distributed_tpu_torch.tune.schedule import (
+        GridSchedule,
+        RingSchedule,
+    )
+
+    name = f"step4 tp{TP}"
+    torch.cuda.empty_cache()
+    mesh = Mesh.loopback(TP, dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    row = {w: layers.RowParallelLinear(ops.OverlapContext(mesh, "tp",
+                                                          wire_dtype=w))
+           for w in ("int8-mxu", "int8")}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    errs = []
+    for n in (*STEP4_NS, STEP4_DEMOTED):
+        a, b = step4_operands(dev, g, n)
+        p = {"w": b}
+        mxw = row["int8-mxu"](p, a)
+        int8 = row["int8"](p, a)
+        if n == STEP4_DEMOTED:
+            if not all(torch.equal(x, y) for x, y in zip(mxw, int8)):
+                res.failures.append(f"{name}: int8-mxu at N {n} is not the "
+                                    "int8 wire bit for bit")
+            del a, b, p, mxw, int8
+            continue
+        mxr = grs.gemm_rs(a, b, mesh, wire_dtype="int8-mxu",
+                          schedule=GridSchedule(epilogue="readback"))
+        exact = sum(aq.float() @ bq.float() for aq, bq in zip(a, b))
+        exact = list(exact.chunk(TP, dim=0))
+        for epi, out in (("accumulator", mxw), ("readback", mxr)):
+            errs.append((n, epi, _rel_err(out, exact), _rel_err(out, int8)))
+        del a, b, p, mxw, int8, mxr, exact
+    x = wire_operands(dev, g, STEP4_AG_SHAPE)
+    want = torch.cat(x)
+    gathered = [agk.all_gather(x, mesh)]
+    gathered += [agk.all_gather(x, mesh, method=AllGatherMethod.RING_BIDIR,
+                                schedule=RingSchedule(split8=s))
+                 for s in STEP4_SPLITS[1:]]
+    ll = agk.PersistentLLAllGather(mesh, "tp", STEP4_LL_SHAPE, torch.bfloat16)
+    calls = [wire_operands(dev, g, STEP4_LL_SHAPE)
+             for _ in range(STEP4_LL_CALLS)]
+    outs = [ll(c) for c in calls]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    by_tpu = launches_by_tpu_kernel()
+    log(f"path {name}: int8-mxu GEMM-RS at N {STEP4_NS} x 2 epilogues and "
+        f"{STEP4_DEMOTED} (demoted), {len(gathered)} bidirectional gathers, "
+        f"{STEP4_LL_CALLS} persistent LL calls in {wall:.2f} s; launches "
+        + " ".join(f"{k}={v}" for k, v in counts.items() if v)
+        + f"; by TPU kernel {by_tpu}")
+    nn = len(STEP4_NS)
+    expect = {"gemm_rs_mx": 2 * nn, "gemm_rs_mxw_fold": nn,
+              "gemm_rs_mxr_fold": nn, "all_gather_bidir": len(STEP4_SPLITS),
+              "all_gather_persist": STEP4_LL_CALLS,
+              "wire_quantize": 2 * nn,
+              "gemm_rs_wire": nn + 2, "gemm_rs_fold": nn + 2}
+    for k, v in counts.items():
+        if v != expect.get(k, 0):
+            res.failures.append(f"{name}: {v} {k} launches, expected "
+                                f"{expect.get(k, 0)}")
+    if by_tpu != {"_fused_kernel_mxw": nn, "_fused_kernel_mxr": nn}:
+        res.failures.append(f"{name}: the s8 partials stood for {by_tpu}")
+    for n, epi, to_exact, to_int8 in errs:
+        res.check(name, to_exact, MX_EXACT_TOL, f"int8-mxu {epi} N {n} vs "
+                  "the exact product", metric="max_rel_err")
+        res.check(name, to_int8, MX_TWIN_TOL, f"int8-mxu {epi} N {n} vs the "
+                  "int8 wire", metric="max_rel_err")
+    bad = sum(not torch.equal(o, want) for got in gathered for o in got)
+    res.check(name, bad, 0, f"all_gather {TP} x {STEP4_AG_SHAPE} bf16 "
+              f"(method None and split8 {STEP4_SPLITS[1:]}) vs torch.cat",
+              metric="ranks differ")
+    bad = sum(not torch.equal(o, torch.cat(c))
+              for c, got in zip(calls, outs) for o in got)
+    rows = TP * STEP4_LL_SHAPE[0]
+    last = {(len(calls) - 1) % 2: calls[-1], len(calls) % 2: calls[-2]}
+    bad_ws = sum(not torch.equal(ws[w * rows:(w + 1) * rows],
+                                 torch.cat(last[w]))
+                 for ws in ll.workspace for w in (0, 1))
+    res.check(name, bad, 0, f"PersistentLLAllGather {STEP4_LL_CALLS} calls "
+              "vs torch.cat", metric="outputs differ")
+    res.check(name, bad_ws, 0, "PersistentLLAllGather windows vs the last "
+              "two calls' rows", metric="windows differ")
+    return counts
+
+
 def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
     """DeepSeek-MoE-16B at tp = 4 on a loopback mesh of the card, from
     the MoE generation path's tp = 1 run ``one`` (:func:`run_decode_path`
@@ -4009,6 +4356,7 @@ def main() -> int:
     check_moe_tp_mesh_kernels(res, dev, n_moe)
     check_moe_wire_kernels(res, dev, n_moe)
     check_collectives(res, dev, n_moe)
+    check_step4_kernels(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
@@ -4035,6 +4383,8 @@ def main() -> int:
     wire_counts = run_wire_path(res, dev)
     moe_wire_counts = run_moe_wire_path(res, dev, n_moe)
     coll_counts = run_collectives_path(res, dev, n_moe)
+    with _plain_versions_raise():
+        step4_counts = run_step4_path(res, dev)
     for k, v in run_decode_path(res, dev, "llama_7b int8", llama,
                                 profile=opts.profile).items():
         decode_counts[k] += v
@@ -4120,6 +4470,8 @@ def main() -> int:
             n, steps = moe_wire_counts[name], 1
         elif name in COLL_ROWS:
             n, steps = coll_counts[name], 1
+        elif name in STEP4_ROWS:
+            n, steps = step4_counts[name], 1
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

@@ -1011,6 +1011,10 @@ class TestWireKernels:
                           (grs, "gemm_rs_plain"), (grs, "gemm_rs_fold_plain"),
                           (grs, "wire_fold_plain"), (ag, "all_gather_plain"),
                           (ag, "all_gather_wired_plain"),
+                          (grs, "gemm_rs_mx_plain"),
+                          (grs, "mx_partials_plain"),
+                          (grs, "mxw_fold_plain"),
+                          (ag, "all_gather_bidir_plain"),
                           (tw, "quantize_slab"), (tw, "dequantize_slab")):
             monkeypatch.setattr(mod, name, boom)
         mesh = Mesh.loopback(4, dev)
@@ -1019,8 +1023,16 @@ class TestWireKernels:
                                            38)]
         down = [t / 16 for t in _wire_shards(dev, 4, 128, 256,
                                              torch.bfloat16, 39)]
-        for wire, ag_row in (("fp8", "ag_gemm_wire"), ("int8", "ag_gemm_wire"),
-                             ("int8-mxu", "ag_gemm_mx")):
+        # the down projection (N 256) blocks to one out tile, so
+        # int8-mxu runs the s8 producer and the accumulator epilogue's
+        # fold (JAX's _fused_kernel_mxw), with a second quantizer launch
+        # for the GEMM-RS's A; fp8 and int8 run the partials and the fold
+        wired = {"wire_quantize": 1, "ag_gemm_wire": 1, "gemm_rs_wire": 1,
+                 "gemm_rs_fold": 1}
+        for wire, want in (("fp8", wired), ("int8", wired),
+                           ("int8-mxu", {"wire_quantize": 2, "ag_gemm_mx": 1,
+                                         "gemm_rs_mx": 1,
+                                         "gemm_rs_mxw_fold": 1})):
             ctx = ops.OverlapContext(mesh, "tp", wire_dtype=wire)
             before = launch_counts()
             h = ops.ag_gemm(x, up, ctx)
@@ -1028,12 +1040,11 @@ class TestWireKernels:
             after = launch_counts()
             moved = {k: after[k] - before[k] for k in after
                      if after[k] != before[k]}
-            assert moved == {"wire_quantize": 1, ag_row: 1,
-                             "gemm_rs_wire": 1, "gemm_rs_fold": 1}
+            assert moved == want
             assert all(t.isfinite().all() for t in y)
         # 'auto' on the ring: 128 KiB shards stay raw, 256 KiB go on
         # fp8; with no method, 256 KiB stay raw at 4 ranks (JAX's pick,
-        # the bidirectional ring, carries no wire)
+        # the bidirectional ring, carries no wire and runs its kernel)
         from triton_distributed_tpu_torch.runtime import AllGatherMethod
 
         xa = _wire_shards(dev, 4, 64, 1024, torch.bfloat16, 40)
@@ -1044,7 +1055,8 @@ class TestWireKernels:
         ag.all_gather(xb, mesh, method=ring, wire_dtype="auto")
         ag.all_gather(xb, mesh, wire_dtype="auto")
         after = launch_counts()
-        assert after["all_gather"] == before["all_gather"] + 2
+        assert after["all_gather"] == before["all_gather"] + 1
+        assert after["all_gather_bidir"] == before["all_gather_bidir"] + 1
         assert after["all_gather_wire"] == before["all_gather_wire"] + 1
         assert after["wire_quantize"] == before["wire_quantize"] + 1
 
@@ -1909,3 +1921,173 @@ class TestCollectiveKernels:
         monkeypatch.setattr(_build, "lib", no_lib)
         with pytest.raises(RuntimeError, match="nvcc failed"):
             a2a.all_to_all(x, mesh)
+
+
+# ------------------------------------------- the other all-gathers, int8-mxu RS
+
+def _mx_operands(dev, w, m, k, n, dtype, seed):
+    """The int8-mxu GEMM-RS's operands: W column shards A_q (W·m, K) with
+    an outlier row (x1000) in shard 0 and W row shards B_q (K, N)."""
+    rng = np.random.default_rng(seed)
+    a = _mesh_shards(rng, dev, w, (w * m, k), dtype, False)
+    a[0][3] *= 1000.0
+    b = [x / np.sqrt(w * k) for x in _mesh_shards(rng, dev, w, (k, n),
+                                                  dtype, False)]
+    return a, b
+
+
+class TestStep4Kernels:
+    """The int8-mxu GEMM-RS producers (``tdt_gemm_rs_mx``, the fold's
+    two modes) and the bidirectional and persistent all-gathers against
+    their plain versions: bit for bit, byte for byte."""
+
+    @pytest.mark.parametrize("part", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(32, 72, 40, 16), (64, 256, 136, 64)])
+    def test_mx_partials_are_exact(self, dev, shape, w, part):
+        """s32 sums are exact in any order and the epilogue is the plain
+        version's, acc · (a_scale · b_scale): bit for bit (K 72: the byte
+        loads; K 256: 16-byte rows; N past one 128-wide tile)."""
+        from triton_distributed_tpu_torch.kernels import wire as wk
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n, cr = shape
+        mesh = Mesh.loopback(w, dev)
+        a, b = _mx_operands(dev, w, m, k, n, torch.bfloat16, 60)
+        fmt = tw.WireFormat("int8", cr)
+        q, s = wk.quantize_shards(a, fmt)
+        bqt, bs = agm.quantize_cols_shards(b)
+        pdt = getattr(torch, part)
+        before = launch_counts()["gemm_rs_mx"]
+        got = grs.gemm_rs_mx_partials(q, s, bqt, bs, mesh, cr, pdt)
+        assert launch_counts()["gemm_rs_mx"] == before + 1
+        want = grs.mx_partials_plain(q, s, bqt, bs, cr, pdt)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == pdt and g.shape == (w * m, n)
+            assert torch.equal(g, ref)
+
+    @pytest.mark.parametrize("epilogue", ["accumulator", "readback"])
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(32, 72, 36), (64, 136, 256)])
+    def test_int8_mxu_gemm_rs_is_exact(self, dev, shape, w, out, epilogue):
+        """The whole int8-mxu GEMM-RS on the fused engine (one out tile:
+        N 36, ragged, and 256): the fold of the plan's epilogue on the
+        kernel's own partials equals the plain fold of them bit for bit,
+        and so does the call; launches: the quantizer, the partials (by
+        the TPU kernel), the fold's mode."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+        from triton_distributed_tpu_torch.kernels import wire as wk
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+        from triton_distributed_tpu_torch.tune.schedule import GridSchedule
+
+        m, k, n = shape
+        mesh = Mesh.loopback(w, dev)
+        odt = getattr(torch, out)
+        a, b = _mx_operands(dev, w, m, k, n, torch.bfloat16, 61)
+        sched = GridSchedule(epilogue=epilogue)
+        plan = grs.resolve_gemm_rs_plan(mesh, "tp", a, b,
+                                        wire_dtype="int8-mxu",
+                                        schedule=sched)
+        assert plan.wire == "int8-mxu" and plan.chunk_rows == m
+        fmt = tw.WireFormat("int8", plan.chunk_rows)
+        q, s = wk.quantize_shards(a, fmt)
+        bqt, bs = agm.quantize_cols_shards(b)
+        pdt = odt if epilogue == "readback" else torch.float32
+        parts = grs.gemm_rs_mx_partials(q, s, bqt, bs, mesh, fmt.chunk_rows,
+                                        pdt)
+        folded = grs.gemm_rs_mx_fold(parts, mesh, fmt, odt, epilogue)
+        reset_launch_counts()
+        got = grs.gemm_rs(a, b, mesh, wire_dtype="int8-mxu", out_dtype=odt,
+                          schedule=sched)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        fold_row = ("gemm_rs_mxr_fold" if epilogue == "readback"
+                    else "gemm_rs_mxw_fold")
+        assert counts == {"wire_quantize": 1, "gemm_rs_mx": 1, fold_row: 1}
+        assert launches_by_tpu_kernel() == {plan.tpu_kernel: 1}
+        want = grs.gemm_rs_mx_fold_plain(parts, fmt, odt, epilogue)
+        torch.cuda.synchronize()
+        for d in range(w):
+            assert got[d].dtype == odt and got[d].shape == (m, n)
+            assert torch.equal(folded[d], want[d])
+            assert torch.equal(got[d], want[d])
+
+    def test_int8_mxu_demotes_to_the_int8_wire(self, dev):
+        """N 2048 spans two out tiles: int8-mxu runs the int8 wire, bit
+        for bit, and ``demote='strict'`` raises instead."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+        from triton_distributed_tpu_torch.tune.schedule import GridSchedule
+
+        mesh = Mesh.loopback(4, dev)
+        a, b = _mx_operands(dev, 4, 64, 128, 2048, torch.bfloat16, 62)
+        before = launch_counts()
+        got = grs.gemm_rs(a, b, mesh, wire_dtype="int8-mxu")
+        after = launch_counts()
+        assert after["gemm_rs_mx"] == before["gemm_rs_mx"]
+        want = grs.gemm_rs(a, b, mesh, wire_dtype="int8")
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, want))
+        with pytest.raises(ValueError, match="strict"):
+            grs.gemm_rs(a, b, mesh, wire_dtype="int8-mxu",
+                        schedule=GridSchedule(demote="strict"))
+
+    @pytest.mark.parametrize("split8", [None, 2, 6])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+    @pytest.mark.parametrize("w", [2, 4])
+    @pytest.mark.parametrize("shape", [(13, 7), (64, 512), (5, 300, 3)])
+    def test_all_gather_bidir_is_byte_exact(self, dev, shape, w, dtype,
+                                            split8):
+        """Rows off the 16-byte grid (the byte loop), aligned rows split
+        at 128 columns or more, a 3-D shard split along dim 1: every
+        rank's result equals ``torch.cat``, one launch."""
+        from triton_distributed_tpu_torch.runtime import AllGatherMethod, Mesh
+        from triton_distributed_tpu_torch.tune.schedule import RingSchedule
+
+        rng = np.random.default_rng(63)
+        tdt = getattr(torch, dtype)
+        mesh = Mesh.loopback(w, dev)
+        full = _t(rng.integers(-100, 100, (w, *shape)), dev, tdt)
+        x = list(full.unbind(0))
+        sched = None if split8 is None else RingSchedule(split8=split8)
+        before = launch_counts()["all_gather_bidir"]
+        got = ag.all_gather(x, mesh, method=AllGatherMethod.RING_BIDIR,
+                            schedule=sched)
+        assert launch_counts()["all_gather_bidir"] == before + 1
+        want = torch.cat(x)
+        torch.cuda.synchronize()
+        for g in got:
+            assert torch.equal(g, want)
+
+    @pytest.mark.parametrize("shape", [(8, 4096), (3, 5)])
+    def test_persistent_ll_windows(self, dev, shape):
+        """Three calls of ``PersistentLLAllGather``: every output equals
+        ``torch.cat``, and afterwards every rank's workspace holds call
+        2's rows in window 0 and call 1's in window 1; one launch a
+        call; ``all_gather(method=LL_PERSIST)`` runs the same kernel."""
+        from triton_distributed_tpu_torch.runtime import AllGatherMethod, Mesh
+
+        w = 4
+        mesh = Mesh.loopback(w, dev)
+        ll = ag.PersistentLLAllGather(mesh, "tp", shape, torch.bfloat16)
+        rng = np.random.default_rng(64)
+        calls = [list(_t(rng.standard_normal((w, *shape)), dev,
+                         torch.bfloat16).unbind(0)) for _ in range(3)]
+        before = launch_counts()["all_gather_persist"]
+        for x in calls:
+            got = ll(x)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, torch.cat(x)) for g in got)
+        assert launch_counts()["all_gather_persist"] == before + 3
+        rows = w * shape[0]
+        for ws in ll.workspace:
+            assert torch.equal(ws[:rows], torch.cat(calls[2]))
+            assert torch.equal(ws[rows:], torch.cat(calls[1]))
+        got = ag.all_gather(calls[0], mesh, method=AllGatherMethod.LL_PERSIST)
+        assert launch_counts()["all_gather_persist"] == before + 4
+        assert all(torch.equal(g, torch.cat(calls[0])) for g in got)

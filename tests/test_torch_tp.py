@@ -117,12 +117,19 @@ class TestAllGather:
     @pytest.mark.parametrize("method", ["RING_BIDIR", "LL_PERSIST",
                                         "XLA_FALLBACK"])
     def test_unported_methods_raise(self, tmesh, method):
-        """The unported methods raise. The quantized wire is ported
+        """Only XLA_FALLBACK stays unported and raises; RING_BIDIR and
+        LL_PERSIST, ported since (tests/test_torch_allgather_methods.py),
+        give ``torch.cat``'s bytes. The quantized wire is ported
         (tests/test_torch_wire.py): a pinned fp8 wire on shards that
         cannot carry it (3 columns) raises ValueError."""
-        x = [torch.zeros((2, 3)) for _ in range(W)]
-        with pytest.raises(NotImplementedError, match="Queue 2 item 11"):
-            tallg.all_gather(x, tmesh, method=AllGatherMethod[method])
+        x = [torch.full((2, 3), float(r)) for r in range(W)]
+        if method == "XLA_FALLBACK":
+            with pytest.raises(NotImplementedError, match="XLA"):
+                tallg.all_gather(x, tmesh, method=AllGatherMethod[method])
+        else:
+            for g in tallg.all_gather(x, tmesh,
+                                      method=AllGatherMethod[method]):
+                assert torch.equal(g, torch.cat(x))
         with pytest.raises(ValueError, match="wire"):
             tallg.all_gather(x, tmesh, wire_dtype="fp8")
 

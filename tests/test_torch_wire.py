@@ -303,13 +303,15 @@ class TestGemmRsWire:
         """Against JAX's XLA ring twin: the same hop order (destination
         d folds rank d − 1's partial first, its own last), each hop's
         running sum requantized: within 1e-5 of the largest output
-        (int8-mxu ships its int8 payload, as JAX resolves it)."""
+        (int8-mxu ships its int8 payload there, as JAX resolves it; the
+        port's context names the same engine)."""
         m, kq, n = shape
         a, b = _operands(20, W * m, W * kq, n)
         want = np.asarray(j_gemm_rs(jnp.asarray(a), jnp.asarray(b), jmesh,
                                     "tp", method=GemmRSMethod.XLA_RING,
                                     wire_dtype=wire))
-        ctx = ops.create_gemm_rs_context(tmesh, "tp", wire_dtype=wire)
+        ctx = ops.create_gemm_rs_context(
+            tmesh, "tp", method=trs.GemmRSMethod.XLA_RING, wire_dtype=wire)
         got = ops.gemm_rs(_shards(a, 1), _shards(b), ctx)
         for r, g in enumerate(got):
             assert g.shape == (m, n)
@@ -335,6 +337,24 @@ class TestGemmRsWire:
             assert _rel(g, want[rows]) < tol
             assert _rel(g, exact[rows]) < tol
             assert _rel(want[rows], exact[rows]) < tol
+
+    def test_int8_mxu_default_engine_matches_fused_kernel(self, jmesh,
+                                                          tmesh):
+        """With no method both sides take the fused engine, and at one
+        out tile (N 128) int8-mxu runs the s8 producer
+        (``_fused_kernel_mxw``): the port within 1e-5 of JAX's kernel in
+        f32, and both within JAX's pinned int8-mxu contract, 0.04 of the
+        exact product and 0.03 of the int8 wire
+        (tests/test_torch_gemm_rs_mx.py has the shapes and bf16)."""
+        a, b = _operands(21, W * 64, 256, 128)
+        want = np.asarray(j_gemm_rs(jnp.asarray(a), jnp.asarray(b), jmesh,
+                                    "tp", wire_dtype="int8-mxu"))
+        got = torch.cat(trs.gemm_rs(_shards(a, 1), _shards(b), tmesh,
+                                    wire_dtype="int8-mxu")).numpy()
+        int8 = torch.cat(trs.gemm_rs(_shards(a, 1), _shards(b), tmesh,
+                                     wire_dtype="int8")).numpy()
+        assert _rel(got, want) < SAME_CODES
+        assert _rel(got, a @ b) < 0.04 and _rel(got, int8) < 0.03
 
     def test_fold_replays_the_ring(self, tmesh):
         """The plain fold on hand-made partials: destination d starts
@@ -459,7 +479,8 @@ class TestAllGatherWire:
 @pytest.mark.parametrize("wire", ["fp8", "int8", "int8-mxu"])
 def test_parallel_mlp_on_a_wire_matches_jax(jmesh, tmesh, wire):
     """``ParallelMLP`` (up → silu → down) over a wire context, against
-    JAX's layers on XLA ring contexts of the same wire, and within JAX's
+    JAX's layers on XLA ring contexts of the same wire (the port's row
+    layer names the same GEMM-RS engine), and within JAX's
     pinned RS tolerance of the raw wire. The up projection's outputs
     agree to the summation order, so a reduce hop can see a last-bit
     different activation and move one code by a step (an fp8 step is up
@@ -484,8 +505,10 @@ def test_parallel_mlp_on_a_wire_matches_jax(jmesh, tmesh, wire):
 
     def mlp(w):
         ctx = ops.OverlapContext(tmesh, "tp", wire_dtype=w)
+        rs = ops.OverlapContext(tmesh, "tp", wire_dtype=w,
+                                method=trs.GemmRSMethod.XLA_RING)
         return layers.ParallelMLP(layers.ColumnParallelLinear(ctx),
-                                  layers.RowParallelLinear(ctx),
+                                  layers.RowParallelLinear(rs),
                                   activation="silu")
 
     params = {"up": {"w": _shards(up, 1)}, "down": {"w": _shards(down)}}

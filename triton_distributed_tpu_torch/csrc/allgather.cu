@@ -29,6 +29,30 @@
 // the cost of the quantize and dequantize passes, not a bandwidth gain.
 // Bound: nranks * world * m * cols output elements written and the codes
 // read, plus the shards read twice by the quantize (device memory).
+//
+// tdt_all_gather_bidir replaces _ring_bidir_ag_kernel (:150): two rings
+// at once, the clockwise one carrying columns [0, kh) of every shard
+// (kh the schedule's split8 eighths, lane-aligned, :160-167) and the
+// counter-clockwise one columns [kh, k), so that each link moves part of
+// every shard. The pull keeps both: block (x, s, r) copies rank r's
+// step-s arrivals, columns [0, kh) of shard r - s and [kh, k) of shard
+// r + s, as rows of split_bytes and row_bytes - split_bytes bytes at a
+// pitch of row_bytes (any dtype; a column is every element past dim 1).
+// Over the W steps each (shard, column) is copied once, so the bytes
+// equal the one-ring gather's; the split decides only the order and the
+// row segments. Bound: nranks * world * shard bytes read and written.
+//
+// tdt_all_gather_persist replaces _ll_persist_kernel (:231), the
+// barrier-free LL gather over a persistent workspace of two parity
+// windows (2 * world * m rows a rank): call c pushes every shard into
+// window c % 2 of every rank's workspace and drains the window into the
+// output, so a lagging peer's call c - 1 writes the other window. On the
+// loopback mesh every shard is complete before the launch, by stream
+// order, and one launch covers every rank: block (x, q, r) copies shard q
+// into rank r's window and rank r's output in one pass. No block reads
+// what another block of the launch writes, so nothing waits on a flag.
+// Bound: the shards read once a destination, the window and the output
+// written: 3 * nranks * world * shard bytes.
 
 #include "wire.cuh"
 
@@ -103,6 +127,98 @@ all_gather_w_kernel(const unsigned long long* __restrict__ in_peers,
   }
 }
 
+// Copy `rows` rows of `seg` bytes, row i at src + i * pitch to dst +
+// i * pitch, as one thread of a grid-stride walk (first index t0, stride
+// `stride` threads): 16 bytes a step where the pointers, the segment and
+// the pitch allow, byte by byte otherwise.
+__device__ __forceinline__ void tdt_copy_rows(char* __restrict__ dst,
+                                              const char* __restrict__ src,
+                                              long long rows, long long seg,
+                                              long long pitch, long long t0,
+                                              long long stride) {
+  if (rows <= 0 || seg <= 0) return;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst) |
+        static_cast<uintptr_t>(seg) | static_cast<uintptr_t>(pitch)) &
+       15) == 0) {
+    const long long per = seg / 16, total = rows * per;
+    for (long long i = t0; i < total; i += stride) {
+      const long long r = i / per, c = 16 * (i - r * per);
+      *reinterpret_cast<uint4*>(dst + r * pitch + c) =
+          *reinterpret_cast<const uint4*>(src + r * pitch + c);
+    }
+    return;
+  }
+  const long long total = rows * seg;
+  for (long long i = t0; i < total; i += stride) {
+    const long long r = i / seg, c = i - r * seg;
+    dst[r * pitch + c] = src[r * pitch + c];
+  }
+}
+
+// blockIdx.y the ring step s, blockIdx.z the destination rank r
+__global__ void __launch_bounds__(AG_THREADS)
+all_gather_bidir_kernel(const unsigned long long* __restrict__ in_peers,
+                        const unsigned long long* __restrict__ out_peers,
+                        int m, long long row_bytes, long long split_bytes,
+                        int world, int rank0) {
+  const int s = blockIdx.y, r = rank0 + blockIdx.z;
+  const int cw = (r - s + world) % world, ccw = (r + s) % world;
+  char* out = reinterpret_cast<char*>(out_peers[r]);
+  const long long shard = static_cast<long long>(m) * row_bytes;
+  const long long stride = static_cast<long long>(gridDim.x) * AG_THREADS;
+  const long long t0 = static_cast<long long>(blockIdx.x) * AG_THREADS +
+                       threadIdx.x;
+  // the clockwise ring's columns [0, kh) of shard r - s
+  tdt_copy_rows(out + cw * shard, reinterpret_cast<const char*>(in_peers[cw]),
+                m, split_bytes, row_bytes, t0, stride);
+  // the counter-clockwise ring's columns [kh, k) of shard r + s
+  tdt_copy_rows(out + ccw * shard + split_bytes,
+                reinterpret_cast<const char*>(in_peers[ccw]) + split_bytes, m,
+                row_bytes - split_bytes, row_bytes, t0, stride);
+}
+
+// blockIdx.y the source rank q, blockIdx.z the destination r: shard q's
+// bytes into window slot q of rank r's workspace and into rank r's output
+__global__ void __launch_bounds__(AG_THREADS)
+all_gather_persist_kernel(const unsigned long long* __restrict__ in_peers,
+                          const unsigned long long* __restrict__ ws_peers,
+                          const unsigned long long* __restrict__ out_peers,
+                          long long bytes, int win, int rank0) {
+  const int q = blockIdx.y, r = rank0 + blockIdx.z;
+  const char* __restrict__ src = reinterpret_cast<const char*>(in_peers[q]);
+  char* __restrict__ ws = reinterpret_cast<char*>(ws_peers[r]) +
+                          static_cast<long long>(win + q) * bytes;
+  char* __restrict__ out = reinterpret_cast<char*>(out_peers[r]) +
+                           static_cast<long long>(q) * bytes;
+  const long long stride = static_cast<long long>(gridDim.x) * AG_THREADS;
+  const long long t0 = static_cast<long long>(blockIdx.x) * AG_THREADS +
+                       threadIdx.x;
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(ws) |
+        reinterpret_cast<uintptr_t>(out)) & 15) == 0) {
+    const long long nv = bytes / 16;
+    for (long long i = t0; i < nv; i += stride) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[i];
+      reinterpret_cast<uint4*>(ws)[i] = v;
+      reinterpret_cast<uint4*>(out)[i] = v;
+    }
+    done = nv * 16;
+  }
+  for (long long i = done + t0; i < bytes; i += stride) {
+    const char v = src[i];
+    ws[i] = v;
+    out[i] = v;
+  }
+}
+
+// blocks along x for a copy of `bytes` bytes a (source, rank) pair
+unsigned ag_runs(long long bytes) {
+  long long runs = (bytes / 16 + AG_THREADS - 1) / AG_THREADS;
+  if (runs < 1) runs = 1;
+  if (runs > AG_MAX_BLOCKS) runs = AG_MAX_BLOCKS;
+  return static_cast<unsigned>(runs);
+}
+
 }  // namespace
 
 extern "C" {
@@ -160,6 +276,47 @@ int tdt_all_gather_w(const void* in_peers, const void* q, const void* s,
         ip, qb, sf, op, m, cols, rank0, quant, aligned);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bidirectional ring: in_peers: (world,) pointers to the shards x_q
+// (m rows of row_bytes bytes each); out_peers: (world,) pointers to
+// out_r (world * m rows); split_bytes: the bytes of a row's first kh
+// columns (0 <= split_bytes <= row_bytes). Writes out_r for r in [rank0,
+// rank0 + nranks).
+int tdt_all_gather_bidir(const void* in_peers, const void* out_peers, int m,
+                         long long row_bytes, long long split_bytes,
+                         int world, int rank0, int nranks, void* stream) {
+  cudaGetLastError();
+  if (m <= 0 || row_bytes <= 0 || world <= 0 || nranks <= 0) return 0;
+  if (split_bytes < 0 || split_bytes > row_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(ag_runs(static_cast<long long>(m) * row_bytes), world, nranks);
+  all_gather_bidir_kernel<<<grid, AG_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(in_peers),
+      static_cast<const unsigned long long*>(out_peers), m, row_bytes,
+      split_bytes, world, rank0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The persistent LL gather: in_peers: (world,) pointers to the shards
+// (`bytes` bytes each); ws_peers: (world,) pointers to each rank's
+// workspace (2 * world shards); out_peers: (world,) pointers to out_r
+// (world * bytes); win: the window's first shard slot, parity * world.
+// Writes window `win` of ws_r and out_r for r in [rank0, rank0 + nranks).
+int tdt_all_gather_persist(const void* in_peers, const void* ws_peers,
+                           const void* out_peers, long long bytes, int win,
+                           int world, int rank0, int nranks, void* stream) {
+  cudaGetLastError();
+  if (bytes <= 0 || world <= 0 || nranks <= 0) return 0;
+  if (win != 0 && win != world) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(ag_runs(bytes), world, nranks);
+  all_gather_persist_kernel<<<grid, AG_THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(in_peers),
+      static_cast<const unsigned long long*>(ws_peers),
+      static_cast<const unsigned long long*>(out_peers), bytes, win, rank0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,8 +19,8 @@
 // dequant_pipeline (:319) and dequant_rows_into (:516) wire_value, which
 // the loads of ggemm_tiles.cuh's PeerRowsQ and allgather.cu apply;
 // dequant_add_pipeline (:359) and dequant_add_requant_pipeline (:404)
-// wire_fold_hop (one reduce hop: requantize the running sum, dequantize
-// it, add the next partial in f32).
+// gemm_rs.cu's fold, from these functions (one reduce hop: requantize
+// the running sum, dequantize it, add the next partial in f32).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -184,39 +184,6 @@ __device__ __forceinline__ void wire_quant_chunk(const T* src, uint8_t* q,
     for (long long i = threadIdx.x; i < n; i += blockDim.x)
       q[i] = wire_code(tdt_to_f<T>(src[i]), scale, quant);
   }
-}
-
-// One hop of the reduce ring's fold (dequant_add_pipeline with the
-// requantize of the running sum before it): the running sum `cur` (n
-// elements of the output type) is quantized as the wire would ship it,
-// dequantized in f32, the next partial `add` added in f32, and the sum
-// rounded to the output type into `dst` (which may be `cur`). The whole
-// block calls it; it returns after every thread's stores.
-template <typename T>
-__device__ __forceinline__ void wire_fold_hop(const T* cur, const T* add,
-                                              T* dst, long long n, int quant,
-                                              bool vec, float* red) {
-  const float scale = wire_scale(wire_chunk_amax(cur, n, vec, red), quant);
-  if (vec) {
-    for (long long i = 8ll * threadIdx.x; i < n; i += 8ll * blockDim.x) {
-      float c[8], a[8];
-      wire_ld8(cur + i, c);
-      wire_ld8(add + i, a);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        c[j] = __fadd_rn(wire_value(wire_code(c[j], scale, quant), scale,
-                                    quant), a[j]);
-      wire_st8(dst + i, c);
-    }
-  } else {
-    for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-      const float c = tdt_to_f<T>(cur[i]);
-      dst[i] = tdt_from_f<T>(__fadd_rn(
-          wire_value(wire_code(c, scale, quant), scale, quant),
-          tdt_to_f<T>(add[i])));
-    }
-  }
-  __syncthreads();
 }
 
 }  // namespace

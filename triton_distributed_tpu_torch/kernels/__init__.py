@@ -62,8 +62,10 @@ def _counters() -> dict:
     its product, or the GEMM-RS wire's partials and fold; the MoE-TP
     wires' fold is the GEMM-RS wire's kernel, counted apart
     (``moe_reduce_rs_fold``), and so is the reduce-scatter's wire fold
-    (``reduce_scatter_fold``). The reduce-scatter's two wrappers also
-    count their launches by the TPU kernel each stood for
+    (``reduce_scatter_fold``). The int8-mxu GEMM-RS's fold counts its two
+    modes apart (``gemm_rs_mxw_fold``, ``gemm_rs_mxr_fold``). The
+    reduce-scatter's two wrappers and the int8-mxu GEMM-RS's partials
+    also count their launches by the TPU kernel each stood for
     (``by_tpu_kernel``)."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
@@ -109,6 +111,11 @@ def _counters() -> dict:
         "reduce_scatter": (rs._reduce_scatter_cuda, "launches"),
         "reduce_scatter_fold": (rs._reduce_scatter_fold_cuda, "launches"),
         "all_to_all": (a2a._all_to_all_cuda, "launches"),
+        "gemm_rs_mx": (grs.gemm_rs_mx_partials, "launches"),
+        "gemm_rs_mxw_fold": (grs.gemm_rs_mx_fold, "launches_mxw"),
+        "gemm_rs_mxr_fold": (grs.gemm_rs_mx_fold, "launches_mxr"),
+        "all_gather_bidir": (ag._all_gather_bidir_cuda, "launches"),
+        "all_gather_persist": (ag._ll_persist_cuda, "launches"),
     }
 
 
@@ -126,10 +133,12 @@ def reset_launch_counts() -> None:
 
 
 def launches_by_tpu_kernel() -> dict:
-    """The reduce-scatter's launches since the last
-    :func:`reset_launch_counts`, by the TPU kernel each stood for (its
-    raw kernel and its wire fold together)."""
+    """The launches of the reduce-scatter (its raw kernel and its wire
+    fold) and of the int8-mxu GEMM-RS's partials since the last
+    :func:`reset_launch_counts`, by the TPU kernel each stood for."""
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
 
     return {**rs._reduce_scatter_cuda.by_tpu_kernel,
-            **rs._reduce_scatter_fold_cuda.by_tpu_kernel}
+            **rs._reduce_scatter_fold_cuda.by_tpu_kernel,
+            **grs.gemm_rs_mx_partials.by_tpu_kernel}

@@ -45,11 +45,44 @@ from __future__ import annotations
 
 import torch
 
-from triton_distributed_tpu_torch.config import to_torch_dtype
+from triton_distributed_tpu_torch.config import fused_vmem_budget, to_torch_dtype
 from triton_distributed_tpu_torch.kernels.group_gemm import _DT_CODE
 from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE, quantize_shards
 from triton_distributed_tpu_torch.lang import wire as wirelib
 from triton_distributed_tpu_torch.runtime.topology import one_axis
+
+
+#: JAX's AG-GEMM tile targets (bm, bk, bn) (``kernels/ag_gemm.py:79``);
+#: the GEMM-RS carries its own (``gemm_rs._RS_TILE_TARGETS``)
+_TILE_TARGETS = (512, 2048, 1792)
+
+
+def pick_mm_blocks(m: int, k: int, n: int, itemsize: int,
+                   budget: int | None = None, targets=None):
+    """(bm, bk, bn) of JAX's streaming matmul pipeline (``kernels/
+    ag_gemm.py:101``), or None where the shape admits no divisor
+    blocking: the targets shrink until two A, B and output tiles and an
+    f32 accumulator fit the fused-engine budget (:func:`~triton_
+    distributed_tpu_torch.config.fused_vmem_budget`). The port's own
+    copy, off the TPU's strict tiling as JAX decides off a TPU. On the
+    card the blocks set no tile: JAX's row block ``bm`` is the int8-mxu
+    GEMM-RS's scale chunk and the gate of its engine choice."""
+    budget = budget or fused_vmem_budget()
+    sublane = 8 * (4 // itemsize)
+    tm, tk, tn = targets or _TILE_TARGETS
+    while True:
+        bm = wirelib._divisor_block(m, tm, sublane, False)
+        bk = wirelib._divisor_block(k, tk, 128, False)
+        bn = wirelib._divisor_block(n, tn, 128, False)
+        if bm is None or bk is None or bn is None:
+            return None
+        work = (2 * (bm * bk + bk * bn) * itemsize + 2 * bm * bn * itemsize
+                + 4 * bm * bn)
+        if work <= budget:
+            return bm, bk, bn
+        if tm <= 64 and tk <= 128 and tn <= 128:
+            return None
+        tm, tk, tn = max(tm // 2, 64), max(tk // 2, 128), max(tn // 2, 128)
 
 
 def _is_shards(a) -> bool:

@@ -1,14 +1,35 @@
 """All-gather over a mesh.
 
 Port of ``all_gather`` (``triton_distributed_tpu/kernels/allgather.py:
-588``) for ``RING_1D`` (``_ring_ag_kernel``, ``:42``) and ``LL_SMALL``
-(``_ll_push_ag_kernel``, ``:199``): every rank ends with the
-concatenation of all ranks' shards along dim 0. Both methods give the
-same bytes, and on the card both run one pull kernel, ``tdt_all_gather``
-(``csrc/allgather.cu``), which reads each peer's shard through the peer
-table (:mod:`~triton_distributed_tpu_torch.lang.shmem`). ``RING_BIDIR``,
-``LL_PERSIST`` and ``XLA_FALLBACK`` raise: they are ROADMAP Queue 2
-item 11.
+588``): every rank ends with the concatenation of all ranks' shards along
+dim 0. The methods all give the same bytes; each runs its own kernel:
+
+* ``RING_1D`` (``_ring_ag_kernel``, ``:42``) and ``LL_SMALL``
+  (``_ll_push_ag_kernel``, ``:199``): one pull kernel, ``tdt_all_gather``
+  (``csrc/allgather.cu``), which reads each peer's shard through the peer
+  table (:mod:`~triton_distributed_tpu_torch.lang.shmem`);
+* ``RING_BIDIR`` (``_ring_bidir_ag_kernel``, ``:150``): the clockwise
+  ring carries columns [0, kh) of every shard and the counter-clockwise
+  ring the rest, kh the schedule's ``split8`` eighths lane-aligned as
+  JAX computes it (:func:`bidir_split`); on the card
+  ``tdt_all_gather_bidir`` pulls the two column ranges in the two
+  rings' source orders;
+* ``LL_PERSIST`` (``_ll_persist_kernel``, ``:231``):
+  :class:`PersistentLLAllGather`, a barrier-free push into a persistent
+  workspace of two parity windows, each call's rows in window
+  ``call_idx % 2`` of every rank's workspace, drained into the output;
+  on the card ``tdt_all_gather_persist`` writes the window and the output
+  from the shard in one pass. ``all_gather(method=LL_PERSIST)`` runs a
+  context from a small LRU (:func:`_persist_state`).
+
+``method`` None takes the method JAX picks (:func:`~triton_distributed_
+tpu_torch.runtime.topology.auto_allgather_method`: ``LL_SMALL`` up to
+64 KiB a shard, ``RING_BIDIR`` at 4 or more ranks, else ``RING_1D``);
+JAX first looks up a tuned winner, which comes with the tuning layer
+(ROADMAP Queue 1 step 10). JAX's demotions are kept: ``RING_BIDIR`` on a
+rank-1 or single-column shard runs ``RING_1D``, an explicit fp8 / int8
+wire runs ``RING_1D``, and ``LL_PERSIST`` on a shard that is not 2-D
+runs ``LL_SMALL``. ``XLA_FALLBACK`` raises.
 
 The quantized wire (``wire_dtype`` 'fp8' / 'int8', or 'auto': fp8 from
 256 KiB a shard, :func:`~triton_distributed_tpu_torch.runtime.topology.
@@ -16,19 +37,21 @@ auto_allgather_wire`) is ``_ring_ag_kernel_w`` (``:87``): 2-D shards
 travel as 1-byte codes with one f32 scale a row (``chunk_rows`` 1), and
 each rank writes its peers' dequantized rows and its own shard exact
 (``:93-96``). On the card the shards are quantized in one launch
-(``tdt_quantize_slab``) and ``tdt_all_gather_w`` pulls the codes. An
-explicit wire demotes ``RING_BIDIR`` / ``LL_SMALL`` / ``LL_PERSIST`` to
-the ring, as JAX does (``:606-607``); 'int8-mxu' ships its int8 payload.
-'auto' with no method follows the method JAX would pick, which at 4 or
-more ranks carries no wire (:func:`resolve_all_gather_wire`).
+(``tdt_quantize_slab``) and ``tdt_all_gather_w`` pulls the codes.
+'int8-mxu' ships its int8 payload. Only the ring carries a wire, so
+'auto' under the LL push or the bidirectional ring ships the raw bytes
+(:func:`resolve_all_gather_wire`).
 
 The port is single-controller: ``x`` is a list of W per-rank shards of
 one shape and dtype, and the result is a list of W gathered tensors, one
 per rank (views of one allocation on the loopback mesh). On CPU tensors
-:func:`all_gather` runs :func:`all_gather_plain`, ``torch.cat``.
+:func:`all_gather` runs the plain versions (``torch.cat``).
 """
 
 from __future__ import annotations
+
+import math
+from collections import OrderedDict
 
 import torch
 
@@ -41,9 +64,11 @@ from triton_distributed_tpu_torch.runtime.topology import (
     auto_allgather_wire,
     one_axis,
 )
+from triton_distributed_tpu_torch.tune.schedule import require_split_only
 
-#: the methods the pull kernel stands for
-PORTED_METHODS = (AllGatherMethod.RING_1D, AllGatherMethod.LL_SMALL)
+#: the methods the port runs, each on its kernel
+PORTED_METHODS = (AllGatherMethod.RING_1D, AllGatherMethod.LL_SMALL,
+                  AllGatherMethod.RING_BIDIR, AllGatherMethod.LL_PERSIST)
 
 
 def _check_shards(x, mesh, axis, what):
@@ -123,19 +148,34 @@ def all_gather_wired_plain(x, wired, fmt):
             for r in range(len(x))]
 
 
-def all_gather(x, mesh, axis: str = "tp", *, method=None, wire_dtype=None):
-    """AllGather the per-rank shards ``x`` (a list of W tensors of one
-    shape, (m, ...)) along ``axis`` → a list of W (W·m, ...) tensors,
-    rank r's the concatenation of every rank's shard.
+def bidir_split(k: int, split8=None) -> int:
+    """kh, the columns the bidirectional ring's clockwise direction
+    carries (JAX ``:160-167``): ``k // 2`` without a schedule; with one,
+    ``k · split8 // 8``, lane-aligned to a multiple of 128 in [128, k −
+    128] from 256 columns up."""
+    if split8 is None:
+        return k // 2
+    kh = (k * int(split8)) // 8
+    if k >= 256:
+        kh = max(128, min(k - 128, (kh // 128) * 128))
+    return kh
 
-    ``method`` None, ``RING_1D`` and ``LL_SMALL`` all run the one kernel:
-    the JAX package picks between the two by size, and here they give
-    the same bytes. The other methods raise, but that an explicit
-    'fp8' / 'int8' wire demotes ``RING_BIDIR`` and ``LL_PERSIST`` to the
-    ring. ``wire_dtype``: see :func:`resolve_all_gather_wire`. On CPU
-    tensors this is :func:`all_gather_plain`; on CUDA tensors it
-    launches the kernel or raises."""
-    n = _check_shards(x, mesh, axis, "all_gather")
+
+def resolve_all_gather_method(x, n, method=None, wire_dtype=None):
+    """The method :func:`all_gather` runs (JAX ``:630-664``): ``method``,
+    or with None the one JAX picks (:func:`auto_allgather_method`); then
+    JAX's demotions: ``RING_BIDIR`` on a rank-1 or single-column shard
+    and any LL or bidirectional method under an explicit fp8 / int8 wire
+    run ``RING_1D``; ``LL_PERSIST`` on a shard that is not 2-D runs
+    ``LL_SMALL`` (JAX also demotes it inside a trace; the port has no
+    trace)."""
+    s0 = x[0]
+    if method is None:
+        method = auto_allgather_method(n, s0.numel() * s0.element_size())
+    method = AllGatherMethod(method)
+    if method == AllGatherMethod.RING_BIDIR and (s0.dim() < 2
+                                                 or s0.shape[1] < 2):
+        method = AllGatherMethod.RING_1D
     if wirelib.wire_payload(wirelib.normalize_wire(wire_dtype)) in (
             "fp8", "int8") and method in (AllGatherMethod.RING_BIDIR,
                                           AllGatherMethod.LL_SMALL,
@@ -143,24 +183,79 @@ def all_gather(x, mesh, axis: str = "tp", *, method=None, wire_dtype=None):
         # an explicit compressed wire outranks the method: only the ring
         # carries it
         method = AllGatherMethod.RING_1D
-    if method is not None and method not in PORTED_METHODS:
+    if method == AllGatherMethod.LL_PERSIST and s0.dim() != 2:
+        method = AllGatherMethod.LL_SMALL
+    return method
+
+
+def all_gather(x, mesh, axis: str = "tp", *, method=None, wire_dtype=None,
+               schedule=None):
+    """AllGather the per-rank shards ``x`` (a list of W tensors of one
+    shape, (m, ...)) along ``axis`` → a list of W (W·m, ...) tensors,
+    rank r's the concatenation of every rank's shard.
+
+    ``method``: an ``AllGatherMethod`` or None (JAX's pick), resolved by
+    :func:`resolve_all_gather_method`; ``XLA_FALLBACK`` raises.
+    ``wire_dtype``: see :func:`resolve_all_gather_wire`. ``schedule``:
+    None or a ``RingSchedule`` whose only non-default field is
+    ``split8`` (the bidirectional ring's column split, which changes no
+    byte of the result; the other methods do not read it). On CPU
+    tensors this is the plain version; on CUDA tensors it launches the
+    method's kernel or raises."""
+    n = _check_shards(x, mesh, axis, "all_gather")
+    split8 = require_split_only(schedule, "all_gather")
+    method = resolve_all_gather_method(x, n, method, wire_dtype)
+    if method not in PORTED_METHODS:
         raise NotImplementedError(
-            f"all_gather method {method.name}: only RING_1D and LL_SMALL "
-            "are ported (ROADMAP Queue 2 item 11)")
+            f"all_gather method {method.name}: XLA's all_gather has no "
+            "kernel of the port; RING_1D, RING_BIDIR, LL_SMALL and "
+            "LL_PERSIST give its bytes")
+    if method == AllGatherMethod.LL_PERSIST:
+        return _persist_state(mesh, axis, tuple(x[0].shape), x[0].dtype)(x)
     wire = resolve_all_gather_wire(x, n, wire_dtype, method)
-    if x[0].device.type == "cpu":
-        return all_gather_plain(x, mesh, axis, wire=wire)
+    cpu = x[0].device.type == "cpu"
     if wire is not None:
-        return _all_gather_w_cuda(x, mesh, wire)
+        return (all_gather_plain(x, mesh, axis, wire=wire) if cpu
+                else _all_gather_w_cuda(x, mesh, wire))
+    if method == AllGatherMethod.RING_BIDIR:
+        kh = bidir_split(x[0].shape[1], split8)
+        return (all_gather_bidir_plain(x, kh) if cpu
+                else _all_gather_bidir_cuda(x, mesh, kh))
+    if cpu:
+        return all_gather_plain(x, mesh, axis)
     return _all_gather_cuda(x, mesh, n)
+
+
+def all_gather_bidir_plain(x, kh: int):
+    """Plain version of the bidirectional ring: every rank's result
+    assembled from the clockwise direction's columns [0, kh) and the
+    counter-clockwise one's [kh, k) of every shard, in their source
+    orders (rank r receives shard r − s clockwise and r + s
+    counter-clockwise at step s) → the W (W·m, k, ...) results, each
+    ``torch.cat`` of the shards."""
+    n, m = len(x), x[0].shape[0]
+    out = []
+    for r in range(n):
+        o = torch.empty((n * m, *x[0].shape[1:]), dtype=x[0].dtype,
+                        device=x[0].device)
+        for step in range(n):
+            cw, ccw = (r - step) % n, (r + step) % n
+            o[cw * m:(cw + 1) * m, :kh] = x[cw][:, :kh]
+            o[ccw * m:(ccw + 1) * m, kh:] = x[ccw][:, kh:]
+        out.append(o)
+    return out
+
+
+def _check_kernel_shards(x):
+    if any(not s.is_contiguous() for s in x):
+        raise ValueError("all_gather's kernel needs contiguous shards")
 
 
 def _all_gather_cuda(x, mesh, n):
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
 
-    if any(not s.is_contiguous() for s in x):
-        raise ValueError("all_gather's kernel needs contiguous shards")
+    _check_kernel_shards(x)
     nbytes = x[0].numel() * x[0].element_size()
     out = symm_empty(mesh, (n * x[0].shape[0], *x[0].shape[1:]), x[0].dtype)
     # referenced until the launch is enqueued (see ag_gemm.launch_mesh_gemm)
@@ -177,8 +272,7 @@ def _all_gather_w_cuda(x, mesh, wire):
     """The fp8 / int8 wire: every shard quantized per row
     (:func:`~triton_distributed_tpu_torch.kernels.wire.quantize_shards`),
     then :func:`all_gather_w_launch`."""
-    if any(not s.is_contiguous() for s in x):
-        raise ValueError("all_gather's kernel needs contiguous shards")
+    _check_kernel_shards(x)
     fmt = wirelib.WireFormat(quant=wire, chunk_rows=1)
     q, s = quantize_shards(x, fmt)
     return all_gather_w_launch(x, q, s, mesh, fmt)
@@ -205,7 +299,144 @@ def all_gather_w_launch(x, q, s, mesh, fmt):
     return out.shards
 
 
+def _all_gather_bidir_cuda(x, mesh, kh):
+    """``tdt_all_gather_bidir``: one launch for every rank, columns [0,
+    kh) of each shard pulled in the clockwise ring's source order and
+    [kh, k) in the counter-clockwise one's; the bytes of
+    :func:`all_gather_bidir_plain`."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
+
+    _check_kernel_shards(x)
+    n, m = len(x), x[0].shape[0]
+    inner = math.prod(x[0].shape[2:]) * x[0].element_size()  # a column
+    out = symm_empty(mesh, (n * m, *x[0].shape[1:]), x[0].dtype)
+    in_peers = peer_table(x)   # referenced until the launch is enqueued
+    fn = _build.function("tdt_all_gather_bidir", "pp" + "iLLiii" + "p")
+    rc = fn(_build.ptr(in_peers), _build.ptr(out.peers), m,
+            x[0].shape[1] * inner, kh * inner, n, 0, n,
+            _build.stream(mesh.device))
+    _build.check(rc, "tdt_all_gather_bidir")
+    _all_gather_bidir_cuda.launches += 1
+    return out.shards
+
+
+class PersistentLLAllGather:
+    """The barrier-free LL all-gather over a persistent workspace (JAX
+    ``kernels/allgather.py:473-516``): the context owns every rank's
+    workspace of two parity windows, (2·W·m, k) a rank, symmetric over
+    the mesh and zeroed, and the call counter. Call c pushes every
+    rank's (m, k) shard into window ``c % 2`` of every rank's workspace
+    (rank q's rows at q·m) and drains that window into the output, so
+    after it window c % 2 holds call c's rows and the other window call
+    c − 1's. ``instance`` is JAX's per-instance identity (two live
+    contexts of one configuration never share state).
+
+    On the card one launch of ``tdt_all_gather_persist`` covers every
+    rank, writing the window and the output from the shard in one pass:
+    on the loopback mesh every shard is complete before the launch, so
+    no rank waits for a flag. On CPU tensors the plain version copies
+    the same bytes."""
+
+    _next_instance = [0]
+
+    def __init__(self, mesh, axis, shard_shape, dtype=torch.bfloat16,
+                 collective_id: int = 12):
+        from triton_distributed_tpu_torch.config import to_torch_dtype
+        from triton_distributed_tpu_torch.lang.shmem import symm_empty
+
+        m, k = shard_shape
+        self.mesh, self.axis = mesh, axis
+        self.n = one_axis(mesh, axis)
+        self.m, self.k = m, k
+        self.dtype = to_torch_dtype(dtype)
+        self.collective_id = collective_id
+        self.call_idx = 0
+        self.instance = PersistentLLAllGather._next_instance[0]
+        PersistentLLAllGather._next_instance[0] += 1
+        self.ws = symm_empty(mesh, (2 * self.n * m, k), self.dtype)
+        for w in self.ws.shards:
+            w.zero_()
+
+    @property
+    def workspace(self) -> list:
+        """Every rank's (2·W·m, k) workspace."""
+        return self.ws.shards
+
+    def __call__(self, x):
+        """x: a list of W (m, k) shards → a list of W (W·m, k) gathered
+        tensors."""
+        _check_shards(x, self.mesh, self.axis, "PersistentLLAllGather")
+        if tuple(x[0].shape) != (self.m, self.k) or x[0].dtype != self.dtype:
+            raise ValueError(
+                f"PersistentLLAllGather of ({self.m}, {self.k}) "
+                f"{self.dtype} shards got {tuple(x[0].shape)} {x[0].dtype}")
+        parity = self.call_idx % 2
+        if x[0].device.type == "cpu":
+            out = ll_persist_plain(x, self.ws.shards, parity)
+        else:
+            out = _ll_persist_cuda(x, self.ws, self.mesh, parity)
+        self.call_idx += 1
+        return out
+
+
+def ll_persist_plain(x, ws, parity: int):
+    """Plain version of one :class:`PersistentLLAllGather` call: every
+    shard copied into window ``parity`` of every workspace in ``ws`` (in
+    place), then each window drained into a fresh output."""
+    n, m = len(x), x[0].shape[0]
+    base = parity * n * m
+    for w in ws:
+        for q, xq in enumerate(x):
+            w[base + q * m:base + (q + 1) * m].copy_(xq)
+    return [w[base:base + n * m].clone() for w in ws]
+
+
+def _ll_persist_cuda(x, ws, mesh, parity):
+    """``tdt_all_gather_persist``: one launch for every rank, shard q
+    written to rank r's window and output in one pass."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
+
+    _check_kernel_shards(x)
+    n, m = len(x), x[0].shape[0]
+    nbytes = x[0].numel() * x[0].element_size()
+    out = symm_empty(mesh, (n * m, *x[0].shape[1:]), x[0].dtype)
+    in_peers = peer_table(x)   # referenced until the launch is enqueued
+    fn = _build.function("tdt_all_gather_persist", "ppp" + "Liiii" + "p")
+    rc = fn(_build.ptr(in_peers), _build.ptr(ws.peers),
+            _build.ptr(out.peers), nbytes, parity * n, n, 0, n,
+            _build.stream(mesh.device))
+    _build.check(rc, "tdt_all_gather_persist")
+    _ll_persist_cuda.launches += 1
+    return out.shards
+
+
+_PERSIST_STATES: OrderedDict = OrderedDict()
+_PERSIST_STATES_MAX = 8   # each holds a workspace twice the gathered size
+
+
+def _persist_state(mesh, axis, shard_shape, dtype, collective_id=2):
+    """The :class:`PersistentLLAllGather` of a configuration behind
+    ``all_gather(method=LL_PERSIST)`` (JAX ``:692-715``): an LRU of 8;
+    evicting one frees its workspace, and a fresh context starts again
+    at call 0."""
+    key = (mesh, axis, tuple(shard_shape), dtype, collective_id)
+    st = _PERSIST_STATES.get(key)
+    if st is None:
+        st = _PERSIST_STATES[key] = PersistentLLAllGather(
+            mesh, axis, shard_shape, dtype, collective_id)
+        while len(_PERSIST_STATES) > _PERSIST_STATES_MAX:
+            _PERSIST_STATES.popitem(last=False)
+    else:
+        _PERSIST_STATES.move_to_end(key)
+    return st
+
+
 #: launch counts of the kernels (plain ints on the wrappers): the raw
-#: gather and its quantized wire (the wire quantizer counts its own)
+#: gather, its quantized wire (the wire quantizer counts its own), the
+#: bidirectional ring and the persistent LL gather
 _all_gather_cuda.launches = 0
 all_gather_w_launch.launches = 0
+_all_gather_bidir_cuda.launches = 0
+_ll_persist_cuda.launches = 0

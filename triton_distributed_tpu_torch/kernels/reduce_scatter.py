@@ -48,6 +48,7 @@ import torch
 
 from triton_distributed_tpu_torch import config
 from triton_distributed_tpu_torch.kernels.gemm_rs import (
+    _count,
     gemm_rs_fold_plain,
     launch_fold,
     ring_order,
@@ -236,11 +237,6 @@ def reduce_scatter(x, mesh, axis: str = "tp", *, stacked: bool = False,
         out = _reduce_scatter_fold_cuda(flat, mesh, fmt, kernel)
         return [o.view(local) for o in out]
     return _reduce_scatter_cuda(parts, mesh, local, kernel)
-
-
-def _count(fn, tpu_kernel):
-    fn.launches += 1
-    fn.by_tpu_kernel[tpu_kernel] = fn.by_tpu_kernel.get(tpu_kernel, 0) + 1
 
 
 def _reduce_scatter_cuda(parts, mesh, local, tpu_kernel):

@@ -4,7 +4,8 @@ Port of the host half of ``triton_distributed_tpu/lang/wire.py``: the
 wire spellings (``WIRE_DTYPES``, :func:`normalize_wire` ``:94``,
 :func:`wire_payload` ``:107``), the wire geometry (:class:`WireFormat`
 ``:118``, :func:`pick_chunk_rows` ``:149``, :func:`make_wire_format`
-``:159``), the value-level transforms (:func:`quantize_slab` ``:171``,
+``:159``), the value-level transforms (:func:`quantize_slab` ``:171``
+with its two halves :func:`slab_scales` and :func:`quantize_at`,
 :func:`dequantize_slab` ``:190``, :func:`quantize_cols` ``:625``) and the
 eligibility test (:func:`wire_blockable` ``:662`` with
 ``_wire_cols_block`` ``:238``).
@@ -147,17 +148,30 @@ def _codes(y, quant: str):
     return y.to(torch.float8_e4m3fn)
 
 
+def slab_scales(x, fmt: WireFormat):
+    """The (chunks,) f32 scales of a (rows, cols) slab: ``max(chunk amax,
+    1e-12) / QMAX``, the amax taken in f32."""
+    rows, cols = x.shape
+    amax = x.float().reshape(fmt.chunks(rows), -1).abs().amax(dim=-1)
+    return div_scalar(torch.clamp(amax, min=1e-12), fmt.qmax)
+
+
+def quantize_at(x, scale, fmt: WireFormat):
+    """The (rows, cols) codes of ``x`` at the given per-chunk ``scale``:
+    ``code = x / scale`` (a division). The int8-mxu reduce fold takes a
+    hop's scale off its f32 sum and its codes off the sum rounded to the
+    output type (``lang/wire.py:404``)."""
+    rows, cols = x.shape
+    xf = x.float().reshape(fmt.chunks(rows), -1)
+    return _codes(xf / scale[:, None], fmt.quant).reshape(rows, cols)
+
+
 def quantize_slab(x, fmt: WireFormat):
     """(rows, cols) → ((rows, cols) codes, (chunks,) f32 scales):
     symmetric per-chunk quantization, ``scale = max(amax, 1e-12) /
     QMAX``, ``code = x / scale`` (a division, as JAX computes it)."""
-    rows, cols = x.shape
-    ch = fmt.chunks(rows)
-    xf = x.float().reshape(ch, fmt.chunk_rows * cols)
-    amax = xf.abs().amax(dim=-1)
-    scale = div_scalar(torch.clamp(amax, min=1e-12), fmt.qmax)
-    q = _codes(xf / scale[:, None], fmt.quant)
-    return q.reshape(rows, cols), scale
+    scale = slab_scales(x, fmt)
+    return quantize_at(x, scale, fmt), scale
 
 
 def dequantize_slab(q, scales, fmt: WireFormat, out_dtype):

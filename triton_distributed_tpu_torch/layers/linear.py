@@ -8,7 +8,9 @@ and ``w`` are tensors; over a mesh they are lists of per-rank shards:
 column (``up``) or row (``down``) shards of the weight. A quantized
 wire comes through the context (``OverlapContext(wire_dtype=...)``:
 'fp8', 'int8' or 'int8-mxu', see :mod:`~triton_distributed_tpu_torch.
-ops.overlap`); the layers take no argument of their own for it.
+ops.overlap`), and so does the row layer's GEMM-RS engine
+(``OverlapContext(method=...)``); the layers take no argument of their
+own for either.
 """
 
 from __future__ import annotations

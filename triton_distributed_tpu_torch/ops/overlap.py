@@ -8,10 +8,13 @@ layers call. The context carries the mesh and axis (``:62``, ``:105``,
 passed to :func:`~triton_distributed_tpu_torch.kernels.ag_gemm.ag_gemm`
 and :func:`~triton_distributed_tpu_torch.kernels.gemm_rs.gemm_rs`); a
 context without a mesh is world size 1, where the ops take tensors.
-Over a mesh the ops take lists of per-rank shards. The engine choice
-(``method``) comes with the ring variants; the backward wire
-(``bwd_wire_dtype``) and the custom VJPs (``:200-347``) with training
-(ROADMAP Queue 1 step 9).
+Over a mesh the ops take lists of per-rank shards. ``method`` (``:66``)
+is the GEMM-RS engine (:class:`~triton_distributed_tpu_torch.kernels.
+gemm_rs.GemmRSMethod`, None for JAX's heuristic), which decides the
+int8-mxu wire's numerics; the AG-GEMM's engine choice (``AGGemmMethod``)
+is not ported (ROADMAP Queue 1 step 4), so :func:`ag_gemm` refuses a
+context that names one. The backward wire (``bwd_wire_dtype``) and the
+custom VJPs (``:200-347``) come with training (ROADMAP Queue 1 step 9).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from triton_distributed_tpu_torch.kernels.ag_gemm import ag_gemm as _ag_gemm_raw
+from triton_distributed_tpu_torch.kernels.gemm_rs import GemmRSMethod
 from triton_distributed_tpu_torch.kernels.gemm_rs import gemm_rs as _gemm_rs_raw
 from triton_distributed_tpu_torch.lang.wire import normalize_wire
 from triton_distributed_tpu_torch.runtime.topology import Mesh
@@ -27,11 +31,13 @@ from triton_distributed_tpu_torch.runtime.topology import Mesh
 @dataclass(frozen=True)
 class OverlapContext:
     """Shared context of the TP overlap ops: ``mesh`` None is world
-    size 1; ``wire_dtype`` the forward's wire; ``bwd_wire_dtype`` the
-    backward duals' (only None: training is not ported)."""
+    size 1; ``method`` the GEMM-RS engine (None: JAX's heuristic);
+    ``wire_dtype`` the forward's wire; ``bwd_wire_dtype`` the backward
+    duals' (only None: training is not ported)."""
 
     mesh: Mesh | None = None
     axis: str = "tp"
+    method: GemmRSMethod | None = None
     out_dtype: object = None
     wire_dtype: object = None
     bwd_wire_dtype: object = None
@@ -39,6 +45,8 @@ class OverlapContext:
     def __post_init__(self):
         # fail at the context's build on a spelling outside lang.wire's
         normalize_wire(self.wire_dtype)
+        if self.method is not None:
+            object.__setattr__(self, "method", GemmRSMethod(self.method))
         if normalize_wire(self.bwd_wire_dtype) is not None:
             raise NotImplementedError(
                 f"bwd_wire_dtype={self.bwd_wire_dtype!r}: the backward duals "
@@ -57,7 +65,14 @@ def create_gemm_rs_context(mesh=None, axis="tp", **kw) -> OverlapContext:
 def ag_gemm(a, b, ctx: OverlapContext):
     """AllGather(A) @ B (column-parallel): tensors a (M, K), b (K, N) at
     world size 1; lists of W row shards of A and column shards of B over
-    the context's mesh, on the context's wire."""
+    the context's mesh, on the context's wire. A context that names a
+    ``method`` raises: the AG-GEMM's engines (``AGGemmMethod``) are not
+    ported (ROADMAP Queue 1 step 4)."""
+    if ctx.method is not None:
+        raise NotImplementedError(
+            f"ag_gemm method={ctx.method}: the AG-GEMM's engine choice "
+            "(AGGemmMethod) is not ported (ROADMAP Queue 1 step 4); give "
+            "the column layer a context without a method")
     return _ag_gemm_raw(a, b, ctx.mesh, ctx.axis, out_dtype=ctx.out_dtype,
                         wire_dtype=ctx.wire_dtype)
 
@@ -65,6 +80,6 @@ def ag_gemm(a, b, ctx: OverlapContext):
 def gemm_rs(a, b, ctx: OverlapContext):
     """(A @ B) → ReduceScatter (row-parallel): tensors a (M, K), b (K, N)
     at world size 1; lists of W column shards of A and row shards of B
-    over the context's mesh, on the context's wire."""
-    return _gemm_rs_raw(a, b, ctx.mesh, ctx.axis, out_dtype=ctx.out_dtype,
-                        wire_dtype=ctx.wire_dtype)
+    over the context's mesh, on the context's engine and wire."""
+    return _gemm_rs_raw(a, b, ctx.mesh, ctx.axis, method=ctx.method,
+                        out_dtype=ctx.out_dtype, wire_dtype=ctx.wire_dtype)

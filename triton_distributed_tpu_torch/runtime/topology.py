@@ -35,7 +35,8 @@ from triton_distributed_tpu_torch.config import indexed, resolve_device
 class AllGatherMethod(enum.Enum):
     """The JAX package's all-gather methods (``:24``). The port runs
     ``RING_1D`` and ``LL_SMALL`` on one pull kernel (``tdt_all_gather``,
-    the same bytes either way); the others raise."""
+    the same bytes either way), ``RING_BIDIR`` and ``LL_PERSIST`` on
+    kernels of their own; ``XLA_FALLBACK`` raises."""
 
     RING_1D = "ring_1d"
     RING_BIDIR = "ring_bidir"

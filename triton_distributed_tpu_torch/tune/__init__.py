@@ -1,5 +1,11 @@
-"""The port's tuning layer: the ring schedule as data (``schedule``)."""
+"""The port's tuning layer: the ring and grid schedules as data
+(``schedule``)."""
 
-from triton_distributed_tpu_torch.tune.schedule import DEFAULT, RingSchedule
+from triton_distributed_tpu_torch.tune.schedule import (
+    DEFAULT,
+    GRID_DEFAULT,
+    GridSchedule,
+    RingSchedule,
+)
 
-__all__ = ["DEFAULT", "RingSchedule"]
+__all__ = ["DEFAULT", "GRID_DEFAULT", "GridSchedule", "RingSchedule"]
