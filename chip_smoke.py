@@ -42,7 +42,12 @@ Phases, all run every time:
    2048 (the stream engine) and 4 x 1024 x 2048 (the VMEM ring), bit-exact
    in bf16 and f32, its wire folds on fp8 / int8 at one scale a row and
    at 64-row chunks (bit-exact), and the all-to-all at the padded-slot
-   EP transport's slot shapes (byte-exact). The kernels line reports each
+   EP transport's slot shapes (byte-exact); the int8-mxu GEMM-RS
+   producers, their folds and the other all-gathers at the step-4 path's
+   shapes; and the cp LSE-combine at the long-context path's shapes (2
+   shards of DeepSeek-MoE-16B's 768 packed rows, Hkv 16, D 128, bf16; 4
+   in f32; both schedule depths; bit-exact, a row held by shard 0 alone
+   bit-equal to shard 0's partial). The kernels line reports each
    kernel at the shapes of the path that launches it, its times averaged
    over them by their launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
@@ -103,6 +108,17 @@ Phases, all run every time:
    "pallas")``, as served and in bf16) against the fused transport, the
    fused context demoted at ``max_m`` 4096 (two all-to-alls a layer), and
    ``EPAll2AllLayer`` round-tripping the sorted tokens byte for byte.
+   Then the step-4 path (``run_step4_path``) and the long-context path
+   (``run_longcontext_path``), both with the plain versions made to
+   raise: DeepSeek-MoE-16B at full width and depth served at cp = 2 on a
+   (tp 1, cp 2) loopback mesh, 160 pages of 16 a shard, one request of
+   3584 + 64 tokens beside 7 short ones, against the same weights at
+   cp = 1 on one pool of 320 pages: the long request's pages cross the
+   shard boundary, the short streams equal the oracle's byte for byte,
+   the long request's first-decode logits lie within a stated bf16
+   tolerance of the oracle's (dropping shard 1's partial breaks it,
+   schedule depth 3 changes no bit), the combine and the ragged kernel
+   launch once a layer and step, and both runs print their ms a step.
    Then the port's ``tools.generate`` CLI on its default device once in
    bf16, and once with ``--tp 4``;
 7. the MoE generation path, DeepSeek-MoE-16B at full width and depth as
@@ -307,6 +323,17 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/allgather.cu",
         replaces="triton_distributed_tpu/kernels/allgather.py:231"),
+    # the cp LSE-combine of long-context serving: one kernel for the ring
+    # at depth 2 and at depth 3 (schedule depth 3 adds a TPU ring slot
+    # and no value), counted by the TPU kernel each launch stood for
+    "cp_lse_combine": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/cp_ring.cu",
+        replaces="triton_distributed_tpu/kernels/cp_ring.py:306"),
+    "cp_lse_combine3": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/cp_ring.cu",
+        replaces="triton_distributed_tpu/kernels/cp_ring.py:341"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -425,6 +452,27 @@ STEP4_AG_SHAPE = (DEC_B * DEC_PROMPT // TP, 4096)
 # JAX's pinned int8-mxu contract (tests/test_wire.py): against the exact
 # product, and against the dequantizing int8 wire
 MX_EXACT_TOL, MX_TWIN_TOL = 0.04, 0.03
+
+#: the long-context path: DeepSeek-MoE-16B at full width and depth served
+#: at cp = 2 on a (tp 1, cp 2) loopback mesh, 160 pages of 16 positions
+#: a shard, against the same weights at cp = 1 on one pool of 320 pages.
+#: One request of 3584 prompt tokens + 64 new (228 pages: more than a
+#: shard) arriving at step 1, after 7 of 128-512 tokens + 32 new. The
+#: combine's rows' launches come from its runs: depth 2 from the cp = 2
+#: run (28 a step), depth 3 from a replay of the same trace at schedule
+#: depth 3 up to the long request's first decode
+LC_CP, LC_NPAGES, LC_SLOTS = 2, 160, 8
+LC_LONG, LC_LONG_NEW = 3584, 64
+LC_SHORTS, LC_SHORT_LO, LC_SHORT_HI, LC_SHORT_NEW = 7, 128, 513, 32
+LC_COMBINE_ROWS = {"cp_lse_combine": "_cp_lse_combine_kernel",
+                   "cp_lse_combine3": "_cp_lse_combine_kernel3"}
+# the long request's first-decode logits against the cp = 1 oracle's,
+# relative to the largest oracle logit: each shard's partial is rounded
+# to bf16 before the f32 merge, which the one-pool softmax never does
+# (about 2^-9 of an attention output), and 28 layers of W8A8 codes and
+# top-6 routing carry that on. On an H100 this read 6.3 %, and 14.5 %
+# with shard 1's partial dropped from every merge: 10 % lies between
+LC_LOGIT_RTOL = 0.10
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -1730,7 +1778,8 @@ def check_wire_kernels(res: Results, dev):
     wire path's shapes (Llama-2-7B's widths, 4 x 2048 rows, an outlier
     row a shard), each alone against its plain version on the same
     inputs, timed: the wire quantizer (codes and scales byte-exact,
-    chunks of 64 rows and of one); the AG-GEMM on fp8 / int8 (the bf16
+    chunks of 64 rows, of JAX's fused row block (int8-mxu) and of one);
+    the AG-GEMM on fp8 / int8 (the bf16
     GEMM's excess check, per row: the plain version dequantizes the same
     codes) and int8-mxu (bit-exact: s32 sums) for wqkv and up; the
     GEMM-RS wire's partials for wo and down (the bf16 GEMM's excess
@@ -1756,12 +1805,13 @@ def check_wire_kernels(res: Results, dev):
     x = wire_operands(dev, g, (m, h), outlier=True)
     tag0 = f"llama_7b tp={TP} wire"
 
-    # the quantizer: the AG-GEMMs' chunks (fp8 on one pass, int8 on the
-    # int8 and int8-mxu passes, 64 launches a pass) and the all-gather's
-    # rows (fp8, once a wire)
+    # the quantizer: the AG-GEMMs' chunks (fp8 and int8 at 64 rows, and
+    # int8-mxu at JAX's fused row block, 512 rows here; 64 launches a
+    # pass each) and the all-gather's rows (fp8, once a wire)
+    mx_cr = agm.pick_mm_blocks(m, h, 3 * h // TP, 2)[0]
     wired = {}
-    for wire, cr, per_run in (("fp8", 64, 64), ("int8", 64, 128),
-                              ("fp8", 1, len(WIRES))):
+    for wire, cr, per_run in (("fp8", 64, 64), ("int8", 64, 64),
+                              ("int8", mx_cr, 64), ("fp8", 1, len(WIRES))):
         fmt = tw.WireFormat(wire, cr)
         q, sc = wk.quantize_shards(x, fmt)
         torch.cuda.synchronize()
@@ -1797,7 +1847,9 @@ def check_wire_kernels(res: Results, dev):
         for wire in ("fp8", "int8", "int8-mxu"):
             mx = wire == "int8-mxu"
             name = "ag_gemm_mx" if mx else "ag_gemm_wire"
-            fmt, q, sc = wired[(tw.wire_payload(wire), 64)]
+            plan = agm.resolve_ag_gemm_plan(mesh, "tp", x, b,
+                                            wire_dtype=wire)
+            fmt, q, sc = wired[(tw.wire_payload(wire), plan.chunk_rows)]
             pairs = list(zip(q, sc))
             tag = (f"{tag0} {wire} {what} A {TP} x {(m, h)} B {TP} x "
                    f"{(h, n)}")
@@ -1829,8 +1881,8 @@ def check_wire_kernels(res: Results, dev):
                 libwhat = "torch._int_mm + epilogue, all ranks' columns"
                 # every slab's codes and scales, B's codes and scales
                 # read once, every output written once
-                nbytes = (TP * m * h + 4 * TP * m // 64 + h * TP * n
-                          + 4 * TP * n + 2 * TP * TP * m * n)
+                nbytes = (TP * m * h + 4 * TP * m // fmt.chunk_rows
+                          + h * TP * n + 4 * TP * n + 2 * TP * TP * m * n)
                 peak = H100_INT8_OPS
                 extra = (f" (B's per-column quantization in torch ops "
                          f"{cols_ms:.4f} ms of it)")
@@ -2832,6 +2884,112 @@ def check_step4_kernels(res: Results, dev):
     del ins, ll, ws
 
 
+def cp_partials(dev, g, r, dtype, hkv=16, tg=T_PAD, d=128):
+    """Seeded (R, Hkv, TG, D) partials and (R, Hkv, TG) lses as views of
+    one (Hkv, R·TG, D) ragged output, as the long-context serving step's
+    one launch over every shard writes them, masked as in that step:
+    rows 0-191 held by shard 0 alone (short requests), rows 192-511 seen
+    by every shard, the parking zone (512 on) by none."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels.cp_ring import NEG_INF
+
+    outs = torch.randn((hkv, r * tg, d), generator=g, device=dev).to(dtype)
+    lses = 4.0 * torch.randn((hkv, r * tg), generator=g, device=dev)
+    vo = outs.view(hkv, r, tg, d).transpose(0, 1)
+    vl = lses.view(hkv, r, tg).transpose(0, 1)
+    vl[1:, :, :192] = NEG_INF
+    vl[:, :, 512:] = NEG_INF
+    vo[vl <= NEG_INF / 2] = 0
+    return vo, vl
+
+
+def check_cp_combine(res: Results, dev):
+    """The cp LSE-combine (``tdt_cp_lse_combine``) against its plain
+    version, bit for bit, at the long-context path's shapes: R = 2 at
+    DeepSeek-MoE-16B's serving step (Hkv 16, 768 packed rows, G = 1, D
+    128, bf16 partials, the strided views of the step's one ragged
+    launch) with rows held by shard 0 alone (bit-equal to shard 0's
+    partial), rows seen by both shards and rows no shard saw (0, lse
+    NEG_INF); the same with shard 1 masked everywhere (the merge is shard
+    0's partial); R = 4 in f32; both schedule depths (the same bits).
+    Times the path's case at each depth (CUDA graphs over buffers that
+    do not fit the L2 cache) beside the plain version."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import cp_ring
+    from triton_distributed_tpu_torch.kernels.cp_ring import NEG_INF
+    from triton_distributed_tpu_torch.tune.schedule import RingSchedule
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    bf16 = torch.bfloat16
+    tag0 = f"deepseek_moe_16b cp={LC_CP} combine"
+
+    def exact(got, want):
+        return max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want))
+
+    # the path's case, at both depths, and shard 1 masked everywhere
+    outs, lses = cp_partials(dev, g, LC_CP, bf16)
+    hkv, tg, d = outs.shape[1:]
+    want = cp_ring.cp_lse_combine_plain(outs, lses)
+    for name, tpu in LC_COMBINE_ROWS.items():
+        sched = RingSchedule(depth=3 if tpu.endswith("3") else 2)
+        got = cp_ring.cp_lse_combine(outs, lses, schedule=sched)
+        torch.cuda.synchronize()
+        err = exact(got, want)
+        what = (f"{tag0} R {LC_CP} x ({hkv}, {tg}, {d}) bf16 views, depth "
+                f"{sched.depth} ({tpu})")
+        res.check(name, err, 0.0, what + " (bit-exact)")
+        own = torch.equal(got[0][:, :192], outs[0, :, :192])
+        empty = bool((got[0][:, 512:] == 0).all()
+                     and (got[1][:, 512:] == NEG_INF).all())
+        res.check(name, 0.0 if own and empty else 1.0, 0.0,
+                  what + ": shard-0 rows are shard 0's bits, unseen rows 0",
+                  metric="rows differ")
+        res.kernel(name, err=err)
+        sets = [cp_partials(dev, g, LC_CP, bf16) for _ in range(6)]
+        ms = graph_time_ms(lambda i: cp_ring.cp_lse_combine(
+            *sets[i % len(sets)], schedule=sched))
+        plain_ms = time_ms(lambda: cp_ring.cp_lse_combine_plain(outs, lses),
+                           3)
+        # every shard's partial and lse read once, the merge written once
+        nbytes = (LC_CP * hkv * tg * (d * 2 + 4)) + hkv * tg * (d * 2 + 4)
+        # a multiply and an add a shard and element, the division
+        ops = hkv * tg * d * (2 * LC_CP + 1)
+        bnd, by = bound_ms(nbytes, ops, H100_F32_OPS)
+        log(f"time {name} {what} (28/step, one launch a layer): "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+            f"(no one PyTorch call merges lse-weighted partials) "
+            f"bound_ms={bnd:.4f} ({by})")
+        res.shape(name, 28, ms, plain_ms, None, nbytes, ops, H100_F32_OPS)
+        del sets
+    lses1 = lses.clone()
+    lses1[1] = NEG_INF
+    got = cp_ring.cp_lse_combine(outs, lses1)
+    want = cp_ring.cp_lse_combine_plain(outs, lses1)
+    torch.cuda.synchronize()
+    err = exact(got, want)
+    res.check("cp_lse_combine", err, 0.0, f"{tag0} shard 1 masked")
+    res.check("cp_lse_combine", 0.0 if torch.equal(got[0][:, :512],
+                                                   outs[0, :, :512]) else 1.0,
+              0.0, f"{tag0} shard 1 masked: the merge is shard 0's bits",
+              metric="rows differ")
+    res.kernel("cp_lse_combine", err=err)
+    # four shards in f32, both depths
+    outs4, lses4 = cp_partials(dev, g, 4, torch.float32)
+    want = cp_ring.cp_lse_combine_plain(outs4, lses4)
+    for name, tpu in LC_COMBINE_ROWS.items():
+        got = cp_ring.cp_lse_combine(
+            outs4, lses4, schedule=RingSchedule(depth=3 if tpu.endswith("3")
+                                                else 2))
+        torch.cuda.synchronize()
+        err = exact(got, want)
+        res.check(name, err, 0.0, f"{tag0} R 4 x ({hkv}, {tg}, {d}) f32 "
+                  f"({tpu})")
+        res.kernel(name, err=err)
+
+
 def check_tiny_moe_tp4(res: Results, dev):
     """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and in
     its TP flavour at tp = 4 on a loopback mesh, on the card and on the
@@ -3462,14 +3620,16 @@ def run_wire_path(res: Results, dev):
 def _plain_versions_raise():
     """Within the block, the MoE-TP plain versions, the plain wire
     quantizers, the grouped GEMM's, the reduce-scatter's, the
-    all-to-all's, the GEMM-RS's (its int8-mxu producers too) and the
-    all-gathers' plain versions raise: a path on CUDA tensors must launch
-    the kernels."""
+    all-to-all's, the GEMM-RS's (its int8-mxu producers too), the
+    all-gathers', the ragged attention's and the cp LSE-combine's plain
+    versions raise: a path on CUDA tensors must launch the kernels."""
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as agk
+    from triton_distributed_tpu_torch.kernels import cp_ring as cp
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
+    from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
     from triton_distributed_tpu_torch.kernels import wire as wk
     from triton_distributed_tpu_torch.lang import wire as tw
@@ -3492,6 +3652,8 @@ def _plain_versions_raise():
         "gemm_rs_mx_fold_plain")]
     names += [(agk, n) for n in ("all_gather_plain", "all_gather_bidir_plain",
                                  "ll_persist_plain")]
+    names += [(rpa, "ragged_paged_attention_plain"),
+              (cp, "cp_lse_combine_plain")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, boom)
@@ -3985,6 +4147,223 @@ def run_step4_path(res: Results, dev):
     return counts
 
 
+def longcontext_trace(vocab, seed=23):
+    """The long-context path's trace: 7 requests of 128-512 prompt tokens
+    and 32 new at step 0, then one of LC_LONG prompt tokens and 64 new
+    (rid 0) at step 1."""
+    from triton_distributed_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=0, prompt=rng.integers(0, vocab, LC_LONG).astype(
+        np.int32), max_new=LC_LONG_NEW, arrival=1.0)]
+    for i in range(LC_SHORTS):
+        n = int(rng.integers(LC_SHORT_LO, LC_SHORT_HI))
+        reqs.append(Request(rid=i + 1, prompt=rng.integers(
+            0, vocab, n).astype(np.int32), max_new=LC_SHORT_NEW))
+    return reqs
+
+
+class _LongRecorder(_CheckedEngine):
+    """Mixin: the long request's logits each time it samples, by the
+    number of tokens it had generated, and its block-table row at its
+    first decode."""
+
+    def _advance_row(self, s, req, take, logits):
+        if req.rid == 0 and req.cursor + take == len(req.seq):
+            self.long_logits.setdefault(len(req.generated),
+                                        np.array(logits[s]))
+            if not req.generated:
+                self.long_row = self.table[s].copy()
+        return super()._advance_row(s, req, take, logits)
+
+
+def run_longcontext_path(res: Results, dev):
+    """Long-context serving through the entry points a user calls, with
+    the plain versions made to raise: DeepSeek-MoE-16B at full width and
+    depth (28 layers, 64 experts top-6 on the fp8 EP wire, W8A8, int8 KV)
+    served by ``ServingEngine`` on ``Transformer(cfg, mesh=Mesh.grid(
+    {"tp": 1, "cp": 2}), cp_axis="cp")`` with 160 pages of 16 a shard
+    (2560 positions a shard, 5120 in all), and the same weights at cp = 1
+    on one pool of 320 pages (the oracle). The long request must cross
+    the shard boundary; the short requests' streams must equal the
+    oracle's byte for byte; the long request's first-decode logits must
+    lie within LC_LOGIT_RTOL of the oracle's, and its tokens equal the
+    oracle's up to the first step whose oracle top-2 margin is within
+    that tolerance; the same trace replayed up to that first decode with
+    shard 1's partial dropped from every merge must break the
+    tolerance, and replayed at schedule depth 3 must give the same
+    logits bit for bit. The combine launches once a layer and step, and
+    so does the ragged kernel (one launch walks both shards). Returns
+    {row: (launches, steps)} for the two combine rows."""
+    import functools
+
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        cp_ring,
+        launch_counts,
+        launches_by_tpu_kernel,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.serving import (
+        CpPagePool,
+        EngineConfig,
+        ServingEngine,
+    )
+    from triton_distributed_tpu_torch.tune.schedule import RingSchedule
+
+    cfg = presets.deepseek_moe_16b()
+    name = f"deepseek_moe_16b cp{LC_CP}"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flat = Transformer(cfg, device=dev)
+    params = flat.init(torch.Generator(device=dev).manual_seed(0),
+                       quantize=True)
+    cpm = Transformer(cfg, mesh=Mesh.grid({"tp": 1, "cp": LC_CP}, dev),
+                      cp_axis="cp")
+    Engine = type("Engine", (_LongRecorder, ServingEngine), {})
+
+    def engine(model, npages):
+        eng = Engine(model, params, EngineConfig(
+            slots=LC_SLOTS, token_budget=512, chunk=256, page=16,
+            npages=npages))
+        eng.long_logits, eng.long_row = {}, None
+        return eng
+
+    torch.cuda.synchronize()
+    log(f"path {name}: setup_s={time.perf_counter() - t0:.2f} (one set of "
+        f"weights for cp = {LC_CP} and the cp = 1 oracle)")
+    runs = {}
+    for tag, model, npages in (("cp", cpm, LC_NPAGES),
+                               ("oracle", flat, LC_CP * LC_NPAGES)):
+        eng = engine(model, npages)
+        trace = longcontext_trace(cfg.vocab)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        stats = eng.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts, by_tpu = launch_counts(), launches_by_tpu_kernel()
+        steps = len(stats.step_times)
+        runs[tag] = (eng, trace, counts, by_tpu, steps)
+        log(f"path {name} {tag}: pool {eng.pool.npages} pages "
+            f"({type(eng.pool).__name__}) completed={stats.completed}/"
+            f"{len(trace)} steps={steps} evictions={stats.evictions} "
+            f"generated_tokens={stats.generated_tokens} wall_s={wall:.2f} "
+            f"ms_per_step={1e3 * wall / max(steps, 1):.2f} "
+            f"p50_step_ms={stats.p50_step_ms:.2f} p99_step_ms="
+            f"{stats.p99_step_ms:.2f} tok_s="
+            f"{stats.generated_tokens / wall:.2f}")
+        log(f"launches {name} {tag} " + " ".join(
+            f"{k}={v} ({v / max(steps, 1):g}/step)"
+            for k, v in counts.items() if v) + f"; by TPU kernel {by_tpu}")
+        if stats.completed != len(trace):
+            res.failures.append(f"{name} {tag}: {stats.completed}/"
+                                f"{len(trace)} requests completed")
+        if eng.bad_rows:
+            res.failures.append(f"{name} {tag}: {eng.bad_rows} rows of "
+                                "non-finite logits")
+        for k in PATH_KERNELS["deepseek_moe_16b"]:
+            if counts[k] == 0:
+                res.failures.append(f"{name} {tag}: {k} never launched")
+        layers_steps = cfg.n_layers * steps
+        want = {"cp_lse_combine": layers_steps if tag == "cp" else 0,
+                "ragged_paged_attention": layers_steps}
+        for k, v in want.items():
+            if counts[k] != v:
+                res.failures.append(f"{name} {tag}: {counts[k]} {k} "
+                                    f"launches, expected {v} (28 a step)")
+    eng, trace, counts, by_tpu, steps = runs["cp"]
+    oeng, otrace, _, _, _ = runs["oracle"]
+    if not isinstance(eng.pool, CpPagePool):
+        res.failures.append(f"{name}: the engine's pool is not a CpPagePool")
+    # the long request crossed the shard boundary: its columns past the
+    # first shard's hold pages of shard 1
+    pps = eng.state.pages_per_shard
+    row = eng.long_row if eng.long_row is not None else np.full(1, -1)
+    far = [int(p) for p in row[pps:] if p >= 0]
+    crossed = bool(far) and all(eng.pool.shard_of(p) == 1 for p in far)
+    res.check(name, 0.0 if crossed else 1.0, 0.0, f"the long request's "
+              f"{int((row >= 0).sum())} pages at its first decode cross "
+              f"the {pps}-page shard ({len(far)} on shard 1)",
+              metric="not crossed")
+    short_bad = sum(a.generated != b.generated
+                    for a, b in zip(trace[1:], otrace[1:]))
+    res.check(name, short_bad, 0, f"the {LC_SHORTS} short requests' token "
+              "streams vs the cp = 1 oracle (byte for byte)",
+              metric="streams differ")
+    ref = oeng.long_logits.get(0)
+    first = eng.long_logits.get(0)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(first - ref).max()) / scale
+    res.check(name, err, LC_LOGIT_RTOL, "the long request's first-decode "
+              "logits vs the oracle's, relative to its largest",
+              metric="max_rel_err")
+    # its tokens equal the oracle's up to the oracle's first step whose
+    # top-2 margin lies within the tolerance
+    got, want = trace[0].generated, otrace[0].generated
+    held = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        lg = oeng.long_logits[i]
+        top2 = np.sort(lg)[-2:]
+        if top2[1] - top2[0] <= LC_LOGIT_RTOL * float(np.abs(lg).max()):
+            break
+        if a != b:
+            res.failures.append(f"{name}: long token {i} is {a}, the "
+                                f"oracle's {b}, at a top-2 margin above "
+                                "the tolerance")
+            break
+        held += 1
+    log(f"check {name} long stream: {held} of {len(want)} tokens held "
+        f"(equal where the oracle's margin exceeds the tolerance); "
+        f"{sum(a == b for a, b in zip(got, want))} equal in all")
+    # replays up to the long request's first decode: shard 1's partial
+    # dropped from every merge, then schedule depth 3
+    orig = cp_ring.cp_lse_combine
+
+    def replay(combine):
+        cp_ring.cp_lse_combine = combine
+        try:
+            e = engine(cpm, LC_NPAGES)
+            e.submit_trace(longcontext_trace(cfg.vocab))
+            reset_launch_counts()
+            while 0 not in e.long_logits and e.step_count < 2 * steps:
+                e.step()
+            torch.cuda.synchronize()
+        finally:
+            cp_ring.cp_lse_combine = orig
+        if 0 not in e.long_logits:
+            res.failures.append(f"{name}: a replay never reached the long "
+                                "request's first decode")
+            e.long_logits[0] = np.full_like(ref, np.nan)
+        return e.long_logits[0], launches_by_tpu_kernel(), len(
+            e.stats.step_times)
+
+    def dropped(outs, lses, **kw):
+        return orig(outs[:1], lses[:1], **kw)
+
+    wrong, _, _ = replay(dropped)
+    bad = float(np.abs(wrong - ref).max()) / scale
+    res.check(name, -bad, -LC_LOGIT_RTOL, "shard 1's partial dropped from "
+              f"every merge must break the tolerance (max_rel_err={bad:.6g})",
+              metric="-max_rel_err")
+    deep, deep_tpu, deep_steps = replay(functools.partial(
+        orig, schedule=RingSchedule(depth=3)))
+    same = np.array_equal(deep, first)
+    res.check(name, 0.0 if same else 1.0, 0.0, "the first decode at "
+              "schedule depth 3 vs depth 2 (bit for bit)",
+              metric="logits differ")
+    log(f"check {name} depth 3 replay: {deep_steps} steps, by TPU kernel "
+        f"{deep_tpu}")
+    return {"cp_lse_combine": (by_tpu.get("_cp_lse_combine_kernel", 0),
+                               steps),
+            "cp_lse_combine3": (deep_tpu.get("_cp_lse_combine_kernel3", 0),
+                                deep_steps)}
+
+
 def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
     """DeepSeek-MoE-16B at tp = 4 on a loopback mesh of the card, from
     the MoE generation path's tp = 1 run ``one`` (:func:`run_decode_path`
@@ -4357,6 +4736,7 @@ def main() -> int:
     check_moe_wire_kernels(res, dev, n_moe)
     check_collectives(res, dev, n_moe)
     check_step4_kernels(res, dev)
+    check_cp_combine(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
@@ -4385,6 +4765,7 @@ def main() -> int:
     coll_counts = run_collectives_path(res, dev, n_moe)
     with _plain_versions_raise():
         step4_counts = run_step4_path(res, dev)
+        lc_counts = run_longcontext_path(res, dev)
     for k, v in run_decode_path(res, dev, "llama_7b int8", llama,
                                 profile=opts.profile).items():
         decode_counts[k] += v
@@ -4472,6 +4853,8 @@ def main() -> int:
             n, steps = coll_counts[name], 1
         elif name in STEP4_ROWS:
             n, steps = step4_counts[name], 1
+        elif name in LC_COMBINE_ROWS:
+            n, steps = lc_counts[name]
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

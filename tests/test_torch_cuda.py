@@ -2091,3 +2091,134 @@ class TestStep4Kernels:
         got = ag.all_gather(calls[0], mesh, method=AllGatherMethod.LL_PERSIST)
         assert launch_counts()["all_gather_persist"] == before + 4
         assert all(torch.equal(g, torch.cat(calls[0])) for g in got)
+
+
+# ---------------------------------------------- long-context serving
+
+from triton_distributed_tpu_torch.kernels import cp_ring  # noqa: E402
+
+
+def _cp_partials(dev, r, dtype, seed, hkv=4, tg=40, d=128):
+    """Seeded partials: rows 0-7 only shard 0 saw, rows 8-11 no shard
+    (partials 0, lses NEG_INF), the last shard past the data from row
+    20."""
+    rng = np.random.default_rng(seed)
+    outs = rng.standard_normal((r, hkv, tg, d)).astype(np.float32)
+    lses = (4.0 * rng.standard_normal((r, hkv, tg))).astype(np.float32)
+    lses[1:, :, :8] = rpa.NEG_INF
+    lses[:, :, 8:12] = rpa.NEG_INF
+    lses[-1, :, 20:] = rpa.NEG_INF
+    outs[lses <= rpa.NEG_INF / 2] = 0.0
+    return _t(outs, dev, getattr(torch, dtype)), _t(lses, dev)
+
+
+class TestCpCombineKernel:
+    @pytest.mark.parametrize("out", [None, "float32"])
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("r", [2, 3, 4])
+    def test_is_bit_exact(self, dev, r, dtype, out):
+        """``tdt_cp_lse_combine`` against its plain version bit for bit
+        (the same shard-order sums, each op rounded on its own); the
+        shard-0-only rows equal shard 0's partial, the all-masked rows
+        stay 0 with lse NEG_INF; one launch."""
+        outs, lses = _cp_partials(dev, r, dtype, 70 + r)
+        kw = dict(out_dtype=None if out is None else getattr(torch, out))
+        before = launch_counts()["cp_lse_combine"]
+        got = cp_ring.cp_lse_combine(outs, lses, **kw)
+        assert launch_counts()["cp_lse_combine"] == before + 1
+        want = cp_ring.cp_lse_combine_plain(outs, lses, **kw)
+        torch.cuda.synchronize()
+        assert got[0].dtype == want[0].dtype
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0][:, :8], outs[0, :, :8].to(got[0].dtype))
+        assert torch.equal(got[1][:, :8], lses[0, :, :8])
+        assert (got[0][:, 8:12] == 0).all()
+        assert (got[1][:, 8:12] == rpa.NEG_INF).all()
+
+    @pytest.mark.parametrize("d", [128, 72, 30])
+    def test_strided_views_and_depths(self, dev, d):
+        """The serving step's views of one (Hkv, R·TG, D) output; D 72
+        and 30 (the one-element path where 4-wide loads do not fit);
+        depth 3 gives the same bits and counts as
+        ``_cp_lse_combine_kernel3``."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+        from triton_distributed_tpu_torch.tune.schedule import RingSchedule
+
+        outs, lses = _cp_partials(dev, 2, "bfloat16", 75, d=d)
+        flat_o = outs.permute(1, 0, 2, 3).reshape(4, -1, d).contiguous()
+        flat_l = lses.permute(1, 0, 2).reshape(4, -1).contiguous()
+        view_o = flat_o.view(4, 2, 40, d).transpose(0, 1)
+        view_l = flat_l.view(4, 2, 40).transpose(0, 1)
+        want = cp_ring.cp_lse_combine_plain(outs, lses)
+        reset_launch_counts()
+        for depth in (2, 3):
+            got = cp_ring.cp_lse_combine(view_o, view_l,
+                                         schedule=RingSchedule(depth=depth))
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        assert launches_by_tpu_kernel() == {"_cp_lse_combine_kernel": 1,
+                                            "_cp_lse_combine_kernel3": 1}
+
+    def test_wrapper_refuses_what_the_kernel_does_not_take(self, dev):
+        outs, lses = _cp_partials(dev, 2, "float32", 76)
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            cp_ring.cp_lse_combine(outs.half(), lses)
+        with pytest.raises(ValueError, match="lses must be f32"):
+            cp_ring.cp_lse_combine(outs, lses.bfloat16())
+        with pytest.raises(ValueError, match="contiguous"):
+            cp_ring.cp_lse_combine(torch.cat([outs, outs], -1)[..., ::2],
+                                   lses)
+        with pytest.raises(ValueError, match="shards"):
+            cp_ring.cp_lse_combine(outs.repeat(5, 1, 1, 1),
+                                   lses.repeat(5, 1, 1))
+
+
+def test_cp_engine_on_card_equals_cpu(dev):
+    """A tiny cp = 2 engine (tp = 1) on the card and on the CPU from the
+    same weights: a request of 40 positions over two 6-page shards
+    beside a short one, equal token streams; on the card every step
+    launches the ragged kernel and the combine once a layer."""
+    from triton_distributed_tpu_torch.kernels import reset_launch_counts
+    from triton_distributed_tpu_torch.models import (
+        Transformer,
+        TransformerConfig,
+    )
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.serving import (
+        CpPagePool,
+        EngineConfig,
+        Request,
+        ServingEngine,
+    )
+
+    cfg = TransformerConfig(vocab=128, n_layers=2, hidden=64, ffn=128,
+                            n_heads=4, n_kv_heads=2, head_dim=16,
+                            dtype="float32", param_dtype="float32")
+    params = Transformer(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    streams, steps = [], []
+    for d in ("cpu", dev):
+        model = Transformer(cfg, mesh=Mesh.grid({"tp": 1, "cp": 2}, d),
+                            cp_axis="cp")
+        eng = ServingEngine(model, _to(params, d), EngineConfig(
+            slots=2, token_budget=16, chunk=8, page=4, npages=6))
+        assert isinstance(eng.pool, CpPagePool)
+        rng = np.random.default_rng(0)
+        done = {}
+        eng.on_complete = lambda req, s: done.setdefault(
+            req.rid, list(req.generated)) or True
+        reset_launch_counts()
+        eng.run([Request(rid=0, prompt=rng.integers(1, 127, 30, np.int32),
+                         max_new=10),
+                 Request(rid=1, prompt=rng.integers(1, 127, 7, np.int32),
+                         max_new=6)])
+        streams.append(done)
+        steps.append(len(eng.stats.step_times))
+    assert streams[1] == streams[0] and len(streams[0]) == 2
+    counts = launch_counts()
+    assert counts["cp_lse_combine"] == cfg.n_layers * steps[1]
+    assert counts["ragged_paged_attention"] == cfg.n_layers * steps[1]

@@ -303,10 +303,12 @@ class TestSchedules:
 
     def test_overlap_context_method(self, tmesh):
         """``OverlapContext(method=)`` carries the GEMM-RS engine to the row
-        layer (a spelling is coerced to the enum); the AG-GEMM's engines
-        are not ported, so the column op refuses a context that names
-        one."""
+        layer (a spelling is coerced to the enum), and the column op takes
+        the AG-GEMM engine of the same name, as JAX's ``_dual_method``
+        maps a pinned engine: XLA_RING's int8-mxu chunks at the wire's 64
+        rows."""
         from triton_distributed_tpu_torch import layers, ops
+        from triton_distributed_tpu_torch.kernels import ag_gemm as tag
 
         a, b = _port_operands(SHAPES[0], "float32")
         ctx = ops.OverlapContext(tmesh, "tp", method="xla_ring",
@@ -315,5 +317,10 @@ class TestSchedules:
         got = layers.RowParallelLinear(ctx)({"w": b}, a)
         want = trs.gemm_rs(a, b, tmesh, wire_dtype="int8")
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-        with pytest.raises(NotImplementedError, match="AGGemmMethod"):
-            ops.ag_gemm([x.t().contiguous() for x in b], a, ctx)
+        rows = [x.contiguous() for x in torch.cat(a, 1).chunk(W, 0)]
+        cols = [x.contiguous() for x in torch.cat(b, 0).chunk(W, 1)]
+        got = ops.ag_gemm(rows, cols, ctx)
+        want = tag.ag_gemm(rows, cols, tmesh,
+                           method=tag.AGGemmMethod.XLA_RING,
+                           wire_dtype="int8-mxu")
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -225,15 +225,18 @@ class TestAgGemmWire:
     @pytest.mark.parametrize("wire", ["fp8", "int8", "int8-mxu"])
     @pytest.mark.parametrize("shape", AG_SHAPES)
     def test_matches_xla_ring(self, jmesh, tmesh, shape, wire):
-        """Against JAX's XLA ring twin on the same wire: every rank's
-        output within 1e-5 of the largest (the same codes; rank r's own
-        shard exact on the fp8 / int8 wires)."""
+        """Against JAX's XLA ring twin on the same wire, ``method=
+        XLA_RING`` on both sides (with no method int8-mxu chunks at the
+        fused engine's row block): every rank's output within 1e-5 of the
+        largest (the same codes; rank r's own shard exact on the fp8 /
+        int8 wires)."""
         m, k, n = shape
         a, b = _operands(10, W * m, k, n)
         want = np.asarray(j_ag_gemm(jnp.asarray(a), jnp.asarray(b), jmesh,
                                     "tp", method=AGGemmMethod.XLA_RING,
                                     wire_dtype=wire))
-        ctx = ops.create_ag_gemm_context(tmesh, "tp", wire_dtype=wire)
+        ctx = ops.create_ag_gemm_context(
+            tmesh, "tp", method=tag.AGGemmMethod.XLA_RING, wire_dtype=wire)
         got = ops.ag_gemm(_shards(a), _shards(b, 1), ctx)
         for r, g in enumerate(got):
             assert g.shape == (W * m, n // W)
@@ -256,6 +259,30 @@ class TestAgGemmWire:
             cols = slice(r * 32, (r + 1) * 32)
             assert _rel(g, want[:, cols]) < SAME_CODES
             assert _rel(g, exact[:, cols]) < tol
+
+    @pytest.mark.parametrize("method", [None, "XLA_RING"])
+    @pytest.mark.parametrize("m", [128, 256])
+    def test_int8_mxu_engine_chunks_as_jax(self, jmesh, tmesh, m, method):
+        """int8-mxu with no method takes JAX's heuristic on both sides:
+        the fused engine, whose kernel chunks the scales at its row block
+        (128 and 256 rows here, against the wire's 64), and with
+        ``XLA_RING`` the ring's 64-row chunks. The port within 1e-5 of
+        JAX's interpreted engine in f32 at W = 4, seed 11."""
+        a, b = _operands(11, W * m, 256, 128, outlier=False)
+        jm = None if method is None else AGGemmMethod[method]
+        tm = None if method is None else tag.AGGemmMethod[method]
+        want = np.asarray(j_ag_gemm(jnp.asarray(a), jnp.asarray(b), jmesh,
+                                    "tp", method=jm, wire_dtype="int8-mxu"))
+        plan = tag.resolve_ag_gemm_plan(tmesh, "tp", _shards(a),
+                                        _shards(b, 1), method=tm,
+                                        wire_dtype="int8-mxu")
+        assert plan.wire == "int8-mxu"
+        assert plan.chunk_rows == (m if method is None else 64)
+        got = ops.ag_gemm(_shards(a), _shards(b, 1),
+                          ops.OverlapContext(tmesh, "tp", method=tm,
+                                             wire_dtype="int8-mxu"))
+        for r, g in enumerate(got):
+            assert _rel(g, want[:, r * 32:(r + 1) * 32]) < SAME_CODES
 
     def test_int8_mxu_against_the_int8_twin(self, tmesh):
         """JAX's pinned contract (tests/test_wire.py:356-376): int8-mxu

@@ -31,11 +31,14 @@ column (``quantize_cols``), and multiplies the int8 codes with s32 sums,
 ``(acc · row scale) · column scale`` in f32 (``_fused_kernel_mx``,
 ``:309``; ``tdt_ag_gemm_mx``). The numerics are those of JAX's XLA ring
 twin ``ag_gemm_device`` (``:672-795``), with the chunk rows of
-:func:`~triton_distributed_tpu_torch.lang.wire.make_wire_format` for
-every wire: JAX's fused int8-mxu kernel pins ``chunk_rows`` to its row
-block (``:432``), a VMEM tiling choice (ROADMAP Queue 3). ``'auto'``
-needs the wire tuner and perf model of ``tune/`` and raises (ROADMAP
-Queue 1 step 10).
+:func:`~triton_distributed_tpu_torch.lang.wire.make_wire_format`, except
+where JAX's engine choice (:class:`AGGemmMethod`,
+:func:`resolve_ag_gemm_method`: with no method ``PALLAS_FUSED`` wherever
+:func:`pick_mm_blocks` blocks the shard) runs its fused int8-mxu kernel,
+which chunks the scales at its row block (``:428-432``): there the port
+chunks at ``pick_mm_blocks(...)[0]`` too (:func:`resolve_ag_gemm_plan`).
+``'auto'`` needs the wire tuner and perf model of ``tune/`` and raises
+(ROADMAP Queue 1 step 10).
 
 On CPU tensors :func:`ag_gemm` runs :func:`ag_gemm_plain`; on CUDA
 tensors it launches the kernel of the resolved wire or raises.
@@ -43,9 +46,16 @@ tensors it launches the kernel of the resolved wire or raises.
 
 from __future__ import annotations
 
+import enum
+from dataclasses import dataclass
+
 import torch
 
-from triton_distributed_tpu_torch.config import fused_vmem_budget, to_torch_dtype
+from triton_distributed_tpu_torch.config import (
+    fused_vmem_budget,
+    to_torch_dtype,
+    warn_once,
+)
 from triton_distributed_tpu_torch.kernels.group_gemm import _DT_CODE
 from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE, quantize_shards
 from triton_distributed_tpu_torch.lang import wire as wirelib
@@ -83,6 +93,47 @@ def pick_mm_blocks(m: int, k: int, n: int, itemsize: int,
         if tm <= 64 and tk <= 128 and tn <= 128:
             return None
         tm, tk, tn = max(tm // 2, 64), max(tk // 2, 128), max(tn // 2, 128)
+
+
+class AGGemmMethod(enum.Enum):
+    """JAX's AG-GEMM engines (``:65``): the fused ring, the XLA ring twin
+    and ``all_gather`` → ``dot``. On the card the fused engine and the
+    XLA ring run the same pull kernels; the choice sets the int8-mxu
+    wire's scale chunk, and ``XLA_NAIVE`` ships no wire."""
+
+    PALLAS_FUSED = "pallas_fused"
+    XLA_RING = "xla_ring"
+    XLA_NAIVE = "xla_naive"
+
+
+def _shard_blocks(a, b):
+    """JAX's (bm, bk, bn) for a rank's (m, K) @ (K, N_r) shard product
+    in A's itemsize, or None."""
+    return pick_mm_blocks(a[0].shape[0], a[0].shape[1], b[0].shape[1],
+                          a[0].element_size())
+
+
+def auto_ag_gemm_method(mesh, axis, a, b) -> AGGemmMethod:
+    """JAX's heuristic (``auto_ag_gemm_method``, ``:944-985``):
+    ``PALLAS_FUSED`` where the shard blocks, else ``XLA_RING`` (said
+    once). JAX's other answers have no counterpart on the loopback mesh:
+    it has no DCN link, and its collectives always run."""
+    if _shard_blocks(a, b) is None:
+        warn_once(("ag_gemm", "blocks", tuple(a[0].shape), tuple(b[0].shape)),
+                  f"ag_gemm: shard {tuple(a[0].shape)} @ {tuple(b[0].shape)}"
+                  " admits no divisor blocking; falling back to XLA_RING")
+        return AGGemmMethod.XLA_RING
+    return AGGemmMethod.PALLAS_FUSED
+
+
+def resolve_ag_gemm_method(mesh, axis, a, b, *, method=None) -> AGGemmMethod:
+    """The engine :func:`ag_gemm` runs (JAX ``:1094-1129``): an explicit
+    ``method``, else :func:`auto_ag_gemm_method`. JAX looks up a tuned
+    winner first; that lookup comes with the tuning layer (ROADMAP Queue
+    1 step 10), so here None is always the heuristic."""
+    if method is not None:
+        return AGGemmMethod(method)
+    return auto_ag_gemm_method(mesh, axis, a, b)
 
 
 def _is_shards(a) -> bool:
@@ -129,16 +180,19 @@ def _auto_refused(op: str):
         "'int8-mxu' or None")
 
 
-def resolve_ag_gemm_wire(mesh, axis, a, b, *, wire_dtype=None):
+def resolve_ag_gemm_wire(mesh, axis, a, b, *, method=None, wire_dtype=None):
     """The wire :func:`ag_gemm` ships for these arguments (JAX
-    ``resolve_ag_gemm_wire``, ``:988``): None for the raw wire and at
-    world size 1 (tensors, or a mesh of one rank: nothing crosses a
-    wire), else the explicit 'fp8' / 'int8' / 'int8-mxu' when an A shard
-    (m, K) can carry it (:func:`~triton_distributed_tpu_torch.lang.wire.
-    wire_blockable`), and ``ValueError`` when it cannot: a pinned wire
-    is a contract. 'auto' raises ``NotImplementedError``."""
+    ``resolve_ag_gemm_wire``, ``:988``): None for the raw wire, at world
+    size 1 (tensors, or a mesh of one rank: nothing crosses a wire) and
+    under ``XLA_NAIVE`` (no ring), else the explicit 'fp8' / 'int8' /
+    'int8-mxu' when an A shard (m, K) can carry it
+    (:func:`~triton_distributed_tpu_torch.lang.wire.wire_blockable`), and
+    ``ValueError`` when it cannot: a pinned wire is a contract. 'auto'
+    raises ``NotImplementedError``."""
     w = wirelib.normalize_wire(wire_dtype)
     if w is None or not _is_shards(a) or one_axis(mesh, axis) == 1:
+        return None
+    if method is not None and AGGemmMethod(method) == AGGemmMethod.XLA_NAIVE:
         return None
     if w == "auto":
         raise _auto_refused("ag_gemm")
@@ -151,16 +205,54 @@ def resolve_ag_gemm_wire(mesh, axis, a, b, *, wire_dtype=None):
     return w
 
 
+@dataclass(frozen=True)
+class AGGemmPlan:
+    """What :func:`ag_gemm` runs over a mesh: the engine, the wire (None,
+    'fp8', 'int8' or 'int8-mxu') and the wire's scale chunk in rows."""
+
+    method: AGGemmMethod
+    wire: str | None
+    chunk_rows: int | None = None
+
+
+def resolve_ag_gemm_plan(mesh, axis, a, b, *, method=None,
+                         wire_dtype=None) -> AGGemmPlan:
+    """The engine, wire and scale chunk of an :func:`ag_gemm` call over a
+    mesh (JAX's entry, ``:1303-1340``, and the gate of its
+    ``_build_fused``, ``:397-432``). Every wire chunks at
+    :func:`~triton_distributed_tpu_torch.lang.wire.make_wire_format`'s
+    rows, except int8-mxu on ``PALLAS_FUSED``, whose kernel chunks at its
+    row block, ``pick_mm_blocks(...)[0]``. ``PALLAS_FUSED`` on a shard
+    that admits no blocking raises ``ValueError``, as JAX's
+    ``_build_fused`` does."""
+    method = resolve_ag_gemm_method(mesh, axis, a, b, method=method)
+    wire = resolve_ag_gemm_wire(mesh, axis, a, b, method=method,
+                                wire_dtype=wire_dtype)
+    if method == AGGemmMethod.PALLAS_FUSED and one_axis(mesh, axis) > 1:
+        blocks = _shard_blocks(a, b)
+        if blocks is None:
+            raise ValueError(
+                f"ag_gemm PALLAS_FUSED: no divisor blocking for shard "
+                f"{tuple(a[0].shape)} @ {tuple(b[0].shape)}; use XLA_RING")
+        if wire == "int8-mxu":
+            return AGGemmPlan(method, wire, blocks[0])
+    if wire is None:
+        return AGGemmPlan(method, None)
+    fmt = wirelib.make_wire_format(wire, a[0].shape[0])
+    return AGGemmPlan(method, wire, fmt.chunk_rows)
+
+
 def ag_gemm_plain(a, b, mesh=None, axis: str = "tp", *, out_dtype=None,
-                  wire=None):
+                  wire=None, chunk_rows=None):
     """Plain PyTorch version. Tensors: ``a @ b`` in f32, cast to
     ``out_dtype`` (default a's dtype). Shard lists: for each rank r,
     ``cat(A) @ B_r`` in f32, cast; with ``wire`` (a resolved wire, see
-    :func:`resolve_ag_gemm_wire`) as JAX's ``ag_gemm_device``: 'fp8' /
+    :func:`resolve_ag_gemm_plan`) as JAX's ``ag_gemm_device``: 'fp8' /
     'int8' replace every peer shard by its dequantized codes (rank r's
     own shard exact); 'int8-mxu' multiplies every shard's int8 codes by
     ``quantize_cols(B_r)`` with exact integer sums (in f64), then
-    ``(acc · row scale) · column scale`` in f32."""
+    ``(acc · row scale) · column scale`` in f32. ``chunk_rows``: the
+    scale chunk (None: ``make_wire_format``'s)."""
     if not _is_shards(a):
         _check(a, b, mesh, axis, "ag_gemm")
         return (a.float() @ b.float()).to(to_torch_dtype(out_dtype or a.dtype))
@@ -169,7 +261,8 @@ def ag_gemm_plain(a, b, mesh=None, axis: str = "tp", *, out_dtype=None,
     if wire is None:
         gathered = torch.cat(list(a), dim=0).float()
         return [(gathered @ br.float()).to(out_dtype) for br in b]
-    fmt = wirelib.make_wire_format(wire, a[0].shape[0])
+    fmt = wirelib.make_wire_format(wire, a[0].shape[0],
+                                   chunk_rows=chunk_rows)
     wired = [wirelib.quantize_slab(aq, fmt) for aq in a]
     if wire == "int8-mxu":
         return ag_gemm_wired_plain(a, wired, [wirelib.quantize_cols(br)
@@ -199,19 +292,19 @@ def ag_gemm_wired_plain(a, wired, b, fmt, out_dtype, mx=False):
              .float() @ br.float()).to(out_dtype) for r, br in enumerate(b)]
 
 
-def ag_gemm(a, b, mesh=None, axis: str = "tp", *, out_dtype=None,
-            wire_dtype=None):
+def ag_gemm(a, b, mesh=None, axis: str = "tp", *, method=None,
+            out_dtype=None, wire_dtype=None):
     """AllGather(A) @ B (column-parallel).
 
     World size 1: a (M, K), b (K, N) tensors → (M, N). Over a mesh: a a
     list of W row shards (m, K), b a list of W column shards (K, N) →
     a list of W (W·m, N) outputs, rank r's the gathered A times B_r.
     A and B both bf16 or both f32 on the card; ``out_dtype`` (default
-    A's dtype) f32 or bf16. ``wire_dtype``: None / 'bf16', 'fp8',
-    'int8', 'int8-mxu' (see the module docstring and
-    :func:`resolve_ag_gemm_wire`). On CPU tensors this is
-    :func:`ag_gemm_plain`; on CUDA tensors it launches the kernel or
-    raises."""
+    A's dtype) f32 or bf16. ``method``: an :class:`AGGemmMethod` or None
+    (JAX's heuristic); ``wire_dtype``: None / 'bf16', 'fp8', 'int8',
+    'int8-mxu' (see the module docstring and :func:`resolve_ag_gemm_plan`).
+    On CPU tensors this is :func:`ag_gemm_plain`; on CUDA tensors it
+    launches the kernel or raises."""
     if not _is_shards(a):
         _check(a, b, mesh, axis, "ag_gemm")
         resolve_ag_gemm_wire(mesh, axis, a, b, wire_dtype=wire_dtype)
@@ -222,14 +315,15 @@ def ag_gemm(a, b, mesh=None, axis: str = "tp", *, out_dtype=None,
     if a[0].shape[1] != b[0].shape[0]:
         raise ValueError(f"ag_gemm: contract dim mismatch "
                          f"{tuple(a[0].shape)} @ {tuple(b[0].shape)}")
-    wire = resolve_ag_gemm_wire(mesh, axis, a, b, wire_dtype=wire_dtype)
+    plan = resolve_ag_gemm_plan(mesh, axis, a, b, method=method,
+                                wire_dtype=wire_dtype)
     if a[0].device.type == "cpu":
         return ag_gemm_plain(a, b, mesh, axis, out_dtype=out_dtype,
-                             wire=wire)
-    if wire == "int8-mxu":
-        return _ag_gemm_mx_cuda(a, b, mesh, out_dtype)
-    if wire is not None:
-        return _ag_gemm_w_cuda(a, b, mesh, out_dtype, wire)
+                             wire=plan.wire, chunk_rows=plan.chunk_rows)
+    if plan.wire == "int8-mxu":
+        return _ag_gemm_mx_cuda(a, b, mesh, out_dtype, plan.chunk_rows)
+    if plan.wire is not None:
+        return _ag_gemm_w_cuda(a, b, mesh, out_dtype, plan.wire)
     return _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype)
 
 
@@ -356,13 +450,14 @@ def ag_gemm_mx_launch(q, s, bqt, bs, mesh, chunk_rows, out_dtype):
     return out.shards
 
 
-def _ag_gemm_mx_cuda(a, b, mesh, out_dtype):
-    """The int8-mxu wire: every shard quantized (``quantize_shards``), B
-    per column (:func:`quantize_cols_shards`), then
-    :func:`ag_gemm_mx_launch`."""
+def _ag_gemm_mx_cuda(a, b, mesh, out_dtype, chunk_rows):
+    """The int8-mxu wire: every shard quantized at ``chunk_rows``
+    (``quantize_shards``), B per column (:func:`quantize_cols_shards`),
+    then :func:`ag_gemm_mx_launch`."""
     out_dtype, _ = check_mesh_operands("tdt_ag_gemm_mx", a, b, out_dtype,
                                        need_b=False)
-    fmt = wirelib.make_wire_format("int8-mxu", a[0].shape[0])
+    fmt = wirelib.make_wire_format("int8-mxu", a[0].shape[0],
+                                   chunk_rows=chunk_rows)
     q, s = quantize_shards(a, fmt)
     bqt, bs = quantize_cols_shards(b)
     return ag_gemm_mx_launch(q, s, bqt, bs, mesh, fmt.chunk_rows, out_dtype)

@@ -1,8 +1,9 @@
 """GQA flash-decode: one query token per batch row over a KV cache.
 
 Port of ``triton_distributed_tpu/kernels/flash_decode.py``: the KV-cache
-quantizer, the four local decode entries, the partials merge, and the
-sequence-parallel entries over a mesh
+quantizer, the four local decode entries, the partials merges (the
+sequence-parallel decode's, and the cp shards' of long-context serving),
+and the sequence-parallel entries over a mesh
 (:func:`sp_gqa_fwd_batch_decode`, :func:`sp_gqa_fwd_batch_decode_q8`).
 
 * :func:`gqa_fwd_batch_decode` — a contiguous cache, (B, Hkv, S, D)
@@ -391,6 +392,24 @@ def combine_partials(outs, lses, out_dtype=None):
     denom = torch.clamp(w.sum(dim=0), min=1e-30)
     merged = torch.einsum("rbh,rbhd->bhd", w, outs.float()) / denom[..., None]
     return merged.to(out_dtype), m[0] + torch.log(denom)
+
+
+def combine_gqa_partials(outs, lses, out_dtype=None):
+    """Merge cp-shard partials in the ragged kernel's layout (JAX
+    ``:1367-1395``): outs (R, Hkv, TG, D), lses (R, Hkv, TG), as the
+    ragged paged attention returns them, stacked along the cp shards.
+    The softmax merge of :func:`combine_partials` with JAX's guard: a
+    partial whose lse is NEG_INF weighs exactly 0, so a row every shard
+    masked (padding, an empty shard) stays 0 with lse NEG_INF, and a row
+    held wholly by one shard merges to that shard's out bit for bit.
+    Returns (merged in ``out_dtype`` (default outs' dtype), lse).
+
+    The long-context serving step's merge: on CUDA tensors the kernel of
+    :func:`~triton_distributed_tpu_torch.kernels.cp_ring.cp_lse_combine`,
+    on CPU tensors its plain version (the sums in shard order)."""
+    from triton_distributed_tpu_torch.kernels.cp_ring import cp_lse_combine
+
+    return cp_lse_combine(outs, lses, out_dtype=out_dtype)
 
 
 # ------------------------------------------------------ sequence parallel

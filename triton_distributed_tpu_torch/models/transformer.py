@@ -43,6 +43,12 @@ partials, combine), and appends each token on the rank that owns its
 position. Replicated activations are one shared tensor on the loopback
 mesh.
 
+**Long-context serving** (``Transformer(config, mesh=Mesh.grid({"tp":
+1, "cp": 2}), cp_axis="cp")``): the serving step over ``cp`` stacked
+per-shard page pools, each layer's ragged attention walking every
+shard's slice of a row's pages in one launch and the shards' partials
+merged by the cp LSE-combine (:meth:`Transformer._cp_ragged_attn`).
+
 MoE blocks run over the mesh in both flavours. EP splits the experts
 (rank r owns experts [r·E/W, (r+1)·E/W)): the prefill and the decode
 route every rank's tokens (row block r) through ``ep_moe`` across the
@@ -206,13 +212,29 @@ class Transformer:
     mesh's): dense blocks, and MoE blocks in both flavours, EP with the
     experts split over the ranks and TP with their F dim split. It needs
     ``n_heads``, ``n_kv_heads`` and ``ffn`` (and an EP model's
-    ``num_experts``) to split over the ranks."""
+    ``num_experts``) to split over the ranks.
+
+    ``cp_axis``: the mesh axis of long-context serving (JAX ``:231-242``;
+    None: no context parallelism), e.g. ``Mesh.grid({"tp": 1, "cp": 2})``
+    with ``cp_axis="cp"``. The serving pool becomes ``cp`` per-shard
+    pools stacked in one allocation, each layer's ragged attention walks
+    every shard's slice of a request's pages, and the shards' partials
+    merge through the cp LSE-combine (:meth:`_cp_ragged_attn`). tp is
+    sized with the cp axis excluded; beside cp it must be 1 (serving at
+    tp > 1 is ROADMAP Queue 1 item 12), and the model's other paths then
+    run as one rank: ``self.mesh`` is the tensor-parallel mesh, None
+    there. cp adds no parameters."""
 
     def __init__(self, config: TransformerConfig, mesh: Mesh | None = None,
-                 device=None):
+                 device=None, cp_axis: str | None = None):
         self.config = config
         self.mesh = mesh
+        self.cp_axis = cp_axis
+        self.cp = 1
         if mesh is None:
+            if cp_axis is not None:
+                raise ValueError(f"cp_axis={cp_axis!r} names an axis of a "
+                                 "mesh; pass mesh=")
             self.device = resolve_device(device)
             self.tp = 1
             return
@@ -223,7 +245,18 @@ class Transformer:
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"device {device} is not the mesh's "
                              f"{self.device}")
-        self.tp = one_axis(mesh, TP_AXIS)
+        self.tp = one_axis(mesh, TP_AXIS, () if cp_axis is None
+                           else (cp_axis,))
+        if cp_axis is not None:
+            self.cp = mesh.axis_size(cp_axis)
+            if self.cp > 1 and self.tp > 1:
+                raise NotImplementedError(
+                    f"context-parallel serving at cp = {self.cp} beside tp ="
+                    f" {self.tp}: serving at tp > 1 is ROADMAP Queue 1 item "
+                    "12; use a mesh whose tp axis has size 1")
+            if self.tp == 1:
+                self.mesh = None      # the tensor-parallel paths: one rank
+                return
         c = config
         split = [("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
                  ("ffn", c.ffn)]
@@ -655,7 +688,13 @@ class Transformer:
         ServingState`: per-layer page pools holding every KV head (int8
         dicts under ``kv_quant``), a (slots, pages_per_seq) block table
         of -1, zero lengths and cursors. ``pages_per_seq`` is ``npages``
-        capped at 1024."""
+        capped at 1024.
+
+        Under ``cp > 1`` (JAX ``:1398-1466``) ``npages`` is the per-shard
+        pool: the pools hold ``cp·npages`` pages, shard r the rows
+        ``[r·npages, (r+1)·npages)``, the table's columns split the same
+        way (``pages_per_seq = min(npages, max(1024 // cp, 1))·cp``), and
+        one slot holds up to ``cp·pages_per_shard·page`` positions."""
         from triton_distributed_tpu_torch.serving.state import (
             ServingState,
             fresh_table,
@@ -664,8 +703,9 @@ class Transformer:
         self._one_rank("the serving state")
         c = self.config
         dev = self.device
-        pps = min(npages, 1024)
-        shape = (npages, c.n_kv_heads, page, c.head_dim)
+        cp = self.cp
+        pps = min(npages, max(1024 // cp, 1)) * cp
+        shape = (npages * cp, c.n_kv_heads, page, c.head_dim)
         return ServingState(
             layers=tuple((self._fresh_cache(shape), self._fresh_cache(shape))
                          for _ in range(c.n_layers)),
@@ -673,6 +713,7 @@ class Transformer:
             kv_lens=torch.zeros((slots,), dtype=torch.int32, device=dev),
             cursors=torch.zeros((slots,), dtype=torch.int32, device=dev),
             page=page,
+            cp=cp,
         )
 
     def _ragged_attn(self, qp, k_pool, v_pool, state, q_lens, q_starts,
@@ -686,6 +727,63 @@ class Transformer:
         return layer(qp, k_pool, v_pool, state.kv_lens, q_lens, q_starts,
                      state.block_table, topologies=topologies,
                      block_q=block_q, with_lse=with_lse)
+
+    def _cp_ragged_attn(self, qp, kp, vp, state, q_lens, q_starts, block_q,
+                        topologies=None):
+        """Context-parallel attention (JAX ``:1491-1545``): every cp
+        shard walks its slice of a row's pages, shard r the table columns
+        ``[r·pps_loc, (r+1)·pps_loc)`` with ``lens_r = clip(kv_len −
+        r·s_loc, 0, s_loc)`` positions and a TOPO_CP descriptor whose
+        frontier shift ``max(kv_len − r·s_loc, 0) − lens_r`` makes the
+        shard's causal mask exact against the global positions it holds;
+        the shards' ``(out, lse)`` partials then merge through
+        :func:`~triton_distributed_tpu_torch.kernels.flash_decode.
+        combine_gqa_partials` (on the card the cp LSE-combine kernel, one
+        launch a layer). A row held wholly by shard 0 merges to shard 0's
+        out bit for bit, so short requests stream as on a cp-free engine.
+
+        JAX launches the ragged kernel once a shard on the shard's slice
+        of the pool. Here one launch walks all shards: the shards' rows
+        are stacked (cp·slots rows, shard r's q the r-th copy of the
+        packed rows), and each row's table holds its shard's columns of
+        global page ids, which address the stacked pool directly."""
+        from triton_distributed_tpu_torch.kernels.flash_decode import (
+            combine_gqa_partials,
+        )
+        from triton_distributed_tpu_torch.kernels.ragged_paged_attention import (
+            TOPO_CP,
+            topo_width,
+        )
+
+        cp, slots = state.cp, state.slots
+        pps_loc = state.pages_per_shard
+        s_loc = pps_loc * state.page
+        hkv, tg, d = qp.shape
+        t = tg // (self.config.n_heads // self.config.n_kv_heads)
+        dev = qp.device
+        if topologies is None:
+            w = topo_width(block_q)
+            topologies = torch.zeros((slots, 2 + 2 * w), dtype=torch.int32,
+                                     device=dev)
+        r = torch.arange(cp, device=dev)[:, None]
+        kv = state.kv_lens.long()[None, :] - r * s_loc         # (cp, slots)
+        lens = kv.clamp(0, s_loc)
+        topo = torch.as_tensor(topologies, dtype=torch.int32,
+                               device=dev).repeat(cp, 1)
+        topo[:, 0] = TOPO_CP
+        topo[:, 1] = (kv.clamp(min=0) - lens).reshape(-1)
+        table = state.block_table.view(slots, cp, pps_loc).transpose(0, 1)
+        shards = state.replace(
+            block_table=table.reshape(cp * slots, pps_loc),
+            kv_lens=lens.reshape(-1).to(torch.int32))
+        starts = (q_starts.long()[None, :] + r * t).reshape(-1)
+        out, lse = self._ragged_attn(
+            qp.repeat(1, cp, 1), kp, vp, shards, q_lens.repeat(cp),
+            starts.to(torch.int32), block_q, topo, with_lse=True)
+        merged, _ = combine_gqa_partials(
+            out.view(hkv, cp, tg, d).transpose(0, 1),
+            lse.view(hkv, cp, tg).transpose(0, 1), out_dtype=qp.dtype)
+        return merged
 
     def serving_step(self, params, state, tokens, token_rows, token_pos,
                      q_starts, q_lens, topologies=None, moe_state=None, *,
@@ -755,8 +853,12 @@ class Transformer:
                 vp.index_put_(idx, v.to(vp.dtype))
             qp = pack_gqa_rows(q.reshape(t, c.n_heads, c.head_dim),
                                c.n_kv_heads)
-            o = self._ragged_attn(qp, kp, vp, state, q_lens, q_starts,
-                                  block_q, topologies)
+            if state.cp > 1:
+                o = self._cp_ragged_attn(qp, kp, vp, state, q_lens,
+                                         q_starts, block_q, topologies)
+            else:
+                o = self._ragged_attn(qp, kp, vp, state, q_lens, q_starts,
+                                      block_q, topologies)
             o = unpack_gqa_rows(o, c.n_heads).reshape(t, c.q_dim)
             x = x + self._dmm(o.to(c.dtype), blk["wo"])
             xn = self._rmsnorm(x, blk["norm_mlp"])

@@ -4,7 +4,9 @@ Port of the parts of ``triton_distributed_tpu/runtime/topology.py`` that
 the tensor-parallel path needs: ``AllGatherMethod`` (``:24``),
 ``auto_allgather_method`` (``:86``), ``auto_allgather_wire`` (``:99``),
 ``mesh_axes_size`` (``:117``) and ``ring_neighbors`` (``:125``), plus
-:class:`Mesh`, the port's counterpart of ``jax.sharding.Mesh``.
+:class:`Mesh`, the port's counterpart of ``jax.sharding.Mesh``
+(:meth:`Mesh.loopback` for one axis, :meth:`Mesh.grid` for several, as
+context-parallel serving's ``{"tp": 1, "cp": 2}``).
 
 The port is single-controller, as JAX is: one process drives every rank
 of a mesh. A tensor sharded over the mesh is a Python list of per-rank
@@ -89,6 +91,17 @@ class Mesh:
         dev = resolve_device(device)
         return cls((dev,) * n, (axis,), (n,))
 
+    @classmethod
+    def grid(cls, axes: dict, device=None) -> "Mesh":
+        """A loopback mesh with the named axes, sized by ``axes`` (name →
+        size, row-major in that order), e.g. ``{"tp": 1, "cp": 2}`` for
+        context-parallel serving; all ranks on ``device``."""
+        dev = resolve_device(device)
+        sizes = tuple(int(v) for v in axes.values())
+        if any(v < 1 for v in sizes):
+            raise ValueError(f"every axis needs at least one rank: {axes}")
+        return cls((dev,) * math.prod(sizes), tuple(axes), sizes)
+
     @property
     def shape(self) -> dict:
         """Axis name → size, as ``jax.sharding.Mesh.shape``."""
@@ -147,12 +160,13 @@ def ring_neighbors(idx: int, n: int):
     return (idx + n - 1) % n, (idx + 1) % n
 
 
-def one_axis(mesh: Mesh, axis: str) -> int:
-    """The size of ``axis`` on a mesh whose other axes have size 1: the
-    collectives of this slice run over one axis (data-parallel axes
-    beside it are ROADMAP Queue 1 item 11)."""
+def one_axis(mesh: Mesh, axis: str, beside: tuple = ()) -> int:
+    """The size of ``axis`` on a mesh whose other axes have size 1, the
+    axes named in ``beside`` excepted (a model sizes tp beside its cp
+    axis): the collectives of this slice run over one axis (data-parallel
+    axes beside it are ROADMAP Queue 1 item 11)."""
     n = mesh.axis_size(axis)
-    if mesh.size != n:
+    if mesh.size != n * mesh_axes_size(mesh, beside):
         raise NotImplementedError(
             f"collectives over {axis!r} on a mesh of shape {mesh.shape}: "
             "axes beside it (dp_axes) are ROADMAP Queue 1 item 11")

@@ -11,6 +11,7 @@ from triton_distributed_tpu_torch.serving.engine import (
 )
 from triton_distributed_tpu_torch.serving.protocol import ProtocolOps
 from triton_distributed_tpu_torch.serving.state import (
+    CpPagePool,
     PagePool,
     ServingState,
     fresh_table,
@@ -19,6 +20,7 @@ from triton_distributed_tpu_torch.serving.state import (
 
 __all__ = [
     "TIERS",
+    "CpPagePool",
     "EngineConfig",
     "EngineStats",
     "PagePool",

@@ -20,10 +20,18 @@ An EP MoE model's layers keep persistent transport workspaces
 (``moe_state``, built by ``model.init_decode_state`` for the packed
 step width) that every step threads through.
 
+A model with a context-parallel axis (``model.cp > 1``) serves long
+requests: the pool holds ``cp`` per-shard pools of ``cfg.npages`` pages
+each, and the host allocator mirrors them as a
+:class:`~triton_distributed_tpu_torch.serving.state.CpPagePool`, which
+lands each page on the shard that owns its logical index (the protocol's
+verbs pass that index to ``alloc`` and ``lookup`` on every path, eviction
+and recompute included). In-batch prefix dedup (``prefix_share``) is
+refused there, as in JAX.
+
 Not in this slice: the health ledger and the demotion to a twin when a
 kernel raises (a kernel error propagates), the watchdog hooks, the
-TPU grid schedule, the KV-ship verbs, context parallelism and
-speculation.
+TPU grid schedule, the KV-ship verbs and speculation.
 """
 
 from __future__ import annotations
@@ -218,7 +226,10 @@ class ServingEngine:
             auto_block_q,
         )
         from triton_distributed_tpu_torch.serving.protocol import ProtocolOps
-        from triton_distributed_tpu_torch.serving.state import PagePool
+        from triton_distributed_tpu_torch.serving.state import (
+            CpPagePool,
+            PagePool,
+        )
 
         if cfg.token_budget % 8:
             raise ValueError("token_budget must be 8-aligned")
@@ -228,6 +239,13 @@ class ServingEngine:
         if cfg.prefix_share and not cfg.prefix_cache:
             raise ValueError("prefix_share requires prefix_cache (the "
                              "chain-hash registry is the dedup index)")
+        cp = getattr(model, "cp", 1)
+        if cp > 1 and cfg.prefix_share:
+            raise ValueError(
+                "prefix_share is incompatible with context-parallel "
+                "decode: in-batch dedup retargets table columns to a "
+                "canonical page, but under cp a logical page index is "
+                "pinned to its owning shard")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -236,8 +254,15 @@ class ServingEngine:
         self.state = model.init_serving_state(cfg.slots, cfg.npages, cfg.page)
         self.table = np.full((cfg.slots, self.state.pages_per_seq), -1,
                              np.int32)
-        self.pool = PagePool(cfg.npages, cfg.page,
-                             prefix_cache=cfg.prefix_cache)
+        # under cp the pool's shards own the table's column blocks: the
+        # allocator routes each logical page index to its shard
+        if cp > 1:
+            self.pool = CpPagePool(cp, cfg.npages, cfg.page,
+                                   self.state.pages_per_shard,
+                                   prefix_cache=cfg.prefix_cache)
+        else:
+            self.pool = PagePool(cfg.npages, cfg.page,
+                                 prefix_cache=cfg.prefix_cache)
         # called (req, slot) on completion; return True to free the slot
         self.on_complete = on_complete
         self.slot_req: list = [None] * cfg.slots
