@@ -334,6 +334,19 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/cp_ring.cu",
         replaces="triton_distributed_tpu/kernels/cp_ring.py:341"),
+    # the context-parallel prefill: the KV ring with the attention that
+    # consumes each arrival (tdt_ring_attention, one launch a layer for
+    # every rank; Ulysses' local attention is the same kernel on a ring of
+    # one block, and counts here too) and the Ulysses all-to-all
+    # (tdt_ulysses_a2a, one launch a tensor and direction)
+    "kv_rotate": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/cp_ring.cu",
+        replaces="triton_distributed_tpu/kernels/cp_ring.py:71"),
+    "ulysses_a2a": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/cp_ring.cu",
+        replaces="triton_distributed_tpu/kernels/cp_ring.py:127"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -473,6 +486,29 @@ LC_COMBINE_ROWS = {"cp_lse_combine": "_cp_lse_combine_kernel",
 # top-6 routing carry that on. On an H100 this read 6.3 %, and 14.5 %
 # with shard 1's partial dropped from every merge: 10 % lies between
 LC_LOGIT_RTOL = 0.10
+
+#: the context-parallel prefill path: Llama-2-7B bf16 at full width and
+#: depth (the decode path's weights) on a loopback mesh of 4 ranks at
+#: attn = "ring" and "ulysses", against attn = "tp" on the same weights
+#: and mesh: 2 prompts of 4032 and 2600 tokens padded to 4032 (1008
+#: positions a rank), capacity 4096, then 32 greedy steps in lockstep,
+#: every model fed the tp model's tokens. Its rows' launches come from
+#: the two prefills: the ring kernel 32 a prefill (at n = 4 for ring, on
+#: one block for Ulysses' local heads), the all-to-all 128 (Ulysses)
+CP_N, CP_B, CP_S, CP_LENS, CP_CAP, CP_STEPS = 4, 2, 4032, (4032, 2600), 4096, 32
+CP_ROWS = {"kv_rotate": "_kv_rotate_kernel",
+           "ulysses_a2a": "_ulysses_a2a_kernel"}
+# prefill's last-position logits and every lockstep decode step's logits
+# of ring / Ulysses against attn = "tp", relative to the largest tp
+# logit. The paths differ in rounding only: the tp prefill rounds its
+# softmax to bf16 before P @ V and projects through the mesh GEMMs, the
+# ring kernel keeps P in f32 and rounds once, the projections are one
+# cuBLAS matmul; the tp = 4 decode against tp = 1, which differs in the
+# same way, read at most 1.6 % of the largest logit. Losing one source
+# block of rank 3's ring output (a quarter of the keys of every position
+# past 3024) should move the logits as losing a decode rank's partial
+# did (at least 24 %): 5 % lies between
+CP_LOGIT_RTOL = 0.05
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -2990,6 +3026,185 @@ def check_cp_combine(res: Results, dev):
         res.kernel(name, err=err)
 
 
+def cp_views(dev, g, n, b, s, hq, hkv, d, dtype):
+    """Seeded q, k, v as the context-parallel prefill takes them: (n, B,
+    S, H, D) views of one (B, n·S, (Hq + 2·Hkv)·D) projection, rank r's
+    sequence block at [r·S, (r+1)·S)."""
+    import torch
+
+    qkv = torch.randn((b, n * s, (hq + 2 * hkv) * d), generator=g,
+                      device=dev).to(dtype)
+    q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
+    return [t.reshape(b, n, s, -1, d).transpose(0, 1) for t in (q, k, v)]
+
+
+def bf16_ulps(got, want):
+    """(max |got - want| in units of want's bf16 ulp where |want| >=
+    2^-4, max(|got - want| - ulp(want)) everywhere). The second is what is
+    left after one bf16 rounding: two f32 results within a tolerance of
+    each other, each rounded once, leave at most that tolerance. Near zero
+    a bf16 ulp is smaller than f32's last-bit differences, so the ulp
+    count is taken only where an ulp (>= 2^-12) dwarfs them; there it
+    must be at most 1."""
+    import torch
+
+    w, gt = want.float(), got.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    diff = (gt - w).abs()
+    big = w.abs() >= 2.0 ** -4
+    ulps = (diff[big] / ulp[big]).max().item() if big.any() else 0.0
+    return ulps, (diff - ulp).max().item()
+
+
+def attention_ops(b, h, s_q, s_k, d, causal, q0=0):
+    """The flops of attention's two products over the (query, key) pairs
+    the mask keeps: 4·D a pair. ``q0``: the global position of the first
+    query (keys start at 0)."""
+    if not causal:
+        return 4.0 * d * b * h * s_q * s_k
+    pairs = sum(min(q0 + t + 1, s_k) for t in range(s_q))
+    return 4.0 * d * b * h * pairs
+
+
+def check_cp_prefill_kernels(res: Results, dev):
+    """The context-parallel prefill's kernels against their plain
+    versions at the path's shapes. ``tdt_ring_attention``: 4 ranks of
+    Llama-2-7B's prefill (B 2, 1008 positions a rank, 32 heads, D 128,
+    bf16 views of the projection) causal and not, against the plain ring
+    (JAX's body step by step), and the Ulysses local shape (a ring of one
+    block: 4 ranks x B 2 as 8 rows, 4032 positions, 8 heads), each within
+    one bf16 ulp of the plain output where it is at least 2^-4, and
+    within one ulp plus the f32 tolerance 1e-5 everywhere (both compute
+    in f32 and round once); 4 ranks of 200 positions at GQA (32 q
+    heads on 16 KV heads) in f32 within 1e-5. ``tdt_ulysses_a2a``: the scatter of the
+    path's q view and the gather of its local output, byte-exact. Times
+    each at the path's shapes beside its bound, its plain version and one
+    PyTorch call: ``scaled_dot_product_attention`` over the gathered
+    sequence (flash, causal) for the ring kernel, a ``copy_`` of the same
+    bytes for the all-to-all."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import cp_ring
+    from triton_distributed_tpu_torch.kernels import ring_attention as tra
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    bf16 = torch.bfloat16
+    n, b, s, h, d = CP_N, CP_B, CP_S // CP_N, 32, 128
+    tag = f"llama_7b cp{n} prefill"
+    scale = d ** -0.5
+    # the ring at the path's shape, causal and not
+    q, k, v = cp_views(dev, g, n, b, s, h, h, d, bf16)
+    for causal in (True, False):
+        got = cp_ring.ring_attention_launch(q, k, v, causal=causal,
+                                            scale=scale)
+        want = tra.ring_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ulps, excess = bf16_ulps(got, want)
+        what = (f"{tag} ring {n} x ({b}, {s}, {h}, {d}) bf16 views, "
+                f"{'causal' if causal else 'full'}")
+        res.check("kv_rotate", ulps, 1.0, what + " (bf16 ulps of plain "
+                  "where |plain| >= 2^-4)", metric="ulps")
+        res.check("kv_rotate", excess, 1e-5, what + " (|diff| past one bf16 "
+                  "ulp of plain)", metric="excess")
+        res.kernel("kv_rotate", err=(got.float() - want.float()).abs()
+                   .max().item())
+        del got, want
+    ms = time_ms(lambda: cp_ring.ring_attention_launch(
+        q, k, v, causal=True, scale=scale), 5)
+    plain_ms = time_ms(lambda: tra.ring_attention_plain(q, k, v), 2)
+    qf, kf, vf = (t.transpose(0, 1).reshape(b, n * s, h, d).transpose(1, 2)
+                  .contiguous() for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True), 5)
+    nbytes = 4 * n * b * s * h * d * 2
+    ops = sum(attention_ops(b, h, s, (r + 1) * s, d, True, r * s)
+              for r in range(n))
+    bnd, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+    log(f"time kv_rotate {tag} ring causal (32 a ring prefill, one launch a "
+        f"layer for the 4 ranks): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+        f" library_ms={lib_ms:.4f} (SDPA, causal, over the gathered "
+        f"sequence) bound_ms={bnd:.4f} ({by}) achieved_tflops="
+        f"{ops / ms / 1e9:.2f}")
+    res.shape("kv_rotate", 32, ms, plain_ms, lib_ms, nbytes, ops,
+              H100_BF16_OPS)
+    del qf, kf, vf
+    # the all-to-all: the path's q out, and its local output back
+    sc = cp_ring.ulysses_a2a(q, "scatter")
+    ok = torch.equal(sc, cp_ring.ulysses_a2a_plain(q, "scatter"))
+    ga = cp_ring.ulysses_a2a(sc, "gather")
+    ok = ok and torch.equal(ga, cp_ring.ulysses_a2a_plain(sc, "gather"))
+    ok = ok and torch.equal(ga, q)
+    torch.cuda.synchronize()
+    res.check("ulysses_a2a", 0.0 if ok else 1.0, 0.0,
+              f"{tag} scatter {n} x ({b}, {s}, {h}, {d}) bf16 views and "
+              "gather back, byte-exact", metric="bytes differ")
+    res.kernel("ulysses_a2a", err=0.0 if ok else float("inf"))
+    nbytes = 2 * q.numel() * 2
+    bnd, by = bound_ms(nbytes, 0.0, H100_BF16_OPS)
+    for direction, x, per_step in (("scatter", q, 3 * 32),
+                                   ("gather", sc, 32)):
+        ms = graph_time_ms(lambda i: cp_ring.ulysses_a2a(x, direction),
+                           iters=8, reps=5)
+        plain_ms = time_ms(lambda: cp_ring.ulysses_a2a_plain(x, direction)
+                           .contiguous(), 5)
+        src = torch.empty(x.numel(), dtype=bf16, device=dev)
+        dst = torch.empty_like(src)
+        lib_ms = time_ms(lambda: dst.copy_(src), 10)
+        log(f"time ulysses_a2a {tag} {direction} ({per_step} a Ulysses "
+            f"prefill): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (one copy_ of the same bytes) "
+            f"bound_ms={bnd:.4f} ({by})")
+        res.shape("ulysses_a2a", per_step, ms, plain_ms, lib_ms, nbytes, 0.0,
+                  H100_BF16_OPS)
+        del src, dst
+    del q, k, v, sc, ga
+    # Ulysses' local attention: a ring of one block, 4 ranks x B 2 rows
+    hl, sfull = h // n, n * s
+    ql, kl, vl = (torch.randn((1, n * b, sfull, hl, d), generator=g,
+                              device=dev).to(bf16) for _ in range(3))
+    got = cp_ring.ring_attention_launch(ql, kl, vl, causal=True, scale=scale)
+    want = tra.ring_attention_plain(ql, kl, vl, causal=True)
+    torch.cuda.synchronize()
+    ulps, excess = bf16_ulps(got, want)
+    what = f"{tag} Ulysses local: 1 x ({n * b}, {sfull}, {hl}, {d}) bf16, causal"
+    res.check("kv_rotate", ulps, 1.0, what + " (bf16 ulps of plain where "
+              "|plain| >= 2^-4)", metric="ulps")
+    res.check("kv_rotate", excess, 1e-5, what + " (|diff| past one bf16 ulp "
+              "of plain)", metric="excess")
+    res.kernel("kv_rotate", err=(got.float() - want.float()).abs().max()
+               .item())
+    del got, want
+    ms = time_ms(lambda: cp_ring.ring_attention_launch(
+        ql, kl, vl, causal=True, scale=scale), 5)
+    plain_ms = time_ms(lambda: tra.ring_attention_plain(ql, kl, vl), 2)
+    qf, kf, vf = (t[0].transpose(1, 2).contiguous() for t in (ql, kl, vl))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True), 5)
+    nbytes = 4 * ql.numel() * 2
+    ops = attention_ops(n * b, hl, sfull, sfull, d, True)
+    bnd, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+    log(f"time kv_rotate {tag} Ulysses local, one block (32 a Ulysses "
+        f"prefill): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"{lib_ms:.4f} (SDPA, causal) bound_ms={bnd:.4f} ({by}) "
+        f"achieved_tflops={ops / ms / 1e9:.2f}")
+    res.shape("kv_rotate", 32, ms, plain_ms, lib_ms, nbytes, ops,
+              H100_BF16_OPS)
+    del ql, kl, vl, qf, kf, vf
+    # f32 at a GQA shape with a partial last tile
+    q, k, v = cp_views(dev, g, n, b, 200, 32, 16, d, torch.float32)
+    got = cp_ring.ring_attention_launch(q, k, v, causal=True, scale=scale)
+    want = tra.ring_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    res.check("kv_rotate", err, 1e-5, f"{tag} ring {n} x ({b}, 200, 32 on "
+              f"16 KV heads, {d}) f32, causal")
+    res.kernel("kv_rotate", err=err)
+    torch.cuda.empty_cache()
+
+
 def check_tiny_moe_tp4(res: Results, dev):
     """The tiny DeepSeek-MoE preset as served (EP: fp8 wire, W8A8) and in
     its TP flavour at tp = 4 on a loopback mesh, on the card and on the
@@ -3499,6 +3714,171 @@ def run_tp_path(res: Results, dev, one, profile=False):
     return counts
 
 
+def run_cp_prefill_path(res: Results, dev, one):
+    """The context-parallel prefill at full width and depth: the
+    Llama-2-7B bf16 decode path's weights (``one``, from
+    :func:`run_decode_path` with ``keep``) on a loopback mesh of 4 ranks
+    at ``attn="ring"`` and ``"ulysses"`` (``wqkv`` / ``wo`` shared, the
+    MLP's shards reused from the ``attn="tp"`` model's) and, as the
+    oracle, at ``attn="tp"``: 2 prompts of 4032 and 2600 tokens padded to
+    4032, capacity 4096. Each prefill's last-position logits must lie
+    within ``CP_LOGIT_RTOL`` of the tp prefill's, and the ring prefill
+    again with rank 3's attention output built without source block 0
+    (:func:`_lost_ring_block`) outside it. Then ``CP_STEPS`` greedy
+    decode steps in lockstep, every model fed the tp model's token: each
+    step's logits within the tolerance, the tokens equal where the tp
+    model's top-2 margin exceeds it (the gate of tests/test_models.py).
+    A ring prefill must launch the ring kernel once a layer, a Ulysses
+    prefill the all-to-all 4 times and the ring kernel once a layer, each
+    the mesh AG-GEMM / GEMM-RS once a layer (the MLP), and every decode
+    step the flash decode once and the all-gather twice a layer. Returns
+    {row: (launches, 1)} of the two prefills, by TPU kernel."""
+    import dataclasses
+
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        launches_by_tpu_kernel,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    name = f"llama_7b bf16 cp{CP_N}"
+    cfg = one["model"].config
+    layers = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = Mesh.loopback(CP_N, dev)
+    models = {"tp": Transformer(cfg, mesh=mesh)}
+    params = {"tp": models["tp"].shard_params(one["params"])}
+    shared = dict(one["params"], blocks=[
+        dict(blk, up=tb["up"], down=tb["down"]) for blk, tb in
+        zip(one["params"]["blocks"], params["tp"]["blocks"])])
+    for attn in ("ring", "ulysses"):
+        models[attn] = Transformer(dataclasses.replace(cfg, attn=attn),
+                                   mesh=mesh)
+        params[attn] = shared
+    tokens = torch.randint(0, cfg.vocab, (CP_B, CP_S), generator=torch.
+                           Generator(device=dev).manual_seed(31), device=dev,
+                           dtype=torch.int32)
+    lens = torch.tensor(CP_LENS, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    expect = {
+        "tp": {"ag_gemm": 2 * layers, "gemm_rs": 2 * layers,
+               "ring_attention": 0, "ulysses_a2a": 0},
+        "ring": {"ag_gemm": layers, "gemm_rs": layers,
+                 "ring_attention": layers, "ulysses_a2a": 0},
+        "ulysses": {"ag_gemm": layers, "gemm_rs": layers,
+                    "ring_attention": layers, "ulysses_a2a": 4 * layers},
+    }
+    totals = {row: 0 for row in CP_ROWS}
+    logits, caches, kls, prefill_ms = {}, {}, {}, {}
+    for attn in ("tp", "ring", "ulysses"):
+        model = models[attn]
+        cc = model.init_cache(CP_B, CP_CAP)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        last, cc, kl = model.prefill(params[attn], cc, tokens, lens)
+        torch.cuda.synchronize()
+        prefill_ms[attn] = (time.perf_counter() - t0) * 1e3
+        counts, by = launch_counts(), launches_by_tpu_kernel()
+        log(f"path {name} {attn} prefill: prefill_ms={prefill_ms[attn]:.2f} "
+            f"({CP_B} x {CP_S} rows, lens {list(CP_LENS)}, prefill_tok_s="
+            f"{sum(CP_LENS) / prefill_ms[attn] * 1e3:.1f}) launches "
+            + " ".join(f"{k}={v}" for k, v in counts.items() if v)
+            + f" by TPU kernel {by}")
+        for k, want in dict(expect[attn], ag_gemm_n1=0, gemm_rs_n1=0).items():
+            if counts[k] != want:
+                res.failures.append(f"{name} {attn}: {counts[k]} {k} "
+                                    f"launches in the prefill, expected "
+                                    f"{want}")
+        if attn != "tp":
+            for row, tpu in CP_ROWS.items():
+                totals[row] += by.get(tpu, 0)
+        if not torch.isfinite(last).all() or not torch.equal(kl, lens):
+            res.failures.append(f"{name} {attn}: non-finite prefill logits "
+                                "or wrong lengths")
+        logits[attn], caches[attn], kls[attn] = last, cc, kl
+    ref = logits["tp"]
+    tol = CP_LOGIT_RTOL * ref.abs().max().item()
+    for attn in ("ring", "ulysses"):
+        err = (logits[attn] - ref).abs().max().item()
+        res.check(name, err, tol, f"{attn} prefill last-position logits vs "
+                  f"attn=tp (max|logit| {ref.abs().max().item():.4g})")
+    # the check's power: rank 3's ring output without source block 0 (the
+    # last rank holds positions 3024-4031: row 0's last position)
+    cc = models["ring"].init_cache(CP_B, CP_CAP)
+    with _lost_ring_block(CP_N - 1):
+        lost, _, _ = models["ring"].prefill(shared, cc, tokens, lens)
+    del cc
+    errs = (lost - ref).abs().amax(dim=-1).tolist()
+    log(f"check {name} ring prefill with rank {CP_N - 1}'s source block 0 "
+        f"left out: max|logits - tp| by row " + " ".join(
+            f"{e:.6g}" for e in errs) + f" (tol {tol:.4g}; row 1's last "
+        f"position {CP_LENS[1] - 1} lies on rank "
+        f"{(CP_LENS[1] - 1) // (CP_S // CP_N)})")
+    if not errs[0] > tol:
+        res.failures.append(f"{name}: leaving out a ring block moves the "
+                            f"logits by {errs[0]}, within the tolerance {tol}")
+    # decode in lockstep, every model fed the tp model's greedy token
+    compared = {a: 0 for a in ("ring", "ulysses")}
+    equal = dict(compared)
+    drift = {a: [] for a in compared}
+    step_s = {a: 0.0 for a in models}
+    dec = {a: {} for a in models}
+    for i in range(CP_STEPS + 1):
+        top2 = torch.topk(logits["tp"], 2, dim=-1).values
+        gate = (top2[:, 0] - top2[:, 1]) > tol
+        tok = torch.argmax(logits["tp"], -1).to(torch.int32)
+        for a in compared:
+            compared[a] += int(gate.sum())
+            equal[a] += int((gate & (torch.argmax(logits[a], -1) == tok))
+                            .sum())
+        if i == CP_STEPS:
+            break
+        for a, model in models.items():
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[a], caches[a], kls[a] = model.decode_step(
+                params[a], caches[a], kls[a], tok)
+            torch.cuda.synchronize()
+            step_s[a] += time.perf_counter() - t0
+            for k, v in launch_counts().items():
+                dec[a][k] = dec[a].get(k, 0) + v
+        for a in compared:
+            drift[a].append((logits[a] - logits["tp"]).abs().max().item())
+    for a in compared:
+        res.check(name, max(drift[a]), tol, f"{a} teacher-forced decode "
+                  f"logits vs attn=tp, {CP_STEPS} steps x {CP_B} rows")
+        log(f"check {name} {a} teacher-forced: max|logits - tp| by step "
+            + " ".join(f"{x:.4g}" for x in drift[a]) + f"; tokens equal on "
+            f"{equal[a]}/{compared[a]} gated (row, step) pairs (gate: tp "
+            f"top-2 margin > {tol:.4g}) of {CP_B * (CP_STEPS + 1)}")
+        if equal[a] != compared[a]:
+            res.failures.append(f"{name} {a}: {compared[a] - equal[a]} of "
+                                f"{compared[a]} gated tokens differ from tp")
+    for a in models:
+        for k, per_step in (("flash_decode", layers),
+                            ("all_gather", 2 * layers), ("ag_gemm", 0),
+                            ("ring_attention", 0), ("ulysses_a2a", 0)):
+            if dec[a].get(k, 0) != per_step * CP_STEPS:
+                res.failures.append(f"{name} {a}: {dec[a].get(k, 0)} {k} "
+                                    f"launches in {CP_STEPS} decode steps, "
+                                    f"expected {per_step} a step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path {name} layers={layers}: setup_s={setup:.2f} prefill_ms "
+        + " ".join(f"{a}={prefill_ms[a]:.2f}" for a in models)
+        + " decode ms_per_step " + " ".join(
+            f"{a}={step_s[a] / CP_STEPS * 1e3:.3f}" for a in models)
+        + f" peak_mem_gib={peak:.2f}")
+    return {row: (n, 1) for row, n in totals.items()}
+
+
 def _rel_err(a, b) -> float:
     """max |a - b| / max |b| over every rank's tensor."""
     num = max((x.float() - y.float()).abs().max().item()
@@ -3621,8 +4001,9 @@ def _plain_versions_raise():
     """Within the block, the MoE-TP plain versions, the plain wire
     quantizers, the grouped GEMM's, the reduce-scatter's, the
     all-to-all's, the GEMM-RS's (its int8-mxu producers too), the
-    all-gathers', the ragged attention's and the cp LSE-combine's plain
-    versions raise: a path on CUDA tensors must launch the kernels."""
+    all-gathers', the ragged attention's, the cp LSE-combine's and the
+    context-parallel prefill's plain versions raise: a path on CUDA
+    tensors must launch the kernels."""
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as agk
     from triton_distributed_tpu_torch.kernels import cp_ring as cp
@@ -3631,6 +4012,7 @@ def _plain_versions_raise():
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+    from triton_distributed_tpu_torch.kernels import ring_attention as tra
     from triton_distributed_tpu_torch.kernels import wire as wk
     from triton_distributed_tpu_torch.lang import wire as tw
 
@@ -3653,7 +4035,9 @@ def _plain_versions_raise():
     names += [(agk, n) for n in ("all_gather_plain", "all_gather_bidir_plain",
                                  "ll_persist_plain")]
     names += [(rpa, "ragged_paged_attention_plain"),
-              (cp, "cp_lse_combine_plain")]
+              (cp, "cp_lse_combine_plain"), (cp, "kv_rotate_plain"),
+              (cp, "ulysses_a2a_plain"), (tra, "ring_attention_plain"),
+              (tra, "dense_attention_reference")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, boom)
@@ -4592,6 +4976,34 @@ def _lost_partial(rank: int):
         agk.all_gather = gather
 
 
+@contextlib.contextmanager
+def _lost_ring_block(rank: int, lost: int = 0):
+    """Within the block, the ring attention's output for ``rank`` is
+    recomputed without source block ``lost`` (a fault made for the
+    check's power): the ring again over the blocks lost + 1, ..., rank
+    alone, on a mesh of that many ranks, whose queries and keys keep their
+    relative positions, so the causal mask is the same and only block
+    ``lost``'s keys are gone."""
+    from triton_distributed_tpu_torch.kernels import ring_attention as ra
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    ring = ra.ring_attention
+
+    def lossy(q, k, v, mesh, axis="tp", *, causal=True):
+        out = ring(q, k, v, mesh, axis, causal=causal)
+        sub = slice(lost + 1, rank + 1)
+        part = ring(q[sub], k[sub], v[sub], Mesh.loopback(
+            rank - lost, q.device, axis=axis), axis, causal=causal)
+        out[rank] = part[rank - lost - 1]
+        return out
+
+    ra.ring_attention = lossy
+    try:
+        yield
+    finally:
+        ra.ring_attention = ring
+
+
 def profile_prefill(name, model, params, tokens, lens):
     """Device time by kernel and the device's idle share over one more
     prefill of the path's batch into fresh caches (torch.profiler, CUDA
@@ -4737,6 +5149,7 @@ def main() -> int:
     check_collectives(res, dev, n_moe)
     check_step4_kernels(res, dev)
     check_cp_combine(res, dev)
+    check_cp_prefill_kernels(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
@@ -4759,6 +5172,8 @@ def main() -> int:
         res, dev, "llama_7b bf16", presets.llama_7b(param_dtype=torch.bfloat16),
         profile=opts.profile, keep=True)
     tp_counts = run_tp_path(res, dev, one, profile=opts.profile)
+    with _plain_versions_raise():
+        cp_counts = run_cp_prefill_path(res, dev, one)
     del one
     wire_counts = run_wire_path(res, dev)
     moe_wire_counts = run_moe_wire_path(res, dev, n_moe)
@@ -4855,6 +5270,8 @@ def main() -> int:
             n, steps = step4_counts[name], 1
         elif name in LC_COMBINE_ROWS:
             n, steps = lc_counts[name]
+        elif name in CP_ROWS:
+            n, steps = cp_counts[name]
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

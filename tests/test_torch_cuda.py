@@ -2222,3 +2222,163 @@ def test_cp_engine_on_card_equals_cpu(dev):
     counts = launch_counts()
     assert counts["cp_lse_combine"] == cfg.n_layers * steps[1]
     assert counts["ragged_paged_attention"] == cfg.n_layers * steps[1]
+
+
+# ------------------------------------------------ context-parallel prefill
+
+from triton_distributed_tpu_torch.kernels import ring_attention as tra  # noqa: E402
+
+
+def _cp_qkv(dev, n, b, s, hq, hkv, d, dtype, seed):
+    """Seeded q, k, v as the prefill takes them: (n, B, S, H, D) views of
+    one (B, n·S, (Hq + 2·Hkv)·D) projection, rank r's sequence block at
+    [r·S, (r+1)·S)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, n * s, (hq + 2 * hkv) * d), generator=g,
+                      device=dev).to(dtype)
+    q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
+    return [t.reshape(b, n, s, -1, d).transpose(0, 1) for t in (q, k, v)]
+
+
+def _bf16_excess(got, want):
+    """max(|got - want| - ulp(want)) over the elements, want's bf16 ulp
+    being 2^(e - 8) for |want| in [2^(e-1), 2^e): what is left of the
+    difference after one bf16 rounding. Two f32 results within a
+    tolerance t of each other, each rounded to bf16 once, leave at most
+    t; near zero a bf16 ulp is smaller than the f32 sums' last-bit
+    differences, so a bare ulp count does not bound them."""
+    w, g = want.float(), got.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    return ((g - w).abs() - ulp).max().item()
+
+
+class TestCpPrefillKernels:
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(4, 100, 8, 4, 128), (4, 70, 8, 8, 64),
+                                       (1, 200, 4, 2, 16), (8, 33, 4, 4, 32)])
+    def test_ring_attention_matches_plain(self, dev, shape, dtype, causal):
+        """``tdt_ring_attention`` against the plain ring (JAX's body step
+        by step) on strided views of a projection: partial last tiles
+        (S 100, 70, 33), GQA (G = 2) and MHA, a ring of one block (the
+        Ulysses local body), D 16 to 128. f32 within 1e-5; bf16 within
+        one bf16 ulp of the plain output where it is at least 2^-4, and
+        within one ulp past that tolerance everywhere (both compute in
+        f32 and round once). One launch, counted under
+        ``_kv_rotate_kernel``."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+
+        n, s, hq, hkv, d = shape
+        q, k, v = _cp_qkv(dev, n, 2, s, hq, hkv, d, getattr(torch, dtype),
+                          seed=sum(shape))
+        reset_launch_counts()
+        got = cp_ring.ring_attention_launch(q, k, v, causal=causal,
+                                            scale=d ** -0.5)
+        assert launches_by_tpu_kernel() == {"_kv_rotate_kernel": 1}
+        want = tra.ring_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        else:
+            assert _bf16_excess(got, want) <= 1e-5
+            big = want.float().abs() >= 2.0 ** -4
+            assert _bf16_excess(got[big], want[big]) <= 0.0
+
+    def test_ring_entries_run_the_kernel(self, dev):
+        """``ring_attention`` and ``ulysses_attention`` on CUDA tensors:
+        the ring one launch; Ulysses four all-to-alls (q, k, v out and
+        the output back) and one launch of the ring kernel on a ring of
+        one block; both within 1e-5 of their plain versions in f32 (GQA,
+        the KV heads replicated for Ulysses at Hkv 2 < n 4)."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(4, dev)
+        q, k, v = _cp_qkv(dev, 4, 2, 40, 8, 2, 64, torch.float32, seed=5)
+        for fn in (tra.ring_attention, tra.ulysses_attention):
+            before = launch_counts()
+            got = fn(q, k, v, mesh)
+            after = launch_counts()
+            want = fn(*(t.cpu() for t in (q, k, v)), Mesh.loopback(4, "cpu"))
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+            a2a = 4 if fn is tra.ulysses_attention else 0
+            assert after["ulysses_a2a"] - before["ulysses_a2a"] == a2a
+            assert after["ring_attention"] - before["ring_attention"] == 1
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n", [2, 4, 8])
+    def test_ulysses_a2a_is_byte_exact(self, dev, n, dtype):
+        """``tdt_ulysses_a2a`` both directions against the plain layout
+        byte for byte: the scatter on strided views of a projection, the
+        gather on the local attention's contiguous output; the gather's
+        view of a (B, n, S, H, D) tensor; one launch each."""
+        q, _, _ = _cp_qkv(dev, n, 2, 9, 2 * n, n, 32, getattr(torch, dtype),
+                          seed=n)
+        before = launch_counts()["ulysses_a2a"]
+        sc = cp_ring.ulysses_a2a(q, "scatter")
+        assert torch.equal(sc, cp_ring.ulysses_a2a_plain(q, "scatter"))
+        ga = cp_ring.ulysses_a2a(sc, "gather")
+        assert torch.equal(ga, cp_ring.ulysses_a2a_plain(sc, "gather"))
+        assert torch.equal(ga, q)
+        assert ga.transpose(0, 1).is_contiguous()
+        assert launch_counts()["ulysses_a2a"] == before + 2
+
+    def test_wrappers_refuse_what_the_kernels_do_not_take(self, dev):
+        q, k, v = _cp_qkv(dev, 4, 1, 16, 6, 2, 64, torch.float32, seed=1)
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            cp_ring.ring_attention_launch(q.half(), k.half(), v.half(),
+                                          causal=True, scale=0.1)
+        with pytest.raises(ValueError, match="head dims"):
+            cp_ring.ring_attention_launch(q[..., :48], k[..., :48],
+                                          v[..., :48], causal=True,
+                                          scale=0.1)
+        with pytest.raises(ValueError, match="G = Hq / Hkv"):
+            cp_ring.ring_attention_launch(q, k, v, causal=True, scale=0.1)
+        q8, _, _ = _cp_qkv(dev, 4, 1, 16, 8, 4, 64, torch.float32, seed=2)
+        with pytest.raises(ValueError, match="contiguous"):
+            cp_ring.ulysses_a2a(q8[..., ::2], "scatter")
+        with pytest.raises(ValueError, match="does not split"):
+            cp_ring.ulysses_a2a(q8[:, :, :, :5], "scatter")
+
+
+def test_cp_prefill_generate_on_card_equals_cpu(dev):
+    """The tiny model at ``attn="ring"`` and ``"ulysses"`` on 4 ranks, on
+    the card and on the CPU from the same weights: the prefill's logits
+    within 1e-4 (f32, sums in another order), then 4 greedy steps in
+    lockstep on the CPU side's tokens, logits within 1e-4. The card's
+    prefill launches the ring kernel once a layer and, for Ulysses, the
+    all-to-all four times a layer."""
+    from triton_distributed_tpu_torch.kernels import reset_launch_counts
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    for attn in ("ring", "ulysses"):
+        cfg = presets.tiny(attn=attn)
+        params = Transformer(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 32)).astype(np.int32))
+        runs = []
+        for d in ("cpu", dev):
+            model = Transformer(cfg, mesh=Mesh.loopback(4, d))
+            p = model.shard_params(_to(params, d))
+            reset_launch_counts()
+            last, caches, kl = model.prefill(p, model.init_cache(2, 48),
+                                             toks.to(d))
+            counts = launch_counts()
+            runs.append([model, p, caches, kl, last])
+        assert counts["ring_attention"] == cfg.n_layers
+        assert counts["ulysses_a2a"] == (4 * cfg.n_layers
+                                         if attn == "ulysses" else 0)
+        (mc, pc, cc, kc, lc), (mg, pg, cg, kg, lg) = runs
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        for _ in range(4):
+            t = torch.argmax(lc, -1).to(torch.int32)
+            lc, cc, kc = mc.decode_step(pc, cc, kc, t)
+            lg, cg, kg = mg.decode_step(pg, cg, kg, t.to(dev))
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

@@ -4,8 +4,9 @@ wrapper is not re-exported here: its name is its module's. The MoE
 modules (``moe_utils``, ``moe_all_to_all``, ``moe_dispatch``), the
 decode entries of ``flash_decode``, ``ag_gemm`` / ``gemm_rs`` (at world
 size 1 and over a mesh, on the raw and the quantized wires), ``allgather``
-the MoE-TP GEMMs (``moe_tp_fused``) and the cp LSE-combine (``cp_ring``)
-are imported by name; so are the
+the MoE-TP GEMMs (``moe_tp_fused``), the cp LSE-combine and the
+context-parallel prefill's ring and all-to-all (``cp_ring``, launched from
+``ring_attention``) are imported by name; so are the
 entries ``all_to_all`` and ``reduce_scatter``, which would shadow their
 modules, beside the exported stacked form and plain versions. The wire quantizer
 ``tdt_quantize_slab`` (``csrc/wire.cu``, :mod:`.wire`) is launched by the
@@ -65,9 +66,10 @@ def _counters() -> dict:
     (``moe_reduce_rs_fold``), and so is the reduce-scatter's wire fold
     (``reduce_scatter_fold``). The int8-mxu GEMM-RS's fold counts its two
     modes apart (``gemm_rs_mxw_fold``, ``gemm_rs_mxr_fold``). The
-    reduce-scatter's two wrappers, the int8-mxu GEMM-RS's partials and
-    the cp LSE-combine also count their launches by the TPU kernel each
-    stood for (``by_tpu_kernel``)."""
+    reduce-scatter's two wrappers, the int8-mxu GEMM-RS's partials, the
+    cp LSE-combine and the prefill's ring attention and Ulysses
+    all-to-all also count their launches by the TPU kernel each stood
+    for (``by_tpu_kernel``)."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as ag
@@ -119,6 +121,8 @@ def _counters() -> dict:
         "all_gather_bidir": (ag._all_gather_bidir_cuda, "launches"),
         "all_gather_persist": (ag._ll_persist_cuda, "launches"),
         "cp_lse_combine": (cp._cp_lse_combine_cuda, "launches"),
+        "ring_attention": (cp.ring_attention_launch, "launches"),
+        "ulysses_a2a": (cp._ulysses_a2a_cuda, "launches"),
     }
 
 
@@ -137,9 +141,10 @@ def reset_launch_counts() -> None:
 
 def launches_by_tpu_kernel() -> dict:
     """The launches of the reduce-scatter (its raw kernel and its wire
-    fold), of the int8-mxu GEMM-RS's partials and of the cp LSE-combine
-    since the last :func:`reset_launch_counts`, by the TPU kernel each
-    stood for."""
+    fold), of the int8-mxu GEMM-RS's partials, of the cp LSE-combine and
+    of the prefill's ring attention and Ulysses all-to-all since the
+    last :func:`reset_launch_counts`, by the TPU kernel each stood
+    for."""
     from triton_distributed_tpu_torch.kernels import cp_ring as cp
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
@@ -147,4 +152,6 @@ def launches_by_tpu_kernel() -> dict:
     return {**rs._reduce_scatter_cuda.by_tpu_kernel,
             **rs._reduce_scatter_fold_cuda.by_tpu_kernel,
             **grs.gemm_rs_mx_partials.by_tpu_kernel,
-            **cp._cp_lse_combine_cuda.by_tpu_kernel}
+            **cp._cp_lse_combine_cuda.by_tpu_kernel,
+            **cp.ring_attention_launch.by_tpu_kernel,
+            **cp._ulysses_a2a_cuda.by_tpu_kernel}

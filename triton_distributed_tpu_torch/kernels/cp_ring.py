@@ -1,8 +1,33 @@
-"""Context-parallel collectives: the cross-rank LSE-combine.
+"""Context-parallel collectives: the KV ring and the Ulysses all-to-all
+of the context-parallel prefill, and the cross-rank LSE-combine.
 
-Port of the ``cp_decode.lse_combine`` family of
-``triton_distributed_tpu/kernels/cp_ring.py`` and of its collective ids.
-Long-context serving shards a request's KV pages over the ``cp`` shards
+Port of the ``cp.ring_attention``, ``cp.ulysses`` and
+``cp_decode.lse_combine`` families of
+``triton_distributed_tpu/kernels/cp_ring.py`` and of their collective
+ids.
+
+**The prefill** (``TransformerConfig(attn="ring" | "ulysses")``; the user
+entry points are :func:`~triton_distributed_tpu_torch.kernels.
+ring_attention.ring_attention` and ``ulysses_attention``, which the
+model's ``_cp_attention`` calls a layer). JAX's TPU kernel
+``_kv_rotate_kernel`` (``:71``) forwards each rank's KV block around
+the cp ring while the attention partial consumes every arrival; its
+``_ulysses_a2a_kernel`` (``:127``) is the equal-split all-to-all under
+Ulysses' sequence ↔ heads re-shard. JAX launches both only from its lint
+builders; its prefill runs their XLA bodies (``ppermute`` and
+``lax.all_to_all``, ``kernels/ring_attention.py:109-110,148-157``). The
+port launches two CUDA kernels (``csrc/cp_ring.cu``) from those entry
+points: ``tdt_ring_attention`` (:func:`ring_attention_launch`), the
+rotation with its consume, one launch a layer for every rank (the ring
+becomes a read of each source block through the peer tables); Ulysses'
+local attention is the same kernel on a ring of one block; and
+``tdt_ulysses_a2a`` (:func:`ulysses_a2a`), one pull launch a tensor and
+direction for every rank. Their launches are counted by the TPU kernel
+each stood for (``_kv_rotate_kernel``, ``_ulysses_a2a_kernel``).
+:func:`kv_rotate_plain` and :func:`ulysses_a2a_plain` are the plain
+moves (``ppermute``'s hop, the tiled all-to-all's layout).
+
+**The decode merge.** Long-context serving shards a request's KV pages over the ``cp`` shards
 of the pool; each shard's ragged attention returns a partial ``(out_r,
 lse_r)``, and the partials merge into one softmax:
 
@@ -28,8 +53,8 @@ launches are counted by the TPU kernel each stood for).
 The kernel adds over the shards in the order r = 0, 1, ..., each product
 and add rounded on its own, and :func:`cp_lse_combine_plain` does the
 same in torch ops, so the two agree bit for bit on the card. On CPU
-tensors :func:`cp_lse_combine` runs the plain version; on CUDA tensors
-it launches the kernel or raises.
+tensors every entry here runs its plain version; on CUDA tensors it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,6 +63,7 @@ import torch
 
 from triton_distributed_tpu_torch.config import to_torch_dtype
 from triton_distributed_tpu_torch.kernels.group_gemm import _DT_CODE
+from triton_distributed_tpu_torch.lang.shmem import block_table
 from triton_distributed_tpu_torch.tune.schedule import require_depth_only
 
 #: the lint families' barrier ids (JAX ``:63-66``), shared with the XLA
@@ -149,3 +175,168 @@ def _cp_lse_combine_cuda(outs, lses, out_dtype, tpu_kernel):
 #: kernel each launch stood for
 _cp_lse_combine_cuda.launches = 0
 _cp_lse_combine_cuda.by_tpu_kernel = {}
+
+
+# ------------------------------------------------ the context-parallel prefill
+
+#: head dims the ring kernel is built for
+RING_HEAD_DIMS = (16, 32, 64, 128)
+#: q rows a CTA of the ring kernel: 64 / G tokens times the G query heads
+#: of one KV head, so G must divide it
+RING_TILE_ROWS = 64
+
+
+def kv_rotate_plain(blocks):
+    """One hop of the KV ring on stacked ``(n, ...)`` blocks: rank j's
+    block moves to rank j + 1 (``ppermute`` with ``perm = [(j, (j + 1) %
+    n)]``, JAX ``kernels/ring_attention.py:108-110``)."""
+    return torch.roll(blocks, 1, dims=0)
+
+
+def _check_a2a(x, direction, n):
+    if direction not in ("scatter", "gather"):
+        raise ValueError(f"ulysses_a2a: direction 'scatter' or 'gather', "
+                         f"got {direction!r}")
+    if x.dim() != 5:
+        raise ValueError(f"ulysses_a2a takes (n, B, S, H, D) blocks, got "
+                         f"{tuple(x.shape)}")
+    split = x.shape[3] if direction == "scatter" else x.shape[2]
+    if split % n:
+        raise ValueError(f"ulysses_a2a {direction}: dim "
+                         f"{3 if direction == 'scatter' else 2} = {split} "
+                         f"does not split over {n} ranks")
+
+
+def ulysses_a2a_plain(x, direction: str):
+    """The Ulysses all-to-all on every rank's block at once, in torch
+    ops (``lax.all_to_all(tiled=True)``'s layout, JAX
+    ``kernels/ring_attention.py:145-157``):
+
+    * ``"scatter"`` (seq → heads): x (n, B, S, H, D) → (n, B, n·S, H/n,
+      D), ``out[r, b, j·S + t, h'] = x[j, b, t, r·H/n + h']``;
+    * ``"gather"`` (heads → seq): x (n, B, n·S, H/n, D) → (n, B, S, H,
+      D), the inverse."""
+    n, b = x.shape[:2]
+    _check_a2a(x, direction, n)
+    if direction == "scatter":
+        _, _, s, h, d = x.shape
+        y = x.reshape(n, b, s, n, h // n, d).permute(3, 1, 0, 2, 4, 5)
+        return y.reshape(n, b, n * s, h // n, d)
+    _, _, s, hl, d = x.shape
+    y = x.reshape(n, b, n, s // n, hl, d).permute(2, 1, 3, 0, 4, 5)
+    return y.reshape(n, b, s // n, n * hl, d)
+
+
+def ulysses_a2a(x, direction: str):
+    """The Ulysses all-to-all of :func:`ulysses_a2a_plain` on every
+    rank's block, ``x`` (n, B, S, H, D) stacked by rank (a strided view
+    is taken as it is, each (H, D) row contiguous). On CPU tensors the
+    plain version; on CUDA tensors one launch of ``tdt_ulysses_a2a``, or
+    a raise. The scatter returns a contiguous (n, B, n·S, H/n, D)
+    tensor; the gather a (n, B, S, H, D) view of a contiguous (B, n, S,
+    H, D) tensor, so that the prefill's (B, n·S, H·D) rows are a view."""
+    if x.device.type == "cpu":
+        return ulysses_a2a_plain(x, direction)
+    return _ulysses_a2a_cuda(x, direction)
+
+
+def _ulysses_a2a_cuda(x, direction):
+    """``tdt_ulysses_a2a``: one pull launch moves every rank's runs."""
+    from triton_distributed_tpu_torch.kernels import _build
+
+    if x.device.type != "cuda":
+        raise ValueError(f"ulysses_a2a runs on CPU or CUDA tensors, got "
+                         f"{x.device}")
+    n, b = x.shape[:2]
+    _check_a2a(x, direction, n)
+    if x.stride(4) != 1 or x.stride(3) != x.shape[4]:
+        raise ValueError("ulysses_a2a's kernel needs each token's (H, D) "
+                         "row contiguous")
+    es = x.element_size()
+    d = x.shape[4]
+    if direction == "scatter":
+        _, _, t, h, _ = x.shape
+        hl = h // n
+        out = torch.empty((n, b, n * t, hl, d), dtype=x.dtype,
+                          device=x.device)
+        src_r, dst_q = hl * d * es, t * out.stride(2) * es
+    else:
+        _, _, s, hl, _ = x.shape
+        t = s // n
+        out = torch.empty((b, n, t, n * hl, d), dtype=x.dtype,
+                          device=x.device).transpose(0, 1)
+        src_r, dst_q = t * x.stride(2) * es, hl * d * es
+    src, dst = block_table(x), block_table(out)
+    fn = _build.function("tdt_ulysses_a2a", "pp" + "iii" + "L" * 7 + "p")
+    rc = fn(_build.ptr(src), _build.ptr(dst), n, b, t, hl * d * es,
+            x.stride(1) * es, x.stride(2) * es, src_r, out.stride(1) * es,
+            out.stride(2) * es, dst_q, _build.stream(x.device))
+    _build.check(rc, "tdt_ulysses_a2a")
+    _ulysses_a2a_cuda.launches += 1
+    _ulysses_a2a_cuda.by_tpu_kernel["_ulysses_a2a_kernel"] = (
+        _ulysses_a2a_cuda.by_tpu_kernel.get("_ulysses_a2a_kernel", 0) + 1)
+    return out
+
+
+_ulysses_a2a_cuda.launches = 0
+_ulysses_a2a_cuda.by_tpu_kernel = {}
+
+
+def ring_attention_launch(q, k, v, *, causal: bool, scale: float):
+    """``tdt_ring_attention``: the KV ring with its attention consume on
+    every rank in one launch. q (n, B, S, Hq, D) and k, v (n, B, S, Hkv,
+    D) stacked by rank (strided views taken as they are: D contiguous,
+    the other strides and the pointers multiples of 4 elements), f32 or
+    bf16 → (n, B, S, Hq, D) in q's dtype, a view of a contiguous (B, n,
+    S, Hq, D) tensor. Rank r's queries sit at global positions r·S + t
+    and attend to every block in the ring's arrival order; n = 1 is
+    dense attention over one block. Counted under
+    ``_kv_rotate_kernel``."""
+    from triton_distributed_tpu_torch.kernels import _build
+
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"ring attention's kernel runs on CUDA tensors on "
+                         f"one device, got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dim() != 5 or k.shape != v.shape or k.dim() != 5:
+        raise ValueError(f"ring attention takes (n, B, S, H, D) q, k and v, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    n, b, s, hq, d = q.shape
+    hkv = k.shape[3]
+    if tuple(k.shape) != (n, b, s, hkv, d) or hq % hkv:
+        raise ValueError(f"ring attention: k / v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)} (Hq a multiple of Hkv)")
+    g = hq // hkv
+    if q.dtype not in _DT_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"ring attention's kernel takes f32 or bf16 q, k "
+                         f"and v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if d not in RING_HEAD_DIMS or RING_TILE_ROWS % g:
+        raise ValueError(f"ring attention's kernel is built for head dims "
+                         f"{RING_HEAD_DIMS} and G = Hq / Hkv dividing "
+                         f"{RING_TILE_ROWS}, got D {d}, G {g}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if (x.stride(4) != 1 or any(st % 4 for st in x.stride()[:4])
+                or x.data_ptr() % (4 * x.element_size())):
+            raise ValueError(f"ring attention's kernel needs {name}'s D "
+                             "contiguous and its other strides and pointer "
+                             "multiples of 4 elements")
+    out = torch.empty((b, n, s, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(0, 1)
+    kp, vp = block_table(k), block_table(v)
+    fn = _build.function("tdt_ring_attention", "pppp" + "i" * 7 + "f"
+                         + "L" * 14 + "i" + "p")
+    rc = fn(_build.ptr(q), _build.ptr(kp), _build.ptr(vp), _build.ptr(out),
+            n, b, s, hkv, g, d, int(causal), float(scale),
+            *q.stride()[:4], *k.stride()[1:4], *v.stride()[1:4],
+            *out.stride()[:4], _DT_CODE[q.dtype], _build.stream(q.device))
+    _build.check(rc, "tdt_ring_attention")
+    ring_attention_launch.launches += 1
+    ring_attention_launch.by_tpu_kernel["_kv_rotate_kernel"] = (
+        ring_attention_launch.by_tpu_kernel.get("_kv_rotate_kernel", 0) + 1)
+    return out
+
+
+ring_attention_launch.launches = 0
+ring_attention_launch.by_tpu_kernel = {}

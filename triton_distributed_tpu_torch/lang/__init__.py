@@ -2,6 +2,7 @@
 
 from triton_distributed_tpu_torch.lang.shmem import (
     SymmTensor,
+    block_table,
     my_pe,
     n_pes,
     peer_table,
@@ -9,5 +10,5 @@ from triton_distributed_tpu_torch.lang.shmem import (
     symm_empty,
 )
 
-__all__ = ["SymmTensor", "my_pe", "n_pes", "peer_table", "stacked",
-           "symm_empty"]
+__all__ = ["SymmTensor", "block_table", "my_pe", "n_pes", "peer_table",
+           "stacked", "symm_empty"]

@@ -84,6 +84,19 @@ def require_stacked(shards, what: str):
     return st
 
 
+def block_table(x: torch.Tensor) -> torch.Tensor:
+    """The peer table of a tensor whose dim 0 is the rank: the data
+    pointer of each rank's block ``x[r]``, whatever the strides inside a
+    block (the context-parallel prefill's q / k / v are strided views of
+    the projected rows). One ``arange`` on the device, no host copy."""
+    n, p0 = x.shape[0], x.data_ptr()
+    step = x.stride(0) * x.element_size() if n > 1 else 1
+    if step == 0:                      # every rank's block at one address
+        return torch.full((n,), p0, dtype=torch.int64, device=x.device)
+    return torch.arange(p0, p0 + n * step, step, dtype=torch.int64,
+                        device=x.device)
+
+
 def peer_table(x) -> torch.Tensor:
     """The (W,) int64 table of the shards' data pointers on their device:
     a :class:`SymmTensor`'s own, one ``arange`` for :func:`stacked`
@@ -91,12 +104,10 @@ def peer_table(x) -> torch.Tensor:
     memory (no host sync)."""
     if isinstance(x, SymmTensor):
         return x.peers
+    st = stacked(x)
+    if st is not None:
+        return block_table(st)
     dev = x[0].device
-    p0 = x[0].data_ptr()
-    if stacked(x) is not None:
-        step = x[0].numel() * x[0].element_size()
-        return torch.arange(p0, p0 + len(x) * step, step, dtype=torch.int64,
-                            device=dev)
     host = torch.tensor([s.data_ptr() for s in x], dtype=torch.int64,
                         pin_memory=dev.type == "cuda")
     return host.to(dev, non_blocking=True)

@@ -43,6 +43,16 @@ partials, combine), and appends each token on the rank that owns its
 position. Replicated activations are one shared tensor on the loopback
 mesh.
 
+**Context-parallel prefill** (``attn="ring"`` or ``"ulysses"`` over a
+mesh, JAX ``_cp_attention``): the attention's sequence is sharded over
+the ``tp`` axis with every head whole on every rank. ``wqkv`` and ``wo``
+stay one shared tensor (JAX replicates them) and project all rows in one
+matmul; the ring or Ulysses attention of :mod:`~triton_distributed_tpu_torch.
+kernels.ring_attention` runs on the ranks' stacked sequence blocks; the
+MLP stays tensor-parallel. Decode is the same sequence-parallel decode
+for every ``attn``, its q, k, v and output projections on the shared
+weights.
+
 **Long-context serving** (``Transformer(config, mesh=Mesh.grid({"tp":
 1, "cp": 2}), cp_axis="cp")``): the serving step over ``cp`` stacked
 per-shard page pools, each layer's ragged attention walking every
@@ -163,6 +173,9 @@ class TransformerConfig:
 
 
 _DENSE_QUANT_KEYS = ("wqkv", "wo", "up", "down")
+#: the attention projections: sharded per head at attn="tp", shared under
+#: context-parallel attention
+_ATTN_KEYS = ("wqkv", "wo")
 _EXPERT_KEYS = ("moe_up", "moe_down")
 
 #: the mesh axis the tensor-parallel path runs over
@@ -212,7 +225,10 @@ class Transformer:
     mesh's): dense blocks, and MoE blocks in both flavours, EP with the
     experts split over the ranks and TP with their F dim split. It needs
     ``n_heads``, ``n_kv_heads`` and ``ffn`` (and an EP model's
-    ``num_experts``) to split over the ranks.
+    ``num_experts``) to split over the ranks. Under ``attn="ring"`` or
+    ``"ulysses"`` the axis is context-parallel in the attention: the
+    heads need not split (Ulysses needs ``n_heads`` to, and
+    ``n_kv_heads`` to split or to divide the ranks), ``ffn`` still does.
 
     ``cp_axis``: the mesh axis of long-context serving (JAX ``:231-242``;
     None: no context parallelism), e.g. ``Mesh.grid({"tp": 1, "cp": 2})``
@@ -258,8 +274,9 @@ class Transformer:
                 self.mesh = None      # the tensor-parallel paths: one rank
                 return
         c = config
-        split = [("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
-                 ("ffn", c.ffn)]
+        split = [("ffn", c.ffn)]
+        if c.attn == "tp":
+            split[:0] = [("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads)]
         if c.moe == "ep" and c.moe_layers:
             split.append(("num_experts", c.num_experts))
         for name, v in split:
@@ -268,6 +285,12 @@ class Transformer:
                     f"{name} = {v} does not split over tp = {self.tp} (KV-"
                     "head replication for n_kv_heads < tp is ROADMAP Queue 1"
                     " item 12)")
+        if c.attn == "ulysses" and (c.n_heads % self.tp or (
+                c.n_kv_heads % self.tp and self.tp % c.n_kv_heads)):
+            raise ValueError(
+                f"Ulysses needs n_heads % cp == 0 and n_kv_heads % cp == 0 "
+                f"or cp % n_kv_heads == 0, got {c.n_heads} and "
+                f"{c.n_kv_heads} heads at cp = {self.tp}")
 
     # ---------------------------------------------------------------- params
 
@@ -402,10 +425,15 @@ class Transformer:
         experts ``moe_up`` / ``moe_down``, and both leaves of their int8
         dicts) becomes a list of W per-rank shards, views of one
         allocation; every other leaf (the router too) stays one shared
-        tensor. ``wqkv`` is cut per head (see :meth:`_shard_index`)."""
+        tensor. ``wqkv`` is cut per head (see :meth:`_shard_index`); under
+        context-parallel attention (``attn`` "ring" / "ulysses") ``wqkv``
+        and ``wo`` stay shared, as JAX replicates them."""
         if self.mesh is None:
             raise ValueError("shard_params needs the model's mesh")
         dev = self.device
+        keys = _DENSE_QUANT_KEYS + _EXPERT_KEYS
+        if self.config.attn != "tp":
+            keys = tuple(k for k in keys if k not in _ATTN_KEYS)
 
         def shard(w, dim, idx):
             idx = [i.to(w.device) for i in idx]
@@ -416,7 +444,7 @@ class Transformer:
         out["blocks"] = []
         for blk in params["blocks"]:
             blk = dict(blk)
-            for name in _DENSE_QUANT_KEYS + _EXPERT_KEYS:
+            for name in keys:
                 if name not in blk:
                     continue
                 dim, idx = self._shard_index(name)
@@ -472,20 +500,23 @@ class Transformer:
         return torch.cat(outs, dim=-1)
 
     def _proj(self, x, w, rows: bool):
-        """A decode projection: ``_dmm``, or over a mesh :meth:`_dmm_tp`
-        (``rows``: the weight is row-parallel)."""
-        if self.mesh is None:
+        """A decode projection: ``_dmm``, or over a sharded weight
+        :meth:`_dmm_tp` (``rows``: the weight is row-parallel). A shared
+        weight over a mesh (context-parallel attention's ``wqkv`` and
+        ``wo``) goes through ``_dmm`` once, as JAX's decode does
+        (``:1106``)."""
+        if not _sharded(w):
             return self._dmm(x, w)
         return self._dmm_tp(x, w, rows)
 
     def _qkv(self, xn, w):
         """The decode step's q, k and v rows (B, q_dim / kv_dim), every
-        head in head order; over a mesh from the ranks' [q | k | v]
-        column shards."""
+        head in head order; over a mesh at ``attn="tp"`` from the ranks'
+        [q | k | v] column shards."""
         c = self.config
-        n = self.tp
+        n = self.tp if _sharded(w) else 1
         qkv = self._proj(xn, w, rows=False)
-        if self.mesh is not None:
+        if n > 1:
             qkv = qkv.reshape(xn.shape[0], n, -1)
         q, k, v = torch.split(qkv, [c.q_dim // n, c.kv_dim // n,
                                     c.kv_dim // n], dim=-1)
@@ -955,20 +986,50 @@ class Transformer:
         o = torch.einsum("bhgst,bthd->bshgd", probs, v.to(c.dtype))
         return o.reshape(b * s, hq * d), k, v
 
+    def _cp_attention(self, blk, x, b, s):
+        """Context-parallel prefill attention (JAX ``:613-642``): the
+        sequence sharded over tp, every head whole, ``wqkv`` and ``wo``
+        shared. (B·S, H) rows → ((B·S, H) rows, k, v) with k/v (B, S, Hkv,
+        D) in global sequence order. Both projections are one matmul over
+        all rows (JAX computes ``xr @ W`` outside any kernel); q, k and v
+        are taken as views (n, B, S/n, H, D) of the projected rows, rank r
+        holding positions [r·S/n, (r+1)·S/n), and go through
+        :func:`~triton_distributed_tpu_torch.kernels.ring_attention.
+        ring_attention` or ``ulysses_attention``, whose output rows feed
+        ``wo`` as a view."""
+        from triton_distributed_tpu_torch.kernels import ring_attention as ra
+
+        c = self.config
+        n = self.tp
+        d = c.head_dim
+        qkv = x @ self._dense_w(blk["wqkv"])                   # (B·S, qkv)
+        q, k, v = torch.split(qkv, [c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
+        q = q.reshape(b, s, c.n_heads, d)
+        k = k.reshape(b, s, c.n_kv_heads, d)
+        v = v.reshape(b, s, c.n_kv_heads, d)
+
+        def blocks(t):
+            return t.view(b, n, s // n, *t.shape[2:]).transpose(0, 1)
+
+        mesh = self.mesh or Mesh.loopback(1, self.device)
+        attn = ra.ring_attention if c.attn == "ring" else ra.ulysses_attention
+        o = attn(blocks(q), blocks(k), blocks(v), mesh, TP_AXIS)
+        o = o.transpose(0, 1).reshape(b * s, c.q_dim)
+        return o @ self._dense_w(blk["wo"]), k, v
+
     def _attention_kv(self, blk, x, b, s):
-        """Prefill attention for ``attn="tp"``: (B·S, H) rows → ((B·S, H)
-        rows, k, v) with k/v (B, S, Hkv, D), which :meth:`prefill` writes
-        into the caches. The projections run through ``ag_gemm`` /
-        ``gemm_rs``. Over a mesh, row block r of ``x`` and of the result
+        """Prefill attention: (B·S, H) rows → ((B·S, H) rows, k, v) with
+        k/v (B, S, Hkv, D), which :meth:`prefill` writes into the caches.
+        ``attn="ring"`` / ``"ulysses"`` dispatch to :meth:`_cp_attention`.
+        At ``attn="tp"`` the projections run through ``ag_gemm`` /
+        ``gemm_rs``; over a mesh, row block r of ``x`` and of the result
         is rank r's shard, and rank r attends over its Hq/W heads (k/v
         come back with every rank's heads, in head order)."""
         from triton_distributed_tpu_torch import ops
 
         c = self.config
         if c.attn != "tp":
-            raise NotImplementedError(
-                f"attn={c.attn!r} prefill runs the context-parallel kernels "
-                "(ROADMAP Queue 1 item 16)")
+            return self._cp_attention(blk, x, b, s)
         n = self.tp
         hq, hkv = c.n_heads // n, c.n_kv_heads // n
         if self.mesh is None:
@@ -1139,12 +1200,19 @@ class Transformer:
         lengths, where decode never reads. MoE blocks run the inference
         engines of :meth:`_mlp_block`. Over a mesh, B·S must split over
         the ranks (the sequence-parallel rows, as JAX asserts), and each
-        rank's slice of the sequence lands in its cache shard."""
+        rank's slice of the sequence lands in its cache shard; under
+        context-parallel attention S must split over them too (JAX's
+        ``shard_map`` cannot shard it otherwise)."""
         c = self.config
         b, s = tokens.shape
         cap = _cache_capacity(caches)
         if s > cap:
             raise ValueError(f"prompt length {s} exceeds cache capacity {cap}")
+        if c.attn != "tp" and s % self.tp:
+            raise ValueError(f"prompt length S = {s} does not split over the "
+                             f"{self.tp} context-parallel ranks of "
+                             f"attn={c.attn!r}; pad the prompts to a "
+                             f"multiple of {self.tp}")
         if (b * s) % self.tp:
             raise ValueError(f"B·S = {b * s} rows do not shard over tp = "
                              f"{self.tp} (the sequence-parallel rows)")
@@ -1171,7 +1239,7 @@ class Transformer:
         associative, so this equals attending over the appended cache.
         Int8 caches attend the new token quantized and append the same
         (int8, scale) pairs. Projections go through ``_dmm`` (over a
-        mesh, rank by rank: :meth:`_dmm_tp`). An EP MoE
+        sharded weight, rank by rank: :meth:`_dmm_tp`). An EP MoE
         block runs ``ep_moe`` on the fused transport, over the persistent
         workspaces of ``moe_state`` (from :meth:`init_decode_state`) when
         given, and the step then returns the next states as a 4th
@@ -1270,6 +1338,13 @@ class Transformer:
         if moe_state is None:
             return toks, caches, kv_lens
         return toks, caches, kv_lens, moe_state
+
+
+def _sharded(w) -> bool:
+    """Whether a weight leaf is per-rank shards (a list, or an int8 dict
+    of lists)."""
+    return isinstance(w, list) or (isinstance(w, dict)
+                                   and isinstance(w["q"], list))
 
 
 def _sum_rank_partials(parts):
