@@ -47,7 +47,11 @@ Phases, all run every time:
    shapes; and the cp LSE-combine at the long-context path's shapes (2
    shards of DeepSeek-MoE-16B's 768 packed rows, Hkv 16, D 128, bf16; 4
    in f32; both schedule depths; bit-exact, a row held by shard 0 alone
-   bit-equal to shard 0's partial). The kernels line reports each
+   bit-equal to shard 0's partial); and the KV-page ship, byte for byte,
+   in JAX's mesh form (the lint geometry and a full DeepSeek page, 2 and
+   4 ranks, coalesce 1, 2, 4) and in the engine form at DeepSeek's pools
+   (a 1024-token request's 64 pages of all 56 pools and both rails in
+   one launch). The kernels line reports each
    kernel at the shapes of the path that launches it, its times averaged
    over them by their launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
@@ -66,7 +70,13 @@ Phases, all run every time:
    last. ``--profile`` then profiles a few of the main path's engine
    steps (device time by kernel, host enqueue time, the device's idle
    share), and a prefill and a few decode steps of each decode and MoE
-   generation path;
+   generation path. Then the disaggregated path (``run_disagg_path``):
+   the main path's weights and trace served by ``DisaggregatedEngine``,
+   its prefill and decode roles on the card, each cohort's pages landing
+   in the decode role's pool through one ``tdt_kv_ship`` launch; every
+   page byte-equal to its source at commit, every stream equal to the
+   main path's, and a replay with the ship's scale rail dropped moving
+   the first shipped request's logits;
 6. the decode path, Llama-2-7B at full width and depth in bf16 (bf16
    weights and KV) and in int8 (int8 KV, W8A8): 8 seeded prompts of
    128–1024 tokens prefilled into contiguous caches of capacity 2048,
@@ -172,6 +182,13 @@ KERNELS = {
         source="triton_distributed_tpu_torch/csrc/ragged_paged_attention.cu",
         replaces="triton_distributed_tpu/kernels/ragged_paged_attention.py:216"),
     "ggemm_bf16": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+        replaces="triton_distributed_tpu/kernels/group_gemm.py:32"),
+    # the float mode's f32 (FMA) body: on the main path the EP block's
+    # router product, which JAX runs as an XLA dot; the port keeps it on
+    # the kernel for batch-independent row sums
+    "ggemm_f32": dict(
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
         replaces="triton_distributed_tpu/kernels/group_gemm.py:32"),
@@ -347,6 +364,12 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/cp_ring.cu",
         replaces="triton_distributed_tpu/kernels/cp_ring.py:127"),
+    # disaggregated serving's KV-page ship: one launch a cohort lands its
+    # pages from every prefill-role pool into the decode role's
+    "kv_ship": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/kv_ship.cu",
+        replaces="triton_distributed_tpu/kernels/kv_ship.py:117"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -509,6 +532,22 @@ CP_ROWS = {"kv_rotate": "_kv_rotate_kernel",
 # past 3024) should move the logits as losing a decode rank's partial
 # did (at least 24 %): 5 % lies between
 CP_LOGIT_RTOL = 0.05
+
+#: the disaggregated path: DeepSeek-MoE-16B as served, the main path's
+#: engine configuration and trace, its prefill role and decode role (budget
+#: 128) on the one card, the ship committed a tick after its launch. The
+#: kernel's row weighs one launch a cohort; its shape is the engine form at
+#: a 1024-token request: 64 pages of every layer's K and V pool (Hkv 16,
+#: page 16, D 128, int8 with f32 scale planes), landing reversed, on pools
+#: of KV_SHIP_POOL pages
+DISAGG_DELAY, KV_SHIP_PAGES, KV_SHIP_POOL = 1, 64, 128
+# the negative control: the first shipped request's first-decode logits
+# with the ship's scale rail dropped (its landing pages keep the fresh
+# pool's unit scales, ≈ 30-100× the int8 codes' true scales), against the
+# same request's logits in the full run, relative to their largest. A
+# token-exact ship moves them by 0; a dropped rail should move them by
+# far more than 5 %
+DISAGG_DROP_RTOL = 0.05
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -1107,6 +1146,57 @@ def check_expert_gemms(res: Results, dev, inp):
                   H100_INT8_OPS)
 
 
+def check_router(res: Results, dev, cfg):
+    """The EP block's router at the main path's shape, ``(T_PAD, H) @
+    (H, E)`` in f32 through ``Transformer._router_logits`` (the call the
+    main path makes, one launch of the float mode's f32 kernel), against
+    the f32 product. Within 1e-5 of the largest logit: 2048-term f32
+    sums in another order."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+    from triton_distributed_tpu_torch.kernels import launch_counts
+    from triton_distributed_tpu_torch.models import Transformer
+
+    m, k, n = T_PAD, cfg.hidden, cfg.num_experts
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    r = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16)
+    before = launch_counts()["ggemm_f32"]
+    out = Transformer._router_logits(x, r)
+    launched = launch_counts()["ggemm_f32"] - before
+    xf, rf = x.float(), r.float()
+    ref = xf @ rf
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tag = f"deepseek_moe_16b router M={m} K={k} N={n} f32"
+    res.check("ggemm_f32", err, 1e-5 * ref.abs().max().item(), tag)
+    res.check("ggemm_f32", abs(launched - 1), 0,
+              f"{tag}: one counted launch a call", metric="launches off")
+    res.kernel("ggemm_f32", err=err)
+    # a 6 MB operand sits in L2: the timed calls cycle through 12 copies
+    xs = [x] + [torch.randn((m, k), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(11)]
+    xfs = [t.float() for t in xs]
+    be = torch.zeros((1,), dtype=torch.int32, device=dev)
+    ms = graph_time_ms(lambda i: gg.float_gemm(xfs[i % 12], rf,
+                                               torch.float32))
+    plain = time_ms(lambda: gg.grouped_matmul_plain(xf, rf[None], be), 20)
+    lib = graph_time_ms(lambda i: xfs[i % 12] @ rf)
+    call = graph_time_ms(lambda i: Transformer._router_logits(xs[i % 12], r))
+    call_lib = graph_time_ms(lambda i: xs[i % 12].float() @ r.float())
+    del xs, xfs
+    nbytes = 4 * (m * k + k * n + m * n)
+    ops = 2.0 * m * k * n
+    b, by = bound_ms(nbytes, ops, H100_F32_OPS)
+    n_moe = len(cfg.moe_layers)
+    log(f"time ggemm_f32 {tag} ({n_moe}/step): kernel_ms={ms:.4f} "
+        f"plain_ms={plain:.4f} library_ms={lib:.4f} (cuBLAS f32 matmul) "
+        f"bound_ms={b:.4f} ({by}); with the casts: _router_logits "
+        f"{call:.4f} ms, x.float() @ r.float() {call_lib:.4f} ms")
+    res.shape("ggemm_f32", n_moe, ms, plain, lib, nbytes, ops, H100_F32_OPS)
+
+
 # -------------------------------------------------------------- end to end
 
 def _to(node, dev):
@@ -1211,19 +1301,24 @@ PATH_KERNELS = {
                                 "ggemm_w8a16", "flash_decode", "all_gather"),
     "llama_7b": ("ggemm_w8a8", "ggemm_w8a16", "ragged_paged_attention"),
     "deepseek_moe_16b": ("ggemm_w8a8", "ggemm_w8a16",
-                         "ragged_paged_attention", "chunked_a2a"),
+                         "ragged_paged_attention", "ggemm_f32",
+                         "chunked_a2a"),
     "deepseek_moe_16b_bf16_experts": ("ggemm_w8a8", "ggemm_w8a16",
                                       "ragged_paged_attention", "ggemm_bf16",
                                       "chunked_a2a"),
+    "deepseek_moe_16b disagg": ("ggemm_w8a8", "ggemm_w8a16",
+                                "ragged_paged_attention", "ggemm_f32",
+                                "chunked_a2a", "kv_ship"),
 }
 
 
-def run_path(res: Results, dev, name, cfg, profile=False):
+def run_path(res: Results, dev, name, cfg, profile=False, keep=False):
     """One serving path at full width: the engine serves the seeded
     Poisson trace (16 requests, prompts 128–1023 tokens) from random
     weights drawn in bf16 and quantized on the card; the launches of
     every kernel are counted over the run. Returns the launches and the
-    number of engine steps."""
+    number of engine steps, and with ``keep`` also (model, params, the
+    served trace) for the disaggregated path."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import (
@@ -1282,6 +1377,8 @@ def run_path(res: Results, dev, name, cfg, profile=False):
                             "logits")
     if profile:
         run_profile(name, model, params, ecfg, trace)
+    if keep:
+        return counts, steps, (model, params, trace)
     return counts, steps
 
 
@@ -4001,14 +4098,15 @@ def _plain_versions_raise():
     """Within the block, the MoE-TP plain versions, the plain wire
     quantizers, the grouped GEMM's, the reduce-scatter's, the
     all-to-all's, the GEMM-RS's (its int8-mxu producers too), the
-    all-gathers', the ragged attention's, the cp LSE-combine's and the
-    context-parallel prefill's plain versions raise: a path on CUDA
-    tensors must launch the kernels."""
+    all-gathers', the ragged attention's, the cp LSE-combine's, the
+    context-parallel prefill's and the KV-page ship's plain versions
+    raise: a path on CUDA tensors must launch the kernels."""
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as agk
     from triton_distributed_tpu_torch.kernels import cp_ring as cp
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
+    from triton_distributed_tpu_torch.kernels import kv_ship as ks
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
@@ -4037,7 +4135,7 @@ def _plain_versions_raise():
     names += [(rpa, "ragged_paged_attention_plain"),
               (cp, "cp_lse_combine_plain"), (cp, "kv_rotate_plain"),
               (cp, "ulysses_a2a_plain"), (tra, "ring_attention_plain"),
-              (tra, "dense_attention_reference")]
+              (tra, "dense_attention_reference"), (ks, "kv_ship_plain")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, boom)
@@ -4748,6 +4846,321 @@ def run_longcontext_path(res: Results, dev):
                                 deep_steps)}
 
 
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` call over ``iters`` calls enqueued
+    behind a spinning kernel, so that the host work of each call (the
+    ship's host checks of its page tables) hides behind the device's:
+    for a wrapper whose host time exceeds its kernel's. Raises when the
+    enqueue outlasts the spin."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    spin.record()
+    torch.cuda._sleep(int(4e8))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= spin.elapsed_time(a):
+        raise RuntimeError(f"queued_ms: the enqueue took {host_ms:.1f} ms, "
+                           "longer than the spin kernel")
+    return a.elapsed_time(b) / iters
+
+
+def ship_pools(dev, g, npages, hkv=16, page=16, d=128, layers=28):
+    """Seeded int8 K and V pools with f32 scale planes, as the DeepSeek
+    serving state holds them (``layers`` × 2, (npages, Hkv, page, D))."""
+    import torch
+
+    def pool():
+        return {"q": torch.randint(-128, 128, (npages, hkv, page, d),
+                                   generator=g, device=dev,
+                                   dtype=torch.int8),
+                "scale": torch.rand((npages, hkv, page), generator=g,
+                                    device=dev)}
+
+    return tuple((pool(), pool()) for _ in range(layers))
+
+
+def _pool_leaves(layers):
+    return [t for pair in layers for p in pair
+            for t in ((p["q"], p["scale"]) if isinstance(p, dict) else (p,))]
+
+
+def check_kv_ship(res: Results, dev):
+    """``tdt_kv_ship`` against its plain version, byte for byte: the mesh
+    form (JAX's layout) at the lint geometry (4 pages of 8 × 128) and at
+    a full DeepSeek page (64 pages of 256 × 128), n = 2 and 4 ranks,
+    coalesce 1, 2 and 4 on the coalesced landing tables; the engine form
+    at DeepSeek-MoE-16B's pools (28 layers × K and V, Hkv 16, page 16, D
+    128, int8 + f32 scales) for a 1024-token request's 64 pages, source
+    pages scattered over the pool, landing reversed, every pool and rail
+    in one launch. Times the engine form: the kernel behind a spinning
+    kernel (the wrapper's host checks hidden), the plain version back to
+    back, one ``copy_`` of the same bytes."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import kv_ship as ks
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.tune.schedule import GridSchedule
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    geom = ks.KV_SHIP_GEOM
+    for rows, cols, pages in ((geom["rows"], geom["cols"], geom["pages"]),
+                              (256, 128, KV_SHIP_PAGES)):
+        for n in (2, 4):
+            for c in (1, 2, 4):
+                q = [torch.randint(-128, 128, (pages * rows, cols),
+                                   generator=g, device=dev, dtype=torch.int8)
+                     for _ in range(n)]
+                s = [torch.randn((pages * rows, 128), generator=g,
+                                 device=dev) for _ in range(n)]
+                table = [ks.coalesced_landing_table(pages, c)] * n
+                sched = GridSchedule(coalesce=c)
+                got = ks.kv_ship(q, s, table, Mesh.loopback(n, dev, axis="x"),
+                                 "x", schedule=sched)
+                torch.cuda.synchronize()
+                want = ks.kv_ship([t.cpu() for t in q], [t.cpu() for t in s],
+                                  table, Mesh.loopback(n, "cpu", axis="x"),
+                                  "x", schedule=sched)
+                bad = sum(int((a.cpu().view(torch.uint8)
+                               != b.view(torch.uint8)).sum())
+                          for a, b in zip(got[0] + got[1],
+                                          want[0] + want[1]))
+                res.check("kv_ship", bad, 0, f"mesh form n {n} x {pages} "
+                          f"pages of ({rows}, {cols}) int8 + scales, "
+                          f"coalesce {c} (byte-exact)", metric="bytes differ")
+                res.kernel("kv_ship", err=float(bad))
+    # the engine form at the disaggregated path's pools
+    src = ship_pools(dev, g, KV_SHIP_POOL)
+    dst = ship_pools(dev, g, KV_SHIP_POOL)
+    ref = tuple(tuple({k: v.clone() for k, v in p.items()} for p in pair)
+                for pair in dst)
+    perm = torch.randperm(KV_SHIP_POOL, generator=torch.Generator()
+                          .manual_seed(62))
+    sp = [int(x) for x in perm[:KV_SHIP_PAGES]]
+    dp = list(range(KV_SHIP_PAGES))[::-1]
+    table = ks.ShipTable()
+    ks.ship_kv_pages(src, dst, sp, dp, table=table)
+    pairs = ks._pool_pairs(src, ref)
+    ks.kv_ship_plain(pairs, [sp], [dp])
+    torch.cuda.synchronize()
+    bad = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+              for a, b in zip(_pool_leaves(dst), _pool_leaves(ref)))
+    what = (f"engine form {len(src)} layers x K, V, {KV_SHIP_PAGES} pages "
+            f"of (16, 16, 128) int8 + f32 scales on {KV_SHIP_POOL}-page "
+            "pools, landing reversed")
+    res.check("kv_ship", bad, 0, what + " (byte-exact, whole pools)",
+              metric="bytes differ")
+    res.kernel("kv_ship", err=float(bad))
+    ms = queued_ms(lambda: ks.ship_kv_pages(src, dst, sp, dp, table=table))
+    # the plain version copies its id tables to the card once a pool and
+    # rail: its host time bounds it, and back-to-back calls time that
+    plain_ms = time_ms(lambda: ks.kv_ship_plain(pairs, [sp], [dp]), 5)
+    moved = sum(t[0].numel() * t.element_size()
+                for t in _pool_leaves(src)) * KV_SHIP_PAGES
+    a = torch.empty(moved, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    lib_ms = time_ms(lambda: b.copy_(a), 20)
+    del a, b
+    # each shipped byte read once and written once
+    nbytes = 2 * moved
+    bnd, by = bound_ms(nbytes, 0, H100_INT8_OPS)
+    log(f"time kv_ship {what} ({moved / 1e6:.1f} MB each way, one launch a "
+        f"cohort): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (one copy_ of the same bytes) "
+        f"bound_ms={bnd:.4f} ({by})")
+    res.shape("kv_ship", 1, ms, plain_ms, lib_ms, nbytes, 0, H100_INT8_OPS)
+    del src, dst, ref, pairs
+    torch.cuda.empty_cache()
+
+
+def _watch_first_decodes(eng, store):
+    """Record each request's logits at its first decode (its second
+    token) in ``store`` and count non-finite rows, on a role engine."""
+    advance = eng._advance_row
+    eng.bad_rows = 0
+
+    def watched(s, req, take, logits):
+        if not np.isfinite(logits[s]).all():
+            eng.bad_rows += 1
+        if req.cursor + take == len(req.seq) and len(req.generated) == 1:
+            store.setdefault(req.rid, np.array(logits[s]))
+        return advance(s, req, take, logits)
+
+    eng._advance_row = watched
+
+
+def run_disagg_path(res: Results, dev, main):
+    """Disaggregated serving through ``DisaggregatedEngine``, both roles
+    on the card, with the plain versions made to raise: DeepSeek-MoE-16B
+    as served at full width and depth from the main path's weights
+    (``main``: its model, params and served trace), the main path's
+    ``EngineConfig``, the decode role derived as in JAX (budget 128),
+    the 2-rank role mesh ``Mesh.grid({"dcn": 2, "tp": 1})`` with
+    ``transport="auto"`` (so "dcn") and the ship committed a tick after
+    its launch, serving the main path's trace again. Every request must
+    complete, every request with ``max_new`` > 1 ship, ``tdt_kv_ship``
+    launch once a cohort, every shipped page and scale plane equal its
+    source page at commit (before the source releases it), and every
+    token stream equal the colocated main path's byte for byte. Then the
+    trace replayed up to the first shipped request's first decode with
+    the ship's scale rail dropped must move that request's logits past
+    ``DISAGG_DROP_RTOL``. Returns (the ship's launches, cohorts)."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        kv_ship as ks,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.serving import (
+        DisaggregatedEngine,
+        EngineConfig,
+        poisson_trace,
+    )
+
+    model, params, col_trace = main
+    cfg = model.config
+    name = "deepseek_moe_16b disagg"
+    ecfg = EngineConfig(slots=16, token_budget=512, chunk=256, page=16,
+                        npages=2048)
+    roles = Mesh.grid({"dcn": 2, "tp": 1}, dev)
+
+    class Checked(DisaggregatedEngine):
+        """Holds every shipped page to its source at commit, before the
+        source releases it, and collects the committed cohorts."""
+
+        def _commit_ships(self):
+            for r in self._inflight:
+                if self.ticks - r.issued_tick < self.ship_delay_steps:
+                    continue
+                src = self.prefill.table[r.pslot, :len(r.dpids)]
+                for a, b in zip(ks.gather_kv_pages(self.prefill.state.layers,
+                                                   src),
+                                ks.gather_kv_pages(self.decode.state.layers,
+                                                   r.dpids)):
+                    self.page_bytes_differ += int((a != b).sum())
+            done = super()._commit_ships()
+            self.cohorts.update(r.issued_tick for r in done)
+            if done and self.first_shipped is None:
+                self.first_shipped = done[0].req.rid
+            return done
+
+    def engine():
+        eng = Checked(model, params, model, params, ecfg, hybrid_mesh=roles,
+                      ship_delay_steps=DISAGG_DELAY)
+        eng.page_bytes_differ, eng.cohorts, eng.first = 0, set(), {}
+        eng.first_shipped = None
+        _watch_first_decodes(eng.prefill, {})
+        _watch_first_decodes(eng.decode, eng.first)
+        return eng
+
+    def trace():
+        return poisson_trace(seed=11, n_requests=16, mean_interarrival=0.25,
+                             len_lo=128, len_hi=1024, max_new_lo=16,
+                             max_new_hi=32, vocab=cfg.vocab)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = engine()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    tr = trace()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    st = eng.run(tr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pst, dst = st.prefill, st.decode
+    ship_ms = np.asarray(st.ship_ms) if st.ship_ms else np.zeros(1)
+    log(f"path {name} layers={cfg.n_layers}: transport={eng.transport} "
+        f"setup_s={setup:.2f} completed={st.completed}/{len(tr)} "
+        f"ships={st.ships} cohorts={len(eng.cohorts)} "
+        f"wire_bytes={st.shipped_wire_bytes} raw_bytes={st.shipped_raw_bytes}"
+        f" wire_compression={st.wire_compression:.4f} ticks={eng.ticks} "
+        f"prefill_steps={len(pst.step_times)} decode_steps="
+        f"{len(dst.step_times)} decode_evictions={dst.evictions} "
+        f"p50_decode_step_ms={dst.p50_step_ms:.2f} p99_decode_step_ms="
+        f"{dst.p99_step_ms:.2f} p50_prefill_step_ms={pst.p50_step_ms:.2f} "
+        f"ship_ms_median={float(np.median(ship_ms)):.3f} ship_ms_max="
+        f"{float(ship_ms.max()):.3f} wall_s={wall:.2f} tok_s="
+        f"{dst.generated_tokens / wall:.2f} goodput_tok_s="
+        f"{st.goodput_tok_per_s:.2f} peak_mem_gib={peak:.2f}")
+    log(f"launches {name} " + " ".join(
+        f"{k}={v}" for k, v in counts.items() if v))
+    for k in PATH_KERNELS[name]:
+        if counts[k] == 0:
+            res.failures.append(f"{name}: {k} never launched")
+    if st.completed != len(tr):
+        res.failures.append(f"{name}: {st.completed}/{len(tr)} requests "
+                            "completed")
+    want_ships = sum(r.max_new > 1 for r in tr)
+    res.check(name, abs(st.ships - want_ships), 0, f"{st.ships} ships for "
+              f"the {want_ships} requests with max_new > 1",
+              metric="ships off")
+    res.check(name, abs(counts["kv_ship"] - len(eng.cohorts)), 0,
+              f"{counts['kv_ship']} tdt_kv_ship launches for "
+              f"{len(eng.cohorts)} cohorts (one a cohort)",
+              metric="launches off")
+    res.check(name, float(st.degraded_transport), 0.0,
+              "the transport never degraded", metric="degraded")
+    res.check(name, eng.page_bytes_differ, 0, "every shipped page's payload "
+              "and scale plane vs its source page, at commit",
+              metric="bytes differ")
+    if eng.prefill.bad_rows + eng.decode.bad_rows:
+        res.failures.append(f"{name}: rows of non-finite logits")
+    differ = sum(a.generated != b.generated for a, b in zip(tr, col_trace))
+    res.check(name, differ, 0, f"the {len(tr)} token streams vs the "
+              "colocated main path's (byte for byte)", metric="streams differ")
+    launches, cohorts = counts["kv_ship"], len(eng.cohorts)
+    # the negative control: the scale rail dropped from every ship
+    target, st_ticks = eng.first_shipped, eng.ticks
+    ref = eng.first.get(target)
+    del eng
+    torch.cuda.empty_cache()
+    orig = ks.ship_kv_pages
+
+    def dropped(src_layers, dst_layers, *a, **kw):
+        def payload(layers):
+            return tuple(tuple(p["q"] for p in pair) for pair in layers)
+        return orig(payload(src_layers), payload(dst_layers), *a, **kw)
+
+    ks.ship_kv_pages = dropped
+    try:
+        e = engine()
+        e.submit_trace(trace())
+        while target not in e.first and e.ticks < st_ticks:
+            e.tick()
+        torch.cuda.synchronize()
+    finally:
+        ks.ship_kv_pages = orig
+    got = e.first.get(target)
+    if ref is None or got is None:
+        res.failures.append(f"{name}: the replay never reached request "
+                            f"{target}'s first decode")
+    else:
+        moved = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+        res.check(name, -moved, -DISAGG_DROP_RTOL, f"request {target}'s "
+                  "first-decode logits with the scale rail dropped must "
+                  f"move past the tolerance (max_rel_err={moved:.6g}, "
+                  f"{e.ticks} ticks replayed)", metric="-max_rel_err")
+    del e
+    torch.cuda.empty_cache()
+    return launches, cohorts
+
+
 def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
     """DeepSeek-MoE-16B at tp = 4 on a loopback mesh of the card, from
     the MoE generation path's tp = 1 run ``one`` (:func:`run_decode_path`
@@ -5137,6 +5550,7 @@ def main() -> int:
     check_a2a(res, dev, moe)
     check_expert_gemms(res, dev, moe)
     del moe
+    check_router(res, dev, deepseek)
     check_decode_kernels(res, dev)
     check_n1_gemms(res, dev)
     check_moe_tp_kernels(res, dev)
@@ -5150,6 +5564,7 @@ def main() -> int:
     check_step4_kernels(res, dev)
     check_cp_combine(res, dev)
     check_cp_prefill_kernels(res, dev)
+    check_kv_ship(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
@@ -5163,8 +5578,15 @@ def main() -> int:
             moe_weight_quant=None, moe_act_quant=None))
     # the main path last, and its profile after its timed run: a
     # torch.profiler run slows the later host work of the process
-    main_counts, main_steps = run_path(res, dev, "deepseek_moe_16b",
-                                       deepseek, profile=opts.profile)
+    main_counts, main_steps, main_run = run_path(
+        res, dev, "deepseek_moe_16b", deepseek, profile=opts.profile,
+        keep=True)
+    # the disaggregated path: the main path's weights and trace served
+    # again with the prefill and decode roles split, its streams held to
+    # the main path's
+    with _plain_versions_raise():
+        disagg_counts = run_disagg_path(res, dev, main_run)
+    del main_run
     # the decode path: two configurations, each one prefill and DEC_STEPS
     # steps per layout; the bf16 run's weights and prompts then drive the
     # tensor-parallel path (its launches are counted apart)
@@ -5272,6 +5694,8 @@ def main() -> int:
             n, steps = lc_counts[name]
         elif name in CP_ROWS:
             n, steps = cp_counts[name]
+        elif name == "kv_ship":
+            n, steps = disagg_counts      # one launch a cohort
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

@@ -2382,3 +2382,200 @@ def test_cp_prefill_generate_on_card_equals_cpu(dev):
             lc, cc, kc = mc.decode_step(pc, cc, kc, t)
             lg, cg, kg = mg.decode_step(pg, cg, kg, t.to(dev))
             torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ KV-page ship
+
+from triton_distributed_tpu_torch.kernels import kv_ship as ks  # noqa: E402
+
+
+def _ship_pools(dev, layers, npages, seed, hkv=2, page=8, d=128, quant=True):
+    """Seeded per-layer (K, V) pools: int8 dicts with f32 scale planes,
+    or bf16 tensors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def pool():
+        if not quant:
+            return torch.randn((npages, hkv, page, d), generator=g,
+                               device=dev).to(torch.bfloat16)
+        return {"q": torch.randint(-128, 128, (npages, hkv, page, d),
+                                   generator=g, device=dev,
+                                   dtype=torch.int8),
+                "scale": torch.rand((npages, hkv, page), generator=g,
+                                    device=dev)}
+
+    return tuple((pool(), pool()) for _ in range(layers))
+
+
+def _ship_leaves(layers):
+    return [t for pair in layers for p in pair
+            for t in ((p["q"], p["scale"]) if isinstance(p, dict) else (p,))]
+
+
+class TestKvShipKernel:
+    @pytest.mark.parametrize("n", [2, 4])
+    @pytest.mark.parametrize("coalesce", [1, 2, 4])
+    @pytest.mark.parametrize("rows,cols,pages", [(8, 128, 4), (256, 128, 64)])
+    def test_mesh_form_is_byte_exact(self, dev, n, coalesce, rows, cols,
+                                     pages):
+        """JAX's layout (the lint geometry and a full DeepSeek page):
+        every rank's staged pages and scale rows land on rank
+        (r + n/2) % n at the coalesced landing table, byte for byte."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+        from triton_distributed_tpu_torch.tune.schedule import GridSchedule
+
+        g = torch.Generator(device=dev).manual_seed(n * 10 + coalesce)
+        q = [torch.randint(-128, 128, (pages * rows, cols), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(n)]
+        s = [torch.randn((pages * rows, 128), generator=g, device=dev)
+             for _ in range(n)]
+        table = ks.coalesced_landing_table(pages, coalesce)
+        mesh = Mesh.loopback(n, dev, axis="x")
+        before = launch_counts()["kv_ship"]
+        got = ks.kv_ship(q, s, [table] * n, mesh, "x",
+                         schedule=GridSchedule(coalesce=coalesce))
+        assert launch_counts()["kv_ship"] == before + 1
+        want = ks.kv_ship([t.cpu() for t in q], [t.cpu() for t in s],
+                          [table] * n, Mesh.loopback(n, "cpu", axis="x"),
+                          "x", schedule=GridSchedule(coalesce=coalesce))
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(a.cpu(), b)
+
+    @pytest.mark.parametrize("quant", [True, False])
+    def test_engine_form_is_byte_exact(self, dev, quant):
+        """Every layer's pools and both rails in one launch, source pages
+        scattered, landing reversed: equal to the plain version on the
+        same pools, and pages outside the landing set untouched."""
+        src = _ship_pools(dev, 3, 24, 1, quant=quant)
+        dst = _ship_pools(dev, 3, 20, 2, quant=quant)
+        ref = tuple(tuple({k: v.clone() for k, v in p.items()}
+                          if isinstance(p, dict) else p.clone() for p in pair)
+                    for pair in dst)
+        sp = [23, 0, 7, 5, 11, 2, 19]
+        dp = list(range(len(sp)))[::-1]
+        before = launch_counts()["kv_ship"]
+        ks.ship_kv_pages(src, dst, sp, dp)
+        assert launch_counts()["kv_ship"] == before + 1
+        ks.kv_ship_plain([(a, b, 0) for a, b in zip(_ship_leaves(src),
+                                                    _ship_leaves(ref))],
+                         [sp], [dp])
+        for a, b in zip(_ship_leaves(dst), _ship_leaves(ref)):
+            assert torch.equal(a, b)
+
+    def test_a_stale_table_is_rebuilt(self, dev):
+        """The engine's table follows the pools' storage."""
+        table = ks.ShipTable()
+        src = _ship_pools(dev, 1, 4, 3)
+        for seed in (4, 5):
+            dst = _ship_pools(dev, 1, 4, seed)
+            ks.ship_kv_pages(src, dst, [0, 1], [3, 2], table=table)
+            assert torch.equal(dst[0][0]["q"][3], src[0][0]["q"][0])
+            assert torch.equal(dst[0][1]["scale"][2], src[0][1]["scale"][1])
+
+    def test_refuses_a_non_contiguous_coalesced_table(self, dev):
+        from triton_distributed_tpu_torch.runtime import Mesh
+        from triton_distributed_tpu_torch.tune.schedule import GridSchedule
+
+        q = [torch.zeros((32, 128), dtype=torch.int8, device=dev)] * 2
+        s = [torch.zeros((32, 128), device=dev)] * 2
+        before = launch_counts()["kv_ship"]
+        with pytest.raises(ValueError, match="contiguous run"):
+            ks.kv_ship(q, s, [[1, 0, 3, 2]] * 2,
+                       Mesh.loopback(2, dev, axis="x"), "x",
+                       schedule=GridSchedule(coalesce=2))
+        assert launch_counts()["kv_ship"] == before
+
+
+def test_disaggregated_engine_on_card_equals_colocated(dev):
+    """A tiny int8-KV DisaggregatedEngine on the card, both roles on the
+    one card: token streams equal the colocated engine's on the card and
+    the disaggregated engine's on the CPU; one ship launch a cohort and
+    no plain ship."""
+    from triton_distributed_tpu_torch.kernels import reset_launch_counts
+    from triton_distributed_tpu_torch.models import (
+        Transformer,
+        TransformerConfig,
+    )
+    from triton_distributed_tpu_torch.runtime import Mesh
+    from triton_distributed_tpu_torch.serving import (
+        DisaggregatedEngine,
+        EngineConfig,
+        ServingEngine,
+        poisson_trace,
+    )
+
+    cfg = TransformerConfig(vocab=128, n_layers=2, hidden=64, ffn=128,
+                            n_heads=4, n_kv_heads=2, head_dim=16,
+                            dtype="float32", param_dtype="float32",
+                            kv_quant="int8")
+    params = Transformer(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    ecfg = EngineConfig(slots=4, token_budget=48, chunk=16, page=8,
+                        npages=32)
+    streams = {}
+    for d in ("cpu", dev):
+        model = Transformer(cfg, device=d)
+        p = _to(params, d)
+        tc = poisson_trace(7, 6, 1.0, 5, 30, 3, 6, 128)
+        ServingEngine(model, p, ecfg).run(tc)
+        streams[f"colocated {d}"] = [r.generated for r in tc]
+        eng = DisaggregatedEngine(model, p, model, p, ecfg,
+                                  hybrid_mesh=Mesh.grid({"dcn": 2, "tp": 1},
+                                                        d),
+                                  ship_delay_steps=1)
+        ticks = set()
+        commit = eng._commit_ships
+
+        def counted():
+            done = commit()
+            ticks.update(r.issued_tick for r in done)
+            return done
+
+        eng._commit_ships = counted
+        td = poisson_trace(7, 6, 1.0, 5, 30, 3, 6, 128)
+        reset_launch_counts()
+        st = eng.run(td)
+        streams[f"disagg {d}"] = [r.generated for r in td]
+        assert st.completed == 6 and st.ships > 0
+    assert launch_counts()["kv_ship"] == len(ticks) > 0
+    first = streams["colocated cpu"]
+    assert all(v == first for v in streams.values()), streams
+
+
+def test_ep_router_rows_do_not_depend_on_the_batch(dev):
+    """The EP block's router product runs the float-mode grouped GEMM:
+    a row's logits are the same bits in a 768-row batch (the colocated
+    serving step) as in its 256-row slice (the disaggregated decode
+    role's step), where cuBLAS's f32 matmul picked another summation
+    order for the two shapes. Within 1e-5 of the largest logit of the
+    f32 product (2048-term f32 sums in another order)."""
+    from triton_distributed_tpu_torch.models import Transformer
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((768, 2048), generator=g, device=dev).to(torch.bfloat16)
+    r = torch.randn((2048, 64), generator=g, device=dev).to(torch.bfloat16)
+    before = launch_counts()["ggemm_f32"]
+    full = Transformer._router_logits(x, r)
+    assert launch_counts()["ggemm_f32"] == before + 1
+    for s0 in (0, 256, 512):
+        part = Transformer._router_logits(x[s0:s0 + 256], r)
+        assert torch.equal(full[s0:s0 + 256], part)
+    ref = x.float() @ r.float()
+    assert (full - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m, k, n", [(768, 2048, 64), (37, 100, 50)])
+def test_float_gemm_narrow_tiles_equal_the_wide_ones(dev, m, k, n):
+    """A dense f32 product at N <= 64 runs the 8-row-tile kernel; its
+    bits equal the 64 x 64 tile kernel's, which the same product runs as
+    the first N columns of a 128-column one (ragged M, K and N too)."""
+    from triton_distributed_tpu_torch.kernels.group_gemm import float_gemm
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, 128), generator=g, device=dev)
+    wide = float_gemm(x, w, torch.float32)[:, :n]
+    narrow = float_gemm(x, w[:, :n], torch.float32)
+    assert torch.equal(narrow, wide)
+    assert torch.equal(float_gemm(x, w[:, :n], torch.bfloat16),
+                       wide.to(torch.bfloat16))

@@ -44,8 +44,12 @@
 // m16n8k16 bf16 -> f32 fed by ldmatrix, the next K step loaded into
 // registers while the current one multiplies). Both mask the ragged M,
 // N and K edges; with more than one M-block, block_m is a multiple of
-// 64, so a tile never straddles two experts.
+// 64, so a tile never straddles two experts. A dense f32 product at
+// N <= 64 runs narrow_f32_kernel instead: fma_kernel's sums in 8-row
+// tiles.
 #pragma once
+
+#include <type_traits>
 
 #include "wire.cuh"
 
@@ -494,6 +498,55 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
+// ------------------------------------------------ f32, narrow outputs
+// The f32 mode on a dense A at N <= BN (the MoE router: N = experts).
+// fma_kernel's 64 x 64 tiles leave most SMs idle there (12 CTAs at
+// M = 768), so 8-row tiles, each thread two rows of one column. Each
+// output is fma_kernel's sum: the same fmaf chain over k = 0, 1, ...
+// from 0, zero-padded past K to a multiple of BK, so the bits equal
+// fma_kernel's and a row's do not depend on M.
+constexpr int NBM = 8;
+
+template <typename OutT>
+__global__ void __launch_bounds__(THREADS)
+narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const int* __restrict__ block_expert,
+                  OutT* __restrict__ out, int M, int K, int N, int block_m) {
+  __shared__ float As[NBM][BK + 1];
+  __shared__ float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const int col = tid % BN, r0 = 2 * (tid / BN);
+  const int m0 = blockIdx.y * NBM;
+  const float* __restrict__ we =
+      w + static_cast<size_t>(block_expert[m0 / block_m]) * K * N;
+  float acc0 = 0.f, acc1 = 0.f;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int idx = tid; idx < NBM * BK; idx += THREADS) {
+      const int r = idx / BK, k = k0 + idx % BK;
+      As[r][idx % BK] =
+          (m0 + r < M && k < K) ? x[static_cast<size_t>(m0 + r) * K + k] : 0.f;
+    }
+    for (int idx = tid; idx < BK * BN; idx += THREADS) {
+      const int c = idx / BN, n = idx % BN, k = k0 + c;
+      Bs[c][n] = (k < K && n < N) ? we[static_cast<size_t>(k) * N + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < BK; ++k) {
+      const float b = Bs[k][col];
+      acc0 = fmaf(As[r0][k], b, acc0);
+      acc1 = fmaf(As[r0 + 1][k], b, acc1);
+    }
+    __syncthreads();
+  }
+  if (col < N) {
+    if (m0 + r0 < M)
+      out[static_cast<size_t>(m0 + r0) * N + col] = tdt_from_f<OutT>(acc0);
+    if (m0 + r0 + 1 < M)
+      out[static_cast<size_t>(m0 + r0 + 1) * N + col] = tdt_from_f<OutT>(acc1);
+  }
+}
+
 // ---------------------------------------------------- bf16 tensor cores
 constexpr int TBM = 64, TBN = 128, TBK = 32;
 constexpr int TC_THREADS = 128;  // 4 warps as 2 x 2, 32 x 64 outputs each
@@ -726,6 +779,20 @@ int launch_float_ggemm_z(const void* x, const void* w, const int* be,
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nz);
     const float* xf = static_cast<const float*>(x);
     const float* wf = static_cast<const float*>(w);
+    if constexpr (std::is_same<Rows, DenseRows>::value) {
+      if (N <= BN && nz == 1 &&
+          (out_dtype == TDT_F32 || out_dtype == TDT_BF16)) {
+        dim3 ngrid(1, (M + NBM - 1) / NBM);
+        if (out_dtype == TDT_F32)
+          narrow_f32_kernel<float><<<ngrid, THREADS, 0, s>>>(
+              xf, wf, be, static_cast<float*>(out), M, K, N, block_m);
+        else
+          narrow_f32_kernel<__nv_bfloat16><<<ngrid, THREADS, 0, s>>>(
+              xf, wf, be, static_cast<__nv_bfloat16*>(out), M, K, N,
+              block_m);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
     if (out_dtype == TDT_F32)
       fma_kernel<float, float, float, Rows><<<grid, THREADS, 0, s>>>(
           xf, wf, nullptr, be, static_cast<float*>(out), M, K, N, block_m,

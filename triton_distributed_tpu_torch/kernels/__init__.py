@@ -6,7 +6,8 @@ decode entries of ``flash_decode``, ``ag_gemm`` / ``gemm_rs`` (at world
 size 1 and over a mesh, on the raw and the quantized wires), ``allgather``
 the MoE-TP GEMMs (``moe_tp_fused``), the cp LSE-combine and the
 context-parallel prefill's ring and all-to-all (``cp_ring``, launched from
-``ring_attention``) are imported by name; so are the
+``ring_attention``) and the KV-page ship (``kv_ship``, launched from the
+disaggregated engine) are imported by name; so are the
 entries ``all_to_all`` and ``reduce_scatter``, which would shadow their
 modules, beside the exported stacked form and plain versions. The wire quantizer
 ``tdt_quantize_slab`` (``csrc/wire.cu``, :mod:`.wire`) is launched by the
@@ -67,9 +68,9 @@ def _counters() -> dict:
     (``reduce_scatter_fold``). The int8-mxu GEMM-RS's fold counts its two
     modes apart (``gemm_rs_mxw_fold``, ``gemm_rs_mxr_fold``). The
     reduce-scatter's two wrappers, the int8-mxu GEMM-RS's partials, the
-    cp LSE-combine and the prefill's ring attention and Ulysses
-    all-to-all also count their launches by the TPU kernel each stood
-    for (``by_tpu_kernel``)."""
+    cp LSE-combine, the prefill's ring attention and Ulysses all-to-all
+    and the KV-page ship also count their launches by the TPU kernel
+    each stood for (``by_tpu_kernel``)."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as ag
@@ -77,6 +78,7 @@ def _counters() -> dict:
     from triton_distributed_tpu_torch.kernels import flash_decode as fd
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
+    from triton_distributed_tpu_torch.kernels import kv_ship as ks
     from triton_distributed_tpu_torch.kernels import moe_dispatch as md
     from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
     from triton_distributed_tpu_torch.kernels import ragged_paged_attention as rpa
@@ -123,6 +125,7 @@ def _counters() -> dict:
         "cp_lse_combine": (cp._cp_lse_combine_cuda, "launches"),
         "ring_attention": (cp.ring_attention_launch, "launches"),
         "ulysses_a2a": (cp._ulysses_a2a_cuda, "launches"),
+        "kv_ship": (ks._kv_ship_cuda, "launches"),
     }
 
 
@@ -141,12 +144,13 @@ def reset_launch_counts() -> None:
 
 def launches_by_tpu_kernel() -> dict:
     """The launches of the reduce-scatter (its raw kernel and its wire
-    fold), of the int8-mxu GEMM-RS's partials, of the cp LSE-combine and
-    of the prefill's ring attention and Ulysses all-to-all since the
-    last :func:`reset_launch_counts`, by the TPU kernel each stood
-    for."""
+    fold), of the int8-mxu GEMM-RS's partials, of the cp LSE-combine, of
+    the prefill's ring attention and Ulysses all-to-all and of the
+    KV-page ship since the last :func:`reset_launch_counts`, by the TPU
+    kernel each stood for."""
     from triton_distributed_tpu_torch.kernels import cp_ring as cp
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+    from triton_distributed_tpu_torch.kernels import kv_ship as ks
     from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
 
     return {**rs._reduce_scatter_cuda.by_tpu_kernel,
@@ -154,4 +158,5 @@ def launches_by_tpu_kernel() -> dict:
             **grs.gemm_rs_mx_partials.by_tpu_kernel,
             **cp._cp_lse_combine_cuda.by_tpu_kernel,
             **cp.ring_attention_launch.by_tpu_kernel,
-            **cp._ulysses_a2a_cuda.by_tpu_kernel}
+            **cp._ulysses_a2a_cuda.by_tpu_kernel,
+            **ks._kv_ship_cuda.by_tpu_kernel}

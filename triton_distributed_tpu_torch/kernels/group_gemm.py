@@ -232,15 +232,17 @@ def _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m):
     return out
 
 
-def float_gemm(a, b, out_dtype=None):
+def float_gemm(a, b, out_dtype=None, *, counted=False):
     """(M, K) @ (K, N) on a CUDA tensor through the float-mode kernel
     with one expert (a and b both bf16 or both f32, f32 sums, stored to
-    ``out_dtype``, default a's dtype). Counts no launch: the world-size-1
-    ``ag_gemm`` and ``gemm_rs`` that share it count their own."""
+    ``out_dtype``, default a's dtype). ``counted``: count the launch with
+    the float mode's; the world-size-1 ``ag_gemm`` and ``gemm_rs`` that
+    share it count their own."""
     x, w = a.contiguous(), b.contiguous()[None]
     be = torch.zeros((1,), dtype=torch.int32, device=a.device)
     cap, k, _, n, block_m = _check_args(x, w, be, None, None)
-    return _launch_ggemm_f(x, w, be, out_dtype, cap, k, n, block_m)
+    launch = _ggemm_f_cuda if counted else _launch_ggemm_f
+    return launch(x, w, be, out_dtype, cap, k, n, block_m)
 
 
 def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):

@@ -659,7 +659,7 @@ class Transformer:
         b = xn.shape[0]
         pad = (-b) % self.tp
         xp = F.pad(xn, (0, 0, 0, pad)) if pad else xn
-        logits = xp.float() @ blk["router"].float()
+        logits = self._router_logits(xp, blk["router"])
         w_up, w_down = (whole_experts(w) for w in (blk["moe_up"],
                                                    blk["moe_down"]))
         wq = isinstance(w_up, dict)
@@ -672,6 +672,25 @@ class Transformer:
         else:
             y = ep_moe(xp, logits, w_up, w_down, ctx)
         return y[:b], state
+
+    @staticmethod
+    def _router_logits(x, router):
+        """The EP block's f32 router product, ``x.float() @
+        router.float()``, on the float-mode kernel (one expert, counted
+        as ``ggemm_f32``): every row's sums run in one K order whatever
+        the batch, so a row's route does not depend on the rows packed
+        beside it. (cuBLAS picks its algorithm, and so its summation
+        order, by the batch's shape: a disaggregated decode role's
+        256-row steps routed rows apart from the colocated engine's
+        768-row steps.) On CPU tensors this is the plain product."""
+        if x.device.type == "cpu":
+            return x.float() @ router.float()
+        from triton_distributed_tpu_torch.kernels.group_gemm import (
+            float_gemm,
+        )
+
+        return float_gemm(x.float(), router.float(), torch.float32,
+                          counted=True)
 
     def _moe_tp(self, blk, xn):
         """The TP-flavour MoE block: each token's top-k expert MLPs run

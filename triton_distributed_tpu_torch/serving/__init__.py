@@ -1,9 +1,12 @@
 from triton_distributed_tpu_torch.serving.engine import (
     TIERS,
+    DisaggregatedEngine,
+    DisaggStats,
     EngineConfig,
     EngineStats,
     Request,
     ServingEngine,
+    ShipRecord,
     TenantConfig,
     effective_rank,
     poisson_trace,
@@ -21,6 +24,8 @@ from triton_distributed_tpu_torch.serving.state import (
 __all__ = [
     "TIERS",
     "CpPagePool",
+    "DisaggStats",
+    "DisaggregatedEngine",
     "EngineConfig",
     "EngineStats",
     "PagePool",
@@ -28,6 +33,7 @@ __all__ = [
     "Request",
     "ServingEngine",
     "ServingState",
+    "ShipRecord",
     "TenantConfig",
     "effective_rank",
     "fresh_table",

@@ -29,9 +29,14 @@ verbs pass that index to ``alloc`` and ``lookup`` on every path, eviction
 and recompute included). In-batch prefix dedup (``prefix_share``) is
 refused there, as in JAX.
 
+:class:`DisaggregatedEngine` splits the roles (JAX ``:1175``): a prefill
+engine and a decode engine, every finished prefill's KV pages landing in
+the decode role's pool through the KV-page ship (``tdt_kv_ship`` on the
+card) between the ship verbs' reserve and commit.
+
 Not in this slice: the health ledger and the demotion to a twin when a
 kernel raises (a kernel error propagates), the watchdog hooks, the
-TPU grid schedule, the KV-ship verbs and speculation.
+TPU grid schedule and speculation.
 """
 
 from __future__ import annotations
@@ -612,4 +617,385 @@ class ServingEngine:
             if self.idle:
                 break
             self.step()
+        return self.stats
+
+    # ------------------------------------------------ shipped admission
+    # The decode half of a disaggregated deployment admits requests whose
+    # KV was computed elsewhere: reserve_shipped claims the slot and its
+    # landing pages up front (parked: eviction never touches it), and
+    # commit_shipped makes the row schedulable once the pages have landed.
+
+    def reserve_shipped(self, req) -> tuple | None:
+        """Claim a slot + landing pages for a request whose first
+        ``req.cursor`` tokens of KV will arrive by transfer —
+        :meth:`ProtocolOps.reserve_shipped`. Returns (slot, page_ids) or
+        None (the caller retries, the source pages stay pinned)."""
+        return self.ops.reserve_shipped(self, req)
+
+    def commit_shipped(self, req) -> None:
+        """The transfer into this request's reserved pages has landed —
+        :meth:`ProtocolOps.commit_shipped`."""
+        self.ops.commit_shipped(self, req)
+
+    def release_parked(self, slot: int) -> None:
+        """Free a parked slot — :meth:`ProtocolOps.release_parked`."""
+        self.ops.release_parked(self, slot)
+
+    def gather_pages(self, *args, **kwargs):
+        """The fleet's replica → replica page moves (``gather_pages`` /
+        ``land_pages``): not ported."""
+        raise NotImplementedError(
+            "ServingEngine.gather_pages / land_pages (replica → replica "
+            "page moves) come with serving/fleet.py, ROADMAP Queue 1 "
+            "step 5's fleet half")
+
+    land_pages = gather_pages
+
+
+# ===================================================================
+# Disaggregated prefill/decode: two role engines, KV shipped between
+# ===================================================================
+
+@dataclass
+class ShipRecord:
+    """One in-flight KV transfer (prefill pool → decode pool). The pages
+    landed at launch; the record holds them pinned on both sides until
+    its commit."""
+
+    req: Request
+    pslot: int                   # prefill-side slot (pages pinned)
+    dslot: int                   # decode-side reserved slot
+    dpids: list                  # decode-side landing page ids
+    issued_tick: int
+    wire_bytes: int
+    raw_bytes: int
+    span: object = 0.0           # the cohort's (start, end) CUDA events,
+                                 # or its host ms on CPU pools
+    share: float = 1.0           # this request's page share of the cohort
+
+    @property
+    def launch_ms(self) -> float:
+        """This request's share of its cohort's ship time (waits for the
+        end event, which a later step's sync has passed by the commit)."""
+        if isinstance(self.span, tuple):
+            start, end = self.span
+            end.synchronize()
+            return start.elapsed_time(end) * self.share
+        return self.span * self.share
+
+
+@dataclass
+class DisaggStats:
+    """The two role engines' stats plus the ship ledger. The goodput
+    takes the slower role's time: deployed, the roles run side by side.
+    ``ship_ms``: each request's page share of its cohort's ship, timed
+    on the stream between CUDA events recorded around the wrapper's call
+    (on the host clock for CPU pools); with the stream idle at the ship,
+    the wrapper's host work before its launch falls inside it.
+    ``degraded_transport`` keeps JAX's name and stays False until the
+    transport's health and degrade logic are ported (ROADMAP Queue 1
+    step 8)."""
+
+    prefill: EngineStats
+    decode: EngineStats
+    ships: int = 0
+    ship_ms: list = field(default_factory=list)
+    shipped_wire_bytes: int = 0
+    shipped_raw_bytes: int = 0
+    degraded_transport: bool = False
+
+    @property
+    def failover(self) -> dict | None:
+        """The slice-death failover's outcome: always None, since no
+        slice dies until that failover is ported (ROADMAP Queue 1 step
+        8)."""
+        return None
+
+    @property
+    def completed(self) -> int:
+        return self.decode.completed
+
+    @property
+    def goodput_tok_per_s(self) -> float:
+        t = max(self.prefill.total_time, self.decode.total_time)
+        return (self.decode.generated_tokens / t) if t > 0 else 0.0
+
+    @property
+    def decode_p99_step_ms(self) -> float:
+        return self.decode.p99_step_ms
+
+    @property
+    def wire_compression(self) -> float:
+        """Raw-payload bytes per wire byte shipped (> 1: the quantized
+        wire shrank the transfer)."""
+        return (self.shipped_raw_bytes / self.shipped_wire_bytes
+                if self.shipped_wire_bytes else 1.0)
+
+
+def _one_rank_role(model, what: str) -> None:
+    if getattr(model, "tp", 1) > 1 or getattr(model, "cp", 1) > 1:
+        raise NotImplementedError(
+            f"{what}: roles over a mesh (tp or cp > 1, head-sharded pools) "
+            "come with serving over a mesh, ROADMAP Queue 1 step 8; each "
+            "role is one rank")
+
+
+class DisaggregatedEngine:
+    """Two-role serving (JAX ``serving/engine.py:1175``): a PREFILL
+    engine runs chunked prefill (plus the first token) into its pool;
+    each finished request's KV pages then ship to the DECODE engine's
+    pool at block-table-assigned slots — int8 payloads with their f32
+    scale planes under ``kv_quant``, verbatim — and the decode engine
+    admits the request only once its pages have landed (reserve →
+    transfer → commit). In-flight ships pin their pages on both sides, so
+    eviction never frees a page mid-ship.
+
+    ``transport``: JAX's names and validation — ``"auto"`` is ``"dcn"``
+    with a ``hybrid_mesh``, else ``"xla"``; ``"dcn"`` needs the mesh. The
+    port's ``hybrid_mesh`` is the role mesh, ``Mesh.grid({"dcn": 2, "tp":
+    1})``: rank 0 the prefill role, rank 1 the decode role, the ship's
+    r → (r + n/2) % n pairing. Both transports land pages through
+    :func:`~triton_distributed_tpu_torch.kernels.kv_ship.ship_kv_pages`,
+    one launch a cohort (``tdt_kv_ship`` on the card, the plain version
+    on CPU pools); ``"xla"`` differs only in needing no role mesh. On one
+    card no byte crosses a link.
+
+    The ship lands the pages at launch, straight into the decode role's
+    reserved pages: their row stays parked (no decode step batches it)
+    until the commit, ``ship_delay_steps`` ticks later, and both roles
+    run on one stream, so the prefill pages freed at commit were read
+    before any later prefill step writes them.
+
+    Refused, each with its ROADMAP step: ``placement="auto"`` (step 10),
+    ``spec_k > 0`` (step 7), ``health=`` and the transport retry /
+    degrade / probe logic and slice-death failover (step 8: a transport
+    error propagates, ``stats.degraded_transport`` stays False), roles
+    over a mesh (step 8)."""
+
+    def __init__(self, prefill_model, prefill_params, decode_model,
+                 decode_params, cfg: EngineConfig, *, decode_cfg=None,
+                 hybrid_mesh=None, dcn_axis: str = "dcn",
+                 transport: str = "auto", ship_delay_steps: int = 0,
+                 placement: str = "force", moe_state="auto", health=None,
+                 spec_k: int = 0):
+        from dataclasses import replace as _rep
+
+        from triton_distributed_tpu_torch.kernels.kv_ship import ShipTable
+
+        if transport not in ("auto", "dcn", "xla"):
+            raise ValueError(f"unknown transport {transport!r}")
+        if transport == "auto":
+            transport = "dcn" if hybrid_mesh is not None else "xla"
+        if transport == "dcn" and hybrid_mesh is None:
+            raise ValueError("transport='dcn' needs a hybrid_mesh")
+        if placement not in ("force", "auto"):
+            raise ValueError(f"unknown placement {placement!r}")
+        if placement == "auto":
+            raise NotImplementedError(
+                "placement='auto' (tune.perf_model.refuse_disaggregation "
+                "pricing the ship against the decode window) comes with "
+                "the tuning layer, ROADMAP Queue 1 step 10")
+        if spec_k:
+            raise NotImplementedError(
+                "speculative decoding on the decode role (SpeculativeEngine)"
+                " comes with ROADMAP Queue 1 step 7")
+        if health is not None:
+            raise NotImplementedError(
+                "health= (the ship's retry, degrade and probe logic and "
+                "slice-death failover) comes with runtime/health.py, "
+                "ROADMAP Queue 1 step 8")
+        for model, role in ((prefill_model, "prefill"),
+                            (decode_model, "decode")):
+            _one_rank_role(model, f"DisaggregatedEngine's {role} role")
+        if hybrid_mesh is not None:
+            self._check_role_mesh(hybrid_mesh, dcn_axis, prefill_model,
+                                  decode_model)
+        if decode_cfg is None:
+            # the decode role's batches are at most one token a slot:
+            # size its packed width to 8 slots' rows, never wider than
+            # the prefill budget (its steps stop paying prefill-sized
+            # buffers)
+            dbudget = max(8, min(8 * cfg.slots, cfg.token_budget))
+            decode_cfg = _rep(cfg, token_budget=dbudget,
+                              chunk=min(cfg.chunk, dbudget))
+        dcfg = decode_cfg
+        if dcfg.page != cfg.page:
+            raise ValueError(
+                f"page size must match across roles ({cfg.page} vs "
+                f"{dcfg.page}) — pages ship verbatim")
+        self.transport = transport
+        self.hybrid_mesh = hybrid_mesh
+        self.dcn_axis = dcn_axis
+        self.ship_delay_steps = int(ship_delay_steps)
+        self.prefill = ServingEngine(
+            prefill_model, prefill_params, _rep(cfg, prefill_only=True),
+            moe_state=moe_state, on_complete=self._on_prefill_complete)
+        self.decode = ServingEngine(
+            decode_model, decode_params, _rep(dcfg, prefill_only=False),
+            moe_state=moe_state)
+        self._ready: deque = deque()       # (req, prefill slot) to ship
+        self._inflight: list = []
+        self._ship_table = ShipTable()
+        self.ticks = 0
+        self.stats = DisaggStats(prefill=self.prefill.stats,
+                                 decode=self.decode.stats)
+
+    @staticmethod
+    def _check_role_mesh(mesh, axis, prefill_model, decode_model) -> None:
+        """The role mesh: ``axis`` of 2 ranks (prefill, decode), every
+        other axis of one, on the roles' device."""
+        if mesh.axis_size(axis) != 2:
+            raise ValueError(f"the role mesh's {axis!r} axis must hold the "
+                             f"2 roles, got {mesh.axis_size(axis)}")
+        if mesh.size != 2:
+            raise NotImplementedError(
+                f"a role mesh of {mesh.shape}: roles over several ranks "
+                "(tp > 1 head-sharded pools) come with serving over a mesh,"
+                " ROADMAP Queue 1 step 8")
+        for model in (prefill_model, decode_model):
+            if model.device != mesh.device:
+                raise ValueError(f"the role mesh is on {mesh.device}, a "
+                                 f"role's model on {model.device}")
+
+    def _on_prefill_complete(self, req, slot) -> bool:
+        """Prefill-role completion hook: a request done at its first
+        token finishes here (credited to the decode ledger, the system's);
+        every other parks, its pages pinned, until its KV has shipped."""
+        if len(req.generated) >= req.max_new:
+            req.done = True
+            self.decode.stats.completed += 1
+            self.decode.stats.generated_tokens += len(req.generated)
+            return True                    # free the prefill slot now
+        req.parked = True
+        self._ready.append((req, slot))
+        return False                       # hold the pages for the ship
+
+    # ------------------------------------------------------------ shipping
+
+    def _launch_ships(self) -> None:
+        """Reserve landing pages for the whole ready cohort, then ship it
+        in ONE launch: bytes and time are attributed to its requests by
+        page share (``stats.ships`` counts requests)."""
+        from triton_distributed_tpu_torch.kernels import kv_ship
+
+        cohort = []
+        while self._ready:
+            req, pslot = self._ready[0]
+            res = self.decode.reserve_shipped(req)
+            if res is None:
+                break                      # decode backpressure; retry
+            self._ready.popleft()
+            dslot, dpids = res
+            npg = self.prefill._pages_held(req.cursor)
+            cohort.append((req, pslot, dslot, dpids, npg))
+        if not cohort:
+            return
+        cuda = self.decode.device.type == "cuda"
+        if cuda:
+            span = tuple(torch.cuda.Event(enable_timing=True)
+                         for _ in range(2))
+            span[0].record()
+        else:
+            t0 = time.perf_counter()
+        src = np.concatenate([self.prefill.table[pslot, :npg]
+                              for _, pslot, _, _, npg in cohort])
+        dst = np.concatenate([np.asarray(dpids, np.int64)
+                              for _, _, _, dpids, _ in cohort])
+        kv_ship.ship_kv_pages(self.prefill.state.layers,
+                              self.decode.state.layers, src, dst,
+                              table=self._ship_table)
+        if cuda:
+            span[1].record()
+        else:
+            span = (time.perf_counter() - t0) * 1e3
+        wire, raw = self._ship_bytes(len(src))
+        total_pg = len(src)
+        for req, pslot, dslot, dpids, npg in cohort:
+            frac = npg / total_pg
+            self._inflight.append(ShipRecord(
+                req=req, pslot=pslot, dslot=dslot, dpids=dpids,
+                issued_tick=self.ticks,
+                wire_bytes=int(round(wire * frac)),
+                raw_bytes=int(round(raw * frac)), span=span, share=frac))
+
+    def _ship_bytes(self, n_pages: int) -> tuple:
+        """(wire, raw) bytes of ``n_pages`` pages of every pool, counted
+        as JAX's engine counts its payload: the pool's bytes plus the
+        scale planes, against 2 B (or the pool's width) an element."""
+        q_elems = wire = 0
+        width = 2
+        for kp, vp in self.prefill.state.layers:
+            for pool in (kp, vp):
+                q = pool["q"] if isinstance(pool, dict) else pool
+                per = q[0].numel() * n_pages
+                q_elems += per
+                wire += per * q.element_size()
+                width = max(2, q.element_size())
+                if isinstance(pool, dict):
+                    wire += pool["scale"][0].numel() * n_pages * 4
+        return wire, q_elems * width
+
+    def _commit_ships(self) -> list:
+        """Commit the ships whose delay has passed: the source releases
+        its pinned pages first, then the row becomes schedulable
+        (:meth:`ProtocolOps.ship_commit`). Returns the committed
+        records."""
+        ready = [r for r in self._inflight
+                 if self.ticks - r.issued_tick >= self.ship_delay_steps]
+        for r in ready:
+            self.decode.ops.ship_commit(self.prefill, r.pslot, self.decode,
+                                        r.req)
+            self._warm_prefix_cache(r)
+            self._inflight.remove(r)
+            self.stats.ships += 1
+            self.stats.shipped_wire_bytes += r.wire_bytes
+            self.stats.shipped_raw_bytes += r.raw_bytes
+            self.stats.ship_ms.append(r.launch_ms)
+        return ready
+
+    def _warm_prefix_cache(self, r: ShipRecord) -> None:
+        """Register each FULL landed page's prefix-chain hash in the
+        decode pool (its content is frozen), so a later request sharing
+        the prefix attaches on the decode side without a ship."""
+        if not self.decode.pool.prefix_cache:
+            return
+        full = min(r.req.cursor // self.decode.cfg.page, len(r.dpids))
+        if full <= 0:
+            return
+        hashes = self.decode._page_hashes(r.req, full)
+        for p in range(full):
+            self.decode.pool.register(int(r.dpids[p]), hashes[p])
+
+    # ------------------------------------------------------------- driving
+
+    @property
+    def idle(self) -> bool:
+        return (self.prefill.idle and self.decode.idle
+                and not self._ready and not self._inflight)
+
+    def submit_trace(self, trace) -> None:
+        self.prefill.submit_trace(trace)
+
+    def tick(self) -> dict:
+        """One system tick: a prefill step, ship launches and commits, a
+        decode step. Deployed, the roles run side by side; here they run
+        in turn with the same ordering (no decode step sees a page before
+        its commit)."""
+        rep_p = None if self.prefill.idle else self.prefill.step()
+        self._launch_ships()
+        self._commit_ships()
+        rep_d = None if self.decode.idle else self.decode.step()
+        self.ticks += 1
+        return {"tick": self.ticks, "prefill": rep_p, "decode": rep_d,
+                "inflight": len(self._inflight), "ready": len(self._ready)}
+
+    def run(self, trace=None, max_ticks: int | None = None) -> DisaggStats:
+        """Drive both roles until the trace drains (or ``max_ticks``)."""
+        if trace is not None:
+            self.submit_trace(trace)
+        max_ticks = max_ticks or self.prefill.cfg.max_steps
+        for _ in range(max_ticks):
+            if self.idle:
+                break
+            self.tick()
         return self.stats

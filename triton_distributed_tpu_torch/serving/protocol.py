@@ -1,11 +1,13 @@
 """ProtocolOps: the serving protocol's transition verbs.
 
-Port of the single-engine verbs of ``triton_distributed_tpu/serving/
-protocol.py`` (``alloc`` through ``complete``). Every verb is host
-bookkeeping over numpy tables, the :class:`~triton_distributed_tpu_torch
-.serving.state.PagePool` refcounts and request fields; the engine
-delegates to them. The ship, migrate and failover verbs come with the
-disaggregated and fleet engines.
+Port of the engine verbs of ``triton_distributed_tpu/serving/
+protocol.py`` (``alloc`` through ``complete``) and of the transactional
+KV ship (``reserve_shipped`` through ``ship_abort``, JAX ``:252-309``).
+Every verb is host bookkeeping over numpy tables, the
+:class:`~triton_distributed_tpu_torch.serving.state.PagePool` refcounts
+and request fields; the engines delegate to them. The fleet's verbs
+(``migrate_live_core``, ``failover_requeue``, ``drain_requeue``) come
+with ``serving/fleet.py`` (ROADMAP Queue 1 step 5, its fleet half).
 """
 
 from __future__ import annotations
@@ -176,3 +178,69 @@ class ProtocolOps:
                 req.done = True
             if eng.on_complete is None or eng.on_complete(req, s):
                 self.free_slot(eng, s)
+
+    # --------------------------------------------- transactional KV ship
+
+    def reserve_shipped(self, eng, req) -> tuple | None:
+        """Claim a slot + landing pages for a request whose first
+        ``req.cursor`` tokens of KV will arrive by transfer. Returns
+        (slot, page_ids) or None (no slot / pool pressure — the caller
+        retries, leaving the source pages pinned)."""
+        free = [s for s, r in enumerate(eng.slot_req) if r is None]
+        if not free:
+            return None
+        if len(req.seq) > eng.state.capacity:
+            raise ValueError(
+                f"request {req.rid}: sequence {len(req.seq)} exceeds "
+                f"slot capacity {eng.state.capacity}"
+            )
+        need = eng._pages_held(req.cursor)
+        if (need > eng.pool.available - eng._committed_pages()
+                or not eng.pool.can_hold(0, need)):
+            return None
+        s = free[0]
+        pids = []
+        for p in range(need):
+            pg = eng.pool.alloc(p)
+            eng.table[s, p] = pg
+            pids.append(int(pg))
+        req.slot = s
+        req.parked = True
+        eng.slot_req[s] = req
+        return s, pids
+
+    def commit_shipped(self, eng, req) -> None:
+        """The transfer into this request's reserved pages has landed:
+        the row becomes schedulable (and evictable) like any other."""
+        req.parked = False
+
+    def release_parked(self, eng, slot: int) -> None:
+        """Free a parked slot (source-side handoff after its pages have
+        shipped, or an abandoned reservation)."""
+        req = eng.slot_req[slot]
+        if req is None or not req.parked:
+            raise ValueError(f"slot {slot} holds no parked request ({req})")
+        req.parked = False
+        self.free_slot(eng, slot)
+
+    def ship_commit(self, src_eng, pslot: int, dst_eng, req) -> None:
+        """Land one ship: the SOURCE frees its pinned pages first, then
+        the row becomes schedulable at the destination (the reverse order
+        would leave a window where both pools claim the request's KV)."""
+        self.release_parked(src_eng, pslot)
+        self.commit_shipped(dst_eng, req)
+
+    def ship_abort(self, dst_eng, dslot: int, req, pslot: int) -> None:
+        """Roll a destination reservation back (its landing pages return
+        to the pool) and restore the request to its source slot,
+        schedulable in place."""
+        self.release_parked(dst_eng, dslot)
+        req.slot = pslot
+        req.parked = False
+
+    def migrate_live_core(self, req, src_role, dst_role, pslot: int,
+                          npg: int, transport):
+        """A replica → replica live migration: not ported."""
+        raise NotImplementedError(
+            "migrate_live_core (the fleet's live migration) comes with "
+            "serving/fleet.py, ROADMAP Queue 1 step 5's fleet half")

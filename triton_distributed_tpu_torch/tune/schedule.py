@@ -8,7 +8,8 @@ legality oracle, the persisted winner store and :func:`resolve_schedule`
 come with the tuning layer (ROADMAP Queue 1 step 10). Until then an
 entry that takes ``schedule=`` reads ``None`` as the canonical default
 and refuses a value it cannot run (:func:`require_depth_only`,
-:func:`require_split_only`, :func:`require_grid_epilogue`).
+:func:`require_split_only`, :func:`require_grid_epilogue`,
+:func:`require_ship_schedule`).
 """
 
 from __future__ import annotations
@@ -101,9 +102,11 @@ class GridSchedule:
     by the generic pass, ``_fused_kernel_mxr``); ``demote`` 'auto' (an
     int8-mxu layout the accumulator epilogue cannot take runs the int8
     wire) | 'strict' (it raises). ``block_q``, ``n_bufs``,
-    ``pack_rows``, ``tree_pack``, ``prefix_run_len`` (ragged attention),
-    ``coalesce`` and ``rail`` (``kv_ship``) are kept for JAX's fields;
-    only their defaults run here (:func:`require_grid_epilogue`)."""
+    ``pack_rows``, ``tree_pack``, ``prefix_run_len`` (ragged attention)
+    are kept for JAX's fields; only their defaults run here
+    (:func:`require_grid_epilogue`). ``coalesce`` (pages a tick) and
+    ``rail`` 'paired' | 'shared' | 'drop' (the scale plane's rail) are
+    the KV ship's (:func:`require_ship_schedule`)."""
 
     kind = "grid"
 
@@ -154,3 +157,31 @@ def require_grid_epilogue(schedule, what: str) -> tuple:
         raise ValueError(f"{what}: demote must be 'auto' or 'strict', got "
                          f"{schedule.demote!r}")
     return schedule.epilogue, schedule.demote
+
+
+def require_ship_schedule(schedule, what: str) -> int:
+    """The KV ship's ``coalesce`` (pages a tick; None: 1), or
+    ``ValueError``: the ship runs a :class:`GridSchedule` whose only
+    non-default field is ``coalesce`` (JAX ``kernels/kv_ship.py:256-263``;
+    the landing table must then give each tick a contiguous run, checked
+    by the ship). ``rail`` 'shared' (the scale plane signalling the
+    payload's semaphores) and 'drop' (no scale plane) are the analyzer's
+    illegal mutants (SL009), and like every other field they need the
+    tuning layer (ROADMAP Queue 1 step 10)."""
+    if schedule is None:
+        return GRID_DEFAULT.coalesce
+    if not isinstance(schedule, GridSchedule):
+        raise ValueError(f"{what}: schedule must be a GridSchedule or None, "
+                         f"got {schedule!r}")
+    others = {k: v for k, v in schedule.to_dict().items()
+              if k != "coalesce" and v != getattr(GRID_DEFAULT, k)}
+    if others:
+        raise ValueError(
+            f"{what}: grid schedule fields {others} are not ported; only "
+            "coalesce runs here, the rest (the scale rail 'shared' / 'drop' "
+            "is the analyzer's SL009 mutant) comes with the tuning layer "
+            "(ROADMAP Queue 1 step 10)")
+    if int(schedule.coalesce) < 1:
+        raise ValueError(f"{what}: coalesce must be at least 1, got "
+                         f"{schedule.coalesce}")
+    return int(schedule.coalesce)
