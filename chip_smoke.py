@@ -51,7 +51,11 @@ Phases, all run every time:
    in JAX's mesh form (the lint geometry and a full DeepSeek page, 2 and
    4 ranks, coalesce 1, 2, 4) and in the engine form at DeepSeek's pools
    (a 1024-token request's 64 pages of all 56 pools and both rails in
-   one launch). The kernels line reports each
+   one launch); and the dp gradient ring (``check_grad_ring``) bit for
+   bit in every mode (int8 stochastic rounding and fp8, feedback on and
+   off, the TPU kernel's deterministic mode, depth 2 and 3, n = 2, 4, 8)
+   and its all-gather half, both timed at the trainer's slab. The
+   kernels line reports each
    kernel at the shapes of the path that launches it, its times averaged
    over them by their launches a step;
 4. tiny: the int8 tiny dense model, the tiny DeepSeek-MoE preset and
@@ -60,7 +64,15 @@ Phases, all run every time:
    DeepSeek-MoE preset as served (EP) and in its TP flavour, through
    prefill + generate, contiguous and paged, and the tiny int8 model at
    tp = 4 on a loopback mesh — the token streams must be equal, and the
-   card's run must launch the kernels of its path;
+   card's run must launch the kernels of its path. Then the training
+   paths: the dp × tp × cp trainer at Llama-2-7B's widths
+   (``run_train_path``: 4 steps against ``train_step_reference`` on the
+   card, loss, update and Adam moment, the dp ring on int8, its last two
+   steps at ring depth 3, and a control with the ring's result dropped
+   that must fail) and
+   ``Transformer.train_step`` on Llama-2-7B cut to 8 layers at tp = 1
+   and 4 (``run_train_lm_path``: 2 SGD steps, the loss falling, tp = 4
+   within a stated tolerance of tp = 1);
 5. the serving paths, each a continuous-batching engine serving the
    same Poisson trace with the launches of every kernel counted over
    the run: the Llama-2-7B geometry (int8 KV, W8A8 projections, W8A16
@@ -370,6 +382,23 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/kv_ship.cu",
         replaces="triton_distributed_tpu/kernels/kv_ship.py:117"),
+    # training's dp gradient ring: one kernel for the ring at depth 2 and
+    # at depth 3 (a TPU ring slot, no value), counted by the TPU kernel
+    # each launch stood for, and its all-gather half, which has no TPU
+    # kernel (JAX's lax.all_gather in train/grad_wire.py
+    # quantized_allgather)
+    "grad_ring": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/grad_ring.cu",
+        replaces="triton_distributed_tpu/kernels/cp_ring.py:187"),
+    "grad_ring3": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/grad_ring.cu",
+        replaces="triton_distributed_tpu/kernels/cp_ring.py:225"),
+    "grad_allgather": dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/grad_ring.cu",
+        replaces="triton_distributed_tpu/train/grad_wire.py:189"),
 }
 
 #: the kernels of the decode path: their rows' launches and shapes come
@@ -548,6 +577,60 @@ DISAGG_DELAY, KV_SHIP_PAGES, KV_SHIP_POOL = 1, 64, 128
 # token-exact ship moves them by 0; a dropped rail should move them by
 # far more than 5 %
 DISAGG_DROP_RTOL = 0.05
+
+#: the training paths (check_grad_ring, run_train_path). The trainer at
+#: Llama-2-7B's widths, one block as JAX's TrainConfig defines the model:
+#: vocab 32000, d_model 4096, 32 heads, d_ff 11008, dp 2 × tp 2 × cp 2 on
+#: the loopback mesh, seq 1024, batch 8 in 2 microbatches, ring attention,
+#: the int8 dp ring. 374.3 M f32 a rank: parameters 12.0 GB, Adam 24.0 GB
+#: and gradients 12.0 GB over the 8 ranks, the ring's stripes 6.0 GB, the
+#: activations of a microbatch a few GB: no cut. Adam at lr 1e-5: its
+#: first steps move every parameter by about lr, and at d_model 4096 JAX's
+#: default 1e-2 (sized for its tiny dryrun block) sent the reference's
+#: loss from 11.1 to 1292 in 4 steps on an H100. At lr 1e-5 the loss
+#: moves by about 0.02 over the 4 steps, so the losses alone cannot tell a
+#: sound trainer from a broken one: each step is also held to the
+#: reference's by its parameter update and by Adam's first moment (the
+#: gradients' running mean), leaf by leaf, and a control step with the dp
+#: ring's result dropped must break both. The reference runs with
+#: mlp_grad_scale=tp: JAX's step (and so the trainer) carries the MLP
+#: branch's gradient tp times (train_step_reference's docstring). The
+#: ring's rows take their launches from its steps, the first half at
+#: depth 2, the rest at 3 (the ring's entry called with the schedule, as
+#: the cp LSE-combine's replay)
+TRAIN_CFG = dict(vocab=32000, d_model=4096, n_heads=32, d_ff=11008, seq=1024,
+                 batch=8, dp=2, tp=2, cp=2, microbatches=2, attn="ring",
+                 wire_dtype="int8", lr=1e-5)
+TRAIN_STEPS = 4
+TRAIN_ROWS = {"grad_ring": TRAIN_STEPS // 2,
+              "grad_ring3": TRAIN_STEPS - TRAIN_STEPS // 2,
+              "grad_allgather": TRAIN_STEPS}
+# each step's loss against train_step_reference's (sound runs read at
+# most 6.6e-5 apart on an H100), step 0 (identical parameters: the
+# forward's rounding alone) within 1e-4
+TRAIN_TOL, TRAIN_STEP0_TOL = 1e-3, 1e-4
+# the worst leaf's ||update - the reference's|| / ||the reference's||,
+# and the same of Adam's first moment: the int8 ring quantizes each
+# gradient twice (the hop, the all-gather), and under Adam a gradient
+# that the wire's noise flips in sign moves its weight by 2 lr. Sound
+# runs read at most 0.354 (step 0, head) and 0.0216 on an H100, the
+# control with the ring's result dropped 0.996 and 0.709
+TRAIN_DP_RTOL, TRAIN_M_RTOL = 0.6, 0.05
+# row chunks of the plain ring versions at the train slab (their f64 and
+# int64 temporaries would not fit at once)
+GR_PLAIN_CHUNKS = 16
+#: Transformer.train_step: Llama-2-7B at full width (f32 parameters,
+#: bf16 compute), its depth cut to 8 of its 32 layers (two models' f32
+#: parameters, gradients and SGD results at full depth would not fit
+#: 80 GB), 2 SGD steps on one batch of 2 × 1024 tokens, tp = 1 and 4
+LM_LAYERS, LM_B, LM_S, LM_STEPS, LM_LR = 8, 2, 1024, 2, 1e-2
+# tp = 4's loss against tp = 1's at each step: bf16 activations rounded in
+# other places (the mesh GEMMs' outputs, the per-rank attention), averaged
+# over 2048 tokens' cross-entropy of about 10.4 (read 9.2e-5 apart on an
+# H100); and the first layer's weights after the steps: the worst leaf's
+# ||w_tp4 - w_tp1|| / ||w_tp1 - w_0||, each gradient summed in bf16 in
+# another order (read 0.0092)
+LM_TP_ATOL, LM_W_RTOL = 2e-3, 0.03
 
 # every serving step packs 768 rows (token_budget 512 plus the 256-row
 # parking zone) for 16 slots
@@ -4099,8 +4182,9 @@ def _plain_versions_raise():
     quantizers, the grouped GEMM's, the reduce-scatter's, the
     all-to-all's, the GEMM-RS's (its int8-mxu producers too), the
     all-gathers', the ragged attention's, the cp LSE-combine's, the
-    context-parallel prefill's and the KV-page ship's plain versions
-    raise: a path on CUDA tensors must launch the kernels."""
+    context-parallel prefill's, the KV-page ship's and the gradient
+    ring's plain versions raise: a path on CUDA tensors must launch the
+    kernels."""
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as agk
     from triton_distributed_tpu_torch.kernels import cp_ring as cp
@@ -4135,7 +4219,8 @@ def _plain_versions_raise():
     names += [(rpa, "ragged_paged_attention_plain"),
               (cp, "cp_lse_combine_plain"), (cp, "kv_rotate_plain"),
               (cp, "ulysses_a2a_plain"), (tra, "ring_attention_plain"),
-              (tra, "dense_attention_reference"), (ks, "kv_ship_plain")]
+              (tra, "dense_attention_reference"), (ks, "kv_ship_plain"),
+              (cp, "grad_ring_plain"), (cp, "grad_allgather_plain")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, boom)
@@ -5505,6 +5590,447 @@ def run_generate_cli(res: Results, dev, preset, tp=1):
         res.failures.append(f"tools.generate {preset}: wrong token shape")
 
 
+def grad_slabs(dev, g, n, srows, cols, seed):
+    """Seeded (G, n, n·srows, cols) f32 gradient slabs: rank r's slab of
+    ring g at [g, r], rows of every magnitude (one row a thousandth of
+    the rest, one zero row: the scale's clamp)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((g, n, n * srows, cols), generator=gen, device=dev)
+    x[..., 1, :] *= 1e-3
+    x[..., 2, :] = 0.0
+    return x
+
+
+def _chunked_plain(fn, x, srows, chunks, **kw):
+    """A plain ring version over a long slab, ``chunks`` row chunks at a
+    time (the rows are independent; each chunk draws its own rows'
+    uniforms): (G, n, n·srows, cols) → (G, n, srows, cols)."""
+    import torch
+
+    g, n, _, cols = x.shape
+    v = x.view(g, n, n, srows, cols)
+    step = -(-srows // chunks)
+    outs = [fn(v[..., i:i + step, :].reshape(g, n, -1, cols), row0=i, **kw)
+            for i in range(0, srows, step)]
+    return torch.cat(outs, dim=2)
+
+
+def check_grad_ring(res: Results, dev):
+    """The dp gradient ring (``tdt_grad_ring``) against its plain version,
+    bit for bit: int8 with stochastic rounding and fp8, each with error
+    feedback on and off, and the TPU kernel's own deterministic mode
+    (no feedback, round to nearest, make_wire_format's 8-row chunk over
+    2048 columns); schedule depth 2 and 3 (the same bits, counted by
+    ``_grad_ring_kernel_w`` / ``_w3``); n = 2, 4, 8 on 3 rings of ragged
+    stripes. The all-gather half (``tdt_grad_allgather``) against its
+    plain version, written in place. Then both at the train path's slab
+    (``TRAIN_CFG``: dp 2 rings over tp × cp = 4 groups of Llama-2-7B-width
+    rank slabs, 374.3 M f32 a rank), against the plain versions run in
+    ``GR_PLAIN_CHUNKS`` row chunks (bit-equal there too), timed."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import cp_ring as cp
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        launches_by_tpu_kernel,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.lang import wire as tw
+    from triton_distributed_tpu_torch.train import step as tstep
+    from triton_distributed_tpu_torch.tune.schedule import RingSchedule
+
+    def exact(a, b):
+        return float((a - b).abs().max())
+
+    for n in (2, 4, 8):
+        x = grad_slabs(dev, 3, n, 5, 200, seed=n)
+        for wire, sr in (("int8", True), ("fp8", False)):
+            for ef in (True, False):
+                kw = dict(wire=wire, seed=17, ef=ef, stochastic=sr)
+                want = cp.grad_ring_plain(x, **kw)
+                for row, depth in (("grad_ring", 2), ("grad_ring3", 3)):
+                    got = cp.grad_ring(x, schedule=RingSchedule(depth=depth),
+                                       **kw)
+                    err = exact(got, want)
+                    res.check(row, err, 0.0, f"n {n} 3 x (5, 200) {wire} "
+                              f"{'sr' if sr else 'rtn'} ef={ef} depth "
+                              f"{depth} (bit-exact)")
+                    res.kernel(row, err=err)
+        red = cp.grad_ring(x, wire="int8", seed=3)
+        buf = torch.empty_like(x)
+        cp.grad_allgather(red, wire="int8", seed=4, out=buf)
+        err = exact(buf, cp.grad_allgather_plain(red, wire="int8", seed=4))
+        res.check("grad_allgather", err, 0.0, f"n {n} 3 x (5, 200) int8 sr "
+                  "(bit-exact, in place)")
+        res.kernel("grad_allgather", err=err)
+    g = cp.CP_RING_GEOM
+    fmt = tw.make_wire_format("int8", g["rows"])
+    for n in (2, 4):
+        x = grad_slabs(dev, 1, n, g["rows"], g["grad_cols"], seed=20 + n)
+        kw = dict(wire="int8", ef=False, stochastic=False,
+                  chunk_rows=fmt.chunk_rows)
+        want = cp.grad_ring_plain(x, **kw)
+        for row, depth in (("grad_ring", 2), ("grad_ring3", 3)):
+            err = exact(cp.grad_ring(x, schedule=RingSchedule(depth=depth),
+                                     **kw), want)
+            res.check(row, err, 0.0, f"n {n} lint geometry ({g['rows']}, "
+                      f"{g['grad_cols']}) rtn no feedback depth {depth} "
+                      "(the TPU kernel's mode, bit-exact)")
+            res.kernel(row, err=err)
+    del x, want, red, buf
+    # the train path's slab
+    cfg = tstep.TrainConfig(**TRAIN_CFG)
+    tr_rows = tstep.rank_layout(cfg)[1]
+    gn, n = cfg.tp * cfg.cp, cfg.dp
+    srows = tr_rows // n
+    x = grad_slabs(dev, gn, n, srows, tstep.SLAB_COLS, seed=7)
+    cols = tstep.SLAB_COLS
+    tag = (f"train slab dp {n} x tp {cfg.tp} x cp {cfg.cp}: {gn} rings of "
+           f"{n} x ({tr_rows}, {cols}) f32, int8 sr ef")
+    kw = dict(wire="int8", seed=11, ef=True)
+    elems = gn * n * tr_rows * cols
+    for row, depth in (("grad_ring", 2), ("grad_ring3", 3)):
+        sched = RingSchedule(depth=depth)
+        reset_launch_counts()
+        got = cp.grad_ring(x, schedule=sched, **kw)
+        torch.cuda.synchronize()
+        tpu = launches_by_tpu_kernel()
+        if launch_counts()["grad_ring"] != 1 or len(tpu) != 1:
+            res.failures.append(f"{row}: one call launched "
+                                f"{launch_counts()['grad_ring']} ({tpu})")
+        ms = time_ms(lambda: cp.grad_ring(x, schedule=sched, **kw), 5)
+        t0 = time.perf_counter()
+        want = _chunked_plain(cp.grad_ring_plain, x, srows, GR_PLAIN_CHUNKS,
+                              **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = exact(got, want)
+        res.check(row, err, 0.0, tag + f" depth {depth} (bit-exact against "
+                  f"the plain version in {GR_PLAIN_CHUNKS} row chunks)")
+        res.kernel(row, err=err)
+        del got, want
+        # every rank's slab read once, each owner's stripe written once;
+        # ~8 f32 operations an element and hop
+        nbytes = 4 * elems + 4 * elems // n
+        ops = 8 * elems // n * (n - 1)
+        bnd, by = bound_ms(nbytes, ops, H100_F32_OPS)
+        log(f"time {row} {tag} depth {depth} (1/step): kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call "
+            f"requantizes each hop) bound_ms={bnd:.4f} ({by}) "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        res.shape(row, 1, ms, plain_ms, None, nbytes, ops, H100_F32_OPS)
+    red = cp.grad_ring(x, **kw)
+    ag_kw = dict(wire="int8", seed=12)
+    ms = time_ms(lambda: cp.grad_allgather(red, out=x, **ag_kw), 5)
+    t0 = time.perf_counter()
+    step = -(-srows // GR_PLAIN_CHUNKS)
+    for i in range(0, srows, step):
+        part = red[:, :, i:i + step]
+        want = cp.grad_allgather_plain(part.contiguous(), row0=i, **ag_kw)
+        got = x.view(gn, n, n, srows, cols)[:, :, :, i:i + step]
+        err = exact(got, want.view(gn, n, n, -1, cols))
+        res.kernel("grad_allgather", err=err)
+        if err:
+            res.failures.append(f"grad_allgather: rows {i}+ at the train "
+                                f"slab apart by {err}")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = 4 * elems // n + 4 * elems
+    ops = 6 * elems // n
+    bnd, by = bound_ms(nbytes, ops, H100_F32_OPS)
+    log(f"time grad_allgather {tag} (1/step; no TPU kernel): kernel_ms="
+        f"{ms:.4f} plain_ms={plain_ms:.4f} (with the bit check) library_ms="
+        f"None (no one PyTorch call quantizes and broadcasts) bound_ms="
+        f"{bnd:.4f} ({by}) {nbytes / ms / 1e6:.1f} GB/s")
+    res.shape("grad_allgather", 1, ms, plain_ms, None, nbytes, ops,
+              H100_F32_OPS)
+    del x, red
+    torch.cuda.empty_cache()
+
+
+def _rel(got, want) -> float:
+    """||got - want|| / ||want|| in f64 (0 where both are 0)."""
+    import torch
+
+    num = float(torch.linalg.vector_norm(got - want, dtype=torch.float64))
+    den = float(torch.linalg.vector_norm(want, dtype=torch.float64))
+    return num / den if den else (0.0 if num == 0 else math.inf)
+
+
+def _train_step_errs(tr, before, ref_dp, ref_m):
+    """The trainer's last step against the reference's, leaf by leaf:
+    (the worst leaf's relative update error and its name, the worst
+    leaf's relative error of Adam's first moment and its name, the leaves
+    whose replicas differ: over dp and cp, and over tp where a leaf is
+    not sharded). ``before``: the parameters before the step (host);
+    ``ref_dp`` / ``ref_m``: the reference's update and first moment
+    (host)."""
+    import torch
+
+    from triton_distributed_tpu_torch.train import step as tstep
+
+    after = tr.global_params()
+    m = tr.opt_state()["m"]
+    dev = tr.device
+    dp_err = max((_rel(after[k] - before[k].to(dev), ref_dp[k].to(dev)), k)
+                 for k in after)
+    m_err = max((_rel(m[k], ref_m[k].to(dev)), k) for k in m)
+    del after, m
+    specs = tstep._param_specs(tr.cfg)
+    split = []
+    for k, p in tr.params.items():
+        p = p.detach()
+        same = all(torch.equal(p[d, t, c], p[0, t if specs[k] is not None
+                                             else 0, 0])
+                   for d in range(p.shape[0]) for t in range(p.shape[1])
+                   for c in range(p.shape[2]))
+        if not same:
+            split.append(k)
+    return dp_err, m_err, split
+
+
+def run_train_path(res: Results, dev):
+    """The dp×tp×cp trainer at Llama-2-7B's widths (``TRAIN_CFG``: vocab
+    32000, d_model 4096, 32 heads, d_ff 11008, ring attention, the int8
+    dp ring) on ``Mesh.grid({"dp": 2, "tp": 2, "cp": 2})``: first
+    ``train_step_reference`` (one dense single-device step a batch, on
+    the card, before the plain versions are made to raise; with
+    ``mlp_grad_scale=tp``, JAX's and the trainer's gradients), then
+    ``TRAIN_STEPS`` trainer steps from the same parameters on the same
+    batches, the last half with the ring's entry called at schedule
+    depth 3 (the ``_w3`` launches; the same values). Each step's loss
+    must be finite and within ``TRAIN_TOL`` of the reference's (step 0
+    within ``TRAIN_STEP0_TOL``), its parameter update and Adam's first
+    moment within ``TRAIN_DP_RTOL`` / ``TRAIN_M_RTOL`` of the
+    reference's (the worst leaf's relative error), every replica of a
+    parameter equal; each step launches the ring and its all-gather once
+    and the ring attention once a microbatch. Then a control: step 0
+    again with the ring's result dropped (each owner keeps its own
+    stripe, unreduced) must break both relative limits. Logs per step
+    the loss and |Δ|, the relative errors, ms, peak memory, the wire
+    ratio and the launches by TPU kernel. Returns {row: launches}."""
+    import functools
+
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        cp_ring,
+        launch_counts,
+        launches_by_tpu_kernel,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.train import step as tstep
+    from triton_distributed_tpu_torch.tune.schedule import RingSchedule
+
+    cfg = tstep.TrainConfig(**TRAIN_CFG)
+    name = (f"train dp{cfg.dp} tp{cfg.tp} cp{cfg.cp} d{cfg.d_model} "
+            f"ff{cfg.d_ff} v{cfg.vocab} seq{cfg.seq} b{cfg.batch}")
+    torch.cuda.empty_cache()
+    batches = [tstep.make_batch(cfg, k) for k in range(TRAIN_STEPS)]
+    params = tstep.init_params(cfg, device=dev)
+    p, opt = params, tstep.init_opt_state(params)
+    ref, ref_dp, ref_m = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for tok, tgt in batches:
+        new, opt, loss = tstep.train_step_reference(
+            p, opt, tok, tgt, cfg, mlp_grad_scale=cfg.tp)
+        ref.append(loss)
+        ref_dp.append({k: (new[k] - p[k]).cpu() for k in new})
+        ref_m.append({k: v.cpu() for k, v in opt["m"].items()})
+        p = new
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    log(f"path {name} reference: losses {ref} ms_a_step (with the host "
+        f"copies of its updates)={ms:.1f} peak_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    params = {k: v.cpu() for k, v in params.items()}
+    del p, new, opt
+    torch.cuda.empty_cache()
+    mesh = tstep.default_train_mesh(cfg, dev)
+    tr = tstep.Trainer(cfg, mesh, params=params)
+    torch.cuda.empty_cache()
+    rep = tr.wire_report()
+    log(f"path {name} trainer: wire {tr.wire} slab rows a rank "
+        f"{tr.rank_rows} wire report {rep}")
+    if not rep["ratio"] > 1.9:
+        res.failures.append(f"{name}: wire ratio {rep['ratio']}")
+    totals = {"grad_ring": 0, "grad_allgather": 0, "grad_ring3": 0}
+    orig = cp_ring.grad_ring
+    before = params
+    try:
+        for k, (tok, tgt) in enumerate(batches):
+            depth3 = k >= TRAIN_STEPS // 2
+            if depth3:
+                cp_ring.grad_ring = functools.partial(
+                    orig, schedule=RingSchedule(depth=3))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with _plain_versions_raise():
+                r = tr.step(tok, tgt)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            counts, by = launch_counts(), launches_by_tpu_kernel()
+            (dp_err, dp_leaf), (m_err, m_leaf), split = _train_step_errs(
+                tr, before, ref_dp[k], ref_m[k])
+            if k + 1 < TRAIN_STEPS:
+                before = {k2: v.cpu() for k2, v in tr.global_params().items()}
+            d = abs(r["loss"] - ref[k])
+            tol = TRAIN_STEP0_TOL if k == 0 else TRAIN_TOL
+            log(f"path {name} step {k}: loss={r['loss']:.6f} ref="
+                f"{ref[k]:.6f} abs_delta={d:.3g} (tol {tol:g}) update "
+                f"rel_err={dp_err:.6g} ({dp_leaf}; tol {TRAIN_DP_RTOL:g}) "
+                f"first-moment rel_err={m_err:.6g} ({m_leaf}; tol "
+                f"{TRAIN_M_RTOL:g}) replicas apart: {split or 'none'} "
+                f"ms={ms:.1f} peak_gb={peak:.2f} wire={r['wire']} ratio="
+                f"{rep['ratio']:.4f} degraded={r['degraded']} launches "
+                + " ".join(f"{k2}={v}" for k2, v in counts.items() if v)
+                + f" by TPU kernel {by}")
+            if not math.isfinite(r["loss"]) or d > tol:
+                res.failures.append(f"{name} step {k}: loss {r['loss']} vs "
+                                    f"the reference's {ref[k]} (tol {tol})")
+            if not dp_err <= TRAIN_DP_RTOL or not m_err <= TRAIN_M_RTOL:
+                res.failures.append(
+                    f"{name} step {k}: update rel_err {dp_err} ({dp_leaf}), "
+                    f"first-moment rel_err {m_err} ({m_leaf}) against the "
+                    f"reference's (tol {TRAIN_DP_RTOL}, {TRAIN_M_RTOL})")
+            if split:
+                res.failures.append(f"{name} step {k}: the replicas of "
+                                    f"{split} differ")
+            want = {"grad_ring": 1, "grad_allgather": 1,
+                    "ring_attention": cfg.microbatches}
+            for k2, v in want.items():
+                if counts[k2] != v:
+                    res.failures.append(f"{name} step {k}: {counts[k2]} "
+                                        f"{k2} launches, expected {v}")
+            tpu = "_grad_ring_kernel_w3" if depth3 else "_grad_ring_kernel_w"
+            if by.get(tpu) != 1:
+                res.failures.append(f"{name} step {k}: the ring stood for "
+                                    f"{by}, expected {tpu}")
+            totals["grad_ring3" if depth3 else "grad_ring"] += counts[
+                "grad_ring"]
+            totals["grad_allgather"] += counts["grad_allgather"]
+        del tr
+        torch.cuda.empty_cache()
+
+        def dropped(x, **kw):
+            """Each owner's own stripe of its slab, the peers' left out."""
+            n = x.shape[1]
+            sr = x.shape[2] // n
+            return torch.stack([x[:, s, s * sr:(s + 1) * sr]
+                                for s in range(n)], 1)
+
+        cp_ring.grad_ring = dropped
+        ctl = tstep.Trainer(cfg, mesh, params=params)
+        ctl.step(*batches[0])
+        (dp_err, dp_leaf), (m_err, m_leaf), _ = _train_step_errs(
+            ctl, params, ref_dp[0], ref_m[0])
+        del ctl
+    finally:
+        cp_ring.grad_ring = orig
+    torch.cuda.empty_cache()
+    res.check("train", -dp_err, -TRAIN_DP_RTOL, "control: step 0 with the "
+              "dp ring's result dropped must break the update's limit "
+              f"(rel_err={dp_err:.6g}, {dp_leaf})", metric="-rel_err")
+    res.check("train", -m_err, -TRAIN_M_RTOL, "control: step 0 with the "
+              "dp ring's result dropped must break the first moment's "
+              f"limit (rel_err={m_err:.6g}, {m_leaf})", metric="-rel_err")
+    for k2, v in totals.items():
+        if v == 0:
+            res.failures.append(f"{name}: {k2} never launched")
+    return totals
+
+
+def run_train_lm_path(res: Results, dev):
+    """``Transformer.train_step`` on Llama-2-7B at full width, its depth
+    cut to ``LM_LAYERS`` layers (f32 parameters, bf16 compute), on one
+    rank and on ``Mesh.loopback(4)``: ``LM_STEPS`` SGD steps (lr
+    ``LM_LR``) on one batch of ``LM_B`` × ``LM_S`` tokens (next-token
+    targets), with the plain versions made to raise. The loss must be
+    finite and fall over the steps on both, each step's tp = 4 loss lie
+    within ``LM_TP_ATOL`` of tp = 1's, and the first layer's new weights
+    within ``LM_W_RTOL`` (relative to the update); tp = 4 launches the mesh
+    AG-GEMM, GEMM-RS (forward and their duals backward) and the
+    all-gather (the saved and the dual's gathered operands), tp = 1 the
+    world-size-1 GEMMs. Logs the losses, ms a step, peak memory and the
+    launch counts."""
+    import dataclasses
+
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from triton_distributed_tpu_torch.models import Transformer, presets
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    cfg = dataclasses.replace(presets.llama_7b(param_dtype=torch.float32),
+                              n_layers=LM_LAYERS)
+    name = f"train_step llama_7b {LM_LAYERS} of 32 layers b{LM_B} s{LM_S}"
+    torch.cuda.empty_cache()
+    one = Transformer(cfg, device=dev)
+    params = one.init(torch.Generator(device=dev).manual_seed(43))
+    gen = torch.Generator(device=dev).manual_seed(44)
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S + 1), generator=gen,
+                           device=dev)
+    tok, tgt = tokens[:, :-1].contiguous(), tokens[:, 1:].contiguous()
+    need = {1: ("ag_gemm_n1", "gemm_rs_n1"),
+            TP: ("ag_gemm", "gemm_rs", "all_gather")}
+    losses, first = {}, {}
+    for tp in (1, TP):
+        model = one if tp == 1 else Transformer(cfg, mesh=Mesh.loopback(TP,
+                                                                        dev))
+        p = params if tp == 1 else model.shard_params(params)
+        losses[tp] = []
+        totals = {}
+        with _plain_versions_raise():
+            for k in range(LM_STEPS):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                loss, p = model.train_step(p, tok, tgt, lr=LM_LR)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = launch_counts()
+                losses[tp].append(float(loss))
+                for k2, v in counts.items():
+                    totals[k2] = totals.get(k2, 0) + v
+                log(f"path {name} tp{tp} step {k}: loss={float(loss):.6f} "
+                    f"ms={ms:.1f} peak_gb="
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} launches "
+                    + " ".join(f"{k2}={v}" for k2, v in counts.items() if v))
+        blk = p["blocks"][0] if tp == 1 else model.unshard_params(
+            {"blocks": [p["blocks"][0]]})["blocks"][0]
+        first[tp] = {k2: w.detach().clone() for k2, w in blk.items()
+                     if torch.is_tensor(w) and w.is_floating_point()}
+        del p, model, blk
+        torch.cuda.empty_cache()
+        ls = losses[tp]
+        if not all(math.isfinite(v) for v in ls) or not ls[-1] < ls[0]:
+            res.failures.append(f"{name} tp{tp}: losses {ls} do not fall")
+        for k2 in need[tp]:
+            if not totals.get(k2):
+                res.failures.append(f"{name} tp{tp}: {k2} never launched")
+    d = max(abs(a - b) for a, b in zip(losses[1], losses[TP]))
+    res.check("train_lm", d, LM_TP_ATOL, f"{name}: tp{TP} losses "
+              f"{losses[TP]} against tp1 {losses[1]}", metric="max_abs_delta")
+    w0 = params["blocks"][0]
+    err, leaf = max((_rel(first[TP][k2] - w0[k2], w - w0[k2]), k2)
+                    for k2, w in first[1].items())
+    res.check("train_lm", err, LM_W_RTOL, f"{name}: layer 0's weights after "
+              f"{LM_STEPS} steps, tp{TP} against tp1, the worst leaf "
+              f"({leaf}) relative to its update", metric="rel_err")
+    del first
+    del params, one
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -5565,12 +6091,17 @@ def main() -> int:
     check_cp_combine(res, dev)
     check_cp_prefill_kernels(res, dev)
     check_kv_ship(res, dev)
+    check_grad_ring(res, dev)
     res.finish_rows()
     check_tiny(res, dev)
     check_tiny_decode(res, dev)
     check_tiny_moe_decode(res, dev)
     check_tiny_tp(res, dev)
     check_tiny_moe_tp4(res, dev)
+    # the training paths: the dp × tp × cp trainer at Llama-2-7B's widths
+    # and Transformer.train_step at tp = 1 and 4
+    train_counts = run_train_path(res, dev)
+    run_train_lm_path(res, dev)
 
     run_path(res, dev, "llama_7b", llama)
     bf16_counts, bf16_steps = run_path(
@@ -5696,6 +6227,8 @@ def main() -> int:
             n, steps = cp_counts[name]
         elif name == "kv_ship":
             n, steps = disagg_counts      # one launch a cohort
+        elif name in TRAIN_ROWS:
+            n, steps = train_counts[name], TRAIN_ROWS[name]
         else:
             n, steps = ((main_counts[name], main_steps) if main_counts[name]
                         else (bf16_counts[name], bf16_steps))

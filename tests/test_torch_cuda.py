@@ -2310,6 +2310,38 @@ class TestCpPrefillKernels:
             assert after["ulysses_a2a"] - before["ulysses_a2a"] == a2a
             assert after["ring_attention"] - before["ring_attention"] == 1
 
+    @pytest.mark.parametrize("entry", ["ring", "ulysses", "launch_lse"])
+    def test_ring_entries_repeat_bit_identical(self, dev, entry):
+        """The inputs of :meth:`test_ring_entries_run_the_kernel` through
+        one entry 200 times (``launch_lse``: ``tdt_ring_attention`` with
+        each row's lse): every call bit-identical to the first, out and
+        lse, so no call read or wrote shared memory out of turn; the
+        first within 1e-5 of the plain version (f32)."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(4, dev)
+        q, k, v = _cp_qkv(dev, 4, 2, 40, 8, 2, 64, torch.float32, seed=5)
+        cpu = [t.cpu() for t in (q, k, v)]
+        if entry == "launch_lse":
+            def call():
+                return cp_ring.ring_attention_launch(
+                    q, k, v, causal=True, scale=64 ** -0.5, lse=True)
+            want = tra.ring_attention_plain(*cpu, return_lse=True)
+        else:
+            fn = {"ring": tra.ring_attention,
+                  "ulysses": tra.ulysses_attention}[entry]
+
+            def call():
+                return (fn(q, k, v, mesh),)
+            want = (fn(*cpu, Mesh.loopback(4, "cpu")),)
+        first = call()
+        for got, w in zip(first, want):
+            torch.testing.assert_close(got.cpu(), w, rtol=0, atol=1e-5)
+        apart = 0
+        for _ in range(199):
+            apart += not all(torch.equal(a, b) for a, b in zip(call(), first))
+        assert apart == 0, f"{apart} of 199 calls differ from the first"
+
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("n", [2, 4, 8])
     def test_ulysses_a2a_is_byte_exact(self, dev, n, dtype):
@@ -2579,3 +2611,237 @@ def test_float_gemm_narrow_tiles_equal_the_wide_ones(dev, m, k, n):
     assert torch.equal(narrow, wide)
     assert torch.equal(float_gemm(x, w[:, :n], torch.bfloat16),
                        wide.to(torch.bfloat16))
+
+
+# ------------------------------------------- the routers of every MoE path
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("path", ["ep_prefill", "tp_prefill", "tp_decode"])
+def test_moe_router_rows_do_not_depend_on_the_batch(dev, monkeypatch, path):
+    """Every MoE path routes on the float-mode kernel: the EP prefill
+    (``EPMoEMLP``), the TP flavour's prefill (``_mlp_block``) and its
+    decode (``_moe_tp``). Each path's router logits for a 256-row slice
+    are the bits of the same rows in a 768-row batch, one ``ggemm_f32``
+    launch a call."""
+    from triton_distributed_tpu_torch.kernels import moe_utils
+    from triton_distributed_tpu_torch.layers import moe as lmoe
+    from triton_distributed_tpu_torch.models import Transformer, presets
+
+    seen = []
+
+    def record(logits, *a, **k):
+        seen.append(logits.clone())
+        raise _Stop
+
+    if path == "ep_prefill":
+        monkeypatch.setattr(lmoe, "ep_moe", lambda x, logits, *a, **k:
+                            record(logits))
+        cfg = presets.deepseek_moe_16b(moe_weight_quant=None,
+                                       moe_act_quant=None)
+    else:
+        monkeypatch.setattr(moe_utils, "select_experts", record)
+        cfg = presets.deepseek_moe_16b(moe="tp", moe_weight_quant=None,
+                                       moe_act_quant=None)
+    model = Transformer(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    e = cfg.num_experts
+    blk = {"router": torch.randn((cfg.hidden, e), generator=g, device=dev),
+           "moe_up": torch.zeros((e, 1, 1), device=dev),
+           "moe_down": torch.zeros((e, 1, 1), device=dev)}
+    x = torch.randn((768, cfg.hidden), generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def route(rows):
+        before = launch_counts()["ggemm_f32"]
+        with pytest.raises(_Stop):
+            if path == "tp_decode":
+                model._moe_tp(blk, rows)
+            else:
+                model._mlp_block(blk, rows, inference=path == "tp_prefill")
+        assert launch_counts()["ggemm_f32"] == before + 1
+        return seen[-1]
+
+    full = route(x)
+    for s0 in (0, 256, 512):
+        assert torch.equal(route(x[s0:s0 + 256]), full[s0:s0 + 256])
+
+
+# ------------------------------------------------------- the gradient ring
+
+from triton_distributed_tpu_torch.kernels import cp_ring as tcp  # noqa: E402
+from triton_distributed_tpu_torch.lang import wire as twire  # noqa: E402
+from triton_distributed_tpu_torch.tune.schedule import RingSchedule  # noqa: E402
+
+
+def _grad_slabs(dev, g, n, srows, cols, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((g, n, n * srows, cols), generator=gen, device=dev)
+    # rows of every magnitude, one near-zero row (scale clamp) and a tie
+    x[..., 1, :] *= 1e-3
+    x[..., 2, :] = 0.0
+    return x
+
+
+class TestGradRingKernel:
+    @pytest.mark.parametrize("depth", [2, 3])
+    @pytest.mark.parametrize("stochastic", [True, False])
+    @pytest.mark.parametrize("ef", [True, False])
+    @pytest.mark.parametrize("wire", ["int8", "fp8"])
+    @pytest.mark.parametrize("n", [2, 4, 8])
+    def test_is_bit_exact(self, dev, n, wire, ef, stochastic, depth):
+        """Ragged rows and columns (3 rings, 5 stripe rows, 200 columns,
+        one scale a row) in every mode: the kernel's bits are the plain
+        version's; depth 3 gives depth 2's bits, counted apart."""
+        x = _grad_slabs(dev, 3, n, 5, 200, seed=n)
+        kw = dict(wire=wire, seed=17, ef=ef, stochastic=stochastic)
+        before = dict(tcp._grad_ring_cuda.by_tpu_kernel)
+        got = tcp.grad_ring(x, schedule=RingSchedule(depth=depth), **kw)
+        want = tcp.grad_ring_plain(x, **kw)
+        name = "_grad_ring_kernel_w3" if depth == 3 else "_grad_ring_kernel_w"
+        assert (tcp._grad_ring_cuda.by_tpu_kernel.get(name, 0)
+                == before.get(name, 0) + 1)
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("n", [2, 4])
+    def test_lint_geometry_is_bit_exact(self, dev, n):
+        """The TPU kernel's own mode: no feedback, round to nearest,
+        make_wire_format's 8-row chunk over 2048 columns."""
+        g = tcp.CP_RING_GEOM
+        x = _grad_slabs(dev, 1, n, g["rows"], g["grad_cols"], seed=10 + n)
+        fmt = twire.make_wire_format("int8", g["rows"])
+        kw = dict(wire="int8", ef=False, stochastic=False,
+                  chunk_rows=fmt.chunk_rows)
+        assert torch.equal(tcp.grad_ring(x, **kw), tcp.grad_ring_plain(x, **kw))
+
+    def test_strided_rings_and_the_cpu_draw_the_same_bits(self, dev):
+        """The trainer's view, (G, n) strides of a (n, G, rows, cols)
+        buffer, equals the contiguous input; the card's hash uniforms are
+        the CPU's (the CPU plain version gives the card's bits)."""
+        x = _grad_slabs(dev, 4, 2, 6, 128, seed=3)
+        buf = x.transpose(0, 1).contiguous()
+        view = buf.transpose(0, 1)
+        got = tcp.grad_ring(view, wire="int8", seed=5)
+        assert torch.equal(got, tcp.grad_ring(x, wire="int8", seed=5))
+        cpu = tcp.grad_ring(x.cpu(), wire="int8", seed=5)
+        assert torch.equal(got.cpu(), cpu)
+        assert torch.equal(twire.sr_uniforms(9, 3, 1, 40, 130, device=dev)
+                           .cpu(), twire.sr_uniforms(9, 3, 1, 40, 130))
+
+    @pytest.mark.parametrize("wire", ["int8", "fp8"])
+    def test_allgather_is_bit_exact_in_place(self, dev, wire):
+        """The all-gather half: every rank's slab gets every owner's
+        stripe dequantized from one set of codes, the plain version's
+        bits, written in place into the (strided) ring input."""
+        x = _grad_slabs(dev, 3, 4, 5, 200, seed=7)
+        red = tcp.grad_ring(x, wire=wire, seed=1)
+        want = tcp.grad_allgather_plain(red, wire=wire, seed=2)
+        before = launch_counts()["grad_allgather"]
+        buf = torch.zeros_like(x.transpose(0, 1)).transpose(0, 1)
+        got = tcp.grad_allgather(red, wire=wire, seed=2, out=buf)
+        assert launch_counts()["grad_allgather"] == before + 1
+        assert got is buf and torch.equal(buf, want)
+        for r in range(1, 4):
+            assert torch.equal(buf[:, r], buf[:, 0])
+
+    def test_refuses_what_the_kernel_does_not_hold(self, dev):
+        x = torch.zeros((1, 4, 4 * 64, 4096), device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            tcp.grad_ring(x, wire="int8", chunk_rows=64)
+        with pytest.raises(ValueError, match="contiguous"):
+            tcp.grad_ring(x.transpose(2, 3), wire="int8")
+
+
+def test_overlap_backward_on_card_equals_cpu(dev):
+    """The overlap ops' backward over a 4-rank loopback mesh on the card
+    (the dual kernels tdt_gemm_rs / tdt_ag_gemm, the gather, and on the
+    int8 wire the gradient ring) against the same on the CPU: f32
+    gradients within 1e-5 of the largest (sums in another order); the
+    int8 duals within 5e-2 (another order upstream may move a code)."""
+    from triton_distributed_tpu_torch.ops import overlap as tov
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((256, 128)).astype(np.float32)
+    b = rng.standard_normal((128, 256)).astype(np.float32)
+    w = rng.standard_normal((256, 256)).astype(np.float32)
+    for op, bw in (("ag_gemm", None), ("gemm_rs", None), ("ag_gemm", "int8"),
+                   ("gemm_rs", "int8")):
+        grads = []
+        for d in ("cpu", dev):
+            mesh = Mesh.loopback(4, d)
+            ctx = tov.OverlapContext(mesh=mesh, bwd_wire_dtype=bw)
+            at, bt, wt = (_t(v, d) for v in (a, b, w))
+            if op == "ag_gemm":
+                sa, sb, ws = at.chunk(4, 0), bt.chunk(4, 1), wt.chunk(4, 1)
+            else:
+                sa, sb, ws = at.chunk(4, 1), bt.chunk(4, 0), wt.chunk(4, 0)
+            sa = [s.contiguous().requires_grad_() for s in sa]
+            sb = [s.contiguous().requires_grad_() for s in sb]
+            out = getattr(tov, op)(sa, sb, ctx)
+            sum((o * wr).sum() for o, wr in zip(out, ws)).backward()
+            grads.append([torch.cat([s.grad for s in sa]).cpu(),
+                          torch.cat([s.grad for s in sb]).cpu()])
+        tol = 1e-5 if bw is None else 5e-2
+        for c, g in zip(*grads):
+            assert (g - c).abs().max() <= tol * c.abs().max(), (op, bw)
+
+
+def test_trainer_step_on_card_equals_cpu(dev):
+    """Two steps of a tiny dp 2 × tp 2 × cp 2 trainer on the int8 ring
+    (head dim 16, the ring kernel's smallest), on the card (ring
+    attention, the gradient ring and its all-gather on their kernels)
+    and on the CPU from the same parameters: losses within 1e-4; every
+    kernel of the path launched."""
+    from triton_distributed_tpu_torch.kernels import reset_launch_counts
+    from triton_distributed_tpu_torch.train import step as tstep
+
+    cfg = tstep.TrainConfig(d_model=64, d_ff=128)
+    params = tstep.init_params(cfg, device="cpu")
+    losses = []
+    for d in ("cpu", dev):
+        tr = tstep.Trainer(cfg, tstep.default_train_mesh(cfg, d),
+                           params={k: v.to(d) for k, v in params.items()})
+        reset_launch_counts()
+        losses.append([r["loss"] for r in tr.run(2)])
+    counts = launch_counts()
+    assert counts["grad_ring"] == 2 and counts["grad_allgather"] == 2
+    assert counts["ring_attention"] == 2 * cfg.microbatches
+    for a, b in zip(*losses):
+        assert abs(a - b) <= 1e-4, losses
+
+
+def test_transformer_train_step_tp4_on_card_equals_cpu(dev):
+    """``Transformer.train_step`` of a tiny f32 model on a 4-rank loopback
+    mesh, on the card (the forward's mesh GEMMs and their dual kernels in
+    the backward) and on the CPU: loss within 1e-5, new parameters within
+    1e-5 of the largest (lr 1: the step is the gradient)."""
+    from triton_distributed_tpu_torch.models import (
+        Transformer,
+        TransformerConfig,
+    )
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    cfg = TransformerConfig(vocab=128, n_layers=2, hidden=128, ffn=256,
+                            n_heads=8, n_kv_heads=4, head_dim=16,
+                            dtype="float32", param_dtype="float32")
+    params = Transformer(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    tok = torch.randint(0, 128, (2, 64), generator=torch.Generator()
+                        .manual_seed(1))
+    out = []
+    for d in ("cpu", dev):
+        model = Transformer(cfg, mesh=Mesh.loopback(4, d))
+        p = model.shard_params(_to(params, d))
+        before = launch_counts()
+        loss, new = model.train_step(p, tok.to(d), tok.to(d), lr=1.0)
+        out.append((float(loss), model.unshard_params(new)))
+    after = launch_counts()
+    assert after["ag_gemm"] > before["ag_gemm"]
+    assert after["gemm_rs"] > before["gemm_rs"]
+    assert abs(out[0][0] - out[1][0]) <= 1e-5
+    wc, wg = out[0][1]["blocks"][0]["up"], out[1][1]["blocks"][0]["up"]
+    assert (wg.cpu() - wc).abs().max() <= 1e-5 * max(1.0, wc.abs().max())

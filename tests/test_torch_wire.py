@@ -575,5 +575,8 @@ class TestRefusals:
             tag.ag_gemm(_shards(a), _shards(b, 1), tmesh, wire_dtype="auto")
         with pytest.raises(NotImplementedError, match="Queue 1 step 10"):
             trs.gemm_rs(_shards(a, 1), _shards(b), tmesh, wire_dtype="auto")
-        with pytest.raises(NotImplementedError, match="Queue 1 step 9"):
-            ops.create_ag_gemm_context(tmesh, "tp", bwd_wire_dtype="int8")
+        # the backward duals' wires came with training: a pinned one the
+        # cotangent cannot carry raises when the backward resolves it
+        ctx = ops.create_ag_gemm_context(tmesh, "tp", bwd_wire_dtype="int8")
+        with pytest.raises(ValueError, match="pinned wire format"):
+            ops.overlap._resolve_bwd(ctx, W * 2 - 1, 32)

@@ -185,7 +185,9 @@ extern "C" int tdt_cp_lse_combine(const void* outs, const void* lses, void* out,
 // src * S + t', and folds each 64-key tile into (m, l, acc) in f32; the
 // output is acc / max(l, 1e-30) in q's dtype. Ulysses' local body (dense
 // attention over the whole sequence on the rank's heads) is the same
-// function on a ring of one block, so it runs here with n = 1.
+// function on a ring of one block, so it runs here with n = 1. Where the
+// caller passes an lse buffer (training: the backward's softmax gradient
+// needs it), each query row's m + log(max(l, 1e-30)) lands there too.
 //
 // Wholly masked blocks are skipped: under the causal mask every key of a
 // block src > r lies after every query of block r. JAX's body computes those
@@ -238,6 +240,7 @@ struct RingArgs {
   const unsigned long long* k_peers;
   const unsigned long long* v_peers;
   void* out;
+  float* lse;  // null, or (n, b, s, hkv * g) f32: each row's log-sum-exp
   int n, b, s, hkv, g, causal;
   float scale;
   long long q_sr, q_sb, q_st, q_sh;
@@ -427,6 +430,9 @@ __global__ void __launch_bounds__(RA_THREADS, 2)
     const int t = t0 + i / a.g;
     if (t >= t_end) continue;
     const float den = fmaxf(l[ii], 1e-30f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((static_cast<long long>(r) * a.b + bb) * a.s + t) * a.hkv * a.g +
+            h * a.g + i % a.g] = m[ii] + logf(den);
     T* row = out + t * a.o_st + static_cast<long long>(h * a.g + i % a.g) * a.o_sh;
     if constexpr (D % 64 == 0) {
 #pragma unroll
@@ -507,7 +513,8 @@ __global__ void __launch_bounds__(A2A_WARPS * 32) ulysses_a2a_kernel(A2AArgs a) 
 }  // namespace
 
 extern "C" int tdt_ring_attention(
-    const void* q, const void* k_peers, const void* v_peers, void* out, int n,
+    const void* q, const void* k_peers, const void* v_peers, void* out,
+    void* lse, int n,
     int b, int s, int hkv, int g, int d, int causal, float scale,
     long long q_sr, long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
@@ -517,7 +524,8 @@ extern "C" int tdt_ring_attention(
   if (n < 1 || g < 1 || RA_BQ % g != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0 || s <= 0 || hkv <= 0) return 0;
   RingArgs a{q, static_cast<const unsigned long long*>(k_peers),
-             static_cast<const unsigned long long*>(v_peers), out, n, b, s,
+             static_cast<const unsigned long long*>(v_peers), out,
+             static_cast<float*>(lse), n, b, s,
              hkv, g, causal, scale, q_sr, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
              v_sb, v_st, v_sh, o_sr, o_sb, o_st, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -68,9 +68,10 @@ def _counters() -> dict:
     (``reduce_scatter_fold``). The int8-mxu GEMM-RS's fold counts its two
     modes apart (``gemm_rs_mxw_fold``, ``gemm_rs_mxr_fold``). The
     reduce-scatter's two wrappers, the int8-mxu GEMM-RS's partials, the
-    cp LSE-combine, the prefill's ring attention and Ulysses all-to-all
-    and the KV-page ship also count their launches by the TPU kernel
-    each stood for (``by_tpu_kernel``)."""
+    cp LSE-combine, the prefill's ring attention and Ulysses all-to-all,
+    the KV-page ship and the dp gradient ring also count their launches
+    by the TPU kernel each stood for (``by_tpu_kernel``); the ring's
+    all-gather half (``grad_allgather``) has no TPU kernel."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agg
     from triton_distributed_tpu_torch.kernels import all_to_all as a2a
     from triton_distributed_tpu_torch.kernels import allgather as ag
@@ -126,6 +127,8 @@ def _counters() -> dict:
         "ring_attention": (cp.ring_attention_launch, "launches"),
         "ulysses_a2a": (cp._ulysses_a2a_cuda, "launches"),
         "kv_ship": (ks._kv_ship_cuda, "launches"),
+        "grad_ring": (cp._grad_ring_cuda, "launches"),
+        "grad_allgather": (cp._grad_allgather_cuda, "launches"),
     }
 
 
@@ -145,9 +148,9 @@ def reset_launch_counts() -> None:
 def launches_by_tpu_kernel() -> dict:
     """The launches of the reduce-scatter (its raw kernel and its wire
     fold), of the int8-mxu GEMM-RS's partials, of the cp LSE-combine, of
-    the prefill's ring attention and Ulysses all-to-all and of the
-    KV-page ship since the last :func:`reset_launch_counts`, by the TPU
-    kernel each stood for."""
+    the prefill's ring attention and Ulysses all-to-all, of the
+    KV-page ship and of the dp gradient ring since the last
+    :func:`reset_launch_counts`, by the TPU kernel each stood for."""
     from triton_distributed_tpu_torch.kernels import cp_ring as cp
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
     from triton_distributed_tpu_torch.kernels import kv_ship as ks
@@ -159,4 +162,5 @@ def launches_by_tpu_kernel() -> dict:
             **cp._cp_lse_combine_cuda.by_tpu_kernel,
             **cp.ring_attention_launch.by_tpu_kernel,
             **cp._ulysses_a2a_cuda.by_tpu_kernel,
-            **ks._kv_ship_cuda.by_tpu_kernel}
+            **ks._kv_ship_cuda.by_tpu_kernel,
+            **cp._grad_ring_cuda.by_tpu_kernel}

@@ -293,7 +293,7 @@ def ag_gemm_wired_plain(a, wired, b, fmt, out_dtype, mx=False):
 
 
 def ag_gemm(a, b, mesh=None, axis: str = "tp", *, method=None,
-            out_dtype=None, wire_dtype=None):
+            out_dtype=None, wire_dtype=None, return_gathered: bool = False):
     """AllGather(A) @ B (column-parallel).
 
     World size 1: a (M, K), b (K, N) tensors → (M, N). Over a mesh: a a
@@ -304,27 +304,64 @@ def ag_gemm(a, b, mesh=None, axis: str = "tp", *, method=None,
     (JAX's heuristic); ``wire_dtype``: None / 'bf16', 'fp8', 'int8',
     'int8-mxu' (see the module docstring and :func:`resolve_ag_gemm_plan`).
     On CPU tensors this is :func:`ag_gemm_plain`; on CUDA tensors it
-    launches the kernel or raises."""
+    launches the kernel or raises.
+
+    ``return_gathered`` (JAX ``:1142``; the overlap ops' backward) also
+    returns the gathered A: at world size 1, ``a`` itself; over a mesh, a
+    list of W (W·m, K) tensors, rank r's copy. On the raw wire every copy
+    is ``cat(A)``, which on the card ``tdt_all_gather`` writes (a launch
+    of its own: the mesh GEMM reads its peers' rows in place and keeps no
+    gathered copy); on 'fp8' / 'int8' rank r's copy holds its own shard
+    exact and its peers' dequantized at the plan's chunk, as JAX's fused
+    engines' (``:548-570``; on the card from the wire kernels' codes, in
+    torch ops)."""
     if not _is_shards(a):
         _check(a, b, mesh, axis, "ag_gemm")
         resolve_ag_gemm_wire(mesh, axis, a, b, wire_dtype=wire_dtype)
         if a.device.type == "cpu":
-            return ag_gemm_plain(a, b, out_dtype=out_dtype)
-        return _ag_gemm_cuda(a, b, out_dtype)
+            out = ag_gemm_plain(a, b, out_dtype=out_dtype)
+        else:
+            out = _ag_gemm_cuda(a, b, out_dtype)
+        return (out, a) if return_gathered else out
     n = check_shards(a, b, mesh, axis, "ag_gemm")
     if a[0].shape[1] != b[0].shape[0]:
         raise ValueError(f"ag_gemm: contract dim mismatch "
                          f"{tuple(a[0].shape)} @ {tuple(b[0].shape)}")
     plan = resolve_ag_gemm_plan(mesh, axis, a, b, method=method,
                                 wire_dtype=wire_dtype)
-    if a[0].device.type == "cpu":
-        return ag_gemm_plain(a, b, mesh, axis, out_dtype=out_dtype,
-                             wire=plan.wire, chunk_rows=plan.chunk_rows)
-    if plan.wire == "int8-mxu":
-        return _ag_gemm_mx_cuda(a, b, mesh, out_dtype, plan.chunk_rows)
-    if plan.wire is not None:
-        return _ag_gemm_w_cuda(a, b, mesh, out_dtype, plan.wire)
-    return _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype)
+    cpu = a[0].device.type == "cpu"
+    if cpu:
+        out = ag_gemm_plain(a, b, mesh, axis, out_dtype=out_dtype,
+                            wire=plan.wire, chunk_rows=plan.chunk_rows)
+    elif plan.wire == "int8-mxu":
+        out, wired = _ag_gemm_mx_cuda(a, b, mesh, out_dtype, plan.chunk_rows,
+                                      keep_codes=True)
+    elif plan.wire is not None:
+        out, wired = _ag_gemm_w_cuda(a, b, mesh, out_dtype, plan.wire,
+                                     keep_codes=True)
+    else:
+        out = _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype)
+    if not return_gathered:
+        return out
+    if plan.wire is None:
+        if cpu:
+            return out, [torch.cat(list(a))] * n
+        from triton_distributed_tpu_torch.kernels.allgather import (
+            _all_gather_cuda,
+        )
+
+        return out, _all_gather_cuda(list(a), mesh, n)
+    fmt = wirelib.make_wire_format(plan.wire, a[0].shape[0],
+                                   chunk_rows=plan.chunk_rows)
+    if cpu:
+        wired = [wirelib.quantize_slab(aq, fmt) for aq in a]
+    else:
+        wired = list(zip(*wired))
+    peers = [(q.float().reshape(fmt.chunks(q.shape[0]), -1)
+              * s[:, None]).reshape(q.shape).to(aq.dtype)
+             for (q, s), aq in zip(wired, a)]
+    return out, [torch.cat([a[q] if q == r else peers[q] for q in range(n)])
+                 for r in range(n)]
 
 
 def _ag_gemm_cuda(a, b, out_dtype):
@@ -384,13 +421,14 @@ def _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype):
     return out
 
 
-def _ag_gemm_w_cuda(a, b, mesh, out_dtype, wire):
+def _ag_gemm_w_cuda(a, b, mesh, out_dtype, wire, keep_codes=False):
     """The fp8 / int8 wire: every shard quantized (:func:`~triton_
     distributed_tpu_torch.kernels.wire.quantize_shards`), then
-    :func:`ag_gemm_w_launch`."""
+    :func:`ag_gemm_w_launch`; ``keep_codes``: also the (codes, scales)."""
     fmt = wirelib.make_wire_format(wire, a[0].shape[0])
     q, s = quantize_shards(a, fmt)
-    return ag_gemm_w_launch(a, q, s, b, mesh, fmt, out_dtype)
+    out = ag_gemm_w_launch(a, q, s, b, mesh, fmt, out_dtype)
+    return (out, (q, s)) if keep_codes else out
 
 
 def ag_gemm_w_launch(a, q, s, b, mesh, fmt, out_dtype):
@@ -450,17 +488,19 @@ def ag_gemm_mx_launch(q, s, bqt, bs, mesh, chunk_rows, out_dtype):
     return out.shards
 
 
-def _ag_gemm_mx_cuda(a, b, mesh, out_dtype, chunk_rows):
+def _ag_gemm_mx_cuda(a, b, mesh, out_dtype, chunk_rows, keep_codes=False):
     """The int8-mxu wire: every shard quantized at ``chunk_rows``
     (``quantize_shards``), B per column (:func:`quantize_cols_shards`),
-    then :func:`ag_gemm_mx_launch`."""
+    then :func:`ag_gemm_mx_launch`; ``keep_codes``: also A's (codes,
+    scales)."""
     out_dtype, _ = check_mesh_operands("tdt_ag_gemm_mx", a, b, out_dtype,
                                        need_b=False)
     fmt = wirelib.make_wire_format("int8-mxu", a[0].shape[0],
                                    chunk_rows=chunk_rows)
     q, s = quantize_shards(a, fmt)
     bqt, bs = quantize_cols_shards(b)
-    return ag_gemm_mx_launch(q, s, bqt, bs, mesh, fmt.chunk_rows, out_dtype)
+    out = ag_gemm_mx_launch(q, s, bqt, bs, mesh, fmt.chunk_rows, out_dtype)
+    return (out, (q, s)) if keep_codes else out
 
 
 #: launch counts of the kernels (plain ints on the wrappers): the world-

@@ -282,7 +282,8 @@ _ulysses_a2a_cuda.launches = 0
 _ulysses_a2a_cuda.by_tpu_kernel = {}
 
 
-def ring_attention_launch(q, k, v, *, causal: bool, scale: float):
+def ring_attention_launch(q, k, v, *, causal: bool, scale: float,
+                          lse: bool = False):
     """``tdt_ring_attention``: the KV ring with its attention consume on
     every rank in one launch. q (n, B, S, Hq, D) and k, v (n, B, S, Hkv,
     D) stacked by rank (strided views taken as they are: D contiguous,
@@ -290,8 +291,9 @@ def ring_attention_launch(q, k, v, *, causal: bool, scale: float):
     bf16 → (n, B, S, Hq, D) in q's dtype, a view of a contiguous (B, n,
     S, Hq, D) tensor. Rank r's queries sit at global positions r·S + t
     and attend to every block in the ring's arrival order; n = 1 is
-    dense attention over one block. Counted under
-    ``_kv_rotate_kernel``."""
+    dense attention over one block. ``lse``: also return each query
+    row's log-sum-exp (n, B, S, Hq) f32 (the backward's input). Counted
+    under ``_kv_rotate_kernel``."""
     from triton_distributed_tpu_torch.kernels import _build
 
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -324,10 +326,13 @@ def ring_attention_launch(q, k, v, *, causal: bool, scale: float):
                              "multiples of 4 elements")
     out = torch.empty((b, n, s, hq, d), dtype=q.dtype,
                       device=q.device).transpose(0, 1)
+    lse_t = (torch.empty((n, b, s, hq), dtype=torch.float32,
+                         device=q.device) if lse else None)
     kp, vp = block_table(k), block_table(v)
-    fn = _build.function("tdt_ring_attention", "pppp" + "i" * 7 + "f"
+    fn = _build.function("tdt_ring_attention", "ppppp" + "i" * 7 + "f"
                          + "L" * 14 + "i" + "p")
     rc = fn(_build.ptr(q), _build.ptr(kp), _build.ptr(vp), _build.ptr(out),
+            None if lse_t is None else _build.ptr(lse_t),
             n, b, s, hkv, g, d, int(causal), float(scale),
             *q.stride()[:4], *k.stride()[1:4], *v.stride()[1:4],
             *out.stride()[:4], _DT_CODE[q.dtype], _build.stream(q.device))
@@ -335,8 +340,263 @@ def ring_attention_launch(q, k, v, *, causal: bool, scale: float):
     ring_attention_launch.launches += 1
     ring_attention_launch.by_tpu_kernel["_kv_rotate_kernel"] = (
         ring_attention_launch.by_tpu_kernel.get("_kv_rotate_kernel", 0) + 1)
-    return out
+    return (out, lse_t) if lse else out
 
 
 ring_attention_launch.launches = 0
 ring_attention_launch.by_tpu_kernel = {}
+
+
+# --------------------------------------------------- the dp gradient ring
+
+#: JAX's lint geometry (``:59``): KV blocks of 8 rows × 128 lanes, grad
+#: stripes 2048 lanes wide
+CP_RING_GEOM = dict(rows=8, cols=128, grad_cols=2048)
+
+#: the TPU kernel each gradient-ring launch stands for, by ring depth
+_GRAD_TPU_KERNEL = {2: "_grad_ring_kernel_w", 3: "_grad_ring_kernel_w3"}
+
+#: shared memory a block of the ring kernels may hold (one warp's state
+#: must fit)
+GRAD_RING_SMEM = 227 * 1024
+
+
+def _grad_slabs(parts, what):
+    """``parts`` as (G, n, n·srows, cols) f32 (a 3-D (n, n·srows, cols)
+    is one ring) → (parts, srows, one ring?)."""
+    one = parts.dim() == 3
+    x = parts[None] if one else parts
+    if x.dim() != 4 or x.dtype != torch.float32:
+        raise ValueError(f"{what} takes (G, n, n·srows, cols) f32 slabs, got "
+                         f"{tuple(parts.shape)} {parts.dtype}")
+    n, rows = x.shape[1], x.shape[2]
+    if n < 1 or rows % n:
+        raise ValueError(f"{what}: {rows} rows do not cut into {n} stripes")
+    return x, rows // n, one
+
+
+def _grad_fmt(wire, chunk_rows, srows):
+    from triton_distributed_tpu_torch.lang import wire as wirelib
+
+    quant = wirelib.wire_payload(wirelib.normalize_wire(wire))
+    if quant not in ("fp8", "int8"):
+        raise ValueError(f"the gradient ring ships 'fp8' or 'int8', got "
+                         f"{wire!r} (resolve it first)")
+    if chunk_rows < 1 or srows % chunk_rows:
+        raise ValueError(f"the gradient ring: {srows} stripe rows do not cut "
+                         f"into chunks of {chunk_rows}")
+    return wirelib.WireFormat(quant, chunk_rows)
+
+
+def _chunk_quant(y_src, fmt, sr, u):
+    """(…, rows, cols) f32 → (code values, per-element scales) at
+    ``fmt``'s chunks: the scale ``max(amax, 1e-12) / QMAX``, the code
+    ``x / scale`` rounded (int8: ``floor(· + u)`` when ``sr``, else half
+    to even; clipped to ±127; fp8 to nearest)."""
+    from triton_distributed_tpu_torch.config import div_scalar
+
+    shape = y_src.shape
+    ch = y_src.reshape(*shape[:-2], shape[-2] // fmt.chunk_rows, -1)
+    scale = div_scalar(torch.clamp(ch.abs().amax(dim=-1), min=1e-12),
+                       fmt.qmax)[..., None]
+    y = (ch / scale).reshape(shape)
+    full = scale.expand(ch.shape).reshape(shape)
+    if fmt.quant == "fp8":
+        return y.to(torch.float8_e4m3fn).float(), full
+    q = torch.floor(y + u) if sr else torch.round(y)
+    return torch.clamp(q, -127, 127), full
+
+
+def _ring_draws(seed, n, hops, srows, cols, device, row0=0):
+    """The hash's uniforms of every (rank, hop): (n, hops, srows, cols)."""
+    from triton_distributed_tpu_torch.lang.wire import sr_uniforms
+
+    return torch.stack([torch.stack([
+        sr_uniforms(seed, r, h, srows, cols, row0=row0, device=device)
+        for h in range(hops)]) for r in range(n)])
+
+
+def grad_ring_plain(parts, *, wire, seed: int = 0, ef: bool = True,
+                    stochastic: bool = True, chunk_rows: int = 1,
+                    uniforms=None, row0: int = 0):
+    """Plain PyTorch version of :func:`grad_ring`, hop by hop on every
+    rank at once (``csrc/grad_ring.cu``'s header states the arithmetic;
+    the dequantize-adds are :func:`~triton_distributed_tpu_torch.lang.
+    wire.fma_f32`). ``uniforms``: (n, n − 1, srows, cols) draws of every
+    (rank, hop), e.g. JAX's; None draws the hash's of ``seed``. ``row0``:
+    the stripes given are rows [row0, row0 + srows) of longer stripes
+    (the draws of those rows; the rows are independent, so a long slab
+    may be reduced in row chunks)."""
+    from triton_distributed_tpu_torch.lang.wire import fma_f32
+
+    x, srows, one = _grad_slabs(parts, "grad_ring_plain")
+    fmt = _grad_fmt(wire, chunk_rows, srows)
+    g, n, _, cols = x.shape
+    sr = stochastic and fmt.quant == "int8"
+    if sr and uniforms is None:
+        uniforms = _ring_draws(seed, n, n - 1, srows, cols, x.device, row0)
+    st = x.reshape(g, n, n, srows, cols)             # [group, rank, stripe]
+    ar = torch.arange(n, device=x.device)
+    acc = st[:, ar, (ar + 1) % n]
+    resid = torch.zeros_like(acc)
+    for h in range(n - 1):
+        out = acc + resid
+        q, s = _chunk_quant(out, fmt, sr, uniforms[:, h] if sr else None)
+        if ef:
+            resid = fma_f32(-q, s, out)
+        acc = fma_f32(torch.roll(q, -1, dims=1), torch.roll(s, -1, dims=1),
+                      st[:, ar, (ar + 2 + h) % n])
+    return acc[0] if one else acc
+
+
+def grad_ring(parts, *, wire, seed: int = 0, ef: bool = True,
+              stochastic: bool = True, chunk_rows: int = 1, schedule=None):
+    """The dp gradient ring's reduce-scatter on the quantized wire, every
+    group's ring in one call: ``parts`` (G, n, n·srows, cols) f32, rank
+    r's slab of ring g at [g, r] (each slab contiguous; the group and
+    rank strides free), stripe i its rows [i·srows, (i+1)·srows) → (G,
+    n, srows, cols), owner s's reduced stripe at [g, s] (3-D in, 3-D
+    out). ``wire`` 'int8' or 'fp8'; ``stochastic`` rounds int8 with the
+    hash's uniforms of (``seed``, rank, hop, row, column); ``ef`` carries
+    the error-feedback residual; ``chunk_rows`` rows share a scale (1 on
+    the training path). With ``ef=False, stochastic=False`` and
+    ``make_wire_format``'s chunk this is JAX's ``_grad_ring_kernel_w``
+    (``schedule`` depth 2) / ``_w3`` (depth 3: the same values). On CPU
+    tensors :func:`grad_ring_plain`; on CUDA tensors one launch of
+    ``tdt_grad_ring`` (``csrc/grad_ring.cu``), or a raise."""
+    depth = require_depth_only(schedule, "grad_ring")
+    x, srows, one = _grad_slabs(parts, "grad_ring")
+    if x.device.type == "cpu":
+        return grad_ring_plain(parts, wire=wire, seed=seed, ef=ef,
+                               stochastic=stochastic, chunk_rows=chunk_rows)
+    out = _grad_ring_cuda(x, srows, _grad_fmt(wire, chunk_rows, srows), seed,
+                          ef, stochastic, _GRAD_TPU_KERNEL[depth])
+    return out[0] if one else out
+
+
+def _check_rows(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}'s kernel runs on CUDA tensors, got "
+                         f"{t.device}")
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        raise ValueError(f"{what}'s kernel needs each rank's (rows, cols) "
+                         "slab contiguous")
+
+
+def _warp_state(what, nbytes):
+    if nbytes > GRAD_RING_SMEM:
+        raise ValueError(f"{what}: a warp's state of {nbytes} B exceeds the "
+                         f"{GRAD_RING_SMEM} B of shared memory a block holds; "
+                         "use fewer rows a scale chunk")
+
+
+def _grad_ring_cuda(x, srows, fmt, seed, ef, stochastic, tpu_kernel):
+    """``tdt_grad_ring``: every group's ring in one launch."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE
+
+    _check_rows(x, "grad_ring")
+    g, n, _, cols = x.shape
+    elems = fmt.chunk_rows * cols
+    _warp_state("grad_ring", ((2 * n if ef else 1) * elems + n) * 4)
+    out = torch.empty((g, n, srows, cols), dtype=torch.float32,
+                      device=x.device)
+    fn = _build.function("tdt_grad_ring", "pp" + "i" * 5 + "LL" + "iii"
+                         + "L" + "p")
+    rc = fn(_build.ptr(x), _build.ptr(out), g, n, srows, cols, fmt.chunk_rows,
+            x.stride(0), x.stride(1), WIRE_CODE[fmt.quant], int(stochastic),
+            int(ef), seed & 0xFFFFFFFF, _build.stream(x.device))
+    _build.check(rc, "tdt_grad_ring")
+    _grad_ring_cuda.launches += 1
+    _grad_ring_cuda.by_tpu_kernel[tpu_kernel] = (
+        _grad_ring_cuda.by_tpu_kernel.get(tpu_kernel, 0) + 1)
+    return out
+
+
+_grad_ring_cuda.launches = 0
+_grad_ring_cuda.by_tpu_kernel = {}
+
+
+def grad_allgather_plain(stripes, *, wire, seed: int = 0,
+                         stochastic: bool = True, chunk_rows: int = 1,
+                         uniforms=None, out=None, row0: int = 0):
+    """Plain PyTorch version of :func:`grad_allgather`. ``uniforms``: (n,
+    srows, cols) draws of every owner (e.g. JAX's); None draws the
+    hash's of (``seed``, owner, ``AG_HOP``) at rows ``row0 + i``."""
+    from triton_distributed_tpu_torch.lang.wire import AG_HOP, sr_uniforms
+
+    one = stripes.dim() == 3
+    s4 = stripes[None] if one else stripes
+    g, n, srows, cols = s4.shape
+    fmt = _grad_fmt(wire, chunk_rows, srows)
+    sr = stochastic and fmt.quant == "int8"
+    if sr and uniforms is None:
+        uniforms = torch.stack([sr_uniforms(seed, s, AG_HOP, srows, cols,
+                                            row0=row0, device=s4.device)
+                                for s in range(n)])
+    q, sc = _chunk_quant(s4.float(), fmt, sr, uniforms)
+    full = (q * sc).reshape(g, 1, n * srows, cols).expand(g, n, n * srows,
+                                                          cols)
+    if out is None:
+        out = full.contiguous()
+    else:
+        (out[None] if one else out).copy_(full)
+        return out
+    return out[0] if one else out
+
+
+def grad_allgather(stripes, *, wire, seed: int = 0, stochastic: bool = True,
+                   chunk_rows: int = 1, out=None):
+    """The gradient ring's all-gather half (JAX ``train/grad_wire.py``
+    ``quantized_allgather``): ``stripes`` (G, n, srows, cols) f32, owner
+    s's stripe of ring g at [g, s] → every rank's (n·srows, cols) slab,
+    (G, n, n·srows, cols) (3-D in, 3-D out), stripe s of every rank's
+    slab the dequantized codes of owner s's stripe, quantized once
+    (stochastic rounding keyed by (``seed``, owner, ``AG_HOP``)). ``out``:
+    write into this (G, n, n·srows, cols) f32 tensor instead (each slab
+    contiguous, e.g. the ring's input). JAX runs ``lax.all_gather``: no
+    TPU kernel. On CPU tensors :func:`grad_allgather_plain`; on CUDA
+    tensors one launch of ``tdt_grad_allgather``, or a raise."""
+    if stripes.device.type == "cpu":
+        return grad_allgather_plain(stripes, wire=wire, seed=seed,
+                                    stochastic=stochastic,
+                                    chunk_rows=chunk_rows, out=out)
+    return _grad_allgather_cuda(stripes, wire, seed, stochastic, chunk_rows,
+                                out)
+
+
+def _grad_allgather_cuda(stripes, wire, seed, stochastic, chunk_rows, out):
+    """``tdt_grad_allgather``: every group's owners in one launch."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE
+
+    one = stripes.dim() == 3
+    s4 = stripes[None] if one else stripes
+    if s4.dim() != 4 or s4.dtype != torch.float32:
+        raise ValueError(f"grad_allgather takes (G, n, srows, cols) f32 "
+                         f"stripes, got {tuple(stripes.shape)}")
+    g, n, srows, cols = s4.shape
+    fmt = _grad_fmt(wire, chunk_rows, srows)
+    _check_rows(s4, "grad_allgather")
+    _warp_state("grad_allgather", fmt.chunk_rows * cols * 4)
+    o4 = (torch.empty((g, n, n * srows, cols), dtype=torch.float32,
+                      device=s4.device) if out is None
+          else (out[None] if one else out))
+    if tuple(o4.shape) != (g, n, n * srows, cols) or o4.dtype != torch.float32:
+        raise ValueError(f"grad_allgather: out must be ({g}, {n}, "
+                         f"{n * srows}, {cols}) f32")
+    _check_rows(o4, "grad_allgather")
+    fn = _build.function("tdt_grad_allgather", "pp" + "i" * 5 + "LLLL" + "ii"
+                         + "L" + "p")
+    rc = fn(_build.ptr(s4), _build.ptr(o4), g, n, srows, cols, fmt.chunk_rows,
+            s4.stride(0), s4.stride(1), o4.stride(0), o4.stride(1),
+            WIRE_CODE[fmt.quant], int(stochastic), seed & 0xFFFFFFFF,
+            _build.stream(s4.device))
+    _build.check(rc, "tdt_grad_allgather")
+    _grad_allgather_cuda.launches += 1
+    if out is not None:
+        return out
+    return o4[0] if one else o4
+
+
+_grad_allgather_cuda.launches = 0

@@ -245,6 +245,19 @@ def float_gemm(a, b, out_dtype=None, *, counted=False):
     return launch(x, w, be, out_dtype, cap, k, n, block_m)
 
 
+def router_logits(x, router):
+    """A MoE block's f32 router product, ``x.float() @ router.float()``
+    (JAX: an XLA dot). On CUDA tensors on the float-mode kernel (one
+    expert, counted as ``ggemm_f32``): every row's sums run in one K
+    order whatever the batch, so a row's route does not depend on the
+    rows packed beside it (cuBLAS picks its algorithm, and so its
+    summation order, by the batch's shape). On CPU tensors the plain
+    product."""
+    if x.device.type == "cpu":
+        return x.float() @ router.float()
+    return float_gemm(x.float(), router.float(), torch.float32, counted=True)
+
+
 def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
     out = _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m)
     if x.dtype == torch.bfloat16:

@@ -23,7 +23,8 @@ The plain versions follow JAX's bodies step by step in torch ops:
 moves of the stacked blocks (the counterpart of ``ppermute``),
 ``combine`` and the final ``max(l, 1e-30)`` division; the Ulysses
 layouts as :func:`~triton_distributed_tpu_torch.kernels.cp_ring.
-ulysses_a2a_plain`. On CPU tensors :func:`ring_attention` and
+ulysses_a2a_plain`; Ulysses' local attention is the ring on one block.
+On CPU tensors :func:`ring_attention` and
 :func:`ulysses_attention` run them; on CUDA tensors they launch the
 kernels of :mod:`~triton_distributed_tpu_torch.kernels.cp_ring`
 (``tdt_ring_attention``, one launch for every rank; Ulysses' local
@@ -31,6 +32,13 @@ attention on the same kernel with one block, and ``tdt_ulysses_a2a``
 four times: q, k and v out, the output back), or raise. They are the
 entry points of the two TPU kernels ``_kv_rotate_kernel`` and
 ``_ulysses_a2a_kernel``, which JAX launches only from its lint builders.
+
+**Gradients** (training): JAX differentiates its XLA bodies. Where a
+gradient is wanted both entries run autograd Functions: the ring's
+forward as above, the kernel also writing each query row's log-sum-exp,
+and :func:`ring_attention_bwd` (torch ops, per source block) as its
+backward; the all-to-all's backward is the all-to-all in the other
+direction, on the kernel.
 """
 
 from __future__ import annotations
@@ -77,13 +85,14 @@ def _scale(d, scale):
 
 
 def ring_attention_plain(q, k, v, *, causal: bool = True, scale=None,
-                         skip_masked: bool = False):
+                         skip_masked: bool = False, return_lse: bool = False):
     """Ring attention on every rank at once, JAX's body step by step:
     q (n, B, S, Hq, D), k / v (n, B, S, Hkv, D) → (n, B, S, Hq, D) in
     q's dtype. ``skip_masked`` leaves out the blocks the causal mask
     hides wholly (src > me), as the kernel does: JAX folds them in with
     weight ``exp(−1e30 − m) = 0`` once step 0 has set a finite m, so the
-    values are the same to the bit."""
+    values are the same to the bit. ``return_lse``: also each query
+    row's log-sum-exp ``m + log(max(l, 1e-30))``, (n, B, S, Hq) f32."""
     n, b, s, hq, d = q.shape
     hkv = k.shape[3]
     g = hq // hkv
@@ -115,9 +124,12 @@ def ring_attention_plain(q, k, v, *, causal: bool = True, scale=None,
             keep = (src > me).reshape(n, 1, 1, 1, 1, 1)
             new = tuple(torch.where(keep, a, c) for a, c in zip(acc, new))
         acc = new
-    _, l, o = acc
-    out = o / torch.clamp(l, min=1e-30)
-    return out.reshape(n, b, s, hq, d).to(q.dtype)
+    m, l, o = acc
+    den = torch.clamp(l, min=1e-30)
+    out = (o / den).reshape(n, b, s, hq, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den)).reshape(n, b, s, hq)
+    return out
 
 
 def dense_attention_reference(q, k, v, *, causal: bool = True, scale=None):
@@ -139,6 +151,118 @@ def dense_attention_reference(q, k, v, *, causal: bool = True, scale=None):
     return (o / torch.clamp(l, min=1e-30)).reshape(b, s, hq, d).to(q.dtype)
 
 
+def ring_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                       scale=None):
+    """The ring attention's backward on every rank at once, in torch ops
+    (JAX differentiates its XLA body, ``:70``; it has no backward
+    kernel): the softmax gradient of each source block from the saved q,
+    k, v, out and each row's ``lse``. For the block of ``src = (me − i)
+    mod n``: ``p = exp(s − lse)`` (0 where masked), ``dV += pᵀ dO``, ``dS
+    = p (dO Vᵀ − rowsum(dO ∘ O))``, ``dQ += dS K · scale``, ``dK += dSᵀ Q
+    · scale``, the K and V gradients carried back to the block's owner
+    (the ring in the other direction). Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    n, b, s, hq, d = q.shape
+    hkv = k.shape[3]
+    g = hq // hkv
+    scale = _scale(d, scale)
+    dev = q.device
+    qg = q.reshape(n, b, s, hkv, g, d).float()
+    dog = dout.reshape(n, b, s, hkv, g, d).float()
+    lg = lse.reshape(n, b, s, hkv, g, 1).float()
+    dsum = (dog * out.reshape(n, b, s, hkv, g, d).float()).sum(-1,
+                                                               keepdim=True)
+    me = torch.arange(n, device=dev)
+    pos = torch.arange(s, device=dev)
+    pos_q = me[:, None] * s + pos
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((n, b, s, hkv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for i in range(n):
+        k_blk = torch.roll(k, i, dims=0).float()
+        v_blk = torch.roll(v, i, dims=0).float()
+        sc = torch.einsum("nbqhgd,nbkhd->nbqhgk", qg, k_blk) * scale
+        p = torch.exp(sc - lg)
+        if causal:
+            pos_k = ((me - i) % n)[:, None] * s + pos
+            keep = (pos_q[:, :, None] >= pos_k[:, None, :])[:, None, :, None,
+                                                             None, :]
+            p = torch.where(keep, p, torch.zeros_like(p))
+        del sc
+        dv_blk = torch.einsum("nbqhgk,nbqhgd->nbkhd", p, dog)
+        ds = p * (torch.einsum("nbqhgd,nbkhd->nbqhgk", dog, v_blk) - dsum)
+        del p
+        dq += torch.einsum("nbqhgk,nbkhd->nbqhgd", ds, k_blk) * scale
+        dk_blk = torch.einsum("nbqhgk,nbqhgd->nbkhd", ds, qg) * scale
+        dk += torch.roll(dk_blk, -i, dims=0)
+        dv += torch.roll(dv_blk, -i, dims=0)
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class _RingAttention(torch.autograd.Function):
+    """Ring attention with its backward: the forward on the kernel (or the
+    plain version on the CPU), saving each row's lse; the backward
+    :func:`ring_attention_bwd`."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out, lse = ring_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+        else:
+            out, lse = cp_ring.ring_attention_launch(
+                q, k, v, causal=causal, scale=_scale(q.shape[-1], None),
+                lse=True)
+        fctx.causal = causal
+        fctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(fctx, dout):
+        q, k, v, out, lse = fctx.saved_tensors
+        return (*ring_attention_bwd(q, k, v, out, lse, dout,
+                                    causal=fctx.causal), None)
+
+
+def _grad_wanted(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _ring_attn(q, k, v, causal):
+    """The ring's forward, differentiable where a gradient is wanted."""
+    if _grad_wanted(q, k, v):
+        return _RingAttention.apply(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ring_attention_plain(q, k, v, causal=causal)
+    return cp_ring.ring_attention_launch(q, k, v, causal=causal,
+                                         scale=_scale(q.shape[-1], None))
+
+
+_OTHER = {"scatter": "gather", "gather": "scatter"}
+
+
+class _UlyssesA2A(torch.autograd.Function):
+    """The Ulysses all-to-all; its backward is the all-to-all in the other
+    direction, on the kernel."""
+
+    @staticmethod
+    def forward(fctx, x, direction):
+        fctx.direction = direction
+        return cp_ring.ulysses_a2a(x, direction)
+
+    @staticmethod
+    def backward(fctx, g):
+        if g.stride(4) != 1 or g.stride(3) != g.shape[4]:
+            g = g.contiguous()
+        return cp_ring.ulysses_a2a(g, _OTHER[fctx.direction]), None
+
+
+def _a2a(x, direction):
+    if _grad_wanted(x):
+        return _UlyssesA2A.apply(x, direction)
+    return cp_ring.ulysses_a2a(x, direction)
+
+
 def _ranks(q, mesh, axis):
     n = mesh.axis_size(axis)
     if q.dim() != 5 or q.shape[0] != n:
@@ -153,10 +277,7 @@ def ring_attention(q, k, v, mesh, axis: str = "tp", *, causal: bool = True):
     version; CUDA tensors: one ``tdt_ring_attention`` launch for every
     rank."""
     _ranks(q, mesh, axis)
-    if q.device.type == "cpu":
-        return ring_attention_plain(q, k, v, causal=causal)
-    return cp_ring.ring_attention_launch(q, k, v, causal=causal,
-                                         scale=_scale(q.shape[-1], None))
+    return _ring_attn(q, k, v, causal)
 
 
 def ulysses_attention(q, k, v, mesh, axis: str = "tp", *,
@@ -180,13 +301,8 @@ def ulysses_attention(q, k, v, mesh, axis: str = "tp", *,
         # every rank gets a whole one (JAX :135-143)
         k = k.repeat_interleave(n // hkv, dim=3)
         v = v.repeat_interleave(n // hkv, dim=3)
-    qs, ks, vs = (cp_ring.ulysses_a2a(t, "scatter") for t in (q, k, v))
+    qs, ks, vs = (_a2a(t, "scatter") for t in (q, k, v))
     _, b, s, hl, d = qs.shape
-    flat = [t.reshape(n * b, s, t.shape[3], d) for t in (qs, ks, vs)]
-    if q.device.type == "cpu":
-        o = dense_attention_reference(*flat, causal=causal)
-    else:
-        o = cp_ring.ring_attention_launch(
-            *(t[None] for t in flat), causal=causal,
-            scale=_scale(d, None))[0]
-    return cp_ring.ulysses_a2a(o.reshape(n, b, s, hl, d), "gather")
+    flat = [t.reshape(1, n * b, s, t.shape[3], d) for t in (qs, ks, vs)]
+    o = _ring_attn(*flat, causal)[0]
+    return _a2a(o.reshape(n, b, s, hl, d), "gather")

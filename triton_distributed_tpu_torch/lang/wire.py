@@ -30,8 +30,19 @@ The in-kernel pipelines (``quant_pipeline`` … ``dequant_rows_into``,
 toolchain gates (``inkernel_wire_ok``, ``inkernel_s8_dot_ok``,
 ``require_inkernel``, ``require_mxu``, ``:557-622``) have no Hopper
 counterpart: sm_90a converts fp8 and multiplies s8 natively, so every
-wire is carried in-kernel. ``quantize_slab_sr`` (stochastic rounding for
-the gradient rings) comes with training (ROADMAP Queue 1 step 9).
+wire is carried in-kernel.
+
+**Stochastic rounding** (:func:`quantize_slab_sr`, JAX ``:199-229``), the
+gradient rings' quantizer: the same scales, and int8 codes ``floor(x /
+scale + u)`` clipped to ±127 with ``u`` uniform in [0, 1); fp8 keeps
+round-to-nearest (its grid is not uniform). JAX draws ``u`` from
+``jax.random``, which the port does not reproduce: its uniforms come
+from a counter-based hash of (seed, ring index, hop, row, column)
+(:func:`sr_uniforms`), the same 32-bit integer operations in torch (on
+int64, masked) and in ``csrc/grad_ring.cu``, so that the card and the
+CPU draw the same bits. The plain functions also take the uniforms as a
+tensor, which is how a test feeds in JAX's own draws. :func:`fma_f32`
+is the correctly rounded f32 ``a·b + c`` of the rings' dequantize-add.
 """
 
 from __future__ import annotations
@@ -193,6 +204,97 @@ def quantize_cols(b):
     scale = div_scalar(torch.clamp(amax, min=1e-30), 127.0)
     q = torch.clamp(torch.round(bf / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+# ------------------------------------------------- stochastic rounding
+
+_M32 = 0xFFFFFFFF
+#: the hop index of the all-gather half's draws (it quantizes once, at
+#: no hop of the reduce ring)
+AG_HOP = 0xFFFF
+
+
+def _mul32(x, c: int):
+    """``x · c mod 2**32`` on int64 tensors holding uint32 values, in
+    16-bit halves so that no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (lowbias32): xor-shifts and two odd
+    multipliers, a bijection of [0, 2**32). ``csrc/grad_ring.cu``
+    ``sr_mix`` is the same function on ``uint32_t``."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sr_key(seed: int, ring: int, hop: int) -> int:
+    """The 32-bit key of one quantization: ``seed``, the ring index
+    (the quantizing rank's index on the ring) and the ``hop``."""
+    k = torch.tensor([(seed ^ 0x9E3779B9) & _M32], dtype=torch.int64)
+    k = _mix32(_mix32(_mix32(k) ^ (ring & _M32)) ^ (hop & _M32))
+    return int(k.item())
+
+
+def sr_uniforms(seed: int, ring: int, hop: int, rows: int, cols: int, *,
+                row0: int = 0, device=None):
+    """(rows, cols) f32 uniforms in [0, 1) of the counter-based hash:
+    element (i, j) is ``mix(mix(key ^ (row0 + i)) ^ j) >> 8`` times
+    2**-24, ``key = sr_key(seed, ring, hop)``; every value is a multiple
+    of 2**-24, exact in f32."""
+    key = sr_key(seed, ring, hop)
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    c = torch.arange(cols, dtype=torch.int64, device=device)
+    v = _mix32(_mix32((r ^ key) & _M32)[:, None] ^ c[None, :])
+    return (v >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def quantize_slab_sr(x, fmt: WireFormat, *, uniforms=None, seed=None,
+                     ring: int = 0, hop: int = 0, row0: int = 0):
+    """:func:`quantize_slab` with stochastic rounding (JAX ``:199``):
+    (rows, cols) → ((rows, cols) codes, (chunks,) f32 scales), the scales
+    those of :func:`quantize_slab`. int8 codes are ``floor(x / scale +
+    u)`` (the add rounded to f32), clipped to ±127, with ``uniforms``
+    ((rows, cols) f32 in [0, 1), e.g. JAX's own draws) or, without them,
+    the hash's draws of ``(seed, ring, hop)`` at rows ``row0 + i``
+    (:func:`sr_uniforms`); fp8 rounds to nearest and takes none."""
+    rows, cols = x.shape
+    scale = slab_scales(x, fmt)
+    y = (x.float().reshape(fmt.chunks(rows), -1) / scale[:, None]).reshape(
+        rows, cols)
+    if fmt.quant != "int8":
+        return y.to(torch.float8_e4m3fn), scale
+    if uniforms is None:
+        if seed is None:
+            raise ValueError("quantize_slab_sr on int8 needs uniforms= or "
+                             "seed=")
+        uniforms = sr_uniforms(seed, ring, hop, rows, cols, row0=row0,
+                               device=x.device)
+    q = torch.clamp(torch.floor(y + uniforms.float()), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def fma_f32(a, b, c):
+    """``a · b + c`` rounded once to f32, as ``__fmaf_rn``, for an f32
+    ``b`` and ``c`` and an ``a`` whose product with ``b`` is exact in
+    f64 (a wire code: at most 8 significant bits). The sum runs in f64
+    with its error (two-sum); where the f64 sum falls exactly on a
+    midpoint of two f32 values, the error decides the side, so the
+    double rounding never moves a bit."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    f = s.float()
+    d = s - f.double()
+    inf = torch.full_like(f, float("inf"))
+    nb = torch.nextafter(f, torch.where(d > 0, inf, -inf))
+    mid = (d != 0) & ((nb.double() - f.double()).abs() == 2 * d.abs())
+    return torch.where(mid & (err * d > 0), nb, f)
 
 
 def _wire_cols_block(cols: int, itemsize: int = 1, strict: bool = False):

@@ -2,8 +2,11 @@
 
 Port of ``triton_distributed_tpu/layers/linear.py``: callables over a
 params dict in the JAX layout (``{"w": (in, out)}``; the MLP's
-``{"up": {"w"}, "down": {"w"}}``), forward only. At world size 1 ``x``
-and ``w`` are tensors; over a mesh they are lists of per-rank shards:
+``{"up": {"w"}, "down": {"w"}}``), differentiable through the overlap
+ops' autograd Functions (their backward runs the dual kernels, or the
+gradient rings with ``OverlapContext(bwd_wire_dtype=...)``). At world
+size 1 ``x`` and ``w`` are tensors; over a mesh they are lists of
+per-rank shards:
 ``x`` row shards (m, in) for the column layer and the MLP, ``w`` the
 column (``up``) or row (``down``) shards of the weight. A quantized
 wire comes through the context (``OverlapContext(wire_dtype=...)``:

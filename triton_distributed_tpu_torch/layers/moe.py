@@ -5,7 +5,9 @@ Port of ``triton_distributed_tpu/layers/moe.py``:
 * :class:`EPAll2AllLayer`: the padded-slot dispatch / combine pair
   (``kernels/moe_all_to_all.py`` over the dense all-to-all) around
   expert code the caller runs between the legs;
-* :class:`EPMoEMLP`: the f32 router, then
+* :class:`EPMoEMLP`: the f32 router (on the float-mode kernel,
+  :func:`~triton_distributed_tpu_torch.kernels.group_gemm.router_logits`),
+  then
   :func:`~triton_distributed_tpu_torch.ops.moe.ep_moe` on the layer's
   context (over its mesh when it has one: the experts, and the token
   rows, split over the ranks);
@@ -16,8 +18,8 @@ Port of ``triton_distributed_tpu/layers/moe.py``:
 
 The port runs them forward only: JAX's ``moe_tp_mlp`` is
 differentiable, but the port's grouped GEMM has no backward yet, so an
-input or weight that requires a gradient raises (ROADMAP Queue 1
-step 9).
+input or weight that requires a gradient raises (the rest of ROADMAP
+Queue 1 step 9b).
 """
 
 from __future__ import annotations
@@ -71,7 +73,11 @@ class EPMoEMLP:
 
     def __call__(self, params, x):
         """x: (M, H) tokens → (M, H) in x's dtype."""
-        logits = x.float() @ params["router"].float()
+        from triton_distributed_tpu_torch.kernels.group_gemm import (
+            router_logits,
+        )
+
+        logits = router_logits(x, params["router"])
         return ep_moe(x, logits, params["up"], params["down"], self.ctx)
 
 
@@ -104,9 +110,10 @@ class MoETPMLP:
         ``ctx.dtype``. Forward only: a gradient raises."""
         if _requires_grad((params, x, topk_weights)):
             raise NotImplementedError(
-                "MoETPMLP runs forward only: the port's grouped GEMM has no "
-                "backward yet (ROADMAP Queue 1 step 9); call it on tensors "
-                "that require no gradient")
+                "MoETPMLP runs forward only: its backward (the grouped "
+                "GEMM's and the composed MoE-TP's) is the rest of ROADMAP "
+                "Queue 1 step 9b; call it on tensors that require no "
+                "gradient")
         if self.fused:
             return moe_tp_mlp(x, topk_ids, topk_weights, params["up"],
                               params["down"], self.ctx,

@@ -675,22 +675,17 @@ class Transformer:
 
     @staticmethod
     def _router_logits(x, router):
-        """The EP block's f32 router product, ``x.float() @
-        router.float()``, on the float-mode kernel (one expert, counted
-        as ``ggemm_f32``): every row's sums run in one K order whatever
-        the batch, so a row's route does not depend on the rows packed
-        beside it. (cuBLAS picks its algorithm, and so its summation
-        order, by the batch's shape: a disaggregated decode role's
-        256-row steps routed rows apart from the colocated engine's
-        768-row steps.) On CPU tensors this is the plain product."""
-        if x.device.type == "cpu":
-            return x.float() @ router.float()
+        """Every MoE block's f32 router product (the EP and TP flavours,
+        prefill, decode and serving): :func:`~triton_distributed_tpu_torch.
+        kernels.group_gemm.router_logits`, batch-independent row sums on
+        the float-mode kernel (a disaggregated decode role's 256-row
+        steps routed rows apart from the colocated engine's 768-row steps
+        on cuBLAS). On CPU tensors the plain product."""
         from triton_distributed_tpu_torch.kernels.group_gemm import (
-            float_gemm,
+            router_logits,
         )
 
-        return float_gemm(x.float(), router.float(), torch.float32,
-                          counted=True)
+        return router_logits(x, router)
 
     def _moe_tp(self, blk, xn):
         """The TP-flavour MoE block: each token's top-k expert MLPs run
@@ -704,8 +699,8 @@ class Transformer:
         from triton_distributed_tpu_torch.lang.shmem import require_stacked
 
         c = self.config
-        logits_r = xn.float() @ blk["router"].float()
-        w, ids = select_experts(logits_r, c.topk)
+        w, ids = select_experts(self._router_logits(xn, blk["router"]),
+                                c.topk)
         y = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
         up, down = blk["moe_up"], blk["moe_down"]
         if self.mesh is not None:
@@ -1073,7 +1068,8 @@ class Transformer:
         kernels). Over a mesh, row block r of ``x`` is rank r's tokens
         and both flavours run over the mesh (the all-to-all across the
         ranks, the mesh MoE-TP kernels). The differentiable TP path
-        (``MoETPMLP``) raises until training is ported."""
+        (``MoETPMLP``) raises: its backward is the rest of ROADMAP Queue
+        1 step 9b."""
         c = self.config
         if "up" in blk:
             p = {"up": {"w": self._dense_w(blk["up"])},
@@ -1090,14 +1086,15 @@ class Transformer:
             return EPMoEMLP(self._moe_ep_ctx(x.shape[0] // self.tp))(moe, x)
         if not inference:
             raise NotImplementedError(
-                "the differentiable MoE-TP block (MoETPMLP, moe_tp_mlp) "
-                "comes with training (ROADMAP Queue 1 item 10)")
+                "the differentiable MoE-TP block (MoETPMLP, moe_tp_mlp) for "
+                "training: its backward is the rest of ROADMAP Queue 1 step "
+                "9b")
         from triton_distributed_tpu_torch.kernels.moe_utils import (
             select_experts,
         )
         from triton_distributed_tpu_torch.ops import moe_tp_mlp_overlapped
 
-        weights, ids = select_experts(x.float() @ blk["router"].float(),
+        weights, ids = select_experts(self._router_logits(x, blk["router"]),
                                       c.topk)
         return moe_tp_mlp_overlapped(x, ids, weights, moe["up"],
                                      moe["down"], self._moe_tp_ctx).to(c.dtype)
@@ -1123,6 +1120,111 @@ class Transformer:
         if isinstance(w, dict):
             w = self._dense_w(w)
         return x.float() @ w.float()
+
+    # ---------------------------------------------------------- training
+
+    def _refuse_training(self, what):
+        c = self.config
+        if c.moe != "none" and c.moe_layers:
+            raise NotImplementedError(
+                f"{what} of a MoE model: the EP block's backward on the xla "
+                "transport and MoETPMLP's (the composed MoE-TP backward) are "
+                "the rest of ROADMAP Queue 1 step 9b")
+        if c.remat:
+            raise NotImplementedError(
+                f"{what} with remat=True: activation checkpointing is the "
+                "rest of ROADMAP Queue 1 step 9b")
+        if self.cp > 1:
+            raise NotImplementedError(
+                f"{what} beside a cp serving axis: the model trains over "
+                "its tp axis (dp axes beside it are ROADMAP Queue 1 step 8)")
+
+    def forward(self, params, tokens):
+        """tokens (B, S) int → logits (B·S, vocab) f32 (JAX ``:742``):
+        every block's prefill math (``_block``, the attention through
+        the differentiable ``ag_gemm`` / ``gemm_rs`` at ``attn="tp"``,
+        the causal softmax in torch ops, the dense MLP), differentiable.
+        Over a mesh, B·S must split over the ranks."""
+        self._refuse_training("forward")
+        b, s = tokens.shape
+        if (b * s) % self.tp or (self.config.attn != "tp" and s % self.tp):
+            raise ValueError(f"tokens ({b}, {s}) do not shard over tp = "
+                             f"{self.tp}")
+        x = self._embed_rows(params, tokens)
+        for blk in params["blocks"]:
+            x = self._block(blk, x, b, s)[0]
+        return self._head(params, x)
+
+    def loss(self, params, tokens, targets):
+        """The mean next-token cross-entropy of :meth:`forward`'s logits
+        (JAX ``:769``), an f32 scalar."""
+        logits = self.forward(params, tokens)
+        logp = torch.log_softmax(logits, dim=-1)
+        tgt = targets.reshape(-1).long().to(logp.device)
+        return -torch.gather(logp, 1, tgt[:, None])[:, 0].mean()
+
+    def train_step(self, params, tokens, targets, lr=1e-3):
+        """One SGD step (JAX ``:777``) → (loss, new params): ``p − lr ·
+        grad`` in each parameter's dtype, gradients from autograd through
+        the differentiable overlap ops (over a mesh their dual kernels).
+        ``params`` (float tensors; over a mesh as :meth:`shard_params`
+        gives them) are not modified; a sharded leaf of the result is
+        again views of one allocation. MoE models and ``remat=True``
+        raise (the rest of ROADMAP Queue 1 step 9b)."""
+        self._refuse_training("train_step")
+        leaves = []
+
+        def prep(node):
+            if isinstance(node, dict):
+                return {k: prep(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [prep(v) for v in node]
+            if not node.is_floating_point():
+                raise ValueError("train_step takes float parameters, got a "
+                                 f"{node.dtype} leaf (quantized weights)")
+            t = node.detach().requires_grad_()
+            leaves.append(t)
+            return t
+
+        live = prep(params)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        loss = self.loss(live, tokens, targets)
+        grads = iter(torch.autograd.grad(loss, leaves))
+
+        def step(node):
+            if isinstance(node, dict):
+                return {k: step(v) for k, v in node.items()}
+            if isinstance(node, list):
+                new = [step(v) for v in node]
+                if isinstance(new[0], torch.Tensor):   # a sharded leaf
+                    return list(torch.stack(new).unbind(0))
+                return new
+            g = next(grads)
+            return (node - lr * g.to(node.dtype)).detach()
+
+        with torch.no_grad():
+            new = step(live)
+        return loss.detach(), new
+
+    def unshard_params(self, params):
+        """The inverse of :meth:`shard_params` for float leaves: every
+        sharded leaf reassembled into one tensor."""
+        out = dict(params)
+        out["blocks"] = []
+        for blk in params["blocks"]:
+            blk = dict(blk)
+            for name, w in list(blk.items()):
+                if not isinstance(w, list):
+                    continue
+                dim, idx = self._shard_index(name)
+                full_shape = list(w[0].shape)
+                full_shape[dim] *= self.tp
+                full = w[0].new_empty(full_shape)
+                for wr, ir in zip(w, idx):
+                    full.index_copy_(dim, ir.to(full.device), wr)
+                blk[name] = full
+            out["blocks"].append(blk)
+        return out
 
     def init_cache(self, batch: int, max_len: int):
         """Per-layer (k, v) caches of shape (B, Hkv, S, D) ("bhsd") in
@@ -1389,6 +1491,10 @@ def _rows(shards):
     view."""
     from triton_distributed_tpu_torch.lang.shmem import require_stacked
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in shards):
+        # training: a view over the shards' storage would carry every
+        # rank's gradient into rank 0's shard alone
+        return torch.cat(list(shards))
     st = require_stacked(shards, "the model's row shards")
     return st.reshape(-1, *st.shape[2:])
 

@@ -33,7 +33,8 @@ hop. Each op launches the kernels of
 :mod:`~triton_distributed_tpu_torch.kernels.moe_tp_fused`'s wires.
 
 The composed pipeline (JAX ``:98-211``, ``:412-470``), forward only
-(the port's grouped GEMM has no backward yet, ROADMAP Queue 1 step 9):
+(the port's grouped GEMM has no backward yet: the rest of ROADMAP Queue
+1 step 9b):
 
 * :func:`align_routing`: one alignment over every token (replicated);
 * :func:`ag_group_gemm`: the tokens' all-gather, on the single
