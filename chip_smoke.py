@@ -3248,6 +3248,24 @@ def attention_ops(b, h, s_q, s_k, d, causal, q0=0):
     return 4.0 * d * b * h * pairs
 
 
+def ring_variants(res: Results, what, want, fn):
+    """``fn()``, with a failure unless every ``tdt_ring_attention`` call
+    it made launched the kernel ``want`` (``ring_attention_launch.
+    by_variant``: ``"tma"``, ``"cp_async"`` or ``"fma"``), and at least
+    one did."""
+    from triton_distributed_tpu_torch.kernels import cp_ring
+
+    by = cp_ring.ring_attention_launch.by_variant
+    before = dict(by)
+    out = fn()
+    made = {k: c - before.get(k, 0) for k, c in by.items()
+            if c != before.get(k, 0)}
+    if set(made) != {want}:
+        res.failures.append(f"{what}: ring attention launched {made}, "
+                            f"expected only {want!r}")
+    return out
+
+
 def check_cp_prefill_kernels(res: Results, dev):
     """The context-parallel prefill's kernels against their plain
     versions at the path's shapes. ``tdt_ring_attention``: 4 ranks of
@@ -3263,7 +3281,11 @@ def check_cp_prefill_kernels(res: Results, dev):
     each at the path's shapes beside its bound, its plain version and one
     PyTorch call: ``scaled_dot_product_attention`` over the gathered
     sequence (flash, causal) for the ring kernel, a ``copy_`` of the same
-    bytes for the all-to-all."""
+    bytes for the all-to-all; and the ring kernel's f32 form (the
+    trainer's) at the ring's shape beside SDPA in f32, timed only. Every
+    bf16 launch at the path's shapes must run the TMA form; the ring's
+    views made 8-byte aligned run the cp.async form, held to the same
+    limits and timed beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -3278,13 +3300,14 @@ def check_cp_prefill_kernels(res: Results, dev):
     # the ring at the path's shape, causal and not
     q, k, v = cp_views(dev, g, n, b, s, h, h, d, bf16)
     for causal in (True, False):
-        got = cp_ring.ring_attention_launch(q, k, v, causal=causal,
-                                            scale=scale)
+        what = (f"{tag} ring {n} x ({b}, {s}, {h}, {d}) bf16 views, "
+                f"{'causal' if causal else 'full'}")
+        got = ring_variants(res, what, "tma", lambda: cp_ring.
+                            ring_attention_launch(q, k, v, causal=causal,
+                                                  scale=scale))
         want = tra.ring_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ulps, excess = bf16_ulps(got, want)
-        what = (f"{tag} ring {n} x ({b}, {s}, {h}, {d}) bf16 views, "
-                f"{'causal' if causal else 'full'}")
         res.check("kv_rotate", ulps, 1.0, what + " (bf16 ulps of plain "
                   "where |plain| >= 2^-4)", metric="ulps")
         res.check("kv_rotate", excess, 1e-5, what + " (|diff| past one bf16 "
@@ -3292,8 +3315,9 @@ def check_cp_prefill_kernels(res: Results, dev):
         res.kernel("kv_rotate", err=(got.float() - want.float()).abs()
                    .max().item())
         del got, want
-    ms = time_ms(lambda: cp_ring.ring_attention_launch(
-        q, k, v, causal=True, scale=scale), 5)
+    ms = ring_variants(res, f"{tag} ring timed", "tma", lambda: time_ms(
+        lambda: cp_ring.ring_attention_launch(q, k, v, causal=True,
+                                              scale=scale), 5))
     plain_ms = time_ms(lambda: tra.ring_attention_plain(q, k, v), 2)
     qf, kf, vf = (t.transpose(0, 1).reshape(b, n * s, h, d).transpose(1, 2)
                   .contiguous() for t in (q, k, v))
@@ -3311,6 +3335,32 @@ def check_cp_prefill_kernels(res: Results, dev):
     res.shape("kv_rotate", 32, ms, plain_ms, lib_ms, nbytes, ops,
               H100_BF16_OPS)
     del qf, kf, vf
+    # the same views 8-byte but not 16-byte aligned (the projection 4
+    # elements wider, q, k and v 4 elements in): TMA cannot take them, so
+    # the kernel loads K and V by cp.async in 8-byte copies
+    qkv = torch.randn((b, n * s, 3 * h * d + 4), generator=g,
+                      device=dev).to(bf16)[..., 4:]
+    qn, kn, vn = (t.reshape(b, n, s, -1, d).transpose(0, 1) for t in
+                  torch.split(qkv, [h * d] * 3, dim=-1))
+    what = f"{tag} ring, the views 8-byte aligned (cp.async), causal"
+    got = ring_variants(res, what, "cp_async", lambda: cp_ring.
+                        ring_attention_launch(qn, kn, vn, causal=True,
+                                              scale=scale))
+    want = tra.ring_attention_plain(qn, kn, vn, causal=True)
+    torch.cuda.synchronize()
+    ulps, excess = bf16_ulps(got, want)
+    res.check("kv_rotate", ulps, 1.0, what + " (bf16 ulps of plain where "
+              "|plain| >= 2^-4)", metric="ulps")
+    res.check("kv_rotate", excess, 1e-5, what + " (|diff| past one bf16 ulp "
+              "of plain)", metric="excess")
+    del got, want
+    ms_cp = ring_variants(res, what + " timed", "cp_async", lambda: time_ms(
+        lambda: cp_ring.ring_attention_launch(qn, kn, vn, causal=True,
+                                              scale=scale), 5))
+    log(f"time kv_rotate {tag} ring causal, the views 8-byte aligned (the "
+        f"cp.async form; the path's views take TMA): kernel_ms={ms_cp:.4f} "
+        f"(the TMA form {ms:.4f}) achieved_tflops={ops / ms_cp / 1e9:.2f}")
+    del qkv, qn, kn, vn
     # the all-to-all: the path's q out, and its local output back
     sc = cp_ring.ulysses_a2a(q, "scatter")
     ok = torch.equal(sc, cp_ring.ulysses_a2a_plain(q, "scatter"))
@@ -3345,11 +3395,13 @@ def check_cp_prefill_kernels(res: Results, dev):
     hl, sfull = h // n, n * s
     ql, kl, vl = (torch.randn((1, n * b, sfull, hl, d), generator=g,
                               device=dev).to(bf16) for _ in range(3))
-    got = cp_ring.ring_attention_launch(ql, kl, vl, causal=True, scale=scale)
+    what = f"{tag} Ulysses local: 1 x ({n * b}, {sfull}, {hl}, {d}) bf16, causal"
+    got = ring_variants(res, what, "tma", lambda: cp_ring.
+                        ring_attention_launch(ql, kl, vl, causal=True,
+                                              scale=scale))
     want = tra.ring_attention_plain(ql, kl, vl, causal=True)
     torch.cuda.synchronize()
     ulps, excess = bf16_ulps(got, want)
-    what = f"{tag} Ulysses local: 1 x ({n * b}, {sfull}, {hl}, {d}) bf16, causal"
     res.check("kv_rotate", ulps, 1.0, what + " (bf16 ulps of plain where "
               "|plain| >= 2^-4)", metric="ulps")
     res.check("kv_rotate", excess, 1e-5, what + " (|diff| past one bf16 ulp "
@@ -3357,8 +3409,9 @@ def check_cp_prefill_kernels(res: Results, dev):
     res.kernel("kv_rotate", err=(got.float() - want.float()).abs().max()
                .item())
     del got, want
-    ms = time_ms(lambda: cp_ring.ring_attention_launch(
-        ql, kl, vl, causal=True, scale=scale), 5)
+    ms = ring_variants(res, f"{tag} Ulysses local timed", "tma", lambda:
+                       time_ms(lambda: cp_ring.ring_attention_launch(
+                           ql, kl, vl, causal=True, scale=scale), 5))
     plain_ms = time_ms(lambda: tra.ring_attention_plain(ql, kl, vl), 2)
     qf, kf, vf = (t[0].transpose(1, 2).contiguous() for t in (ql, kl, vl))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -3375,13 +3428,34 @@ def check_cp_prefill_kernels(res: Results, dev):
     del ql, kl, vl, qf, kf, vf
     # f32 at a GQA shape with a partial last tile
     q, k, v = cp_views(dev, g, n, b, 200, 32, 16, d, torch.float32)
-    got = cp_ring.ring_attention_launch(q, k, v, causal=True, scale=scale)
+    got = ring_variants(res, f"{tag} ring f32", "fma", lambda: cp_ring.
+                        ring_attention_launch(q, k, v, causal=True,
+                                              scale=scale))
     want = tra.ring_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     res.check("kv_rotate", err, 1e-5, f"{tag} ring {n} x ({b}, 200, 32 on "
               f"16 KV heads, {d}) f32, causal")
     res.kernel("kv_rotate", err=err)
+    del q, k, v, got, want
+    # the f32 form (the trainer's, on FMA) at the ring's shape beside SDPA
+    # in f32: timed only (the row is the bf16 path's)
+    q, k, v = cp_views(dev, g, n, b, s, h, h, d, torch.float32)
+    ms = time_ms(lambda: cp_ring.ring_attention_launch(
+        q, k, v, causal=True, scale=scale), 3)
+    qf, kf, vf = (t.transpose(0, 1).reshape(b, n * s, h, d).transpose(1, 2)
+                  .contiguous() for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True), 3)
+    ops = sum(attention_ops(b, h, s, (r + 1) * s, d, True, r * s)
+              for r in range(n))
+    bnd, by = bound_ms(4 * q.numel() * 4, ops, H100_F32_OPS)
+    log(f"time kv_rotate {tag} ring causal f32 (the FMA kernel, the "
+        f"trainer's form; timed only): kernel_ms={ms:.4f} library_ms="
+        f"{lib_ms:.4f} (SDPA f32, causal, over the gathered sequence) "
+        f"bound_ms={bnd:.4f} ({by}, f32 rate) achieved_tflops="
+        f"{ops / ms / 1e9:.2f}")
+    del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
 
 
@@ -3909,7 +3983,8 @@ def run_cp_prefill_path(res: Results, dev, one):
     step's logits within the tolerance, the tokens equal where the tp
     model's top-2 margin exceeds it (the gate of tests/test_models.py).
     A ring prefill must launch the ring kernel once a layer, a Ulysses
-    prefill the all-to-all 4 times and the ring kernel once a layer, each
+    prefill the all-to-all 4 times and the ring kernel once a layer (its
+    TMA form every time), each
     the mesh AG-GEMM / GEMM-RS once a layer (the MLP), and every decode
     step the flash decode once and the all-gather twice a layer. Returns
     {row: (launches, 1)} of the two prefills, by TPU kernel."""
@@ -3918,6 +3993,7 @@ def run_cp_prefill_path(res: Results, dev, one):
     import torch
 
     from triton_distributed_tpu_torch.kernels import (
+        cp_ring,
         launch_counts,
         launches_by_tpu_kernel,
         reset_launch_counts,
@@ -3966,11 +4042,16 @@ def run_cp_prefill_path(res: Results, dev, one):
         torch.cuda.synchronize()
         prefill_ms[attn] = (time.perf_counter() - t0) * 1e3
         counts, by = launch_counts(), launches_by_tpu_kernel()
+        variants = dict(cp_ring.ring_attention_launch.by_variant)
         log(f"path {name} {attn} prefill: prefill_ms={prefill_ms[attn]:.2f} "
             f"({CP_B} x {CP_S} rows, lens {list(CP_LENS)}, prefill_tok_s="
             f"{sum(CP_LENS) / prefill_ms[attn] * 1e3:.1f}) launches "
             + " ".join(f"{k}={v}" for k, v in counts.items() if v)
-            + f" by TPU kernel {by}")
+            + f" by TPU kernel {by} ring attention by form {variants}")
+        if attn != "tp" and variants != {"tma": layers}:
+            res.failures.append(f"{name} {attn}: ring attention ran "
+                                f"{variants}, expected the TMA form "
+                                f"{layers} times")
         for k, want in dict(expect[attn], ag_gemm_n1=0, gemm_rs_n1=0).items():
             if counts[k] != want:
                 res.failures.append(f"{name} {attn}: {counts[k]} {k} "

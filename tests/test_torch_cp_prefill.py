@@ -132,6 +132,102 @@ def test_skipping_wholly_masked_blocks_keeps_jax_values(n):
                                atol=1e-5)
 
 
+def _bf16_excess(got, want):
+    """max(|got - want| - ulp(want)): the card tests' measure
+    (tests/test_torch_cuda.py), want's bf16 ulp 2^(e - 8) for |want| in
+    [2^(e-1), 2^e)."""
+    w, g = want.float(), got.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    return ((g - w).abs() - ulp).max().item()
+
+
+def _tc_kernel_emulation(q, k, v, *, split: bool, tile: int = 64):
+    """The arithmetic of the bf16 ring kernel (``csrc/cp_ring.cu``
+    ``ring_attention_tc_kernel``) in torch ops, causal: every rank's
+    source blocks in the ring's order (src = r, r - 1, ..., 0), each in
+    64-key tiles; S the f32 sums of exact bf16 products; exp2 of the
+    scores scaled by scale · log2(e), less the row max so scaled; P
+    into the product as bf16 hi + lo (``split``) or as one bf16; f32
+    sums, one rounding at the output."""
+    n, b, s, hq, d = q.shape
+    g = hq // k.shape[3]
+    sl2 = torch.tensor(d ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    pos = torch.arange(s)
+    outs = []
+    for r in range(n):
+        qr = q[r].float().transpose(1, 2)                  # (b, hq, s, d)
+        m = torch.full((b, hq, s, 1), -torch.inf)
+        l = torch.zeros((b, hq, s, 1))
+        o = torch.zeros((b, hq, s, d))
+        for src in range(r, -1, -1):
+            kb, vb = (t[src].float().repeat_interleave(g, dim=2)
+                      .transpose(1, 2) for t in (k, v))   # (b, hq, s, d)
+            for k0 in range(0, s, tile):
+                sc = qr @ kb[:, :, k0:k0 + tile].transpose(-1, -2)
+                if src == r:
+                    keys = pos[k0:k0 + tile]
+                    sc = sc.masked_fill(keys[None, :] > pos[:, None],
+                                        -torch.inf)
+                mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+                base = torch.where(mx == -torch.inf, 0.0, mx * sl2)
+                alpha = torch.exp2(m * sl2 - base)
+                p = torch.exp2(sc * sl2 - base)
+                m = mx
+                l = l * alpha + p.sum(-1, keepdim=True)
+                hi = p.bfloat16().float()
+                vt = vb[:, :, k0:k0 + tile]
+                pv = hi @ vt
+                if split:
+                    pv = pv + (p - hi).bfloat16().float() @ vt
+                o = o * alpha + pv
+        out = o / torch.clamp(l, min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.stack(outs)
+
+
+def test_tc_kernel_split_p_keeps_the_card_tolerance():
+    """The bf16 ring kernel splits P into bf16 hi + lo before P @ V. Its
+    arithmetic, emulated at a small causal shape, stays within the card
+    tests' bf16 tolerance of the plain ring (excess over one bf16 ulp ≤
+    1e-5, none where |plain| ≥ 2^-4); with P as one bf16 it falls outside,
+    so the split cannot be dropped without this test failing."""
+    rng = np.random.default_rng(5)
+    n, s, hq, hkv, d = 2, 64, 4, 2, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (n, B, s, h, d)).astype(np.float32)).bfloat16()
+        for h in (hq, hkv, hkv))
+    want = tra.ring_attention_plain(q, k, v, causal=True)
+    got = _tc_kernel_emulation(q, k, v, split=True)
+    big = want.float().abs() >= 2.0 ** -4
+    assert _bf16_excess(got, want) <= 1e-5
+    assert _bf16_excess(got[big], want[big]) <= 0.0
+    one = _tc_kernel_emulation(q, k, v, split=False)
+    assert _bf16_excess(one, want) > 1e-5
+
+
+def test_ring_variant_codes_match_the_kernel():
+    """``RING_VARIANTS`` names the codes of ``csrc/cp_ring.cu``'s
+    ``RingVariant`` (the kernel a ``tdt_ring_attention`` call reports it
+    launched), and ``reset_launch_counts`` clears the wrapper's
+    ``by_variant`` with its other counts."""
+    import re
+
+    from triton_distributed_tpu_torch.config import csrc_dir
+    from triton_distributed_tpu_torch.kernels import reset_launch_counts
+
+    src = (csrc_dir() / "cp_ring.cu").read_text()
+    body = re.search(r"enum RingVariant \{([^}]*)\}", src).group(1)
+    codes = {int(c): name for name, c in
+             re.findall(r"RING_(\w+) = (\d+)", body)}
+    assert {c: name.lower() for c, name in codes.items()} == \
+        cp_ring.RING_VARIANTS
+    cp_ring.ring_attention_launch.by_variant["tma"] = 3
+    reset_launch_counts()
+    assert cp_ring.ring_attention_launch.by_variant == {}
+
+
 def _shard_mapped(fn, n):
     return jax.jit(jax.shard_map(fn, mesh=_jmesh(n), in_specs=P(None, "x"),
                                  out_specs=P(None, "x"), check_vma=False))

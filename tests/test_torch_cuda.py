@@ -2290,6 +2290,82 @@ class TestCpPrefillKernels:
             big = want.float().abs() >= 2.0 ** -4
             assert _bf16_excess(got[big], want[big]) <= 0.0
 
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("shape", [(2, 129, 8, 2, 128),
+                                       (4, 191, 16, 2, 64),
+                                       (8, 129, 4, 4, 32),
+                                       (3, 191, 2, 1, 16)])
+    def test_ring_attention_tc_edges(self, dev, shape, causal):
+        """The bf16 kernel (tensor cores, 128 q rows a CTA, 64-key tiles)
+        at its edges, under the tolerances of
+        :meth:`test_ring_attention_matches_plain`: positions a rank that
+        are a multiple of neither tile (129, 191), G = 4 and 8 (32 and 16
+        tokens a q tile), a ring of 8 and of 3, D 128 down to 16 (K and V
+        by TMA at D 64 and 128, by cp.async below)."""
+        from triton_distributed_tpu_torch.kernels import (
+            launches_by_tpu_kernel,
+            reset_launch_counts,
+        )
+
+        n, s, hq, hkv, d = shape
+        q, k, v = _cp_qkv(dev, n, 2, s, hq, hkv, d, torch.bfloat16,
+                          seed=sum(shape) + causal)
+        reset_launch_counts()
+        got = cp_ring.ring_attention_launch(q, k, v, causal=causal,
+                                            scale=d ** -0.5)
+        assert launches_by_tpu_kernel() == {"_kv_rotate_kernel": 1}
+        assert cp_ring.ring_attention_launch.by_variant == {
+            "tma" if d >= 64 else "cp_async": 1}
+        want = tra.ring_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert _bf16_excess(got, want) <= 1e-5
+        big = want.float().abs() >= 2.0 ** -4
+        assert _bf16_excess(got[big], want[big]) <= 0.0
+
+    def test_ring_attention_tc_narrow_copies(self, dev):
+        """Views 8-byte but not 16-byte aligned (the projection's rows
+        4 elements longer, q, k and v starting 4 elements in): the bf16
+        kernel copies them by cp.async in 8-byte pieces (TMA cannot take
+        them), within the same tolerances."""
+        from triton_distributed_tpu_torch.kernels import reset_launch_counts
+
+        n, b, s, hq, hkv, d = 4, 2, 70, 8, 2, 64
+        g = torch.Generator(device=dev).manual_seed(3)
+        w = (hq + 2 * hkv) * d
+        qkv = torch.randn((b, n * s, w + 4), generator=g,
+                          device=dev).to(torch.bfloat16)[..., 4:]
+        q, k, v = (t.reshape(b, n, s, -1, d).transpose(0, 1) for t in
+                   torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1))
+        assert q.data_ptr() % 16 == 8 and q.stride(2) * 2 % 16 == 8
+        reset_launch_counts()
+        got = cp_ring.ring_attention_launch(q, k, v, causal=True,
+                                            scale=d ** -0.5)
+        assert cp_ring.ring_attention_launch.by_variant == {"cp_async": 1}
+        want = tra.ring_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert _bf16_excess(got, want) <= 1e-5
+        big = want.float().abs() >= 2.0 ** -4
+        assert _bf16_excess(got[big], want[big]) <= 0.0
+
+    def test_ring_attention_bf16_lse(self, dev):
+        """The bf16 kernel with ``lse=True`` against
+        ``ring_attention_plain(return_lse=True)``: the output within the
+        bf16 tolerances, each row's lse within 1e-5 relative (1e-5
+        absolute where |lse| < 1: a causal row 0 sees one key, its lse
+        that one score)."""
+        q, k, v = _cp_qkv(dev, 4, 2, 100, 8, 4, 128, torch.bfloat16,
+                          seed=11)
+        got, lse = cp_ring.ring_attention_launch(q, k, v, causal=True,
+                                                 scale=128 ** -0.5, lse=True)
+        want, want_lse = tra.ring_attention_plain(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        assert lse.shape == want_lse.shape and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+        assert _bf16_excess(got, want) <= 1e-5
+        big = want.float().abs() >= 2.0 ** -4
+        assert _bf16_excess(got[big], want[big]) <= 0.0
+
     def test_ring_entries_run_the_kernel(self, dev):
         """``ring_attention`` and ``ulysses_attention`` on CUDA tensors:
         the ring one launch; Ulysses four all-to-alls (q, k, v out and
@@ -2310,16 +2386,43 @@ class TestCpPrefillKernels:
             assert after["ulysses_a2a"] - before["ulysses_a2a"] == a2a
             assert after["ring_attention"] - before["ring_attention"] == 1
 
-    @pytest.mark.parametrize("entry", ["ring", "ulysses", "launch_lse"])
+    @pytest.mark.parametrize("entry", ["ring", "ulysses", "launch_lse",
+                                       "launch_bf16"])
     def test_ring_entries_repeat_bit_identical(self, dev, entry):
         """The inputs of :meth:`test_ring_entries_run_the_kernel` through
         one entry 200 times (``launch_lse``: ``tdt_ring_attention`` with
         each row's lse): every call bit-identical to the first, out and
         lse, so no call read or wrote shared memory out of turn; the
-        first within 1e-5 of the plain version (f32)."""
+        first within 1e-5 of the plain version (f32). ``launch_bf16``:
+        the tensor-core kernel with its lse at partial q and key tiles
+        (129 positions a rank, G 4), the first call within the bf16
+        tolerances of :meth:`test_ring_attention_matches_plain` (lse
+        within 1e-5)."""
         from triton_distributed_tpu_torch.runtime import Mesh
 
         mesh = Mesh.loopback(4, dev)
+        if entry == "launch_bf16":
+            q, k, v = _cp_qkv(dev, 4, 2, 129, 8, 2, 128, torch.bfloat16,
+                              seed=7)
+
+            def call():
+                return cp_ring.ring_attention_launch(
+                    q, k, v, causal=True, scale=128 ** -0.5, lse=True)
+            first = call()
+            want, want_lse = tra.ring_attention_plain(q, k, v,
+                                                      return_lse=True)
+            torch.cuda.synchronize()
+            assert _bf16_excess(first[0], want) <= 1e-5
+            big = want.float().abs() >= 2.0 ** -4
+            assert _bf16_excess(first[0][big], want[big]) <= 0.0
+            torch.testing.assert_close(first[1], want_lse, rtol=1e-5,
+                                       atol=1e-5)
+            apart = 0
+            for _ in range(199):
+                apart += not all(torch.equal(a, b)
+                                 for a, b in zip(call(), first))
+            assert apart == 0, f"{apart} of 199 calls differ from the first"
+            return
         q, k, v = _cp_qkv(dev, 4, 2, 40, 8, 2, 64, torch.float32, seed=5)
         cpu = [t.cpu() for t in (q, k, v)]
         if entry == "launch_lse":

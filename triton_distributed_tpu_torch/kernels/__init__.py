@@ -143,6 +143,8 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
         if hasattr(fn, "by_tpu_kernel"):
             fn.by_tpu_kernel.clear()
+        if hasattr(fn, "by_variant"):
+            fn.by_variant.clear()
 
 
 def launches_by_tpu_kernel() -> dict:

@@ -19,8 +19,10 @@ builders; its prefill runs their XLA bodies (``ppermute`` and
 port launches two CUDA kernels (``csrc/cp_ring.cu``) from those entry
 points: ``tdt_ring_attention`` (:func:`ring_attention_launch`), the
 rotation with its consume, one launch a layer for every rank (the ring
-becomes a read of each source block through the peer tables); Ulysses'
-local attention is the same kernel on a ring of one block; and
+becomes a read of each source block in the stacked views; bf16 runs
+both products on the tensor cores, with P split into two bf16 terms so
+that the output keeps f32 accuracy, f32 runs on FMA); Ulysses' local
+attention is the same kernel on a ring of one block; and
 ``tdt_ulysses_a2a`` (:func:`ulysses_a2a`), one pull launch a tensor and
 direction for every rank. Their launches are counted by the TPU kernel
 each stood for (``_kv_rotate_kernel``, ``_ulysses_a2a_kernel``).
@@ -58,6 +60,8 @@ launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -181,9 +185,16 @@ _cp_lse_combine_cuda.by_tpu_kernel = {}
 
 #: head dims the ring kernel is built for
 RING_HEAD_DIMS = (16, 32, 64, 128)
-#: q rows a CTA of the ring kernel: 64 / G tokens times the G query heads
-#: of one KV head, so G must divide it
-RING_TILE_ROWS = 64
+#: q rows a CTA of the ring kernel, by dtype: tokens times the G query
+#: heads of one KV head, so G must divide it (bf16: two warpgroups of 64
+#: rows on the tensor cores; f32: the FMA kernel's 64)
+RING_TILE_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+#: the kernel a ``tdt_ring_attention`` call launched, by the code it
+#: reports (``RingVariant`` in ``csrc/cp_ring.cu``): the f32 FMA kernel, or
+#: the bf16 tensor-core kernel with K and V by cp.async or by TMA (the
+#: fast one; it needs every base and stride 16-byte aligned and D 64 or
+#: 128). Counted in ``ring_attention_launch.by_variant``.
+RING_VARIANTS = {0: "fma", 1: "cp_async", 2: "tma"}
 
 
 def kv_rotate_plain(blocks):
@@ -292,8 +303,12 @@ def ring_attention_launch(q, k, v, *, causal: bool, scale: float,
     S, Hq, D) tensor. Rank r's queries sit at global positions r·S + t
     and attend to every block in the ring's arrival order; n = 1 is
     dense attention over one block. ``lse``: also return each query
-    row's log-sum-exp (n, B, S, Hq) f32 (the backward's input). Counted
-    under ``_kv_rotate_kernel``."""
+    row's log-sum-exp (n, B, S, Hq) f32 (the backward's input). bf16 runs
+    on the tensor cores (``wgmma``, 128 q rows a CTA, K and V by TMA
+    where the views allow it), f32 on FMA (64 rows a CTA): G must divide
+    the dtype's :data:`RING_TILE_ROWS`. Counted under
+    ``_kv_rotate_kernel``, and by the kernel the call launched in
+    ``by_variant`` (:data:`RING_VARIANTS`)."""
     from triton_distributed_tpu_torch.kernels import _build
 
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -314,10 +329,11 @@ def ring_attention_launch(q, k, v, *, causal: bool, scale: float,
         raise ValueError(f"ring attention's kernel takes f32 or bf16 q, k "
                          f"and v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if d not in RING_HEAD_DIMS or RING_TILE_ROWS % g:
+    rows = RING_TILE_ROWS[q.dtype]
+    if d not in RING_HEAD_DIMS or rows % g:
         raise ValueError(f"ring attention's kernel is built for head dims "
                          f"{RING_HEAD_DIMS} and G = Hq / Hkv dividing "
-                         f"{RING_TILE_ROWS}, got D {d}, G {g}")
+                         f"{rows} ({q.dtype}), got D {d}, G {g}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if (x.stride(4) != 1 or any(st % 4 for st in x.stride()[:4])
                 or x.data_ptr() % (4 * x.element_size())):
@@ -328,23 +344,29 @@ def ring_attention_launch(q, k, v, *, causal: bool, scale: float,
                       device=q.device).transpose(0, 1)
     lse_t = (torch.empty((n, b, s, hq), dtype=torch.float32,
                          device=q.device) if lse else None)
-    kp, vp = block_table(k), block_table(v)
+    variant = ctypes.c_int(-1)
     fn = _build.function("tdt_ring_attention", "ppppp" + "i" * 7 + "f"
-                         + "L" * 14 + "i" + "p")
-    rc = fn(_build.ptr(q), _build.ptr(kp), _build.ptr(vp), _build.ptr(out),
+                         + "L" * 16 + "i" + "pp")
+    rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             None if lse_t is None else _build.ptr(lse_t),
             n, b, s, hkv, g, d, int(causal), float(scale),
-            *q.stride()[:4], *k.stride()[1:4], *v.stride()[1:4],
-            *out.stride()[:4], _DT_CODE[q.dtype], _build.stream(q.device))
+            *q.stride()[:4], *k.stride()[:4], *v.stride()[:4],
+            *out.stride()[:4], _DT_CODE[q.dtype], ctypes.byref(variant),
+            _build.stream(q.device))
     _build.check(rc, "tdt_ring_attention")
     ring_attention_launch.launches += 1
     ring_attention_launch.by_tpu_kernel["_kv_rotate_kernel"] = (
         ring_attention_launch.by_tpu_kernel.get("_kv_rotate_kernel", 0) + 1)
+    if variant.value in RING_VARIANTS:
+        name = RING_VARIANTS[variant.value]
+        ring_attention_launch.by_variant[name] = (
+            ring_attention_launch.by_variant.get(name, 0) + 1)
     return (out, lse_t) if lse else out
 
 
 ring_attention_launch.launches = 0
 ring_attention_launch.by_tpu_kernel = {}
+ring_attention_launch.by_variant = {}
 
 
 # --------------------------------------------------- the dp gradient ring
