@@ -11,11 +11,13 @@ Phases, all run every time:
 3. kernels: each kernel against its plain PyTorch version on seeded
    inputs at the serving steps' shapes, with its time, the plain
    version's, a PyTorch library call's, and the card's bound for the
-   same work — the dense W8A8 projections, the W8A16 lm_head and
-   attention at the shapes of the Llama-2-7B step and of the
-   DeepSeek-MoE-16B step, and the MoE step's chunked all-to-all (both
+   same work — the dense W8A8 projections, the W8A16 lm_head (at the
+   serving slots' 16 rows and the decode batch's 8, on the tensor-core
+   form) and attention at the shapes of the Llama-2-7B step and of the
+   DeepSeek-MoE-16B step, the MoE step's chunked all-to-all (both
    legs, both modes, byte-exact) and expert GEMMs (bf16 and W8A8, 64
-   experts); and the decode path's kernels at Llama-2-7B's full width:
+   experts), and the MoE router on bf16 x at 768 and 8 rows (one device
+   operation a call); and the decode path's kernels at Llama-2-7B's full width:
    flash decode (bf16 and int8, contiguous bhsd and bshd, paged at page
    128, one soft-capped case) and the world-size-1 AG-GEMM / GEMM-RS at
    the prefill's shapes; the two MoE-TP kernels (AG + grouped GEMM with
@@ -165,6 +167,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -807,35 +810,48 @@ def check_gemms(res: Results, dev, path, cfg, main: bool):
             res.shape("ggemm_w8a8", per_step, ms, plain, lib, nbytes, ops,
                       H100_INT8_OPS)
 
-    # lm_head: the slots' last rows, W8A16 with f32 logits
-    m, k, n = SLOTS, cfg.hidden, cfg.vocab
-    x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
-    w = torch.randn((1, k, n), generator=g, device=dev,
-                    dtype=torch.bfloat16) / math.sqrt(k)
-    wq, ws = gg.quantize_grouped_weights(w)
-    kw = dict(w_scale=ws, out_dtype=torch.float32)
-    out = gg.grouped_matmul(x, wq, be, **kw)
-    ref = gg.grouped_matmul_plain(x, wq, be, **kw)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    # f32 sums of exact bf16 x int8 products in another order
-    tol = 1e-5 * max(1.0, ref.abs().max().item()) * math.sqrt(k)
-    tag = f"{path} lm_head M={m} K={k} N={n}"
-    res.check("ggemm_w8a16", err, tol, tag)
-    res.kernel("ggemm_w8a16", err=err)
-    ms = time_ms(lambda: gg.grouped_matmul(x, wq, be, **kw), 20)
-    plain = time_ms(lambda: gg.grouped_matmul_plain(x, wq, be, **kw), 5)
-    wdq = gg.dequantize_grouped_weights(wq, ws, torch.bfloat16)[0]
-    lib = time_ms(lambda: torch.matmul(x, wdq), 20)
-    nbytes = 2 * m * k + k * n + 4 * n + 4 * m * n
-    ops = 2.0 * m * n * k
-    b, by = bound_ms(nbytes, ops, H100_BF16_OPS)
-    log(f"time ggemm_w8a16 {tag} (1/step): kernel_ms={ms:.4f} "
-        f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch.matmul, "
-        f"dequantized bf16 W) bound_ms={b:.4f} ({by})")
-    if main:
-        res.shape("ggemm_w8a16", 1, ms, plain, lib, nbytes, ops,
-                  H100_BF16_OPS)
+    # lm_head: the slots' last rows (serving) and the decode batch's,
+    # W8A16 with f32 logits, on the tensor-core kernel's 16-byte form
+    for m in (SLOTS, DEC_B):
+        k, n = cfg.hidden, cfg.vocab
+        x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+        w = torch.randn((1, k, n), generator=g, device=dev,
+                        dtype=torch.bfloat16) / math.sqrt(k)
+        wq, ws = gg.quantize_grouped_weights(w)
+        del w
+        kw = dict(w_scale=ws, out_dtype=torch.float32)
+        before = dict(gg._w8a16_cuda.by_variant)
+        out = gg.grouped_matmul(x, wq, be, **kw)
+        forms = {f: c - before.get(f, 0)
+                 for f, c in gg._w8a16_cuda.by_variant.items()
+                 if c != before.get(f, 0)}
+        ref = gg.grouped_matmul_plain(x, wq, be, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # f32 sums of exact bf16 x int8 products in another order
+        tol = 1e-5 * max(1.0, ref.abs().max().item()) * math.sqrt(k)
+        tag = f"{path} lm_head M={m} K={k} N={n}"
+        res.check("ggemm_w8a16", err, tol, tag)
+        res.check("ggemm_w8a16", 0 if forms == {"tc": 1} else 1, 0,
+                  f"{tag}: the tensor-core form ran ({forms})",
+                  metric="forms off")
+        res.kernel("ggemm_w8a16", err=err)
+        ms = time_ms(lambda: gg.grouped_matmul(x, wq, be, **kw), 20)
+        plain = time_ms(lambda: gg.grouped_matmul_plain(x, wq, be, **kw), 5)
+        wdq = gg.dequantize_grouped_weights(wq, ws, torch.bfloat16)[0]
+        lib = time_ms(lambda: torch.matmul(x, wdq), 20)
+        del wdq
+        nbytes = 2 * m * k + k * n + 4 * n + 4 * m * n
+        ops = 2.0 * m * n * k
+        b, by = bound_ms(nbytes, ops, H100_BF16_OPS)
+        per = 1 if m == SLOTS else 0
+        log(f"time ggemm_w8a16 {tag} ({per}/step): kernel_ms={ms:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch.matmul, "
+            f"dequantized bf16 W) bound_ms={b:.4f} ({by})")
+        if main and m == SLOTS:
+            res.shape("ggemm_w8a16", 1, ms, plain, lib, nbytes, ops,
+                      H100_BF16_OPS)
+        del wq, ws
 
 
 def attention_batch(dev, quant: bool, hkv: int, seed: int = 2):
@@ -1229,55 +1245,160 @@ def check_expert_gemms(res: Results, dev, inp):
                   H100_INT8_OPS)
 
 
+def tally_w8a16_forms():
+    """Tally the W8A16 launches of the whole run by the form each ran
+    (``_w8a16_cuda.by_variant``): every path clears the wrapper's counts
+    with ``reset_launch_counts``, which from here on first adds them to
+    the tally. Returns a function that gives the tally so far."""
+    from triton_distributed_tpu_torch import kernels
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    seen = {}
+    reset = kernels.reset_launch_counts
+
+    def add():
+        for form, c in gg._w8a16_cuda.by_variant.items():
+            seen[form] = seen.get(form, 0) + c
+        gg._w8a16_cuda.by_variant.clear()
+
+    def reset_and_tally():
+        add()
+        reset()
+
+    kernels.reset_launch_counts = reset_and_tally
+
+    def tally():
+        add()
+        return dict(seen)
+
+    return tally
+
+
+def device_ops(fn):
+    """The device operations (kernels, copies) one ``fn()`` call runs, as
+    torch.profiler sees them: [(name, launches)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(key, n) for _, key, n in device_rows(prof)[1]]
+
+
+def router_device_ops():
+    """The device operations of one ``Transformer._router_logits`` call
+    on bf16 x and the f32 router at the serving step's and the decode
+    step's rows, DeepSeek-MoE-16B's widths, as torch.profiler sees them:
+    {rows: [(name, launches)]}. Run by :func:`check_router_ops` in a
+    process of its own."""
+    import torch
+
+    from triton_distributed_tpu_torch.models import Transformer, presets
+
+    cfg = presets.deepseek_moe_16b()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    r = torch.randn((cfg.hidden, cfg.num_experts), generator=g, device=dev)
+    out = {}
+    for m in (T_PAD, DEC_B):
+        x = torch.randn((m, cfg.hidden), generator=g, device=dev).to(
+            torch.bfloat16)
+        Transformer._router_logits(x, r)
+        out[m] = device_ops(lambda: Transformer._router_logits(x, r))
+    return out
+
+
+ROUTER_OPS_CHILD = r"""
+import json
+import chip_smoke as cs
+print("OPS " + json.dumps(cs.router_device_ops()), flush=True)
+"""
+
+
+def check_router_ops(res: Results):
+    """``Transformer._router_logits`` on bf16 x and the f32 router runs
+    one device operation a call, the narrow f32 kernel (no cast), at the
+    serving step's and the decode step's rows: counted by torch.profiler
+    in a fresh process (:func:`router_device_ops`), whose first profiler
+    session neither slows this process's host work nor meets its earlier
+    ones."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", ROUTER_OPS_CHILD], cwd=here,
+                         capture_output=True, text=True, timeout=600)
+    line = next((x for x in out.stdout.splitlines() if x.startswith("OPS ")),
+                None)
+    if out.returncode or line is None:
+        res.failures.append(f"router ops: the child failed (rc "
+                            f"{out.returncode}): {out.stderr[-2000:]}")
+        return
+    for m, ops in json.loads(line[4:]).items():
+        tag = f"deepseek_moe_16b router M={m} bf16 x, f32 router"
+        log(f"device ops {tag}: {ops}")
+        res.check("ggemm_f32", abs(sum(c for _, c in ops) - 1), 0,
+                  f"{tag}: one device operation a call (profiler)",
+                  metric="ops off")
+        if not any("narrow_f32_kernel" in name for name, _ in ops):
+            res.failures.append(f"{tag}: the narrow f32 kernel did not run "
+                                f"({ops})")
+
+
 def check_router(res: Results, dev, cfg):
     """The EP block's router at the main path's shape, ``(T_PAD, H) @
-    (H, E)`` in f32 through ``Transformer._router_logits`` (the call the
-    main path makes, one launch of the float mode's f32 kernel), against
-    the f32 product. Within 1e-5 of the largest logit: 2048-term f32
-    sums in another order."""
+    (H, E)`` on bf16 x and the f32 router (the main path's operands)
+    through ``Transformer._router_logits``, the call the main path makes:
+    one counted launch of the float mode's narrow f32 kernel a call
+    (:func:`check_router_ops` counts its device operations at the end of
+    the run), against the f32 product. Within 1e-5 of the largest logit:
+    2048-term f32 sums in another order. Also at the decode paths' 8 rows
+    (timed, not a row of the kernels line)."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
     from triton_distributed_tpu_torch.kernels import launch_counts
     from triton_distributed_tpu_torch.models import Transformer
 
-    m, k, n = T_PAD, cfg.hidden, cfg.num_experts
+    k, n = cfg.hidden, cfg.num_experts
     g = torch.Generator(device=dev).manual_seed(5)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    r = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16)
-    before = launch_counts()["ggemm_f32"]
-    out = Transformer._router_logits(x, r)
-    launched = launch_counts()["ggemm_f32"] - before
-    xf, rf = x.float(), r.float()
-    ref = xf @ rf
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tag = f"deepseek_moe_16b router M={m} K={k} N={n} f32"
-    res.check("ggemm_f32", err, 1e-5 * ref.abs().max().item(), tag)
-    res.check("ggemm_f32", abs(launched - 1), 0,
-              f"{tag}: one counted launch a call", metric="launches off")
-    res.kernel("ggemm_f32", err=err)
-    # a 6 MB operand sits in L2: the timed calls cycle through 12 copies
-    xs = [x] + [torch.randn((m, k), generator=g, device=dev)
-                .to(torch.bfloat16) for _ in range(11)]
-    xfs = [t.float() for t in xs]
+    r = torch.randn((k, n), generator=g, device=dev)
     be = torch.zeros((1,), dtype=torch.int32, device=dev)
-    ms = graph_time_ms(lambda i: gg.float_gemm(xfs[i % 12], rf,
-                                               torch.float32))
-    plain = time_ms(lambda: gg.grouped_matmul_plain(xf, rf[None], be), 20)
-    lib = graph_time_ms(lambda i: xfs[i % 12] @ rf)
-    call = graph_time_ms(lambda i: Transformer._router_logits(xs[i % 12], r))
-    call_lib = graph_time_ms(lambda i: xs[i % 12].float() @ r.float())
-    del xs, xfs
-    nbytes = 4 * (m * k + k * n + m * n)
-    ops = 2.0 * m * k * n
-    b, by = bound_ms(nbytes, ops, H100_F32_OPS)
     n_moe = len(cfg.moe_layers)
-    log(f"time ggemm_f32 {tag} ({n_moe}/step): kernel_ms={ms:.4f} "
-        f"plain_ms={plain:.4f} library_ms={lib:.4f} (cuBLAS f32 matmul) "
-        f"bound_ms={b:.4f} ({by}); with the casts: _router_logits "
-        f"{call:.4f} ms, x.float() @ r.float() {call_lib:.4f} ms")
-    res.shape("ggemm_f32", n_moe, ms, plain, lib, nbytes, ops, H100_F32_OPS)
+    for m in (T_PAD, DEC_B):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        before = launch_counts()["ggemm_f32"]
+        out = Transformer._router_logits(x, r)
+        launched = launch_counts()["ggemm_f32"] - before
+        xf = x.float()
+        ref = xf @ r
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tag = f"deepseek_moe_16b router M={m} K={k} N={n} bf16 x, f32 router"
+        res.check("ggemm_f32", err, 1e-5 * ref.abs().max().item(), tag)
+        res.check("ggemm_f32", abs(launched - 1), 0,
+                  f"{tag}: one counted launch a call", metric="launches off")
+        res.kernel("ggemm_f32", err=err)
+        # a 3 MB operand sits in L2: the timed calls cycle through 12
+        # copies of x
+        xs = [x] + [torch.randn((m, k), generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(11)]
+        xfs = [t.float() for t in xs]
+        ms = graph_time_ms(lambda i: Transformer._router_logits(xs[i % 12], r))
+        plain = time_ms(lambda: gg.grouped_matmul_plain(xf, r[None], be), 20)
+        lib = graph_time_ms(lambda i: xfs[i % 12] @ r)
+        call_lib = graph_time_ms(lambda i: xs[i % 12].float() @ r)
+        del xs, xfs
+        nbytes = 2 * m * k + 4 * k * n + 4 * m * n
+        ops_n = 2.0 * m * k * n
+        b, by = bound_ms(nbytes, ops_n, H100_F32_OPS)
+        per = n_moe if m == T_PAD else 0
+        log(f"time ggemm_f32 {tag} ({per}/step): kernel_ms={ms:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (cuBLAS f32 matmul "
+            f"on x.float()) bound_ms={b:.4f} ({by}); x.float() @ r with "
+            f"the cast {call_lib:.4f} ms")
+        if m == T_PAD:
+            res.shape("ggemm_f32", n_moe, ms, plain, lib, nbytes, ops_n,
+                      H100_F32_OPS)
 
 
 # -------------------------------------------------------------- end to end
@@ -1547,7 +1668,11 @@ def device_rows(prof):
 
 
 def log_rows(name, busy, rows):
-    for us, key, n in rows[:10]:
+    """The ten kernels with the most device time, and every other
+    kernel of the port (``csrc``'s, in its anonymous namespace)."""
+    for i, (us, key, n) in enumerate(rows):
+        if i >= 10 and "(anonymous namespace)::" not in key:
+            continue
         log(f"  profile {name} {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% "
             f"x{n} {key[:90]}")
 
@@ -6138,6 +6263,7 @@ def main() -> int:
     log(f"device {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)}")
     res = Results()
+    w8a16_forms = tally_w8a16_forms()
     t0 = time.perf_counter()
     _build.lib()
     log(f"build {len(_build.sources())} sources in "
@@ -6319,6 +6445,18 @@ def main() -> int:
             res.failures.append(
                 f"{name}: {n} launches in {steps} steps, but its row "
                 f"weighs shapes of {per_step} launches a step")
+    # every bf16 W8A16 launch of the run (the lm_heads of every full-size
+    # path) on the tensor-core kernel's 16-byte form; f32 x (the tiny
+    # models) runs the FMA loop
+    check_router_ops(res)
+    forms = w8a16_forms()
+    log(f"ggemm_w8a16 launches by form over the run: {forms}")
+    res.check("ggemm_w8a16", forms.get("tc_narrow", 0), 0,
+              "bf16 launches off the tensor-core kernel's 16-byte form",
+              metric="launches")
+    if not forms.get("tc"):
+        res.failures.append("ggemm_w8a16: no launch ran the tensor-core "
+                            "form")
     log(f"smoke wall_s={time.perf_counter() - t_start:.1f}")
     if res.failures:
         for f in res.failures:

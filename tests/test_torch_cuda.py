@@ -81,6 +81,44 @@ class TestGroupedMatmulKernel:
                                    atol=tol)
 
     @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [
+        (1, 256, 1024, 1, 1), (8, 4096, 512, 8, 1), (16, 2048, 2048, 16, 1),
+        (17, 200, 100, 17, 1), (64, 70, 257, 64, 1), (64, 256, 384, 64, 1),
+        (192, 200, 100, 64, 3), (192, 256, 384, 64, 3)])
+    def test_w8a16_bf16_runs_the_tensor_cores(self, dev, out, shape):
+        """bf16 x: the int8 codes widened to bf16 and bf16 products on the
+        tensor cores, within :meth:`test_w8a16_matches_plain`'s
+        tolerances of the plain version; M of one tile (1, 8, 16) and of
+        several (17, 64, 192 over three experts), N and K ragged (N 100
+        and 257, K 70 and 200). The 16-byte form (``tc``) where K % 8
+        and N % 16 are 0, element-by-element copies (``tc_narrow``)
+        otherwise; one launch."""
+        cap, k, n, block_m, e = shape
+        x, w, be = _gemm_inputs(7, e, cap, k, n, block_m)
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        xt = _t(x, dev, torch.bfloat16)
+        kw = dict(w_scale=ws, out_dtype=getattr(torch, out))
+        gg._w8a16_cuda.by_variant.clear()
+        before = launch_counts()["ggemm_w8a16"]
+        got = gg.grouped_matmul(xt, wq, _t(be, dev), **kw)
+        assert launch_counts()["ggemm_w8a16"] == before + 1
+        form = "tc" if k % 8 == 0 and n % 16 == 0 else "tc_narrow"
+        assert gg._w8a16_cuda.by_variant == {form: 1}
+        want = gg.grouped_matmul_plain(xt, wq, _t(be, dev), **kw)
+        tol = 1e-4 if out == "float32" else 1e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+    def test_w8a16_f32_runs_the_fma_loop(self, dev):
+        """f32 x: JAX widens the weight to f32, so f32 products on the
+        FMA loop (``fma``)."""
+        x, w, be = _gemm_inputs(1, 3, 192, 200, 100, 64)
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        gg._w8a16_cuda.by_variant.clear()
+        gg.grouped_matmul(_t(x, dev), wq, _t(be, dev), w_scale=ws)
+        assert gg._w8a16_cuda.by_variant == {"fma": 1}
+
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
     @pytest.mark.parametrize("shape", [(256, 2048, 1408, 64, 4),
                                        (37, 70, 33, 37, 1),
                                        (192, 96, 136, 64, 3)])
@@ -2254,6 +2292,74 @@ def _bf16_excess(got, want):
     return ((g - w).abs() - ulp).max().item()
 
 
+def _entry_plain(fn, q, k, v):
+    """The plain version of the ring or Ulysses entry on q, k, v's own
+    device and dtype: :func:`ring_attention_plain`, and for Ulysses the
+    plain all-to-alls around it on a ring of one block (the entries'
+    composition, with the plain pieces)."""
+    if fn is tra.ring_attention:
+        return tra.ring_attention_plain(q, k, v)
+    n, hkv = q.shape[0], k.shape[3]
+    if hkv % n:
+        k, v = (t.repeat_interleave(n // hkv, dim=3) for t in (k, v))
+    qs, ks, vs = (cp_ring.ulysses_a2a_plain(t, "scatter") for t in (q, k, v))
+    _, b, s, hl, d = qs.shape
+    o = tra.ring_attention_plain(
+        *(t.reshape(1, n * b, s, t.shape[3], d) for t in (qs, ks, vs)))
+    return cp_ring.ulysses_a2a_plain(o.reshape(n, b, s, hl, d), "gather")
+
+
+def _attention_f64(q, k, v):
+    """Causal GQA attention over the ranks' stacked blocks (n, B, S, H,
+    D) in float64 on the CPU: the exact values both sides round."""
+    n, b, s, hq, d = q.shape
+    hkv = k.shape[3]
+
+    def seq(t):  # (n, B, S, H, D) -> (B, H, n·S, D)
+        return t.detach().cpu().double().transpose(0, 1).reshape(
+            b, n * s, -1, d).transpose(1, 2)
+
+    qd, kd, vd = seq(q), seq(k), seq(v)
+    kd, vd = (t.repeat_interleave(hq // hkv, dim=1) for t in (kd, vd))
+    sc = qd @ kd.transpose(-1, -2) / d ** 0.5
+    pos = torch.arange(n * s)
+    sc = sc.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    o = torch.softmax(sc, dim=-1) @ vd                 # (B, H, n·S, D)
+    return o.transpose(1, 2).reshape(b, n, s, hq, d).transpose(0, 1)
+
+
+def _ring_miss_sides(fn, q, k, v, mesh, got):
+    """Which side of an f32 ring-entry comparison moved: the card's
+    output, the plain version on the card and on the CPU, each against a
+    second run of itself and against the float64 values; each line the
+    largest difference, the elements past 1e-5 and where the largest sits
+    (rank, batch, token, head, dim)."""
+    from triton_distributed_tpu_torch.runtime import Mesh
+
+    got = got.cpu()
+    card_again = fn(q, k, v, mesh).cpu()
+    plain = _entry_plain(fn, q, k, v).cpu()
+    plain_again = _entry_plain(fn, q, k, v).cpu()
+    host = [t.cpu() for t in (q, k, v)]
+    cpu = fn(*host, Mesh.loopback(4, "cpu"))
+    cpu_again = fn(*host, Mesh.loopback(4, "cpu"))
+    exact = _attention_f64(q, k, v)
+    lines = [fn.__name__]
+    for name, a, b in (("card vs plain on the card", got, plain),
+                       ("card vs card again", got, card_again),
+                       ("plain on the card vs again", plain, plain_again),
+                       ("cpu vs cpu again", cpu, cpu_again),
+                       ("card vs float64", got, exact),
+                       ("plain on the card vs float64", plain, exact),
+                       ("cpu vs float64", cpu, exact)):
+        dif = (a.double() - b.double()).abs()
+        at = tuple(int(i) for i in torch.unravel_index(dif.argmax(),
+                                                       dif.shape))
+        lines.append(f"{name}: max {dif.max().item():.3g}, "
+                     f"{int((dif > 1e-5).sum())} past 1e-5, at {at}")
+    return "\n".join(lines)
+
+
 class TestCpPrefillKernels:
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -2371,17 +2477,30 @@ class TestCpPrefillKernels:
         the ring one launch; Ulysses four all-to-alls (q, k, v out and
         the output back) and one launch of the ring kernel on a ring of
         one block; both within 1e-5 of their plain versions in f32 (GQA,
-        the KV heads replicated for Ulysses at Hkv 2 < n 4)."""
+        the KV heads replicated for Ulysses at Hkv 2 < n 4) and of the
+        float64 attention. The plain versions run on the card: run on the
+        CPU inside a pytest process they moved now and then (two CPU runs
+        of these inputs 5.1e-5 apart on 640 elements, the card's output
+        and its plain version within 7e-7 of float64). On a miss the
+        message names the side that moved (:func:`_ring_miss_sides`)."""
         from triton_distributed_tpu_torch.runtime import Mesh
 
         mesh = Mesh.loopback(4, dev)
         q, k, v = _cp_qkv(dev, 4, 2, 40, 8, 2, 64, torch.float32, seed=5)
+        exact = _attention_f64(q, k, v)
         for fn in (tra.ring_attention, tra.ulysses_attention):
             before = launch_counts()
             got = fn(q, k, v, mesh)
             after = launch_counts()
-            want = fn(*(t.cpu() for t in (q, k, v)), Mesh.loopback(4, "cpu"))
-            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+            want = _entry_plain(fn, q, k, v)
+
+            def sides(m, fn=fn, got=got):
+                return m + "\n" + _ring_miss_sides(fn, q, k, v, mesh, got)
+
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
+                                       msg=sides)
+            torch.testing.assert_close(got.cpu().double(), exact, rtol=0,
+                                       atol=1e-5, msg=sides)
             a2a = 4 if fn is tra.ulysses_attention else 0
             assert after["ulysses_a2a"] - before["ulysses_a2a"] == a2a
             assert after["ring_attention"] - before["ring_attention"] == 1
@@ -2393,7 +2512,9 @@ class TestCpPrefillKernels:
         one entry 200 times (``launch_lse``: ``tdt_ring_attention`` with
         each row's lse): every call bit-identical to the first, out and
         lse, so no call read or wrote shared memory out of turn; the
-        first within 1e-5 of the plain version (f32). ``launch_bf16``:
+        first within 1e-5 of the plain version run on the card and of the
+        float64 attention (f32; :meth:`test_ring_entries_run_the_kernel`
+        says why not on the CPU). ``launch_bf16``:
         the tensor-core kernel with its lse at partial q and key tiles
         (129 positions a rank, G 4), the first call within the bf16
         tolerances of :meth:`test_ring_attention_matches_plain` (lse
@@ -2424,22 +2545,27 @@ class TestCpPrefillKernels:
             assert apart == 0, f"{apart} of 199 calls differ from the first"
             return
         q, k, v = _cp_qkv(dev, 4, 2, 40, 8, 2, 64, torch.float32, seed=5)
-        cpu = [t.cpu() for t in (q, k, v)]
+        fn = {"ring": tra.ring_attention,
+              "ulysses": tra.ulysses_attention}.get(entry, tra.ring_attention)
         if entry == "launch_lse":
             def call():
                 return cp_ring.ring_attention_launch(
                     q, k, v, causal=True, scale=64 ** -0.5, lse=True)
-            want = tra.ring_attention_plain(*cpu, return_lse=True)
+            want = tra.ring_attention_plain(q, k, v, return_lse=True)
         else:
-            fn = {"ring": tra.ring_attention,
-                  "ulysses": tra.ulysses_attention}[entry]
-
             def call():
                 return (fn(q, k, v, mesh),)
-            want = (fn(*cpu, Mesh.loopback(4, "cpu")),)
+            want = (_entry_plain(fn, q, k, v),)
         first = call()
+
+        def sides(m):
+            return m + "\n" + _ring_miss_sides(fn, q, k, v, mesh, first[0])
+
         for got, w in zip(first, want):
-            torch.testing.assert_close(got.cpu(), w, rtol=0, atol=1e-5)
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-5, msg=sides)
+        torch.testing.assert_close(first[0].cpu().double(),
+                                   _attention_f64(q, k, v), rtol=0,
+                                   atol=1e-5, msg=sides)
         apart = 0
         for _ in range(199):
             apart += not all(torch.equal(a, b) for a, b in zip(call(), first))
@@ -2714,6 +2840,61 @@ def test_float_gemm_narrow_tiles_equal_the_wide_ones(dev, m, k, n):
     assert torch.equal(narrow, wide)
     assert torch.equal(float_gemm(x, w[:, :n], torch.bfloat16),
                        wide.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [1, 8, 768])
+def test_router_logits_take_bf16_x_at_the_fma_bits(dev, m):
+    """``router_logits`` on bf16 x (and an f32 or a bf16 router) runs one
+    launch of the narrow f32 kernel on the operands as they are: the bits
+    of ``float_gemm`` on the widened f32 operands (bf16 -> f32 is exact),
+    which are the bits of the 64 x 64 FMA kernel (``float_gemm`` at N 128,
+    its first 64 columns), at 1, 8 and 768 rows."""
+    from triton_distributed_tpu_torch.kernels.group_gemm import (
+        float_gemm,
+        router_logits,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn((m, 2048), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((2048, 128), generator=g, device=dev)
+    wide = float_gemm(x.float(), w, torch.float32)[:, :64]
+    for r in (w[:, :64].contiguous(), w[:, :64].to(torch.bfloat16)):
+        before = launch_counts()["ggemm_f32"]
+        got = router_logits(x, r)
+        assert launch_counts()["ggemm_f32"] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (m, 64)
+        assert torch.equal(got, float_gemm(x.float(), r.float(),
+                                           torch.float32))
+        if r.dtype == torch.float32:
+            assert torch.equal(got, wide)
+
+
+def test_router_logits_repeat_bit_identical(dev):
+    """200 calls of ``router_logits`` at the serving step's shape (bf16
+    x, f32 router): every call the bits of the first."""
+    from triton_distributed_tpu_torch.kernels.group_gemm import router_logits
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((768, 2048), generator=g, device=dev).to(torch.bfloat16)
+    r = torch.randn((2048, 64), generator=g, device=dev)
+    first = router_logits(x, r)
+    apart = sum(not torch.equal(router_logits(x, r), first)
+                for _ in range(199))
+    assert apart == 0
+
+
+def test_router_logits_strided_rows(dev):
+    """x rows at a pitch wider than K (a column slice of a wider tensor)
+    and rows not 16-byte aligned: the same bits as the contiguous rows."""
+    from triton_distributed_tpu_torch.kernels.group_gemm import router_logits
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    wide = torch.randn((40, 2048 + 24), generator=g, device=dev).to(
+        torch.bfloat16)
+    r = torch.randn((2048, 64), generator=g, device=dev)
+    for x in (wide[:, :2048], wide[:, 3:2051]):
+        assert torch.equal(router_logits(x, r),
+                           router_logits(x.contiguous(), r))
 
 
 # ------------------------------------------- the routers of every MoE path

@@ -544,7 +544,8 @@ class TestEngine:
 # ----------------------------------------------------------------- hygiene
 
 PORT_FILES = sorted((ROOT / "triton_distributed_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "ab_main_path.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "ab_main_path.py",
+       ROOT / "ab_gemms.py"]
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 

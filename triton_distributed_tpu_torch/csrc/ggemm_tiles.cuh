@@ -45,8 +45,10 @@
 // registers while the current one multiplies). Both mask the ragged M,
 // N and K edges; with more than one M-block, block_m is a multiple of
 // 64, so a tile never straddles two experts. A dense f32 product at
-// N <= 64 runs narrow_f32_kernel instead: fma_kernel's sums in 8-row
-// tiles.
+// N <= 64 runs narrow_f32_kernel instead (below): fma_kernel's sums, the
+// same bits, in 32 x 16 tiles behind a cp.async ring, its operands each
+// f32 or bf16 (the MoE routers' bf16 activations, group_gemm.cu's
+// tdt_narrow_f32).
 #pragma once
 
 #include <type_traits>
@@ -498,55 +500,6 @@ fma_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
-// ------------------------------------------------ f32, narrow outputs
-// The f32 mode on a dense A at N <= BN (the MoE router: N = experts).
-// fma_kernel's 64 x 64 tiles leave most SMs idle there (12 CTAs at
-// M = 768), so 8-row tiles, each thread two rows of one column. Each
-// output is fma_kernel's sum: the same fmaf chain over k = 0, 1, ...
-// from 0, zero-padded past K to a multiple of BK, so the bits equal
-// fma_kernel's and a row's do not depend on M.
-constexpr int NBM = 8;
-
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const int* __restrict__ block_expert,
-                  OutT* __restrict__ out, int M, int K, int N, int block_m) {
-  __shared__ float As[NBM][BK + 1];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int col = tid % BN, r0 = 2 * (tid / BN);
-  const int m0 = blockIdx.y * NBM;
-  const float* __restrict__ we =
-      w + static_cast<size_t>(block_expert[m0 / block_m]) * K * N;
-  float acc0 = 0.f, acc1 = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = tid; idx < NBM * BK; idx += THREADS) {
-      const int r = idx / BK, k = k0 + idx % BK;
-      As[r][idx % BK] =
-          (m0 + r < M && k < K) ? x[static_cast<size_t>(m0 + r) * K + k] : 0.f;
-    }
-    for (int idx = tid; idx < BK * BN; idx += THREADS) {
-      const int c = idx / BN, n = idx % BN, k = k0 + c;
-      Bs[c][n] = (k < K && n < N) ? we[static_cast<size_t>(k) * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float b = Bs[k][col];
-      acc0 = fmaf(As[r0][k], b, acc0);
-      acc1 = fmaf(As[r0 + 1][k], b, acc1);
-    }
-    __syncthreads();
-  }
-  if (col < N) {
-    if (m0 + r0 < M)
-      out[static_cast<size_t>(m0 + r0) * N + col] = tdt_from_f<OutT>(acc0);
-    if (m0 + r0 + 1 < M)
-      out[static_cast<size_t>(m0 + r0 + 1) * N + col] = tdt_from_f<OutT>(acc1);
-  }
-}
-
 // ---------------------------------------------------- bf16 tensor cores
 constexpr int TBM = 64, TBN = 128, TBK = 32;
 constexpr int TC_THREADS = 128;  // 4 warps as 2 x 2, 32 x 64 outputs each
@@ -749,6 +702,231 @@ bf16_mma_kernel(const unsigned short* __restrict__ x,
     }
 }
 
+// ------------------------------------------------ f32 sums, narrow outputs
+// The f32 mode on a dense A at narrow N (the MoE routers: N = experts,
+// M = 768 packed rows a serving step, 8 rows a decode step, K = 2048).
+// Each output is fma_kernel's sum: one fmaf chain over k = 0, 1, ..., K - 1
+// from 0, zero-padded past K, so its bits equal fma_kernel's and a row's
+// bits do not depend on M (no split K: the chain is one thread's). What
+// bounds it is not the 0.2 GFLOP nor the 3 MB of operands but each
+// thread's K-long stream of FMAs and the shared-memory loads that feed
+// them: about 24 cycles a k on an H100, the same at 8 rows as at 768, the
+// same with 3 to 8 stages in flight and 32 to 128 k a stage (PERF.md).
+// So: 32 x 16 output tiles (96 CTAs at M 768, N 64; four at M 8, N cut
+// across them), 128 threads of 2 x 2 outputs, four chains a thread
+// interleaved; K in steps of 64 through a ring of stages in shared memory
+// filled by cp.async (16-byte pieces, zeros past M, N and K), the next
+// stages in flight while one multiplies, one barrier a stage. A 32-row
+// tile reads the weight once for 32 rows (8-row tiles would read the whole
+// 512 KB f32 router from L2 96 times at M 768). x and w are each f32 or
+// bf16, widened to f32 exactly as they are read from shared memory, so the
+// router takes bf16 activations without a cast. Rows of any pitch; pieces
+// narrower than 16 bytes (a row or the weight not 16-byte aligned, or
+// ragged in units of 16 bytes) are copied element by element,
+// synchronously.
+constexpr int NR_BM = 32;                         // rows a CTA
+constexpr int NR_BN = 16;                         // columns a CTA
+constexpr int NR_BK = 64;                         // k a stage
+constexpr int NR_TR = 2;                          // rows a thread
+constexpr int NR_RS = NR_BM / NR_TR;              // its rows: ty + NR_RS i
+constexpr int NR_THREADS = NR_RS * (NR_BN / 2);   // two columns a thread
+
+// the ring's depth: four stages for bf16 x, three for f32 x (its stage is
+// twice as large)
+template <typename XS>
+__host__ __device__ constexpr int nr_stages() {
+  return sizeof(XS) == 4 ? 3 : 4;
+}
+
+__device__ __forceinline__ void gg_cp_async16(void* dst, const void* src,
+                                              int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void gg_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void gg_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four consecutive elements of a row in shared memory as f32 (bf16 held
+// as its bits)
+__device__ __forceinline__ void nr_quad(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void nr_quad(const unsigned short* p,
+                                        float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+// two consecutive elements as f32
+__device__ __forceinline__ float2 nr_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 nr_pair(const unsigned short* p) {
+  const uint32_t t = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(t << 16),
+                     __uint_as_float(t & 0xffff0000u));
+}
+
+// out (M, N) = x (M, K; row pitch lda) @ w[e] (K, N), e = block_expert[m0 /
+// block_m] (expert 0 when block_expert is null). vec_x / vec_w: x's rows /
+// w's rows are 16-byte aligned and whole 16-byte pieces (cp.async).
+template <typename XS, typename WS, typename OutT>
+__global__ void __launch_bounds__(NR_THREADS)
+narrow_f32_kernel(const XS* __restrict__ x, long long lda,
+                  const WS* __restrict__ w, const int* __restrict__ block_expert,
+                  OutT* __restrict__ out, int M, int K, int N, int block_m,
+                  bool vec_x, bool vec_w) {
+  constexpr int S = nr_stages<XS>();
+  constexpr int XP = NR_BK + 16 / static_cast<int>(sizeof(XS));  // x pitch
+  constexpr int XE = 16 / static_cast<int>(sizeof(XS));  // x elements a piece
+  constexpr int WE = 16 / static_cast<int>(sizeof(WS));  // w elements a piece
+  __shared__ __align__(16) XS xs[S][NR_BM][XP];
+  __shared__ __align__(16) WS wsm[S][NR_BK][NR_BN];
+  // thread (ty, tx): rows ty + NR_RS i, columns 2tx and 2tx + 1
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int m0 = blockIdx.y * NR_BM, n0 = blockIdx.x * NR_BN;
+  const int e = block_expert ? block_expert[m0 / block_m] : 0;
+  const WS* __restrict__ we = w + static_cast<size_t>(e) * K * N;
+  const int nk = (K + NR_BK - 1) / NR_BK;
+
+  auto load = [&](int st, int k0) {
+    if (vec_x) {
+      for (int c = tid; c < NR_BM * (NR_BK / XE); c += NR_THREADS) {
+        const int r = c / (NR_BK / XE), kk = k0 + (c % (NR_BK / XE)) * XE;
+        const bool ok = m0 + r < M && kk < K;
+        gg_cp_async16(&xs[st][r][kk - k0],
+                      ok ? x + (m0 + r) * lda + kk : x, ok ? 16 : 0);
+      }
+    } else {
+      for (int c = tid; c < NR_BM * NR_BK; c += NR_THREADS) {
+        const int r = c / NR_BK, kk = k0 + c % NR_BK;
+        xs[st][r][kk - k0] = (m0 + r < M && kk < K) ? x[(m0 + r) * lda + kk]
+                                                    : XS(0);
+      }
+    }
+    if (vec_w) {
+      for (int c = tid; c < NR_BK * (NR_BN / WE); c += NR_THREADS) {
+        const int kr = c / (NR_BN / WE), nn = n0 + (c % (NR_BN / WE)) * WE;
+        const bool ok = k0 + kr < K && nn < N;
+        gg_cp_async16(&wsm[st][kr][nn - n0],
+                      ok ? we + static_cast<size_t>(k0 + kr) * N + nn : we,
+                      ok ? 16 : 0);
+      }
+    } else {
+      for (int c = tid; c < NR_BK * NR_BN; c += NR_THREADS) {
+        const int kr = c / NR_BN, nn = n0 + c % NR_BN;
+        wsm[st][kr][nn - n0] = (k0 + kr < K && nn < N)
+                                   ? we[static_cast<size_t>(k0 + kr) * N + nn]
+                                   : WS(0);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < nk) load(st, st * NR_BK);
+    gg_cp_commit();
+  }
+  float acc[NR_TR][2];
+#pragma unroll
+  for (int i = 0; i < NR_TR; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    gg_cp_wait<S - 2>();  // stage t has landed (this thread's pieces)
+    __syncthreads();      // everyone's; and stage t - 1 is consumed
+    if (t + S - 1 < nk) load((t + S - 1) % S, (t + S - 1) * NR_BK);
+    gg_cp_commit();
+    const int st = t % S;
+    const WS* __restrict__ wc = &wsm[st][0][2 * tx];
+#pragma unroll
+    for (int k = 0; k < NR_BK; k += 4) {
+      float a[NR_TR][4];
+#pragma unroll
+      for (int i = 0; i < NR_TR; ++i) nr_quad(&xs[st][ty + NR_RS * i][k], a[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float2 b = nr_pair(wc + (k + kk) * NR_BN);
+#pragma unroll
+        for (int i = 0; i < NR_TR; ++i) {
+          acc[i][0] = fmaf(a[i][kk], b.x, acc[i][0]);
+          acc[i][1] = fmaf(a[i][kk], b.y, acc[i][1]);
+        }
+      }
+    }
+  }
+  gg_cp_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int i = 0; i < NR_TR; ++i) {
+    const int m = m0 + ty + NR_RS * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + 2 * tx + j;
+      if (n < N) out[static_cast<size_t>(m) * N + n] = tdt_from_f<OutT>(acc[i][j]);
+    }
+  }
+}
+
+template <typename XS, typename WS>
+int launch_narrow_f32_t(const void* x, long long lda, const void* w,
+                        const int* be, void* out, int M, int K, int N,
+                        int block_m, int out_dtype, cudaStream_t s) {
+  const XS* xp = static_cast<const XS*>(x);
+  const WS* wp = static_cast<const WS*>(w);
+  const bool vec_x = (reinterpret_cast<uintptr_t>(xp) & 15) == 0 &&
+                     (lda * static_cast<long long>(sizeof(XS))) % 16 == 0 &&
+                     (K * static_cast<long long>(sizeof(XS))) % 16 == 0;
+  const bool vec_w = (reinterpret_cast<uintptr_t>(wp) & 15) == 0 &&
+                     (N * static_cast<long long>(sizeof(WS))) % 16 == 0;
+  const dim3 grid((N + NR_BN - 1) / NR_BN, (M + NR_BM - 1) / NR_BM);
+  if (out_dtype == TDT_F32)
+    narrow_f32_kernel<XS, WS, float><<<grid, NR_THREADS, 0, s>>>(
+        xp, lda, wp, be, static_cast<float*>(out), M, K, N, block_m, vec_x,
+        vec_w);
+  else if (out_dtype == TDT_BF16)
+    narrow_f32_kernel<XS, WS, __nv_bfloat16><<<grid, NR_THREADS, 0, s>>>(
+        xp, lda, wp, be, static_cast<__nv_bfloat16*>(out), M, K, N, block_m,
+        vec_x, vec_w);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// narrow_f32_kernel on x (M, K) at row pitch lda and w (E, K, N), each
+// TDT_F32 or TDT_BF16; out (M, N) TDT_F32 or TDT_BF16. be: the block ->
+// expert table (null: one expert). Returns the launch's cudaGetLastError().
+inline int launch_narrow_f32(const void* x, long long lda, const void* w,
+                             const int* be, void* out, int M, int K, int N,
+                             int block_m, int x_dtype, int w_dtype,
+                             int out_dtype, cudaStream_t s) {
+  if (x_dtype == TDT_F32 && w_dtype == TDT_F32)
+    return launch_narrow_f32_t<float, float>(x, lda, w, be, out, M, K, N,
+                                             block_m, out_dtype, s);
+  if (x_dtype == TDT_BF16 && w_dtype == TDT_F32)
+    return launch_narrow_f32_t<unsigned short, float>(x, lda, w, be, out, M, K,
+                                                     N, block_m, out_dtype, s);
+  if (x_dtype == TDT_F32 && w_dtype == TDT_BF16)
+    return launch_narrow_f32_t<float, unsigned short>(x, lda, w, be, out, M, K,
+                                                     N, block_m, out_dtype, s);
+  if (x_dtype == TDT_BF16 && w_dtype == TDT_BF16)
+    return launch_narrow_f32_t<unsigned short, unsigned short>(
+        x, lda, w, be, out, M, K, N, block_m, out_dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The float mode on `rows`: x and w both TDT_BF16 (tensor cores) or
 // both TDT_F32 (FMA); out_dtype TDT_F32 or TDT_BF16. `a_aligned` /
 // `b_aligned`: every A row / the weights start on a 16-byte boundary
@@ -780,18 +958,9 @@ int launch_float_ggemm_z(const void* x, const void* w, const int* be,
     const float* xf = static_cast<const float*>(x);
     const float* wf = static_cast<const float*>(w);
     if constexpr (std::is_same<Rows, DenseRows>::value) {
-      if (N <= BN && nz == 1 &&
-          (out_dtype == TDT_F32 || out_dtype == TDT_BF16)) {
-        dim3 ngrid(1, (M + NBM - 1) / NBM);
-        if (out_dtype == TDT_F32)
-          narrow_f32_kernel<float><<<ngrid, THREADS, 0, s>>>(
-              xf, wf, be, static_cast<float*>(out), M, K, N, block_m);
-        else
-          narrow_f32_kernel<__nv_bfloat16><<<ngrid, THREADS, 0, s>>>(
-              xf, wf, be, static_cast<__nv_bfloat16*>(out), M, K, N,
-              block_m);
-        return static_cast<int>(cudaGetLastError());
-      }
+      if (N <= BN && nz == 1)
+        return launch_narrow_f32(xf, K, wf, be, out, M, K, N, block_m,
+                                 TDT_F32, TDT_F32, out_dtype, s);
     }
     if (out_dtype == TDT_F32)
       fma_kernel<float, float, float, Rows><<<grid, THREADS, 0, s>>>(

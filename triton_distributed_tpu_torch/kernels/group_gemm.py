@@ -4,9 +4,11 @@ Port of ``triton_distributed_tpu/kernels/group_gemm.py`` in three modes:
 
 * **float** (``w_scale=None``): x and w both bf16 or both f32, f32
   accumulation, stored to ``out_dtype`` — the TPU's ``_ggemm_kernel``;
-* **W8A16** (``w_scale`` only): x bf16/f32, w int8, f32 accumulation,
-  ``acc · w_scale[e, n]`` stored straight to ``out_dtype`` — the TPU's
-  ``_ggemm_q_kernel``.
+* **W8A16** (``w_scale`` only): x bf16/f32, w int8 widened to x's dtype
+  (as JAX's ``x @ w.astype(x.dtype)``), f32 accumulation, ``acc ·
+  w_scale[e, n]`` stored straight to ``out_dtype`` — the TPU's
+  ``_ggemm_q_kernel``. bf16 x runs on the tensor cores, f32 x on FMAs
+  (:data:`W8A16_VARIANTS`).
 * **W8A8** (``w_scale`` and ``x_scale``): x int8 from
   :func:`quantize_act_rows`, s8×s8→s32, ``acc · x_scale[m] ·
   w_scale[e, n]`` — the TPU's ``_ggemm_q8a_kernel``.
@@ -19,10 +21,13 @@ rank). The fp8 weight mode is not ported.
 On a CUDA tensor :func:`grouped_matmul` launches the hand-written
 kernels of ``csrc/group_gemm.cu`` (built on first use); on a CPU tensor
 it runs :func:`grouped_matmul_plain`, the plain PyTorch version of the
-same arithmetic.
+same arithmetic. :func:`router_logits` is the MoE routers' f32 product
+on the float mode's narrow kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -33,6 +38,13 @@ from triton_distributed_tpu_torch.config import div_scalar, to_torch_dtype
 KERNEL_BM = 64
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the kernel a W8A16 launch ran, as ``tdt_ggemm_w8a16`` reports it
+#: (``W8a16Variant`` of ``csrc/group_gemm.cu``): bf16 x on the tensor
+#: cores, with 16-byte copies (``tc``) or, where a row is not whole
+#: aligned 16-byte pieces, element by element (``tc_narrow``); f32 x on
+#: the FMA loop (``fma``). Counted in ``_w8a16_cuda.by_variant``.
+W8A16_VARIANTS = {0: "fma", 1: "tc", 2: "tc_narrow"}
 
 
 def quantize_act_rows(x):
@@ -206,12 +218,17 @@ def _w8a16_cuda(x, w, block_expert, w_scale, out_dtype, cap, k, n,
         raise ValueError("W8A16 w_scale must be float32")
     dev = _cuda_common((x, w, w_scale), block_expert, cap, block_m)
     out = torch.empty((cap, n), dtype=out_dtype, device=dev)
-    fn = _build.function("tdt_ggemm_w8a16", "ppppp" + "iiiiii" + "p")
+    variant = ctypes.c_int(-1)
+    fn = _build.function("tdt_ggemm_w8a16", "ppppp" + "iiiiii" + "pp")
     rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(w_scale),
             _build.ptr(block_expert), _build.ptr(out), cap, k, n, block_m,
-            _DT_CODE[x.dtype], _DT_CODE[out_dtype], _build.stream(dev))
+            _DT_CODE[x.dtype], _DT_CODE[out_dtype], ctypes.byref(variant),
+            _build.stream(dev))
     _build.check(rc, "tdt_ggemm_w8a16")
     _w8a16_cuda.launches += 1
+    if variant.value in W8A16_VARIANTS:
+        name = W8A16_VARIANTS[variant.value]
+        _w8a16_cuda.by_variant[name] = _w8a16_cuda.by_variant.get(name, 0) + 1
     return out
 
 
@@ -247,15 +264,45 @@ def float_gemm(a, b, out_dtype=None, *, counted=False):
 
 def router_logits(x, router):
     """A MoE block's f32 router product, ``x.float() @ router.float()``
-    (JAX: an XLA dot). On CUDA tensors on the float-mode kernel (one
-    expert, counted as ``ggemm_f32``): every row's sums run in one K
-    order whatever the batch, so a row's route does not depend on the
+    (JAX: an XLA dot). On CUDA tensors one launch of the float mode's
+    narrow kernel (one expert, counted as ``ggemm_f32``) on x and the
+    router as they are, each f32 or bf16 (widened exactly in the
+    kernel: no cast), x's rows at any pitch: every row's sums run in one
+    K order whatever the batch, so a row's route does not depend on the
     rows packed beside it (cuBLAS picks its algorithm, and so its
-    summation order, by the batch's shape). On CPU tensors the plain
+    summation order, by the batch's shape), and they are the bits of
+    :func:`float_gemm` on the widened operands. On CPU tensors the plain
     product."""
     if x.device.type == "cpu":
         return x.float() @ router.float()
-    return float_gemm(x.float(), router.float(), torch.float32, counted=True)
+    return _router_cuda(x, router)
+
+
+def _router_cuda(x, router):
+    from triton_distributed_tpu_torch.kernels import _build
+
+    if x.dim() != 2 or router.dim() != 2 or x.shape[1] != router.shape[0]:
+        raise ValueError(f"router_logits takes x (M, K) and a (K, N) router, "
+                         f"got {tuple(x.shape)} and {tuple(router.shape)}")
+    if x.dtype not in _DT_CODE or router.dtype not in _DT_CODE:
+        raise ValueError(f"router_logits' kernel takes f32 or bf16 x and "
+                         f"router, got {x.dtype} and {router.dtype}")
+    if x.device.type != "cuda" or router.device != x.device:
+        raise ValueError(f"router_logits runs on CPU or CUDA tensors on one "
+                         f"device, got {x.device} and {router.device}")
+    if x.stride(1) != 1 and x.shape[1] > 1:
+        x = x.contiguous()
+    router = router.contiguous()
+    m, k = x.shape
+    n = router.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = _build.function("tdt_narrow_f32", "pLpp" + "iiiii" + "p")
+    rc = fn(_build.ptr(x), max(x.stride(0), k), _build.ptr(router),
+            _build.ptr(out), m, k, n, _DT_CODE[x.dtype],
+            _DT_CODE[router.dtype], _build.stream(x.device))
+    _build.check(rc, "tdt_narrow_f32")
+    _ggemm_f_cuda.launches_f32 += 1
+    return out
 
 
 def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
@@ -271,6 +318,7 @@ def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
 #: mode counts its bf16 (tensor-core) and f32 (FMA) kernels apart
 _w8a8_cuda.launches = 0
 _w8a16_cuda.launches = 0
+_w8a16_cuda.by_variant = {}
 _ggemm_f_cuda.launches_bf16 = 0
 _ggemm_f_cuda.launches_f32 = 0
 
