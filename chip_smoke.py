@@ -33,7 +33,9 @@ Phases, all run every time:
    bf16 GEMM's excess check) and int8-mxu (bit-exact), the GEMM-RS on
    fp8 / int8 (wo, down; the fold on the plain partials bit-exact, the
    whole within a stated bound of code steps) and the fp8 all-gather
-   (byte-exact); and the MoE-TP wires at the MoE wire path's shapes
+   (byte-exact), every launch of the fp8 / int8 AG-GEMM and of the
+   GEMM-RS partials on the warpgroup GEMM (``wgmma``), ptxas's spills
+   for it none; and the MoE-TP wires at the MoE wire path's shapes
    (DeepSeek-MoE-16B at tp = 4, 20480 sorted rows a shard, an outlier
    token a shard): the quantizer on the sorted slabs (byte-exact), the
    AG kernels on fp8 / int8 (the bf16 GEMM's excess check, per row) and
@@ -2114,6 +2116,59 @@ def _row_excess(out, ref):
     return over, err
 
 
+def ptxas_report(name: str):
+    """What ptxas printed for the kernels whose (mangled) name holds
+    ``name`` in the current build (``_build.build_log``): one (kernel,
+    registers, spill store bytes, spill load bytes) a kernel, and
+    ptxas's lines about them that say "serialized" (a ``wgmma`` pipeline
+    it could not keep asynchronous)."""
+    import re
+
+    from triton_distributed_tpu_torch.kernels import _build
+
+    rows, notes, cur = [], [], None
+    for line in _build.build_log().splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            cur = hit.group(1) if name in hit.group(1) else None
+            if cur:
+                rows.append([cur, None, 0, 0])
+            continue
+        if name in line and "serialized" in line:
+            notes.append(line.strip())
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            rows[-1][2:] = [int(spill.group(1)), int(spill.group(2))]
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows[-1][1] = int(used.group(1))
+    return [tuple(r) for r in rows], notes
+
+
+def wg_forms():
+    """The launches of the two entries on the warpgroup GEMM's routes by
+    the form each ran (``by_variant``), as {entry: {form: n}}."""
+    from triton_distributed_tpu_torch.kernels import ag_gemm as agm
+    from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+
+    return {"ag_gemm_wire": dict(agm.ag_gemm_w_launch.by_variant),
+            "gemm_rs_wire": dict(grs.gemm_rs_partials.by_variant)}
+
+
+def check_wg_forms(res: Results, what, want: dict):
+    """Fail unless every launch of the two entries since their tallies
+    were cleared ran the ``wgmma`` form, ``want[entry]`` times."""
+    forms = wg_forms()
+    log(f"forms {what}: " + " ".join(f"{k}={v}" for k, v in forms.items()))
+    for entry, n in want.items():
+        if forms[entry] != {"wgmma": n}:
+            res.failures.append(f"{what}: {entry} launches by form "
+                                f"{forms[entry]}, expected {n} on wgmma")
+
+
 def check_wire_kernels(res: Results, dev):
     """The quantized-wire kernels over a loopback mesh of 4 ranks at the
     wire path's shapes (Llama-2-7B's widths, 4 x 2048 rows, an outlier
@@ -2129,7 +2184,11 @@ def check_wire_kernels(res: Results, dev):
     all-gather on fp8 (byte-exact). Each row weighs its shapes by their
     launches in the wire path's run; a wrapper's whole call (the
     quantizer included, and for int8-mxu the per-column quantization of
-    B in torch ops) is logged as call_ms beside its kernel's time."""
+    B in torch ops) is logged as call_ms beside its kernel's time. The
+    fp8 / int8 AG-GEMM and the partials run the warpgroup GEMM
+    (``csrc/wg_gemm.cuh``): each checked launch logs its form, every
+    launch of the phase must be ``wgmma``, and ptxas's registers and
+    spills for that kernel are logged (a spill fails the run)."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import ag_gemm as agm
@@ -2145,6 +2204,24 @@ def check_wire_kernels(res: Results, dev):
     g = torch.Generator(device=dev).manual_seed(13)
     x = wire_operands(dev, g, (m, h), outlier=True)
     tag0 = f"llama_7b tp={TP} wire"
+    kernels, notes = ptxas_report("wg_gemm_kernel")
+    for name, regs, st, ld in kernels:
+        log(f"ptxas {name}: {regs} registers, spill stores {st} B, spill "
+            f"loads {ld} B")
+        res.check("wg_gemm_kernel", st + ld, 0, f"{tag0} ptxas spills of "
+                  f"{name}", metric="bytes")
+    for note in notes:
+        log(f"ptxas note: {note}")
+    if not kernels:
+        log("ptxas: the build log names no wg_gemm_kernel (built without "
+            "-Xptxas=-v)")
+    agm.ag_gemm_w_launch.by_variant.clear()
+    grs.gemm_rs_partials.by_variant.clear()
+
+    def form_of(fn, before):
+        """The form of the one launch of ``fn`` since ``before``."""
+        return ",".join(k for k, v in fn.by_variant.items()
+                        if v != before.get(k, 0))
 
     # the quantizer: the AG-GEMMs' chunks (fp8 and int8 at 64 rows, and
     # int8-mxu at JAX's fused row block, 512 rows here; 64 launches a
@@ -2229,13 +2306,15 @@ def check_wire_kernels(res: Results, dev):
                          f"{cols_ms:.4f} ms of it)")
                 del cols, codes, rs, bcol, bqt, bs
             else:
+                before = dict(agm.ag_gemm_w_launch.by_variant)
                 out = agm.ag_gemm_w_launch(x, q, sc, b, mesh, fmt, bf16)
                 ref = agm.ag_gemm_wired_plain(x, pairs, b, fmt,
                                               torch.float32)
                 torch.cuda.synchronize()
                 over, err = _row_excess(out, ref)
-                res.check(name, over, GG_ATOL, tag, metric="max over rows "
-                          "of max(|err|-2^-8|ref|)/rowmax|ref|")
+                res.check(name, over, GG_ATOL, tag + " form=" + form_of(
+                    agm.ag_gemm_w_launch, before), metric="max over rows "
+                    "of max(|err|-2^-8|ref|)/rowmax|ref|")
                 ms = time_ms(lambda: agm.ag_gemm_w_launch(
                     x, q, sc, b, mesh, fmt, bf16), 3)
                 plain_ms = time_ms(lambda: agm.ag_gemm_wired_plain(
@@ -2271,12 +2350,14 @@ def check_wire_kernels(res: Results, dev):
         b = wire_operands(dev, g, (k, h), (TP * k) ** -0.5)
         a_st, b_st = torch.stack(a), torch.stack(b)
         tag = f"{tag0} {what} A_q {TP} x {(TP * m, k)} B_q {TP} x {(k, h)}"
+        before = dict(grs.gemm_rs_partials.by_variant)
         parts = grs.gemm_rs_partials(a, b, mesh, bf16)
         ref = [aq.float() @ bq.float() for aq, bq in zip(a, b)]
         torch.cuda.synchronize()
         over, err = _row_excess(parts, ref)
         del ref
-        res.check("gemm_rs_wire", over, GG_ATOL, tag + " partials",
+        res.check("gemm_rs_wire", over, GG_ATOL, tag + " partials form="
+                  + form_of(grs.gemm_rs_partials, before),
                   metric="max over rows of max(|err|-2^-8|ref|)/"
                   "rowmax|ref|")
         res.kernel("gemm_rs_wire", err=err)
@@ -2356,6 +2437,9 @@ def check_wire_kernels(res: Results, dev):
     res.shape("all_gather_wire", len(WIRES), ms, plain_ms, lib, nbytes, 0.0,
               H100_BF16_OPS)
     del x, wired, pairs, q, sc
+    # every launch of the phase (checks, times, whole calls) on wgmma
+    check_wg_forms(res, f"{tag0} kernels", {
+        e: sum(v.values()) for e, v in wg_forms().items()})
 
 
 def a2a_mesh_inputs(dev, m_rank: int, seed: int):
@@ -4285,7 +4369,8 @@ def run_wire_path(res: Results, dev):
     layer's MLP output, on each wire, all-gathered on 'auto' over the
     ring (16 MiB a shard: fp8) within 0.06. Counts every launch of the run: each wire
     kernel must launch 32 times a layer op it carries, the plain GEMMs
-    never. Returns {kernel: launches}. On the loopback mesh no byte
+    never, and every launch of the wire AG-GEMM and of the partials must
+    run the warpgroup GEMM (``wgmma``). Returns {kernel: launches}. On the loopback mesh no byte
     crosses a link: the run shows the wires' numerics and cost."""
     import torch
 
@@ -4361,6 +4446,9 @@ def run_wire_path(res: Results, dev):
         if v != expect.get(k, 0):
             res.failures.append(f"{name}: {v} {k} launches, expected "
                                 f"{expect.get(k, 0)}")
+    # the fp8 / int8 AG-GEMMs and every partials launch on wgmma
+    check_wg_forms(res, name, {"ag_gemm_wire": expect["ag_gemm_wire"],
+                               "gemm_rs_wire": expect["gemm_rs_wire"]})
     for (wire, op), err in worst.items():
         if wire == "twin":
             res.check(name, err, WIRE_MX_TWIN_TOL, f"int8-mxu vs int8 {op} "

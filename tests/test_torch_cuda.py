@@ -1099,6 +1099,124 @@ class TestWireKernels:
         assert after["wire_quantize"] == before["wire_quantize"] + 1
 
 
+class TestWgmmaGemm:
+    """The warpgroup GEMM (``csrc/wg_gemm.cuh``: ``wgmma`` fed by TMA) of
+    the wire AG-GEMM and the GEMM-RS wire's partials, at shapes that take
+    it (m a multiple of 128 rows): a ragged N, a K tail past a 64-deep
+    stage, 1, 2 and 4 ranks, an outlier row (x1000) in shard 0 and zero
+    rows at the end of the last shard, bf16 and f32 outputs. Each launch
+    must report the ``wgmma`` form."""
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", [(128, 208, 136, 64),
+                                       (256, 512, 2752, 1)])
+    def test_ag_gemm_w_wgmma_matches_plain(self, dev, shape, w, wire, out):
+        """(m, K, N, chunk rows): rank r's own tiles from its bf16 shard, a
+        peer's from its codes converted in registers; against the plain
+        version on the same codes, within f32 summation order (per row)
+        and one rounding of the output; a zero row of A gives an exact
+        zero row."""
+        from triton_distributed_tpu_torch.kernels import wire as wk
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n, cr = shape
+        odt = getattr(torch, out)
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, m, k, torch.bfloat16, 51)
+        rng = np.random.default_rng(52)
+        b = [x / np.sqrt(k) for x in _mesh_shards(rng, dev, w, (k, n),
+                                                  torch.bfloat16, False)]
+        fmt = tw.WireFormat(wire, cr)
+        q, sc = wk.quantize_shards(a, fmt)
+        agm.ag_gemm_w_launch.by_variant.clear()
+        got = agm.ag_gemm_w_launch(a, q, sc, b, mesh, fmt, odt)
+        assert agm.ag_gemm_w_launch.by_variant == {"wgmma": 1}
+        want = agm.ag_gemm_wired_plain(a, list(zip(q, sc)), b, fmt,
+                                       torch.float32)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == odt and g.shape == (w * m, n)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, out == "bfloat16")).all()
+            # the last shard's zero rows (the output is in gathered order)
+            assert torch.equal(g[-8:], torch.zeros_like(g[-8:]))
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", [(128, 200, 136), (128, 2752, 512)])
+    def test_gemm_rs_partials_wgmma(self, dev, shape, w, out):
+        """(m, K, N): every rank's A_r @ B_r within f32 summation order
+        (per row) and one rounding; the fold of the kernel's partials on
+        fp8 and int8 equals the plain fold of them bit for bit, and so
+        does the whole wire (from 2 ranks)."""
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m, k, n = shape
+        odt = getattr(torch, out)
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, w * m, k, torch.bfloat16, 53)
+        rng = np.random.default_rng(54)
+        b = [x / np.sqrt(w * k) for x in _mesh_shards(
+            rng, dev, w, (k, n), torch.bfloat16, False)]
+        grs.gemm_rs_partials.by_variant.clear()
+        parts = grs.gemm_rs_partials(a, b, mesh, odt)
+        assert grs.gemm_rs_partials.by_variant == {"wgmma": 1}
+        torch.cuda.synchronize()
+        for p, aq, bq in zip(parts, a, b):
+            ref = aq.float() @ bq.float()
+            assert p.dtype == odt and p.shape == (w * m, n)
+            assert ((p.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, out == "bfloat16")).all()
+        assert torch.equal(parts[-1][-8:], torch.zeros_like(parts[-1][-8:]))
+        for wire in ("fp8", "int8"):
+            fmt = tw.make_wire_format(wire, m)
+            folded = grs.gemm_rs_fold(parts, mesh, fmt, odt)
+            want = grs.gemm_rs_fold_plain(parts, fmt, odt)
+            whole = (grs.gemm_rs(a, b, mesh, wire_dtype=wire,
+                                 out_dtype=odt) if w > 1 else want)
+            torch.cuda.synchronize()
+            for d in range(w):
+                assert torch.equal(folded[d], want[d])
+                assert torch.equal(whole[d], want[d])
+        assert grs.gemm_rs_partials.by_variant == {"wgmma": 1 + (w > 1) * 2}
+
+    def test_form_follows_alignment(self, dev):
+        """The same shape on shards one 16-byte piece off their boundary
+        (views 8 bytes in) takes the tile loops; aligned, the warpgroup
+        GEMM; both within the same tolerance."""
+        from triton_distributed_tpu_torch.kernels import wire as wk
+        from triton_distributed_tpu_torch.lang import wire as tw
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        w, m, k, n = 2, 128, 256, 256
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, m, k, torch.bfloat16, 55)
+        rng = np.random.default_rng(56)
+        b = [x / 16 for x in _mesh_shards(rng, dev, w, (k, n),
+                                          torch.bfloat16, True)]
+        off = [torch.empty(k * n + 4, dtype=torch.bfloat16, device=dev)
+               [4:].view(k, n) for _ in b]
+        for o, x in zip(off, b):
+            o.copy_(x)
+        fmt = tw.WireFormat("fp8", 64)
+        q, sc = wk.quantize_shards(a, fmt)
+        want = agm.ag_gemm_wired_plain(a, list(zip(q, sc)), b, fmt,
+                                       torch.float32)
+        for bb, form in ((b, "wgmma"), (off, "mma_sync")):
+            agm.ag_gemm_w_launch.by_variant.clear()
+            got = agm.ag_gemm_w_launch(a, q, sc, bb, mesh, fmt,
+                                       torch.bfloat16)
+            assert agm.ag_gemm_w_launch.by_variant == {form: 1}
+            torch.cuda.synchronize()
+            for g, ref in zip(got, want):
+                assert ((g.float() - ref).abs()
+                        <= _gemm_tol_rows(ref, k, True)).all()
+
+
 def test_tp_prefill_generate_on_card_equals_cpu(dev):
     """The tiny f32 and int8 models at tp = 4 on a loopback mesh on the
     card and on the CPU, from the same weights: the prefill logits within

@@ -23,17 +23,20 @@
 //
 // Design (right and simple first): the tile loops of ggemm_tiles.cuh
 // (bf16 on mma.sync, f32 on FMA) with the PeerRows row source; no
-// overlap of the gather with the product, no wgmma, no TMA. The ring's
-// overlap needs a persistent grid or the copy engine as producer and
-// comes with the push-and-signal redesign.
+// overlap of the gather with the product. The ring's overlap needs a
+// persistent grid or the copy engine as producer and comes with the
+// push-and-signal redesign.
 //
 // The quantized wires (tdt_ag_gemm_w, tdt_ag_gemm_mx) replace
 // _fused_kernel_w (:266) and _fused_kernel_mx (:309). Their wrapper
 // quantizes every rank's shard first (tdt_quantize_slab, wire.cu: codes
 // (W, m, K), one f32 scale a chunk of rows), as JAX quantizes on the XLA
-// side before its kernels. _w: the tile loops over PeerRowsQ, rank r's
-// own shard exact, a peer's rows its codes times the chunk scale rounded
-// to A's dtype (the receiver's dequantize), f32 sums. _mx: every slab's
+// side before its kernels. _w: rank r's own shard exact, a peer's rows
+// its codes times the chunk scale rounded to A's dtype (the receiver's
+// dequantize), f32 sums; on the warpgroup GEMM of wg_gemm.cuh (wgmma fed
+// by TMA, a peer's codes converted in registers into wgmma's A fragment)
+// where wg_form_ok holds, which the wire path's shapes do, else the tile
+// loops over PeerRowsQ. _mx: every slab's
 // int8 codes (the own one too, PeerRowsMx) against the per-column int8
 // weight, exact s32 sums, epilogue (acc * row scale) * column scale. On
 // the loopback mesh no byte crosses
@@ -44,6 +47,7 @@
 // the wrapper hands B over transposed, (N, K) a rank.
 
 #include "s8_tiles.cuh"
+#include "wg_gemm.cuh"
 
 extern "C" {
 
@@ -76,17 +80,34 @@ int tdt_ag_gemm(const void* a_peers, const void* w_peers,
 // The fp8 / int8 wire: a_peers as for tdt_ag_gemm (rank r's own shard,
 // read exact); q: (world, m, K) wire codes, s: (world, m / chunk_rows)
 // f32 scales (tdt_quantize_slab of every shard); quant TDT_WIRE_FP8 or
-// TDT_WIRE_INT8; the rest as for tdt_ag_gemm.
+// TDT_WIRE_INT8; a_host / w_host / out_host: the three peer tables' world
+// pointers in host memory (the warpgroup form's tensor maps); wgmma: run
+// the warpgroup form (the caller's choice by wg_form_ok's rule; refused
+// where it fails), else the tile loops; *form: the MeshGemmForm launched;
+// the rest as for tdt_ag_gemm.
 int tdt_ag_gemm_w(const void* a_peers, const void* q, const void* s,
                   const void* w_peers, const void* out_peers,
-                  const void* zero, int m, int K, int N, int world,
+                  const void* zero, const void* a_host, const void* w_host,
+                  const void* out_host, int m, int K, int N, int world,
                   int rank0, int nranks, int chunk_rows, int quant,
-                  int x_dtype, int out_dtype, int aligned, void* stream) {
+                  int x_dtype, int out_dtype, int aligned, int wgmma,
+                  int* form, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (m <= 0 || N <= 0 || nranks <= 0) return 0;
   if (chunk_rows <= 0 || m % chunk_rows ||
       (quant != TDT_WIRE_FP8 && quant != TDT_WIRE_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_gemm<WgPeerRowsQ>(
+        static_cast<const unsigned long long*>(a_host), m,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host), q,
+        static_cast<const float*>(s), m, K, N, world, rank0, nranks,
+        chunk_rows, quant, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerRowsQ rows{static_cast<const unsigned long long*>(a_peers),
                        static_cast<const uint8_t*>(q),
                        static_cast<const float*>(s),

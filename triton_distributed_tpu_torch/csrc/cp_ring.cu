@@ -37,10 +37,7 @@
 // four elements a lane (8- or 16-byte loads where the strides allow it,
 // one element at a time otherwise).
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "tdt_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -542,10 +539,6 @@ struct TcTiles {
   static constexpr int bytes = 2 * TC_STAGES * KV + Q + 1024;  // + alignment
 };
 
-__device__ __forceinline__ uint32_t tc_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes from global to shared memory, in flight until waited for: one
 // 16-byte copy where src is 16-byte aligned, two 8-byte ones otherwise
 // (the wrapper guarantees 8); zeros where !ok (src then only names a
@@ -638,59 +631,9 @@ __device__ __forceinline__ void tc_load_kv(char* dst, Row row,
   }
 }
 
-// the mbarriers of the TMA stages (`count` arrivals a phase)
-__device__ __forceinline__ void tc_bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(tc_smem(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void tc_bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(tc_smem(bar)) : "memory");
-}
-
 // a barrier of the TC_THREADS consumer threads (the producer warp is not in it)
 __device__ __forceinline__ void tc_consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(TC_THREADS) : "memory");
-}
-
-__device__ __forceinline__ void tc_bar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(tc_smem(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tc_bar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nTC_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra TC_DONE;\nbra TC_WAIT;\nTC_DONE:\n}\n"
-      :: "r"(tc_smem(bar)), "r"(parity) : "memory");
-}
-
-// one TMA box of the (n, B, S, Hkv, D) map: 64 elements of D from d0, 64
-// tokens from t0, of (src, bb, h), into dst (tokens past S land as zeros)
-__device__ __forceinline__ void tc_tma(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int d0, int h, int t0,
-                                       int bb, int src) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
-      :: "r"(tc_smem(dst)), "l"(map), "r"(tc_smem(bar)), "r"(d0), "r"(h),
-         "r"(t0), "r"(bb), "r"(src)
-      : "memory");
-}
-
-__device__ __forceinline__ void tc_ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(tc_smem(p)));
-}
-
-// (x, y) rounded to a bf16 pair, x in the low half (mma's A element order)
-__device__ __forceinline__ uint32_t tc_bf16x2(float x, float y) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(y), "f"(x));
-  return r;
 }
 
 // (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi): x - hi.x
@@ -700,17 +643,6 @@ __device__ __forceinline__ void tc_split(float x, float y, uint32_t& hi,
   hi = tc_bf16x2(x, y);
   lo = tc_bf16x2(x - __uint_as_float(hi << 16),
                  y - __uint_as_float(hi & 0xffff0000u));
-}
-
-// wgmma's shared-memory operand descriptor: the start address, `lbo` and
-// `sbo` the byte strides between core matrices (without swizzle: along K
-// and along M / N), `swz` 1 for the 128-byte swizzle (0: none)
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
-                                            uint32_t sbo, int swz) {
-  return static_cast<uint64_t>((tc_smem(p) >> 4) & 0x3FFF) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(swz) << 62;
 }
 
 // B of S = Q K^T, k-step kd (D elements kd * 16 ..): K's keys are wgmma's
@@ -730,102 +662,6 @@ __device__ __forceinline__ uint64_t tc_vdesc(const char* v, int kk) {
   return TMA ? wg_desc(v + kk * 2048, 8192, 1024, 1)
              : wg_desc(v + kk * 256, 128, TC_BK * 16, 0);
 }
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-// the registers a product reads or writes, pinned in program order against
-// wg_fence and the waits (the compiler would otherwise be free to move a
-// plain read or write of them across those)
-template <int N>
-__device__ __forceinline__ void wg_pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void wg_pin(uint32_t (&d)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
-}
-
-// the warpgroup's products issued since the last commit are done, and
-// their accumulators may be read
-template <int N>
-__device__ __forceinline__ void wg_commit_wait(float (&d)[N]) {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  wg_pin(d);
-}
-
-// d (64 x N, f32) = or += a (64 x 16, bf16 from registers: the warp's 16
-// rows in mma.sync's A layout) @ b (16 x N, bf16 in shared memory); wg_s:
-// b K-major (S = Q K^T, K's rows are the keys), wg_pv: b MN-major (P V,
-// V's rows are the keys)
-// the accumulator operands d[i .. i + 7] / d[i .. i + 15] of one wgmma
-#define TC_ACC8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TC_ACC16(i) TC_ACC8(i), TC_ACC8(i + 8)
-__device__ __forceinline__ void wg_s(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : TC_ACC16(0), TC_ACC16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-__device__ __forceinline__ void wg_pv(float (&d)[8], const uint32_t (&a)[4],
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : TC_ACC8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-__device__ __forceinline__ void wg_pv(float (&d)[16], const uint32_t (&a)[4],
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : TC_ACC16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-__device__ __forceinline__ void wg_pv(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : TC_ACC16(0), TC_ACC16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-__device__ __forceinline__ void wg_pv(float (&d)[64], const uint32_t (&a)[4],
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : TC_ACC16(0), TC_ACC16(16), TC_ACC16(32), TC_ACC16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-#undef TC_ACC16
-#undef TC_ACC8
 
 // TMA: K and V tiles by TMA through the tensor maps tk / tv (D a multiple
 // of 64, every stride and base 16-byte aligned), issued by a producer warp
@@ -1078,16 +914,8 @@ __global__ void __launch_bounds__(TC_THREADS + 32, 1)
 // 16-byte aligned, D not a multiple of 64)
 bool tc_map(CUtensorMap* map, const void* base, int n, int b, int s, int hkv,
             int d, const long long st[4]) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      encode = nullptr;
-    if (encode == nullptr) return false;
-  }
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tc_encoder();
+  if (encode == nullptr) return false;
   if (d % 64 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
   cuuint64_t dims[5] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(hkv),
                         static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b),

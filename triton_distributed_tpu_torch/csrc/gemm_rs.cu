@@ -25,7 +25,7 @@
 // 4096 flops (0.28 / 0.75 ms at 989 TFLOP/s).
 //
 // Design (right and simple first): the tile loops of ggemm_tiles.cuh
-// with the PeerSum source; no overlap, no wgmma, no TMA.
+// with the PeerSum source; no overlap.
 //
 // The quantized wire replaces _fused_kernel_w (:281),
 // whose ring requantizes each hop's running partial: its numerics are the
@@ -38,8 +38,10 @@
 // sum (PeerSum) would be the wrong numerics here. So two launches,
 // tdt_gemm_rs_partials and tdt_gemm_rs_fold:
 // (a) every rank's partials A_q @ B_q for all W * m rows, each rank into
-// its own slab (the tile loops over PeerLocal; W * W * m * N elements,
-// 268 MB in bf16 at the Llama-2-7B tp = 4 wo / down); (b) the fold, one
+// its own slab (W * W * m * N elements, 268 MB in bf16 at the Llama-2-7B
+// tp = 4 wo / down; the warpgroup GEMM of wg_gemm.cuh over WgLocal where
+// wg_form_ok holds, which the wire path's shapes do, else the tile loops
+// over PeerLocal); (b) the fold, one
 // cluster of blocks per (destination, chunk of chunk_rows rows), each
 // block a slice of the chunk: each hop reads the running slice and the
 // next partial once and stores the sum, measuring its amax on the way;
@@ -73,6 +75,7 @@
 #include <cooperative_groups.h>
 
 #include "s8_tiles.cuh"
+#include "wg_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -317,14 +320,27 @@ int tdt_gemm_rs(const void* a_peers, const void* w_peers,
 // The fp8 / int8 wire, launch (a): a_peers / w_peers as for
 // tdt_gemm_rs; part_peers: (world,) pointers to each rank's partial slab
 // (world * m, N) of out_dtype: rank q's A_q @ B_q over all its rows.
-// Every rank's partials feed every destination's fold, so the launch
-// covers all ranks.
+// a_host / w_host / part_host: the three tables' pointers in host memory;
+// wgmma and *form as for tdt_ag_gemm_w. Every rank's partials feed every
+// destination's fold, so the launch covers all ranks.
 int tdt_gemm_rs_partials(const void* a_peers, const void* w_peers,
-                         const void* part_peers, const void* zero, int m,
-                         int K, int N, int world, int x_dtype, int out_dtype,
-                         int aligned, void* stream) {
+                         const void* part_peers, const void* zero,
+                         const void* a_host, const void* w_host,
+                         const void* part_host, int m, int K, int N,
+                         int world, int x_dtype, int out_dtype, int aligned,
+                         int wgmma, int* form, void* stream) {
   cudaGetLastError();
   if (m <= 0 || N <= 0 || world <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_gemm<WgLocal>(
+        static_cast<const unsigned long long*>(a_host), world * m,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(part_host), nullptr, nullptr,
+        m, K, N, world, 0, world, 1, 0, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerLocal rows{static_cast<const unsigned long long*>(a_peers),
                        static_cast<const unsigned long long*>(w_peers),
                        static_cast<const unsigned long long*>(part_peers),

@@ -1,0 +1,417 @@
+// The warpgroup GEMM of the mesh kernels on Hopper: wgmma fed by TMA, shared
+// by ag_gemm.cu (tdt_ag_gemm_w, the AG-GEMM on the fp8 / int8 wire) and
+// gemm_rs.cu (tdt_gemm_rs_partials, the GEMM-RS wire's partials). It
+// computes what ggemm_tiles.cuh's bf16_mma_kernel computes over the
+// PeerRowsQ and PeerLocal rows, f32 sums rounded once at the store, and
+// runs where wg_form_ok (below) holds; the launchers take bf16_mma_kernel
+// elsewhere.
+//
+// What bounds it on an H100: the tensor cores. At the Llama-2-7B tp = 4
+// wire (the AG-GEMM: A 4 x (2048, 4096), B_r (4096, 3072) or (4096, 2752);
+// the partials: A_r (8192, 1024 or 2752), B_r (., 4096)) one launch over
+// the four ranks is 2 * 8192 * 4096 * 4 * N_r (0.79 ms average at 989
+// TFLOP/s) or 2 * 4 * 8192 * K_r * 4096 flops.
+//
+// Design. One CTA an output tile of WG_BM x WG_BN = 128 x 256 of one rank
+// (blockIdx.z), 384 threads: two consumer warpgroups of 64 rows each (128
+// f32 accumulators a thread) and a producer warpgroup, one thread of
+// which keeps WG_STAGES K steps of WG_BK = 64 in flight by TMA on
+// mbarriers (a `full` and an `empty` barrier a stage): B, the bf16 (K, N)
+// weight, is wgmma's
+// MN-major operand, four boxes of 64 k x 64 n in the 128-byte swizzle, and
+// boxes past N are not loaded (their columns are never stored); K's and
+// N's edges land as zeros. ptxas gives the CTA 168 registers a thread;
+// setmaxnreg then moves the producer warpgroup's to the consumers (40 and
+// 232: 128 x 128 released, 256 x 64 taken, the CTA's own pool), room for
+// the accumulators and two stages of code fragments. A tile's rows lie in
+// one A source, so each CTA takes one of two main loops, a uniform
+// branch:
+// - bf16 A (the AG's own shard, exact; every partial's A_r): a box of 128
+//   rows x 64 k in the 128-byte swizzle, K-major, both operands of each
+//   m64n256k16 from shared memory; a stage is released once its products
+//   have retired (one group a stage, wait_group 1).
+// - a peer's wire codes (the AG's other shards): a box of 128 rows x 64
+//   one-byte codes in the 64-byte swizzle; each consumer thread reads its
+//   fragment rows' code pairs as 32-bit words (conflict-free: the swizzle
+//   spreads a warp's 8 rows over the 32 banks), converts each pair as
+//   wire_value2 and __floats2bfloat162_rn do (the plain version's values,
+//   bit for bit) into the m16n8k16 A fragment, and feeds the register-A
+//   m64n256k16. A stage's fragments are converted while the previous
+//   stage's products run (wait_group 1; two buffers of a stage's four k
+//   steps). A row's scale is its chunk's, looked up once a CTA.
+// The epilogue stages the tile through shared memory (rows padded by 16
+// bytes: conflict-free) and stores it in 16-byte pieces; the tiles are
+// whole in M (the launcher's m is a multiple of WG_BM), ragged in N.
+//
+// Row sources (as bf16_mma_kernel's), compile-time: tile(p, m0, part) says
+// where tile m0's A rows and B come from and where its rows land; with
+// parts(p) > 1 the K loop runs over (part, k step), so that PeerSum's sum
+// over ranks (tdt_gemm_rs, still on bf16_mma_kernel) can take this loop.
+#pragma once
+
+#include "hopper.cuh"
+#include "wire.cuh"
+
+// the form a mesh GEMM launch ran, as its C entry reports it
+enum MeshGemmForm { GEMM_FMA = 0, GEMM_MMA_SYNC = 1, GEMM_WGMMA = 2 };
+
+namespace {
+
+constexpr int WG_BM = 128;              // rows a CTA: two warpgroups of 64
+constexpr int WG_BN = 256;              // columns a CTA
+constexpr int WG_BK = 64;               // k a stage
+constexpr int WG_STAGES = 4;            // stages in flight
+constexpr int WG_CONSUMERS = 256;       // the two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;  // + the producer warpgroup
+constexpr int WG_MAX_RANKS = 8;         // the maps a launch carries
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // a bf16 A box
+constexpr int WG_Q_BYTES = WG_BM * WG_BK;      // a codes box
+constexpr int WG_BOX_BYTES = WG_BK * 64 * 2;   // a B box: 64 k x 64 n
+constexpr int WG_STAGE = WG_A_BYTES + (WG_BN / 64) * WG_BOX_BYTES;
+constexpr int WG_PITCH = WG_BN + 8;     // the epilogue's row pitch
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE + 1024;  // + alignment
+static_assert(WG_BM * WG_PITCH * 4 <= WG_STAGES * WG_STAGE,
+              "the f32 epilogue tile fits in the stages");
+
+// a launch's operands, a __grid_constant__ parameter (2.3 KB of the 4 KB):
+// each rank's maps and output, the wire's codes and scales
+struct WgParams {
+  CUtensorMap a[WG_MAX_RANKS];  // bf16 (rows, K): box 64 k x 128 rows
+  CUtensorMap b[WG_MAX_RANKS];  // bf16 (K, N): box 64 n x 64 k
+  CUtensorMap q;                // codes (world * m, K): box 64 k x 128 rows
+  unsigned long long out[WG_MAX_RANKS];  // each rank's output (rows, N)
+  const float* s;               // the codes' scales (world, m / chunk_rows)
+  int m, world, rank0, K, N, chunk_rows;
+};
+
+// what tile m0 of rank rank0 + blockIdx.z reads and where it lands
+struct WgTile {
+  const CUtensorMap* a;  // its A rows' map (bf16, or the codes)
+  int a_row;             // their first row in that map
+  bool codes;            // A is a peer's wire codes
+  const CUtensorMap* b;  // B's map
+  int out_row;           // the tile's first output row
+};
+
+// tdt_ag_gemm_w: PeerRowsQ's rotated rows. Tile row t is gathered row g =
+// (t + r * m) mod (W * m), row g % m of shard g / m; with m a multiple of
+// WG_BM a tile lies in one shard, so it is all rank r's own rows (bf16,
+// exact) or all one peer's codes (row g of q), and lands at rows g, g + 1,
+// ...
+struct WgPeerRowsQ {
+  static constexpr bool kQuant = true;
+  __device__ static int parts(const WgParams&) { return 1; }
+  __device__ static WgTile tile(const WgParams& p, int m0, int) {
+    const int r = p.rank0 + blockIdx.z;
+    const int g = (m0 + r * p.m) % (p.world * p.m);
+    if (g / p.m == r) return WgTile{&p.a[r], g % p.m, false, &p.b[r], g};
+    return WgTile{&p.q, g, true, &p.b[r], g};
+  }
+  // gathered row g's scale (a peer's): PeerRowsQ::at's
+  __device__ static float scale(const WgParams& p, int g) {
+    return p.s[(g / p.m) * (p.m / p.chunk_rows) + (g % p.m) / p.chunk_rows];
+  }
+};
+
+// tdt_gemm_rs_partials: PeerLocal's rows. Rank r's own A_r (W * m, K)
+// against its own B_r, rows in place, into its slab of partials.
+struct WgLocal {
+  static constexpr bool kQuant = false;
+  __device__ static int parts(const WgParams&) { return 1; }
+  __device__ static WgTile tile(const WgParams& p, int m0, int) {
+    const int r = p.rank0 + blockIdx.z;
+    return WgTile{&p.a[r], m0, false, &p.b[r], m0};
+  }
+};
+
+// the bf16x2 A-fragment word of a code pair (its lower k in the low byte
+// of `pair`, the low half of the word) at `scale`: wire_value2's values
+// (code * scale in f32), then one round-to-nearest of both to bf16, as
+// PeerRowsQ::qload8 converts. An int8 code is widened without I2F (a
+// quarter-rate instruction): its byte, biased by 0x80, as the low byte of
+// the f32 2^23, minus 2^23 + 128, is the code exactly
+template <int QUANT>
+__device__ __forceinline__ uint32_t wg_code_pair(uint32_t pair, float scale) {
+  float2 v;
+  if constexpr (QUANT == TDT_WIRE_INT8) {
+    const uint32_t u = pair ^ 0x8080u;
+    v = make_float2(
+        __fmul_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) -
+                      8388736.f, scale),
+        __fmul_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) -
+                      8388736.f, scale));
+  } else {
+    v = wire_value2(static_cast<uint8_t>(pair),
+                    static_cast<uint8_t>(pair >> 8), scale, QUANT);
+  }
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the consumers' barrier (the producer warpgroup is not in it)
+__device__ __forceinline__ void wg_consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(WG_CONSUMERS) : "memory");
+}
+
+// QUANT: the wire's codes (TDT_WIRE_FP8 / TDT_WIRE_INT8) of a kQuant
+// source, 0 for one whose tiles never read codes
+template <typename OutT, typename Src, int QUANT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wg_gemm_kernel(const __grid_constant__ WgParams p) {
+  constexpr int NACC = WG_BN / 2;  // a thread's accumulators
+  extern __shared__ unsigned char wg_raw[];
+  __shared__ uint64_t full[WG_STAGES];   // stage st has landed
+  __shared__ uint64_t empty[WG_STAGES];  // the consumers are done with st
+  char* sm = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
+  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * WG_BN;
+  const int nk = (p.K + WG_BK - 1) / WG_BK;
+  const int total = Src::parts(p) * nk;
+  const WgTile tile = Src::tile(p, m0, 0);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < WG_STAGES; ++st) {
+      tc_bar_init(&full[st], 1);
+      tc_bar_init(&empty[st], WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WG_CONSUMERS) {
+      // B's boxes that start inside N (the rest would only feed columns
+      // the epilogue never stores)
+      const int nbox = min(WG_BN / 64, (p.N - n0 + 63) / 64);
+      const int bytes =
+          (tile.codes ? WG_Q_BYTES : WG_A_BYTES) + nbox * WG_BOX_BYTES;
+      for (int i = 0; i < total; ++i) {
+        const int st = i % WG_STAGES, k0 = (i % nk) * WG_BK;
+        const WgTile t = i < nk ? tile : Src::tile(p, m0, i / nk);
+        if (i >= WG_STAGES) tc_bar_wait(&empty[st], (i / WG_STAGES + 1) & 1);
+        char* s = sm + st * WG_STAGE;
+        tc_bar_expect(&full[st], bytes);
+        tc_tma_2d(s, t.a, &full[st], k0, t.a_row);
+        for (int j = 0; j < nbox; ++j)
+          tc_tma_2d(s + WG_A_BYTES + j * WG_BOX_BYTES, t.b, &full[st],
+                    n0 + 64 * j, k0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  // this thread's fragment rows of the tile: r0 and r0 + 8
+  const int r0 = wg * 64 + (warp & 3) * 16 + g;
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  // B of k step kk of a stage: 8-k groups 1024 bytes apart, the boxes of
+  // 64 n 8192 apart
+  auto bdesc = [&](const char* s, int kk) {
+    return wg_desc(s + WG_A_BYTES + kk * 2048, WG_BOX_BYTES, 1024, 1);
+  };
+  // a warp is done with stage st
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) tc_bar_arrive(&empty[st]);
+  };
+
+  if (!tile.codes) {
+    // bf16 A from shared memory: this warpgroup's 64 rows, 8-row groups
+    // 1024 bytes apart, k step kk 32 bytes into the 128-byte rows
+    for (int i = 0; i < total; ++i) {
+      const int st = i % WG_STAGES;
+      tc_bar_wait(&full[st], (i / WG_STAGES) & 1);
+      const char* s = sm + st * WG_STAGE;
+      wg_pin(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wg_ss_t(acc, wg_desc(s + wg * 8192 + kk * 32, 16, 1024, 1),
+                bdesc(s, kk), 1);
+      wg_commit();
+      wg_wait<1>();  // the previous stage's products have retired
+      if (i > 0) release((i - 1) % WG_STAGES);
+    }
+  } else if constexpr (QUANT != 0) {
+    // the codes, 64-byte rows in the 64-byte swizzle: 16-byte chunk c of
+    // row r at chunk c ^ ((r >> 1) & 3). Register i of the fragment of k
+    // step kk: row r0 + 8 (i & 1), codes 16 kk + 8 (i >> 1) + 2 tq, + 1,
+    // the half (tq & 1) of the word at 4 (tq >> 1) in their chunk
+    const int sw = (g >> 1) & 3, sh = (tq & 1) * 16;
+    const int o0 = r0 * 64 + 4 * (tq >> 1), o1 = o0 + 8 * 64;
+    const float s0 = Src::scale(p, tile.a_row + r0);
+    const float s1 = Src::scale(p, tile.a_row + r0 + 8);
+    // a stage's four k steps of fragments: converted while the previous
+    // stage's products run, two buffers
+    uint32_t f[2][WG_BK / 16][4] = {};
+    auto convert = [&](uint32_t (&d)[WG_BK / 16][4], const char* s) {
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        const char* c = s + ((kk ^ sw) << 4);
+        d[kk][0] = wg_code_pair<QUANT>(
+            *reinterpret_cast<const uint32_t*>(c + o0) >> sh, s0);
+        d[kk][1] = wg_code_pair<QUANT>(
+            *reinterpret_cast<const uint32_t*>(c + o1) >> sh, s1);
+        d[kk][2] = wg_code_pair<QUANT>(
+            *reinterpret_cast<const uint32_t*>(c + o0 + 8) >> sh, s0);
+        d[kk][3] = wg_code_pair<QUANT>(
+            *reinterpret_cast<const uint32_t*>(c + o1 + 8) >> sh, s1);
+      }
+    };
+    // stage i's products from its fragments fc, then the next stage's
+    // fragments into fn, whose last reader (stage i - 1) has retired
+    auto run = [&](auto& fc, auto& fn, int i) {
+      const char* s = sm + (i % WG_STAGES) * WG_STAGE;
+      wg_pin(acc);
+      wg_pin(fc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wg_pv(acc, fc[kk], bdesc(s, kk), 1);
+      wg_commit();
+      wg_wait<1>();
+      wg_pin(fn);
+      if (i > 0) release((i - 1) % WG_STAGES);
+      if (i + 1 < total) {
+        const int nx = (i + 1) % WG_STAGES;
+        tc_bar_wait(&full[nx], ((i + 1) / WG_STAGES) & 1);
+        convert(fn, sm + nx * WG_STAGE);
+      }
+    };
+    tc_bar_wait(&full[0], 0);
+    convert(f[0], sm);
+    for (int i = 0; i < total; i += 2) {
+      run(f[0], f[1], i);
+      if (i + 1 < total) run(f[1], f[0], i + 1);
+    }
+  }
+  wg_wait<0>();
+  wg_pin(acc);
+
+  // the tile through shared memory (every stage is consumed: the other
+  // warpgroup's last products have retired at the barrier), then 16-byte
+  // stores of whole rows. Accumulator 4j + e: row r0 + 8 (e >> 1), column
+  // 8j + 2tq + (e & 1)
+  wg_consumer_sync();
+  OutT* stile = reinterpret_cast<OutT*>(sm);
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    const int c = 8 * j + 2 * tq;
+    if constexpr (sizeof(OutT) == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(stile + r0 * WG_PITCH + c) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(stile + (r0 + 8) * WG_PITCH + c) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    } else {
+      *reinterpret_cast<float2*>(stile + r0 * WG_PITCH + c) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(stile + (r0 + 8) * WG_PITCH + c) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  wg_consumer_sync();
+  constexpr int E = 16 / static_cast<int>(sizeof(OutT));  // a piece
+  constexpr int PIECES = WG_BN / E;                        // a row's
+  OutT* out = reinterpret_cast<OutT*>(p.out[p.rank0 + blockIdx.z]);
+  for (int idx = threadIdx.x; idx < WG_BM * PIECES; idx += WG_CONSUMERS) {
+    const int row = idx / PIECES, col = (idx % PIECES) * E;
+    if (n0 + col < p.N)
+      *reinterpret_cast<uint4*>(
+          out + static_cast<size_t>(tile.out_row + row) * p.N + n0 + col) =
+          *reinterpret_cast<const uint4*>(stile + row * WG_PITCH + col);
+  }
+}
+
+// Whether the warpgroup loop takes a launch: bf16 A and B, out_dtype bf16
+// or f32, 1 <= world <= WG_MAX_RANKS, m a multiple of WG_BM (a tile in one
+// shard), K and N multiples of 8 (K of 16 for the codes: 16-byte rows for
+// TMA), every A, B, codes and output base 16-byte aligned. The Python
+// wrappers decide by the same rule (kernels/ag_gemm.py wgmma_form) and
+// pass the form; the launcher refuses a wgmma form that breaks it.
+inline bool wg_form_ok(const unsigned long long* a, const unsigned long long* w,
+                       const unsigned long long* out, const void* q, int m,
+                       int K, int N, int world, int x_dtype, int out_dtype) {
+  if (x_dtype != TDT_BF16 || (out_dtype != TDT_BF16 && out_dtype != TDT_F32) ||
+      world < 1 || world > WG_MAX_RANKS || m <= 0 || m % WG_BM || K <= 0 ||
+      K % (q ? 16 : 8) || N % 8 ||
+      reinterpret_cast<uintptr_t>(q) % 16)
+    return false;
+  for (int r = 0; r < world; ++r)
+    if ((a[r] | w[r] | out[r]) % 16) return false;
+  return true;
+}
+
+template <typename OutT, typename Src, int QUANT>
+int wg_launch(const WgParams& p, int nranks, cudaStream_t st) {
+  static bool attr = false;  // above 48 KB only after this, once a kernel
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wg_gemm_kernel<OutT, Src, QUANT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  const dim3 grid((p.N + WG_BN - 1) / WG_BN,
+                  (p.world * p.m + WG_BM - 1) / WG_BM, nranks);
+  wg_gemm_kernel<OutT, Src, QUANT><<<grid, WG_THREADS, WG_SMEM, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The warpgroup loop over `world` ranks' A (a: host pointers, m_a rows
+// each, K columns), B (w: (K, N) each) and outputs (out), and with q the
+// wire codes (world * m, K) and s their scales; writes ranks rank0 ..
+// rank0 + nranks - 1. Encodes the maps, launches, and returns the launch's
+// error (cudaErrorInvalidValue where wg_form_ok fails or TMA refuses a
+// map).
+template <typename Src>
+int wg_gemm(const unsigned long long* a, int m_a,
+            const unsigned long long* w, const unsigned long long* out,
+            const void* q, const float* s, int m, int K, int N, int world,
+            int rank0, int nranks, int chunk_rows, int quant, int x_dtype,
+            int out_dtype, cudaStream_t st) {
+  if (!wg_form_ok(a, w, out, q, m, K, N, world, x_dtype, out_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WgParams p = {};
+  bool ok = true;
+  for (int r = 0; r < world; ++r) {
+    ok = ok && tc_map_2d(&p.a[r], reinterpret_cast<const void*>(a[r]),
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m_a, K, 2LL * K,
+                         WG_BK, WG_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+    ok = ok && tc_map_2d(&p.b[r], reinterpret_cast<const void*>(w[r]),
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, 2LL * N,
+                         64, WG_BK, CU_TENSOR_MAP_SWIZZLE_128B);
+    p.out[r] = out[r];
+  }
+  if (q != nullptr)
+    ok = ok && tc_map_2d(&p.q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                         static_cast<long long>(world) * m, K, K, WG_BK,
+                         WG_BM, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  p.s = s;
+  p.m = m;
+  p.world = world;
+  p.rank0 = rank0;
+  p.K = K;
+  p.N = N;
+  p.chunk_rows = chunk_rows;
+  const bool f32 = out_dtype == TDT_F32;
+  if constexpr (Src::kQuant) {
+    if (quant == TDT_WIRE_FP8)
+      return f32 ? wg_launch<float, Src, TDT_WIRE_FP8>(p, nranks, st)
+                 : wg_launch<__nv_bfloat16, Src, TDT_WIRE_FP8>(p, nranks, st);
+    if (quant == TDT_WIRE_INT8)
+      return f32 ? wg_launch<float, Src, TDT_WIRE_INT8>(p, nranks, st)
+                 : wg_launch<__nv_bfloat16, Src, TDT_WIRE_INT8>(p, nranks, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return f32 ? wg_launch<float, Src, 0>(p, nranks, st)
+               : wg_launch<__nv_bfloat16, Src, 0>(p, nranks, st);
+  }
+}
+
+}  // namespace

@@ -5,13 +5,15 @@ Every ``triton_distributed_tpu_torch/csrc/*.cu`` is compiled by its own
 library::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -c <src>.cu      (one per source, in parallel)
+         -Xcompiler -fPIC -Xptxas=-v -c <src>.cu  (one per source, in parallel)
     nvcc -shared -o libtdt_kernels_<hash>.so *.o
 
 The library lands in :func:`config.build_dir` under a name keyed by a
 hash of the sources and flags, so an edited source forces a rebuild and
-an unchanged one loads at once. Nothing is built at import: the first
-launch on a CUDA tensor calls :func:`lib`.
+an unchanged one loads at once; beside it, ``libtdt_kernels_<hash>.log``
+keeps what each compile printed (ptxas's registers, spills and warnings
+for every kernel; :func:`build_log`). Nothing is built at import: the
+first launch on a CUDA tensor calls :func:`lib`.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
@@ -33,7 +35,7 @@ from triton_distributed_tpu_torch.config import build_dir, csrc_dir
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _LOCK = threading.Lock()
@@ -87,6 +89,8 @@ def build() -> Path:
                   for src, p, out in zip(srcs, procs, outs) if p.returncode]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        (Path(tmp) / so.with_suffix(".log").name).write_text(
+            "".join(f"== {src.name}\n{out}" for src, out in zip(srcs, outs)))
         tmp_so = Path(tmp) / so.name
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp_so), *map(str, objs)],
@@ -95,8 +99,17 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(
                 f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(Path(tmp) / so.with_suffix(".log").name,
+                   so.with_suffix(".log"))
         os.replace(tmp_so, so)
     return so
+
+
+def build_log() -> str:
+    """What the compiles of the current library printed ("" where it was
+    built without a log)."""
+    log = build().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def lib() -> ctypes.CDLL:
@@ -141,6 +154,14 @@ def check(rc: int, name: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_array(tensors):
+    """The tensors' data pointers as a C array of 64-bit words in host
+    memory (a ``p`` argument): what an entry reads on the host, such as the
+    bases of the tensor maps it encodes."""
+    ptrs = [t.data_ptr() for t in tensors]
+    return (ctypes.c_uint64 * len(ptrs))(*ptrs)
 
 
 def stream(device) -> ctypes.c_void_p:

@@ -25,7 +25,8 @@ rank; :func:`resolve_ag_gemm_wire` says which wire runs): ``'fp8'`` /
 ``'int8'`` ship each shard once as 1-byte codes with one f32 scale a
 chunk of rows (:mod:`~triton_distributed_tpu_torch.lang.wire`); a rank
 reads its own shard exact and a peer's dequantized to A's dtype
-(``_fused_kernel_w``, ``:266``; on the card ``tdt_ag_gemm_w``).
+(``_fused_kernel_w``, ``:266``; on the card ``tdt_ag_gemm_w``, on the
+warpgroup GEMM of ``csrc/wg_gemm.cuh`` where :func:`wgmma_form` holds).
 ``'int8-mxu'`` quantizes every shard, the own one too, and B per output
 column (``quantize_cols``), and multiplies the int8 codes with s32 sums,
 ``(acc · row scale) · column scale`` in f32 (``_fused_kernel_mx``,
@@ -46,6 +47,7 @@ tensors it launches the kernel of the resolved wire or raises.
 
 from __future__ import annotations
 
+import ctypes
 import enum
 from dataclasses import dataclass
 
@@ -65,6 +67,18 @@ from triton_distributed_tpu_torch.runtime.topology import one_axis
 #: JAX's AG-GEMM tile targets (bm, bk, bn) (``kernels/ag_gemm.py:79``);
 #: the GEMM-RS carries its own (``gemm_rs._RS_TILE_TARGETS``)
 _TILE_TARGETS = (512, 2048, 1792)
+
+#: the form a wire AG-GEMM or GEMM-RS partials launch ran, by the code its
+#: C entry reports (``MeshGemmForm`` of ``csrc/wg_gemm.cuh``): the
+#: warpgroup GEMM (``wgmma`` fed by TMA) where :func:`wgmma_form` holds,
+#: else the tile loops of ``csrc/ggemm_tiles.cuh`` (bf16 on ``mma.sync``,
+#: f32 on FMA). Counted in ``ag_gemm_w_launch.by_variant`` and
+#: ``gemm_rs.gemm_rs_partials.by_variant``.
+MESH_GEMM_FORMS = {0: "fma", 1: "mma_sync", 2: "wgmma"}
+#: the warpgroup GEMM's tile rows and the ranks a launch's tensor maps
+#: cover (``WG_BM``, ``WG_MAX_RANKS``)
+WG_TILE_ROWS = 128
+WG_MAX_RANKS = 8
 
 
 def pick_mm_blocks(m: int, k: int, n: int, itemsize: int,
@@ -421,6 +435,32 @@ def _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype):
     return out
 
 
+def wgmma_form(m, k, n, world, dtype, out_dtype, tensors,
+               codes=False) -> bool:
+    """Whether a wire AG-GEMM (``codes``: its wire codes among
+    ``tensors``) or GEMM-RS partials launch takes the warpgroup GEMM, by
+    ``wg_form_ok``'s rule (``csrc/wg_gemm.cuh``, which refuses a ``wgmma``
+    launch that breaks it): bf16 A and B, a bf16 or f32 output, ``m`` (the
+    rows of a shard, or of one destination's block) a multiple of
+    :data:`WG_TILE_ROWS` so that a tile lies in one shard, ``k`` and ``n``
+    multiples of 8 (``k`` of 16 with codes: TMA's rows are whole 16-byte
+    pieces), at most :data:`WG_MAX_RANKS` ranks (``world``), and every
+    tensor of ``tensors`` (the A and B shards, the outputs, the codes) on
+    a 16-byte boundary."""
+    return (dtype == torch.bfloat16
+            and out_dtype in (torch.bfloat16, torch.float32)
+            and 1 <= world <= WG_MAX_RANKS and m > 0 and m % WG_TILE_ROWS == 0
+            and k > 0 and k % (16 if codes else 8) == 0 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def count_form(fn, code: int) -> None:
+    """Tally a launch of ``fn``'s entry by the form it reported
+    (:data:`MESH_GEMM_FORMS`) in ``fn.by_variant``."""
+    name = MESH_GEMM_FORMS[code]
+    fn.by_variant[name] = fn.by_variant.get(name, 0) + 1
+
+
 def _ag_gemm_w_cuda(a, b, mesh, out_dtype, wire, keep_codes=False):
     """The fp8 / int8 wire: every shard quantized (:func:`~triton_
     distributed_tpu_torch.kernels.wire.quantize_shards`), then
@@ -435,25 +475,35 @@ def ag_gemm_w_launch(a, q, s, b, mesh, fmt, out_dtype):
     """``tdt_ag_gemm_w`` for every rank in one launch: the A shards
     ``a`` with their wire form q (W, m, K) codes and s (W, m /
     chunk_rows) scales, the weight shards ``b`` → the W (W·m, N)
-    outputs."""
+    outputs. On the warpgroup GEMM where :func:`wgmma_form` holds, else
+    on the tile loops; counted by the form it ran in ``by_variant``."""
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
 
     out_dtype, aligned = check_mesh_operands("tdt_ag_gemm_w", a, b,
                                              out_dtype)
-    n, (m, k) = len(a), a[0].shape
+    n, (m, k), cols = len(a), a[0].shape, b[0].shape[1]
     dev = mesh.device
-    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-    out = symm_empty(mesh, (n * m, b[0].shape[1]), out_dtype)
-    a_peers, b_peers = peer_table(a), peer_table(b)
-    fn = _build.function("tdt_ag_gemm_w", "pppppp" + "i" * 11 + "p")
-    rc = fn(_build.ptr(a_peers), _build.ptr(q), _build.ptr(s),
-            _build.ptr(b_peers), _build.ptr(out.peers), _build.ptr(zero), m,
-            k, b[0].shape[1], n, 0, n, fmt.chunk_rows, WIRE_CODE[fmt.quant],
-            _DT_CODE[a[0].dtype], _DT_CODE[out_dtype], int(aligned),
-            _build.stream(dev))
+    out = symm_empty(mesh, (n * m, cols), out_dtype)
+    wg = wgmma_form(m, k, cols, n, a[0].dtype, out_dtype,
+                    [*a, *b, *out.shards, q], codes=True)
+    # the tile loops read the device tables; the warpgroup GEMM's maps
+    # take the host pointers. Both stay referenced until the launch is
+    # enqueued
+    zero = None if wg else torch.zeros((1,), dtype=torch.int32, device=dev)
+    a_peers, b_peers = (None, None) if wg else (peer_table(a), peer_table(b))
+    hosts = [_build.ptr_array(t) for t in (a, b, out.shards)]
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_ag_gemm_w", "p" * 9 + "i" * 12 + "pp")
+    rc = fn(None if wg else _build.ptr(a_peers), _build.ptr(q),
+            _build.ptr(s), None if wg else _build.ptr(b_peers),
+            _build.ptr(out.peers), None if wg else _build.ptr(zero), *hosts,
+            m, k, cols, n, 0, n, fmt.chunk_rows, WIRE_CODE[fmt.quant],
+            _DT_CODE[a[0].dtype], _DT_CODE[out_dtype], int(aligned), int(wg),
+            ctypes.byref(form), _build.stream(dev))
     _build.check(rc, "tdt_ag_gemm_w")
     ag_gemm_w_launch.launches += 1
+    count_form(ag_gemm_w_launch, form.value)
     return out.shards
 
 
@@ -509,4 +559,5 @@ def _ag_gemm_mx_cuda(a, b, mesh, out_dtype, chunk_rows, keep_codes=False):
 _ag_gemm_cuda.launches = 0
 _ag_gemm_mesh_cuda.launches = 0
 ag_gemm_w_launch.launches = 0
+ag_gemm_w_launch.by_variant = {}
 ag_gemm_mx_launch.launches = 0

@@ -44,8 +44,9 @@ at each of the W − 1 hops quantizes the running sum
 (:func:`~triton_distributed_tpu_torch.lang.wire.quantize_slab` over the
 (m, N) output slab), dequantizes it in f32, adds the next partial (ranks
 d − 2, …, d: the own last) in f32 and rounds to the output type. On the
-card: ``tdt_gemm_rs_partials`` (every rank's A_q @ B_q for all its rows)
-and ``tdt_gemm_rs_fold`` (csrc/gemm_rs.cu). ``XLA_NAIVE`` ships no wire.
+card: ``tdt_gemm_rs_partials`` (every rank's A_q @ B_q for all its rows;
+the warpgroup GEMM of ``csrc/wg_gemm.cuh`` where ``ag_gemm.wgmma_form``
+holds) and ``tdt_gemm_rs_fold`` (csrc/gemm_rs.cu). ``XLA_NAIVE`` ships no wire.
 
 **int8-mxu** (:func:`resolve_gemm_rs_plan`): ``XLA_RING`` ships its
 int8 payload (the fp8 / int8 fold above). ``PALLAS_FUSED`` keeps the s8
@@ -72,6 +73,7 @@ tensors it launches the kernels of the resolved wire or raises.
 
 from __future__ import annotations
 
+import ctypes
 import enum
 from dataclasses import dataclass
 
@@ -85,9 +87,11 @@ from triton_distributed_tpu_torch.kernels.ag_gemm import (
     ag_gemm_plain,
     check_mesh_operands,
     check_shards,
+    count_form,
     launch_mesh_gemm,
     pick_mm_blocks,
     quantize_cols_shards,
+    wgmma_form,
 )
 from triton_distributed_tpu_torch.kernels.group_gemm import _DT_CODE
 from triton_distributed_tpu_torch.kernels.wire import WIRE_CODE, quantize_shards
@@ -434,24 +438,36 @@ def _gemm_rs_mesh_cuda(a, b, mesh, n, out_dtype):
 def gemm_rs_partials(a, b, mesh, out_dtype):
     """``tdt_gemm_rs_partials``: every rank's partial ``A_q @ B_q`` for
     all its W·m rows, f32 sums rounded once to ``out_dtype``, in one
-    launch → the W (W·m, N) slabs (symmetric: the fold reads its peers')."""
+    launch → the W (W·m, N) slabs (symmetric: the fold reads its peers').
+    On the warpgroup GEMM where :func:`~triton_distributed_tpu_torch.
+    kernels.ag_gemm.wgmma_form` holds (m the rows of one destination's
+    block), else on the tile loops; counted by the form it ran in
+    ``by_variant``."""
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
 
     out_dtype, aligned = check_mesh_operands("tdt_gemm_rs_partials", a, b,
                                              out_dtype)
-    n, (rows, k) = len(a), a[0].shape
+    n, (rows, k), cols = len(a), a[0].shape, b[0].shape[1]
     dev = mesh.device
-    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-    parts = symm_empty(mesh, (rows, b[0].shape[1]), out_dtype)
-    a_peers, b_peers = peer_table(a), peer_table(b)
-    fn = _build.function("tdt_gemm_rs_partials", "pppp" + "i" * 7 + "p")
-    rc = fn(_build.ptr(a_peers), _build.ptr(b_peers), _build.ptr(parts.peers),
-            _build.ptr(zero), rows // n, k, b[0].shape[1], n,
-            _DT_CODE[a[0].dtype], _DT_CODE[out_dtype], int(aligned),
-            _build.stream(dev))
+    parts = symm_empty(mesh, (rows, cols), out_dtype)
+    wg = wgmma_form(rows // n, k, cols, n, a[0].dtype, out_dtype,
+                    [*a, *b, *parts.shards])
+    # the tile loops read the device tables, the warpgroup GEMM's maps the
+    # host pointers; both stay referenced until the launch is enqueued
+    zero = None if wg else torch.zeros((1,), dtype=torch.int32, device=dev)
+    a_peers, b_peers = (None, None) if wg else (peer_table(a), peer_table(b))
+    hosts = [_build.ptr_array(t) for t in (a, b, parts.shards)]
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_gemm_rs_partials", "p" * 7 + "i" * 8 + "pp")
+    rc = fn(None if wg else _build.ptr(a_peers),
+            None if wg else _build.ptr(b_peers), _build.ptr(parts.peers),
+            None if wg else _build.ptr(zero), *hosts, rows // n, k, cols, n,
+            _DT_CODE[a[0].dtype], _DT_CODE[out_dtype], int(aligned), int(wg),
+            ctypes.byref(form), _build.stream(dev))
     _build.check(rc, "tdt_gemm_rs_partials")
     gemm_rs_partials.launches += 1
+    count_form(gemm_rs_partials, form.value)
     return parts.shards
 
 
@@ -579,6 +595,7 @@ def _gemm_rs_mx_cuda(a, b, mesh, out_dtype, plan):
 _gemm_rs_cuda.launches = 0
 _gemm_rs_mesh_cuda.launches = 0
 gemm_rs_partials.launches = 0
+gemm_rs_partials.by_variant = {}
 gemm_rs_fold.launches = 0
 #: the int8-mxu producer's partials, also by the TPU kernel each launch
 #: stands for, and its fold's two modes
