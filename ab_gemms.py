@@ -3,9 +3,9 @@ card, at the shapes the serving and decode paths give them, in turns
 A B, B A, ... Each run is a process of its own, started in its tree, so
 each tree builds and runs its own kernels.
 
-    python3 ab_gemms.py TREE_A [TREE_B] [--pairs N]
+    python3 ab_gemms.py TREE_A [TREE_B]
 
-``TREE_B`` defaults to this checkout, ``--pairs`` to 2 (A B B A). The
+``TREE_B`` defaults to this checkout; runs go A B B A (``ab_common``). The
 shapes: ``Transformer._router_logits`` on bf16 x with DeepSeek-MoE-16B's
 f32 router (K 2048, 64 experts) at M 768 (a serving step's packed rows)
 and M 8 (a decode step), and at M 768 with K cut to 512 (how the time
@@ -16,13 +16,9 @@ Prints each run's times, then one JSON object: every run, and each
 shape's median per tree. Needs a CUDA card.
 """
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 
-import numpy as np
+import ab_common
 
 CHILD = r"""
 import json
@@ -61,43 +57,5 @@ print("AB " + json.dumps(out), flush=True)
 """
 
 
-def run(tree: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=tree)
-    out = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, env=env,
-                         capture_output=True, text=True, timeout=900)
-    line = next((x for x in out.stdout.splitlines() if x.startswith("AB ")),
-                "")
-    print(f"[{tree}] {line}", flush=True)
-    if out.returncode or not line:
-        sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
-        raise SystemExit(f"{tree}: the timing run failed "
-                         f"(rc {out.returncode})")
-    return {"tree": tree, **json.loads(line[3:])}
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("tree_a")
-    ap.add_argument("tree_b", nargs="?",
-                    default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--pairs", type=int, default=2)
-    opts = ap.parse_args()
-    a, b = os.path.abspath(opts.tree_a), os.path.abspath(opts.tree_b)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    runs = []
-    for i in range(opts.pairs):
-        order = (b, a) if i % 2 else (a, b)
-        runs += [run(t) for t in order]
-    keys = [k for k in runs[0] if k.endswith("_ms")]
-    median = {t: {k: float(np.median([r[k] for r in runs if r["tree"] == t]))
-                  for k in keys} for t in (a, b)}
-    print(json.dumps({"card": smi, "runs": runs, "median": median}),
-          flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_common.main(__doc__, CHILD))

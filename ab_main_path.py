@@ -5,22 +5,21 @@ A B, ... Each run is a process of its own, started in its tree, so each
 tree builds and runs its own kernels; host noise that drifts through
 the call falls on both trees alike.
 
-    python3 ab_main_path.py TREE_A [TREE_B] [--pairs N]
+    python3 ab_main_path.py TREE_A [TREE_B]
 
-``TREE_B`` defaults to this checkout, ``--pairs`` to 2 (A B B A).
+``TREE_B`` defaults to this checkout; runs go A B B A (``ab_common``).
 Prints each run's path line, then one JSON object: every run's p50 and
 p99 step ms, wall and tok/s, and per metric each tree's median, A's
 interquartile range and the pairs B reads lower in. Needs a CUDA card.
 """
 
-import argparse
 import json
-import os
 import re
-import subprocess
 import sys
 
 import numpy as np
+
+import ab_common
 
 CHILD = r"""
 import sys
@@ -44,16 +43,7 @@ KEYS = ("p50_step_ms", "p99_step_ms", "wall_s", "tok_s", "steps")
 
 
 def run(tree: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=tree)
-    out = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, env=env,
-                         capture_output=True, text=True, timeout=900)
-    line = next((x for x in out.stdout.splitlines()
-                 if x.startswith("path deepseek_moe_16b ")), "")
-    print(f"[{tree}] {line}", flush=True)
-    if out.returncode or not line:
-        sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
-        raise SystemExit(f"{tree}: the main path failed "
-                         f"(rc {out.returncode})")
+    line = ab_common.run(tree, CHILD, prefix="path deepseek_moe_16b ")
     got = {k: float(re.search(rf"\b{k}=([0-9.]+)", line).group(1))
            for k in KEYS}
     return {"tree": tree, **got}
@@ -73,24 +63,12 @@ def summary(pairs: list) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("tree_a")
-    ap.add_argument("tree_b", nargs="?",
-                    default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--pairs", type=int, default=2)
-    opts = ap.parse_args()
-    a, b = os.path.abspath(opts.tree_a), os.path.abspath(opts.tree_b)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    pairs = []
-    for i in range(opts.pairs):
-        if i % 2:
-            rb, ra = run(b), run(a)
-        else:
-            ra, rb = run(a), run(b)
-        pairs.append((ra, rb))
+    a, b, _ = ab_common.trees(__doc__)
+    smi = ab_common.card()
+    runs = [run(t) for t in ab_common.turns(a, b)]
+    # each pair as (A's run, B's run), whatever order it ran in
+    pairs = [tuple(sorted(runs[i:i + 2], key=lambda r: r["tree"] != a))
+             for i in range(0, len(runs), 2)]
     print(json.dumps({"card": smi, "pairs": pairs,
                       "summary": summary(pairs)}), flush=True)
     return 0

@@ -167,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -223,13 +224,16 @@ KERNELS = {
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/flash_decode.cu",
         replaces="triton_distributed_tpu/kernels/flash_decode.py:1005"),
+    # the two fused TP kernels' GEMM bodies at world size 1: the mesh
+    # entries on a one-rank table (in bf16 the warpgroup GEMM of
+    # csrc/wg_gemm.cuh, in f32 the FMA tile loops)
     "ag_gemm_n1": dict(
         route="cuda",
-        source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+        source="triton_distributed_tpu_torch/csrc/ag_gemm.cu",
         replaces="triton_distributed_tpu/kernels/ag_gemm.py:227"),
     "gemm_rs_n1": dict(
         route="cuda",
-        source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+        source="triton_distributed_tpu_torch/csrc/gemm_rs.cu",
         replaces="triton_distributed_tpu/kernels/gemm_rs.py:248"),
     "ag_group_gemm": dict(
         route="cuda",
@@ -647,6 +651,9 @@ MOE_T, MOE_H, MOE_F, MOE_E, MOE_K = T_PAD, 2048, 1408, 64, 6
 # |out - ref| <= GG_RTOL·|ref| + GG_ATOL·max|ref| (one bf16 rounding of
 # the output, and the f32 summation order)
 GG_RTOL, GG_ATOL = 2.0 ** -8, 1e-4
+#: the world-size-1 GEMMs' second row count: 62.5 tiles of 128 rows, so
+#: that the last tile is partial (TMA's zero fill, the epilogue's row guard)
+N1_RAGGED_M = 8000
 
 
 def log(*a):
@@ -1839,20 +1846,26 @@ def check_decode_kernels(res: Results, dev):
 def check_n1_gemms(res: Results, dev):
     """The world-size-1 AG-GEMM / GEMM-RS at the prefill's shapes (8
     prompts of 1024 rows): wqkv and up through ``ag_gemm``, wo and down
-    through ``gemm_rs``, 32 launches a prefill each."""
+    through ``gemm_rs``, 32 launches a prefill each, timed; then each
+    again at :data:`N1_RAGGED_M` rows (a partial last 128-row tile),
+    against the plain version only; every launch must run the warpgroup
+    GEMM (``wgmma``)."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import ag_gemm as agm
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
 
+    clear_wg_forms("ag_gemm_n1", "gemm_rs_n1")
     m, h, f, qkv = DEC_B * DEC_PROMPT, 4096, 11008, 3 * 4096
     g = torch.Generator(device=dev).manual_seed(6)
     shapes = (("ag_gemm_n1", "wqkv", h, qkv, agm.ag_gemm, agm.ag_gemm_plain),
               ("ag_gemm_n1", "up", h, f, agm.ag_gemm, agm.ag_gemm_plain),
               ("gemm_rs_n1", "wo", h, h, grs.gemm_rs, grs.gemm_rs_plain),
               ("gemm_rs_n1", "down", f, h, grs.gemm_rs, grs.gemm_rs_plain))
-    for name, what, k, n, fn, plain in shapes:
-        a = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+    for (name, what, k, n, fn, plain), rows in itertools.product(
+            shapes, (m, N1_RAGGED_M)):
+        a = torch.randn((rows, k), generator=g, device=dev,
+                        dtype=torch.bfloat16)
         b = torch.randn((k, n), generator=g, device=dev,
                         dtype=torch.bfloat16) / math.sqrt(k)
         out = fn(a, b)
@@ -1861,12 +1874,15 @@ def check_n1_gemms(res: Results, dev):
         diff = (out.float() - ref).abs()
         scale = ref.abs().max().item()
         excess = (diff - GG_RTOL * ref.abs()).max().item()
-        tag = f"llama_7b prefill {what} M={m} K={k} N={n}"
+        tag = f"llama_7b prefill {what} M={rows} K={k} N={n}"
         res.check(name, excess, GG_ATOL * scale, tag,
                   metric="max(|err|-2^-8|ref|)")
         err = diff.max().item()
         res.kernel(name, err=err)
-        ms = time_ms(lambda: fn(a, b), 5)
+        if rows != m:
+            del a, b, out, ref, diff
+            continue
+        ms = time_ms(lambda: fn(a, b), 10)
         plain_ms = time_ms(lambda: plain(a, b), 2)
         lib = time_ms(lambda: torch.matmul(a, b), 5)
         nbytes = 2 * (m * k + k * n + m * n)
@@ -1877,6 +1893,8 @@ def check_n1_gemms(res: Results, dev):
             f"{bnd:.4f} ({by}) max_abs_err={err:.6g}")
         res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, H100_BF16_OPS)
         del a, b, out, ref, diff
+    check_all_wgmma(res, "llama_7b prefill world size 1",
+                    ("ag_gemm_n1", "gemm_rs_n1"))
 
 
 def moe_tp_inputs(dev, m, dtype, seed, empty=None):
@@ -1992,9 +2010,12 @@ def check_mesh_kernels(res: Results, dev):
     AG-GEMM (A 4 x (2048, 4096) bf16 row shards, B_r (4096, 3072) for
     wqkv and (4096, 2752) for up) and GEMM-RS (A_q (8192, 1024) for wo
     and (8192, 2752) for down, B_q (K_q, 4096)), 32 launches a prefill
-    each shape, timed; and the all-gather of the decode's partials
-    ((8, 32, 128) bf16 out and (8, 32) f32 lse a rank, 32 launches a
-    step each), byte-exact, timed from a CUDA graph."""
+    each shape, timed; up and down again at the CP prefill's 2016 rows a
+    rank (a partial last 128-row tile in every shard), against the plain
+    versions only; every launch on the warpgroup GEMM (``wgmma``);
+    and the all-gather of the decode's partials ((8, 32, 128) bf16 out
+    and (8, 32) f32 lse a rank, 32 launches a step each), byte-exact,
+    timed from a CUDA graph."""
     import torch
 
     from triton_distributed_tpu_torch.kernels import ag_gemm as agm
@@ -2005,28 +2026,32 @@ def check_mesh_kernels(res: Results, dev):
     mesh = Mesh.loopback(TP, dev)
     m, h, f = DEC_B * DEC_PROMPT, 4096, 11008
     g = torch.Generator(device=dev).manual_seed(12)
+    clear_wg_forms("ag_gemm", "gemm_rs")
 
     def shards(shape, scale=1.0):
         t = torch.randn((TP, *shape), generator=g, device=dev,
                         dtype=torch.bfloat16) * scale
         return list(t.unbind(0))
 
-    cases = (("ag_gemm", "wqkv", h, 3 * h // TP),
-             ("ag_gemm", "up", h, f // TP),
-             ("gemm_rs", "wo", h // TP, h),
-             ("gemm_rs", "down", f // TP, h))
-    for name, what, k, n in cases:
+    cp = CP_B * CP_S  # the CP prefill's rows, 2016 a rank
+    cases = (("ag_gemm", "wqkv", m, h, 3 * h // TP),
+             ("ag_gemm", "up", m, h, f // TP),
+             ("gemm_rs", "wo", m, h // TP, h),
+             ("gemm_rs", "down", m, f // TP, h),
+             ("ag_gemm", "cp up", cp, h, f // TP),
+             ("gemm_rs", "cp down", cp, f // TP, h))
+    for name, what, rows, k, n in cases:
         if name == "ag_gemm":
-            a, b = shards((m // TP, k)), shards((k, n), k ** -0.5)
+            a, b = shards((rows // TP, k)), shards((k, n), k ** -0.5)
             fn, plain = agm.ag_gemm, agm.ag_gemm_plain
             # the same products for every rank at once
             a_cat, b_cat = torch.cat(a), torch.cat(b, dim=1)
-            out_elems, kk = TP * m * n, k
+            out_elems, kk = TP * rows * n, k
         else:
-            a, b = shards((m, k)), shards((k, n), (TP * k) ** -0.5)
+            a, b = shards((rows, k)), shards((k, n), (TP * k) ** -0.5)
             fn, plain = grs.gemm_rs, grs.gemm_rs_plain
             a_cat, b_cat = torch.cat(a, dim=1), torch.cat(b)
-            out_elems, kk = m * n, TP * k
+            out_elems, kk = rows * n, TP * k
         out = fn(a, b, mesh)
         ref = plain(a, b, mesh, out_dtype=torch.float32)
         torch.cuda.synchronize()
@@ -2042,13 +2067,16 @@ def check_mesh_kernels(res: Results, dev):
         res.check(name, excess, GG_ATOL * scale, tag,
                   metric="max(|err|-2^-8|ref|)")
         res.kernel(name, err=err)
-        ms = time_ms(lambda: fn(a, b, mesh), 5)
+        if rows != m:
+            del a, b, a_cat, b_cat, out
+            continue
+        ms = time_ms(lambda: fn(a, b, mesh), 10)
         plain_ms = time_ms(lambda: plain(a, b, mesh), 2)
         lib = time_ms(lambda: torch.matmul(a_cat, b_cat), 5)
         # bytes: every rank's A and B read once, every output written
         # once; operations: all ranks' products
         nbytes = 2 * (a_cat.numel() + b_cat.numel() + out_elems)
-        ops = 2.0 * m * kk * (TP * n if name == "ag_gemm" else n)
+        ops = 2.0 * rows * kk * (TP * n if name == "ag_gemm" else n)
         bnd, by = bound_ms(nbytes, ops, H100_BF16_OPS)
         log(f"time {name} {tag} (32/prefill, one launch for {TP} ranks): "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
@@ -2056,6 +2084,8 @@ def check_mesh_kernels(res: Results, dev):
             f"bound_ms={bnd:.4f} ({by}) max_abs_err={err:.6g}")
         res.shape(name, 32, ms, plain_ms, lib, nbytes, ops, H100_BF16_OPS)
         del a, b, a_cat, b_cat, out
+    check_all_wgmma(res, f"llama_7b tp={TP} prefill mesh GEMMs",
+                    ("ag_gemm", "gemm_rs"))
 
     for what, shape, dt in (("out", (DEC_B, 32, 128), torch.bfloat16),
                             ("lse", (DEC_B, 32), torch.float32)):
@@ -2148,25 +2178,50 @@ def ptxas_report(name: str):
     return [tuple(r) for r in rows], notes
 
 
-def wg_forms():
-    """The launches of the two entries on the warpgroup GEMM's routes by
-    the form each ran (``by_variant``), as {entry: {form: n}}."""
+def _wg_entries() -> dict:
+    """The wrappers of the entries on the warpgroup GEMM's routes, by
+    their counter's name: the two wires, the two mesh GEMMs and the two
+    world-size-1 GEMMs."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agm
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
 
-    return {"ag_gemm_wire": dict(agm.ag_gemm_w_launch.by_variant),
-            "gemm_rs_wire": dict(grs.gemm_rs_partials.by_variant)}
+    return {"ag_gemm_wire": agm.ag_gemm_w_launch,
+            "gemm_rs_wire": grs.gemm_rs_partials,
+            "ag_gemm": agm._ag_gemm_mesh_cuda,
+            "gemm_rs": grs._gemm_rs_mesh_cuda,
+            "ag_gemm_n1": agm._ag_gemm_cuda,
+            "gemm_rs_n1": grs._gemm_rs_cuda}
+
+
+def wg_forms():
+    """The launches of the entries on the warpgroup GEMM's routes by the
+    form each ran (``by_variant``), as {entry: {form: n}}."""
+    return {e: dict(fn.by_variant) for e, fn in _wg_entries().items()}
+
+
+def clear_wg_forms(*entries):
+    """Clear the form tallies of ``entries``."""
+    for e in entries:
+        _wg_entries()[e].by_variant.clear()
 
 
 def check_wg_forms(res: Results, what, want: dict):
-    """Fail unless every launch of the two entries since their tallies
-    were cleared ran the ``wgmma`` form, ``want[entry]`` times."""
+    """Fail unless every launch of the entries of ``want`` since their
+    tallies were cleared ran the ``wgmma`` form, ``want[entry]`` times."""
     forms = wg_forms()
-    log(f"forms {what}: " + " ".join(f"{k}={v}" for k, v in forms.items()))
+    log(f"forms {what}: " + " ".join(f"{k}={forms[k]}" for k in want))
     for entry, n in want.items():
         if forms[entry] != {"wgmma": n}:
             res.failures.append(f"{what}: {entry} launches by form "
                                 f"{forms[entry]}, expected {n} on wgmma")
+
+
+def check_all_wgmma(res: Results, what, entries):
+    """Fail unless ``entries`` launched since their tallies were cleared,
+    and every launch ran the ``wgmma`` form."""
+    forms = wg_forms()
+    check_wg_forms(res, what, {e: max(1, sum(forms[e].values()))
+                               for e in entries})
 
 
 def check_wire_kernels(res: Results, dev):
@@ -2438,8 +2493,7 @@ def check_wire_kernels(res: Results, dev):
               H100_BF16_OPS)
     del x, wired, pairs, q, sc
     # every launch of the phase (checks, times, whole calls) on wgmma
-    check_wg_forms(res, f"{tag0} kernels", {
-        e: sum(v.values()) for e, v in wg_forms().items()})
+    check_all_wgmma(res, f"{tag0} kernels", ("ag_gemm_wire", "gemm_rs_wire"))
 
 
 def a2a_mesh_inputs(dev, m_rank: int, seed: int):
@@ -3929,7 +3983,8 @@ def run_decode_path(res: Results, dev, name, cfg, steps=DEC_STEPS,
     (lengths 128-1024, padded to 1024) prefilled into contiguous caches
     of capacity 2048, a paged copy at page 128, ``steps`` greedy steps
     on each (an EP MoE model over its persistent workspaces, threaded
-    from step to step). ``expect``: {kernel: (launches a prefill,
+    from step to step); a bf16 model's world-size-1 GEMMs must all run
+    the warpgroup GEMM (``wgmma``). ``expect``: {kernel: (launches a prefill,
     launches a decode step)} the run must show. Returns {kernel:
     launches} over the prefill and both layouts' steps; with ``keep``
     also the run's model, weights, prompts, contiguous caches (which
@@ -3972,6 +4027,10 @@ def run_decode_path(res: Results, dev, name, cfg, steps=DEC_STEPS,
         if counts[k] != per_prefill:
             res.failures.append(f"{name}: {counts[k]} {k} launches in the "
                                 f"prefill, expected {per_prefill}")
+    n1 = {k: counts[k] for k in ("ag_gemm_n1", "gemm_rs_n1") if counts[k]}
+    if cfg.dtype == torch.bfloat16 and n1:
+        # the bf16 world-size-1 GEMMs all on the warpgroup GEMM
+        check_wg_forms(res, f"{name} prefill", n1)
     first = torch.argmax(last, -1).to(torch.int32)
     if not torch.isfinite(last).all():
         res.failures.append(f"{name}: non-finite prefill logits")
@@ -4042,7 +4101,8 @@ def run_tp_path(res: Results, dev, one, profile=False):
     the card, from the tp = 1 run ``one`` (:func:`run_decode_path` with
     ``keep``): its weights sharded, its prompts prefilled into
     sequence-sharded caches (64 mesh AG-GEMM and 64 GEMM-RS launches,
-    each covering the 4 ranks; no world-size-1 GEMM), the first step's
+    each covering the 4 ranks, all on ``wgmma``; no world-size-1 GEMM),
+    the first step's
     logits within ``TP_PREFILL_RTOL`` of the tp = 1 prefill's, then
     ``TP_STEPS`` steps in lockstep with the tp = 1 model, both fed its
     greedy tokens: every step's logits within ``TP_DECODE_RTOL``, the
@@ -4087,6 +4147,8 @@ def run_tp_path(res: Results, dev, one, profile=False):
         if counts[k] != want:
             res.failures.append(f"{name}: {counts[k]} {k} launches in the "
                                 f"prefill, expected {want}")
+    check_wg_forms(res, f"{name} prefill", {
+        "ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers})
     if not torch.equal(kl4, kl):
         res.failures.append(f"{name}: prefill lengths differ")
     scale = one["last"].abs().max().item()
@@ -4194,7 +4256,8 @@ def run_cp_prefill_path(res: Results, dev, one):
     A ring prefill must launch the ring kernel once a layer, a Ulysses
     prefill the all-to-all 4 times and the ring kernel once a layer (its
     TMA form every time), each
-    the mesh AG-GEMM / GEMM-RS once a layer (the MLP), and every decode
+    the mesh AG-GEMM / GEMM-RS once a layer (the MLP; at 2016 rows a rank
+    on the warpgroup GEMM, ``wgmma``, every time), and every decode
     step the flash decode once and the all-gather twice a layer. Returns
     {row: (launches, 1)} of the two prefills, by TPU kernel."""
     import dataclasses
@@ -4266,6 +4329,9 @@ def run_cp_prefill_path(res: Results, dev, one):
                 res.failures.append(f"{name} {attn}: {counts[k]} {k} "
                                     f"launches in the prefill, expected "
                                     f"{want}")
+        # the mesh GEMMs at 2016 rows a rank, on wgmma
+        check_wg_forms(res, f"{name} {attn} prefill", {
+            k: expect[attn][k] for k in ("ag_gemm", "gemm_rs")})
         if attn != "tp":
             for row, tpu in CP_ROWS.items():
                 totals[row] += by.get(tpu, 0)
@@ -4369,8 +4435,9 @@ def run_wire_path(res: Results, dev):
     layer's MLP output, on each wire, all-gathered on 'auto' over the
     ring (16 MiB a shard: fp8) within 0.06. Counts every launch of the run: each wire
     kernel must launch 32 times a layer op it carries, the plain GEMMs
-    never, and every launch of the wire AG-GEMM and of the partials must
-    run the warpgroup GEMM (``wgmma``). Returns {kernel: launches}. On the loopback mesh no byte
+    never, and every launch of the wire AG-GEMM, of the partials and of
+    the bf16 wire's AG-GEMM and GEMM-RS must run the warpgroup GEMM
+    (``wgmma``). Returns {kernel: launches}. On the loopback mesh no byte
     crosses a link: the run shows the wires' numerics and cost."""
     import torch
 
@@ -4446,9 +4513,10 @@ def run_wire_path(res: Results, dev):
         if v != expect.get(k, 0):
             res.failures.append(f"{name}: {v} {k} launches, expected "
                                 f"{expect.get(k, 0)}")
-    # the fp8 / int8 AG-GEMMs and every partials launch on wgmma
-    check_wg_forms(res, name, {"ag_gemm_wire": expect["ag_gemm_wire"],
-                               "gemm_rs_wire": expect["gemm_rs_wire"]})
+    # the fp8 / int8 AG-GEMMs, every partials launch and the bf16 wire's
+    # AG-GEMM and GEMM-RS on wgmma
+    check_wg_forms(res, name, {e: expect[e] for e in (
+        "ag_gemm_wire", "gemm_rs_wire", "ag_gemm", "gemm_rs")})
     for (wire, op), err in worst.items():
         if wire == "twin":
             res.check(name, err, WIRE_MX_TWIN_TOL, f"int8-mxu vs int8 {op} "

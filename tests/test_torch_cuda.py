@@ -1102,10 +1102,126 @@ class TestWireKernels:
 class TestWgmmaGemm:
     """The warpgroup GEMM (``csrc/wg_gemm.cuh``: ``wgmma`` fed by TMA) of
     the wire AG-GEMM and the GEMM-RS wire's partials, at shapes that take
-    it (m a multiple of 128 rows): a ragged N, a K tail past a 64-deep
-    stage, 1, 2 and 4 ranks, an outlier row (x1000) in shard 0 and zero
-    rows at the end of the last shard, bf16 and f32 outputs. Each launch
-    must report the ``wgmma`` form."""
+    it (m a multiple of 128 rows), and of the bf16 AG-GEMM and GEMM-RS
+    over a mesh and at world size 1, at any row count: a ragged N, a K
+    tail past a 64-deep stage, 1, 2 and 4 ranks, an outlier row (x1000)
+    in shard 0 and zero rows at the end of the last shard, bf16 and f32
+    outputs. Each launch must report the ``wgmma`` form."""
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("k", [200, 1024])
+    @pytest.mark.parametrize("m", [128, 200, 2016])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    def test_ag_gemm_wgmma_matches_plain(self, dev, w, m, k, out):
+        """``tdt_ag_gemm`` with every shard tiled on its own (m 200 and
+        2016: a partial last tile a shard, whose rows past m TMA fills
+        with zeros and the epilogue never stores) and K 200 (a K tail):
+        every rank's gathered product within f32 summation order (per
+        row) and one rounding of the plain version; the last shard's zero
+        rows give exact zeros; one launch, on ``wgmma``."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        odt, n = getattr(torch, out), 136
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, m, k, torch.bfloat16, 57)
+        rng = np.random.default_rng(58)
+        b = [x / np.sqrt(k) for x in _mesh_shards(rng, dev, w, (k, n),
+                                                  torch.bfloat16, False)]
+        agm._ag_gemm_mesh_cuda.by_variant.clear()
+        got = agm.ag_gemm(a, b, mesh, out_dtype=odt)
+        assert agm._ag_gemm_mesh_cuda.by_variant == {"wgmma": 1}
+        want = agm.ag_gemm_plain(a, b, mesh, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == odt and g.shape == (w * m, n)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, out == "bfloat16")).all()
+            assert torch.equal(g[-8:], torch.zeros_like(g[-8:]))
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("k", [200, 1024])
+    @pytest.mark.parametrize("m", [128, 200, 2016])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    def test_gemm_rs_wgmma_matches_plain(self, dev, w, m, k, out):
+        """``tdt_gemm_rs``: destination r's m rows summed over the w ranks'
+        parts of K 200 (a K tail in every part) or 1024 in the f32
+        accumulators, rounded once (m 200 and 2016: a partial last tile,
+        which reads rank r + 1's rows and stores none of them): within
+        f32 summation order over ranks and K (per row) and one rounding
+        of the plain version; one launch, on ``wgmma``."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        odt, n = getattr(torch, out), 136
+        mesh = Mesh.loopback(w, dev)
+        a = _wire_shards(dev, w, w * m, k, torch.bfloat16, 59)
+        rng = np.random.default_rng(60)
+        b = [x / np.sqrt(w * k) for x in _mesh_shards(
+            rng, dev, w, (k, n), torch.bfloat16, False)]
+        grs._gemm_rs_mesh_cuda.by_variant.clear()
+        got = grs.gemm_rs(a, b, mesh, out_dtype=odt)
+        assert grs._gemm_rs_mesh_cuda.by_variant == {"wgmma": 1}
+        want = grs.gemm_rs_plain(a, b, mesh, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, want):
+            assert g.dtype == odt and g.shape == (m, n)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, w * k, out == "bfloat16")).all()
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("shape", [(8192, 1024, 1024), (8064, 200, 136),
+                                       (8000, 1024, 136), (200, 136, 72)])
+    @pytest.mark.parametrize("op", ["ag_gemm_n1", "gemm_rs_n1"])
+    def test_n1_wgmma_matches_plain(self, dev, op, shape, out):
+        """(M, K, N) at world size 1 (``ag_gemm`` / ``gemm_rs`` on
+        tensors), the mesh entry on a one-rank table: M 8192 (the
+        prefill's), 8064 (whole tiles, K 200: a K tail), 8000 and 200 (a
+        partial last tile), within f32 summation order (per row) and one
+        rounding of the plain version; one launch on its own counter, on
+        ``wgmma``."""
+        m, k, n = shape
+        odt = getattr(torch, out)
+        rng = np.random.default_rng(61)
+        a = _t(rng.standard_normal((m, k)), dev, torch.bfloat16)
+        b = _t(rng.standard_normal((k, n)) / np.sqrt(k), dev, torch.bfloat16)
+        fn, wrap = ((agm.ag_gemm, agm._ag_gemm_cuda) if op == "ag_gemm_n1"
+                    else (grs.gemm_rs, grs._gemm_rs_cuda))
+        wrap.by_variant.clear()
+        before = launch_counts()
+        got = fn(a, b, out_dtype=odt)
+        after = launch_counts()
+        assert after[op] == before[op] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        assert wrap.by_variant == {"wgmma": 1}
+        want = agm.ag_gemm_plain(a, b, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == odt and got.shape == (m, n)
+        assert ((got.float() - want).abs()
+                <= _gemm_tol_rows(want, k, out == "bfloat16")).all()
+
+    def test_f32_and_unaligned_keep_the_tile_loops(self, dev):
+        """f32 operands run the FMA loops of ``tdt_ag_gemm`` /
+        ``tdt_gemm_rs`` (over a mesh and on a one-rank table at world size
+        1) and bf16 rows that are not whole 16-byte pieces (K 70) the
+        ``mma.sync`` loops; each wrapper tallies the form it ran."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(2, dev)
+        rng = np.random.default_rng(62)
+        for dtype, k, form in ((torch.float32, 64, "fma"),
+                               (torch.bfloat16, 70, "mma_sync")):
+            a = _mesh_shards(rng, dev, 2, (64, k), dtype, False)
+            b = _mesh_shards(rng, dev, 2, (k, 72), dtype, False)
+            for wrap in (agm._ag_gemm_mesh_cuda, grs._gemm_rs_mesh_cuda,
+                         agm._ag_gemm_cuda, grs._gemm_rs_cuda):
+                wrap.by_variant.clear()
+            agm.ag_gemm(a, b, mesh)
+            grs.gemm_rs(a, b, mesh)
+            agm.ag_gemm(a[0], b[0])
+            grs.gemm_rs(a[0], b[0])
+            torch.cuda.synchronize()
+            for wrap in (agm._ag_gemm_mesh_cuda, grs._gemm_rs_mesh_cuda,
+                         agm._ag_gemm_cuda, grs._gemm_rs_cuda):
+                assert wrap.by_variant == {form: 1}
 
     @pytest.mark.parametrize("out", ["bfloat16", "float32"])
     @pytest.mark.parametrize("wire", ["fp8", "int8"])

@@ -545,7 +545,8 @@ class TestEngine:
 
 PORT_FILES = sorted((ROOT / "triton_distributed_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "ab_main_path.py",
-       ROOT / "ab_gemms.py"]
+       ROOT / "ab_gemms.py", ROOT / "ab_wire.py", ROOT / "ab_tp.py",
+       ROOT / "ab_common.py"]
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 

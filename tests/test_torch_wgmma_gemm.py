@@ -1,5 +1,6 @@
 """CPU checks of the warpgroup GEMM's host-side pieces (``csrc/
-wg_gemm.cuh``: ``wgmma`` fed by TMA, under ``tdt_ag_gemm_w`` and
+wg_gemm.cuh``: ``wgmma`` fed by TMA, under ``tdt_ag_gemm``,
+``tdt_gemm_rs`` (over a mesh and at world size 1), ``tdt_ag_gemm_w`` and
 ``tdt_gemm_rs_partials``), whose kernel runs only on a card
 (``tests/test_torch_cuda.py::TestWgmmaGemm``):
 
@@ -10,15 +11,21 @@ wg_gemm.cuh``: ``wgmma`` fed by TMA, under ``tdt_ag_gemm_w`` and
   reads are free of shared-memory bank conflicts;
 * the wire AG's tile map (emulated in numpy) against ``PeerRowsQ::at``
   (``csrc/ggemm_tiles.cuh``) and the plain version's gathered order;
+* the bf16 sources' tile maps (``WgPeerRows``, ``WgPeerSum``,
+  ``WgLocal``) against the tile loops' ``PeerRows``, ``PeerSum`` and
+  ``PeerLocal`` at row counts that are not multiples of the tile, and
+  the epilogue's row guard: every output row stored once, none past;
 * the epilogue's staging covers the tile once, without bank conflicts;
 * the form predicate (``ag_gemm.wgmma_form``), its constants against the
   C source, and the shapes the wire path and the smoke launch;
 * the port's AG-GEMM and GEMM-RS wires on the CPU against the JAX
-  package's XLA ring twins at a tile-sized shard.
+  package's XLA ring twins at a tile-sized shard, and the bf16 AG-GEMM
+  and GEMM-RS at a shard of 200 rows.
 """
 
 from __future__ import annotations
 
+import itertools
 import re
 
 import jax
@@ -236,6 +243,121 @@ def test_wire_tiles_follow_peer_rows_q(world, m):
                                     == at[row][2])
 
 
+# ------------------------------------------------ the bf16 sources' tiles
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _src_tiles(src, m, world):
+    """``Src::tiles``: the grid's M-tile count (``m`` the rows of a shard,
+    or of a destination)."""
+    return {"rows": world * _cdiv(m, BM), "sum": _cdiv(m, BM),
+            "local": _cdiv(world * m, BM)}[src]
+
+
+def _src_tile(src, t, r, m, world):
+    """``WgPeerRows`` / ``WgPeerSum`` / ``WgLocal``'s ``tile`` for M-tile t
+    of rank r, each part's (A's rank, its first row in that rank's map, B's
+    rank), then the first output row and the rows stored."""
+    m0 = t * BM
+    if src == "rows":
+        per = _cdiv(m, BM)
+        s, i0 = (t // per + r) % world, (t % per) * BM
+        return [(s, i0, r)], s * m + i0, min(BM, m - i0)
+    if src == "sum":
+        return ([(q, r * m + m0, q) for q in range(world)], m0,
+                min(BM, m - m0))
+    return [(r, m0, r)], m0, min(BM, world * m - m0)
+
+
+def _loop_reads(src, r, m, world):
+    """The tile loops' row sources (``csrc/ggemm_tiles.cuh``) for rank r:
+    {output row: [(A's rank, its row, B's rank) a part]}. ``PeerRows``:
+    tile row t is gathered row g = (t + r m) mod (W m), row g % m of shard
+    g / m; ``PeerSum``: output row i (< m) sums A_q's row r m + i against
+    B_q over q; ``PeerLocal``: row i (< W m) of A_r against B_r."""
+    if src == "rows":
+        out = {}
+        for t in range(world * m):
+            g = (t + r * m) % (world * m)
+            out[g] = [(g // m, g % m, r)]
+        return out
+    if src == "sum":
+        return {i: [(q, r * m + i, q) for q in range(world)]
+                for i in range(m)}
+    return {i: [(r, i, r)] for i in range(world * m)}
+
+
+@pytest.mark.parametrize("src", ["rows", "sum", "local"])
+def test_bf16_tiles_follow_the_tile_loops(src):
+    """At W 1 / 2 / 4 / 8 ranks and m 96 / 128 / 200 / 2016 rows, for
+    every rank: the stored rows of every M-tile (its first ``rows``, the
+    epilogue's guard) cover the output rows once and none past them, each
+    read from the A rows and B of the tile loops' source (so in the plain
+    version's gathered or summed order), and every stored row's A row
+    lies inside its map (shard maps of m rows for ``WgPeerRows``, W m for
+    the others), so none of TMA's zero fill reaches a stored row."""
+    for world, m in itertools.product((1, 2, 4, 8), (96, 128, 200, 2016)):
+        out_rows = {"rows": world * m, "sum": m, "local": world * m}[src]
+        map_rows = m if src == "rows" else world * m
+        for r in range(world):
+            got = {}
+            for t in range(_src_tiles(src, m, world)):
+                parts, out0, rows = _src_tile(src, t, r, m, world)
+                assert 1 <= rows <= BM
+                for j in range(rows):
+                    reads = [(q, a0 + j, b) for q, a0, b in parts]
+                    assert all(0 <= row < map_rows for _, row, _ in reads)
+                    assert out0 + j not in got
+                    got[out0 + j] = reads
+            assert sorted(got) == list(range(out_rows)), (world, m, r)
+            assert got == _loop_reads(src, r, m, world), (world, m, r)
+
+
+def _band_tile(bx, by, nx, ny, band=8):
+    """``wg_gemm_kernel``'s tile order: block (bx, by) of an (nx, ny) grid
+    → (M-tile, N-tile), in bands of ``band`` M-tiles, M fastest within."""
+    pid = by * nx + bx
+    first = pid // (band * nx) * band
+    rows = min(band, ny - first)
+    i = pid - first * nx
+    return first + i % rows, i // rows
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (48, 64), (12, 64), (16, 16),
+                                  (1, 2), (3, 17), (16, 63)])
+def test_band_order_covers_the_grid_once(grid):
+    """The banded tile order is a permutation of the grid's (M-tile,
+    N-tile) pairs (the last band short where the M-tiles do not divide),
+    and within a band consecutive blocks walk the band's M-tiles before
+    the next N-tile: ``WG_BAND`` consecutive blocks share one B column
+    block."""
+    assert _const("WG_BAND") == 8
+    nx, ny = grid
+    order = [_band_tile(bx, by, nx, ny) for by in range(ny)
+             for bx in range(nx)]
+    assert sorted(order) == [(m, n) for m in range(ny) for n in range(nx)]
+    for pid in range(min(len(order), 8 * nx) - 1):
+        (m, n), (m2, n2) = order[pid], order[pid + 1]
+        assert (m2, n2) == ((m + 1, n) if m + 1 < min(8, ny) else (0, n + 1))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 96, 128])
+@pytest.mark.parametrize("esize", [2, 4])
+def test_epilogue_stores_the_tiles_rows_once(rows, esize):
+    """The epilogue's store loop (``idx < tile.rows * PIECES``, stride the
+    256 consumer threads, 16-byte pieces of a 256-column row) writes each
+    piece of the tile's first ``rows`` rows once and nothing of the rows
+    past them."""
+    pieces = BN // (16 // esize)
+    seen = np.zeros((BM, pieces), np.int64)
+    for tid in range(256):
+        for idx in range(tid, rows * pieces, 256):
+            seen[idx // pieces, idx % pieces] += 1
+    assert (seen[:rows] == 1).all() and (seen[rows:] == 0).all()
+
+
 def test_epilogue_staging_covers_the_tile_without_conflicts():
     """Accumulator 4j + e of a consumer thread is tile row r0 + 8 (e >>
     1), column 8j + 2 tq + (e & 1): the 256 threads' fragments cover the
@@ -300,35 +422,51 @@ def test_wire_path_shapes_take_wgmma():
     (dict(m=128, k=256, n=256, world=1), True),
     (dict(m=128, k=256, n=256, world=8), True),
     (dict(m=128, k=256, n=256, world=9), False),      # maps for 8 ranks
-    (dict(m=64, k=256, n=256), False),                # a tile spans shards
+    (dict(m=64, k=256, n=256, codes=True), False),    # a tile spans shards
     (dict(m=37, k=72, n=40, codes=True), False),      # the odd card shapes
     (dict(m=64, k=70, n=136, codes=True), False),
     (dict(m=32, k=50, n=196), False),
-    (dict(m=64, k=136, n=72), False),
+    (dict(m=64, k=136, n=72, codes=True), False),
     (dict(m=128, k=256, n=196), False),               # N rows not 16 B
     (dict(m=128, k=252, n=256), False),               # K rows not 16 B
     (dict(m=128, k=256, n=256, off=8), False),        # a base 8 B off
     (dict(m=128, k=256, n=256, dtype=torch.float32,
           out=torch.float32), False),                 # f32: the FMA loop
     (dict(m=128, k=256, n=256, out=torch.float16), False),
+    (dict(m=2016, k=4096, n=3072), True),             # the CP prefill's AG
+    (dict(m=2016, k=1024, n=4096), True),             # and its GEMM-RS
+    (dict(m=2016, k=4096, n=3072, codes=True), False),  # the wire's rule
+    (dict(m=2016, k=4096, n=3072, dtype=torch.float32,
+          out=torch.float32), False),                 # f32: the FMA loop
+    (dict(m=2016, k=4096, n=3072, off=8), False),     # a base 8 B off
+    (dict(m=64, k=256, n=256), True),                 # a shard's one tile
+    (dict(m=200, k=136, n=72, world=1), True),        # world size 1, any M
+    (dict(m=8064, k=4096, n=11008, world=1), True),
+    (dict(m=1, k=8, n=8, world=1), True),
+    (dict(m=200, k=70, n=72, world=1), False),        # K rows not 16 B
 ])
 def test_form_predicate(case, want):
-    """Which shapes, types and alignments take the warpgroup GEMM."""
+    """Which shapes, types and alignments take the warpgroup GEMM: the
+    wire's codes keep the multiple of 128 rows a shard, the bf16 sources
+    take any row count."""
     assert _form(**case) is want
 
 
 def test_forms_are_counted_and_cleared():
     """``count_form`` tallies each entry's launches by form name, and
-    ``reset_launch_counts`` clears both tallies."""
+    ``reset_launch_counts`` clears every tally: the wires', the mesh
+    GEMMs' and the world-size-1 GEMMs'."""
     from triton_distributed_tpu_torch.kernels import reset_launch_counts
 
-    agm.count_form(agm.ag_gemm_w_launch, 2)
-    agm.count_form(grs.gemm_rs_partials, 1)
-    assert agm.ag_gemm_w_launch.by_variant.get("wgmma", 0) >= 1
-    assert grs.gemm_rs_partials.by_variant.get("mma_sync", 0) >= 1
+    fns = (agm.ag_gemm_w_launch, grs.gemm_rs_partials,
+           agm._ag_gemm_mesh_cuda, grs._gemm_rs_mesh_cuda,
+           agm._ag_gemm_cuda, grs._gemm_rs_cuda)
+    for i, fn in enumerate(fns):
+        agm.count_form(fn, i % 3)
+        assert fn.by_variant.get(agm.MESH_GEMM_FORMS[i % 3], 0) >= 1
     reset_launch_counts()
-    assert agm.ag_gemm_w_launch.by_variant == {}
-    assert grs.gemm_rs_partials.by_variant == {}
+    for fn in fns:
+        assert fn.by_variant == {}
 
 
 # ------------------------------------------------- parity with the JAX package
@@ -386,16 +524,65 @@ def test_wires_match_jax_at_a_tile_shard(jmesh, wire):
         assert _rel(g, want[r * m:(r + 1) * m]) < 1e-5
 
 
+@pytest.mark.parametrize("w", [1, W])
+def test_bf16_gemms_match_jax_at_a_ragged_shard(w):
+    """At 200 rows a shard (one whole tile of the warpgroup GEMM and a
+    partial one) and K 200 a rank (a K tail past three 64-deep stages),
+    bf16 operands and f32 outputs, over a mesh of ``w`` ranks (1: the
+    world-size-1 call on tensors): the port's AG-GEMM and GEMM-RS on the
+    CPU (their plain versions, which the card's kernels are held to)
+    within 1e-5 of the largest output of JAX's ``ag_gemm`` /
+    ``gemm_rs`` (the same products summed in another order)."""
+    jm = JMesh(np.asarray(jax.devices()[:w]), ("tp",))
+    tmesh = Mesh.loopback(w, "cpu")
+    rng = np.random.default_rng(8)
+    m, k, n = 200, 200, 136
+    bf = jnp.bfloat16
+    a = jnp.asarray(rng.standard_normal((w * m, k)), bf)
+    b = jnp.asarray(rng.standard_normal((k, w * n)) / np.sqrt(k), bf)
+    want = np.asarray(j_ag_gemm(a, b, jm, "tp", method=AGGemmMethod.XLA_RING,
+                                out_dtype=jnp.float32))
+    ta = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    tb = torch.from_numpy(np.asarray(b, np.float32)).to(torch.bfloat16)
+    if w == 1:
+        got = [agm.ag_gemm(ta, tb, out_dtype=torch.float32)]
+    else:
+        got = agm.ag_gemm(list(ta.chunk(w)), list(tb.chunk(w, 1)), tmesh,
+                          out_dtype=torch.float32)
+    for r, g in enumerate(got):
+        assert g.dtype == torch.float32 and g.shape == (w * m, n)
+        assert _rel(g, want[:, r * n:(r + 1) * n]) < 1e-5
+    a2 = jnp.asarray(rng.standard_normal((w * m, w * k)), bf)
+    b2 = jnp.asarray(rng.standard_normal((w * k, n)) / np.sqrt(w * k), bf)
+    want = np.asarray(j_gemm_rs(a2, b2, jm, "tp",
+                                method=GemmRSMethod.XLA_RING,
+                                out_dtype=jnp.float32))
+    ta = torch.from_numpy(np.asarray(a2, np.float32)).to(torch.bfloat16)
+    tb = torch.from_numpy(np.asarray(b2, np.float32)).to(torch.bfloat16)
+    if w == 1:
+        got = [grs.gemm_rs(ta, tb, out_dtype=torch.float32)]
+    else:
+        got = grs.gemm_rs(list(ta.chunk(w, 1)), list(tb.chunk(w)), tmesh,
+                          out_dtype=torch.float32)
+    for r, g in enumerate(got):
+        assert g.dtype == torch.float32 and g.shape == (m, n)
+        assert _rel(g, want[r * m:(r + 1) * m]) < 1e-5
+
+
 def test_ab_script_imports_no_jax():
-    """``ab_wire.py`` (run on the card machine, which has no JAX) and the
-    child it starts in each tree import nothing of JAX or of the JAX
-    package."""
+    """``ab_wire.py``, ``ab_tp.py`` and the runner they share,
+    ``ab_common.py`` (run on the card machine, which has no JAX), and the
+    child each script starts in each tree import nothing of JAX or of the
+    JAX package."""
+    import ab_tp
     import ab_wire
 
     root = csrc_dir().parents[1]
-    text = (root / "ab_wire.py").read_text() + ab_wire.CHILD
-    for line in text.splitlines():
-        hit = re.match(r"^\s*(?:import|from)\s+([\w.]+)", line)
-        if hit:
-            assert hit.group(1).split(".")[0] not in (
-                "jax", "jaxlib", "triton_distributed_tpu"), line
+    for script, child in (("ab_wire.py", ab_wire.CHILD),
+                          ("ab_tp.py", ab_tp.CHILD), ("ab_common.py", "")):
+        text = (root / script).read_text() + child
+        for line in text.splitlines():
+            hit = re.match(r"^\s*(?:import|from)\s+([\w.]+)", line)
+            if hit:
+                assert hit.group(1).split(".")[0] not in (
+                    "jax", "jaxlib", "triton_distributed_tpu"), line

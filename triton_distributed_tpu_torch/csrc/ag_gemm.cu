@@ -11,21 +11,25 @@
 // covers the ranks rank0 .. rank0 + nranks - 1 that live on this device
 // (blockIdx.z is the rank; on the loopback mesh all W of them), and each
 // output tile loads its A rows straight from the peer rank that holds
-// them (PeerRows in ggemm_tiles.cuh). Every rank's A is complete before
-// the launch, by stream order on the one device, so no block waits on
-// another. The tile rows are rotated so that a rank's first M-tiles are
-// its own shard, the ring's step-0 order.
+// them (WgPeerRows in wg_gemm.cuh, PeerRows in ggemm_tiles.cuh). Every
+// rank's A is complete before the launch, by stream order on the one
+// device, so no block waits on another. The tile rows are rotated so that
+// a rank's first M-tiles are its own shard, the ring's step-0 order.
 //
 // What bounds it on an H100: the tensor cores. At the Llama-2-7B tp = 4
 // prefill (A 4 x 2048 x 4096 bf16 rows; B_r 4096 x 3072 for wqkv or
 // 4096 x 2752 for up) one launch over the four ranks is 2 * 8192 * 4096
 // * N flops (0.83 / 0.75 ms at 989 TFLOP/s) on ~0.3 GB of operands.
 //
-// Design (right and simple first): the tile loops of ggemm_tiles.cuh
-// (bf16 on mma.sync, f32 on FMA) with the PeerRows row source; no
-// overlap of the gather with the product. The ring's overlap needs a
-// persistent grid or the copy engine as producer and comes with the
-// push-and-signal redesign.
+// Design: in bf16 the warpgroup GEMM of wg_gemm.cuh (wgmma m64n256k16 fed
+// by TMA, 128 x 256 tiles, a producer warpgroup keeping 4 stages in
+// flight) over the WgPeerRows source, every shard tiled on its own so that
+// any m takes it; world size 1 (ag_gemm on tensors) is the same launch on
+// a one-rank table. Where wg_form_ok fails (f32, K or N not a multiple of
+// 8, a base off the 16-byte grid), the tile loops of ggemm_tiles.cuh (bf16
+// on mma.sync, f32 on FMA) with the PeerRows row source. No overlap of the
+// gather with the product: the ring's overlap needs a persistent grid or
+// the copy engine as producer and comes with the push-and-signal redesign.
 //
 // The quantized wires (tdt_ag_gemm_w, tdt_ag_gemm_mx) replace
 // _fused_kernel_w (:266) and _fused_kernel_mx (:309). Their wrapper
@@ -53,16 +57,32 @@ extern "C" {
 
 // a_peers: (world,) pointers to the row shards A_q (m, K); w_peers /
 // out_peers: (world,) pointers to B_r (K, N) and out_r (world * m, N).
-// zero: one int32 0 (the one expert of the tile loops). Writes out_r
-// for r in [rank0, rank0 + nranks). x_dtype TDT_BF16 or
-// TDT_F32 (B alike), out_dtype TDT_BF16 or TDT_F32; aligned: every A
-// and B shard starts on a 16-byte boundary.
+// zero: one int32 0 (the one expert of the tile loops); a_host / w_host /
+// out_host: the three tables' world pointers in host memory (the
+// warpgroup form's tensor maps). Writes out_r for r in [rank0, rank0 +
+// nranks). x_dtype TDT_BF16 or TDT_F32 (B alike), out_dtype TDT_BF16 or
+// TDT_F32; aligned: every A and B shard starts on a 16-byte boundary;
+// wgmma: run the warpgroup form (the caller's choice by wg_form_ok's
+// rule; refused where it fails; the device tables and zero are then
+// unused), else the tile loops; *form: the MeshGemmForm launched.
 int tdt_ag_gemm(const void* a_peers, const void* w_peers,
-                const void* out_peers, const void* zero, int m, int K,
+                const void* out_peers, const void* zero, const void* a_host,
+                const void* w_host, const void* out_host, int m, int K,
                 int N, int world, int rank0, int nranks, int x_dtype,
-                int out_dtype, int aligned, void* stream) {
+                int out_dtype, int aligned, int wgmma, int* form,
+                void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (m <= 0 || N <= 0 || nranks <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_gemm<WgPeerRows>(
+        static_cast<const unsigned long long*>(a_host), m,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host), nullptr, nullptr,
+        m, K, N, world, rank0, nranks, 1, 0, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerRows rows{static_cast<const unsigned long long*>(a_peers),
                       static_cast<const unsigned long long*>(w_peers),
                       static_cast<const unsigned long long*>(out_peers),

@@ -12,20 +12,26 @@
 // On the card the reduction becomes a pull through the peer tables: one
 // launch covers the ranks rank0 .. rank0 + nranks - 1 on this device
 // (blockIdx.z is the rank), and each output tile runs its K loop over
-// (rank q, k-block), A's rows and B both read from rank q (PeerSum in
-// ggemm_tiles.cuh). The sum over ranks and K stays in f32 registers and
-// the tile is written once, rounded once: in bf16 it differs from the
-// ring by up to about W - 1 bf16 ulps of the result, in f32 only by the
-// summation order. Every rank's A and B are complete before the launch
-// by stream order, so no block waits on another.
+// (rank q, k-block), A's rows and B both read from rank q (WgPeerSum in
+// wg_gemm.cuh, PeerSum in ggemm_tiles.cuh). The sum over ranks and K
+// stays in f32 registers and the tile is written once, rounded once: in
+// bf16 it differs from the ring by up to about W - 1 bf16 ulps of the
+// result, in f32 only by the summation order. Every rank's A and B are
+// complete before the launch by stream order, so no block waits on
+// another.
 //
 // What bounds it on an H100: the tensor cores. At the Llama-2-7B tp = 4
 // prefill (A_q 8192 x 1024 for wo or 8192 x 2752 for down, bf16; B_q
 // 1024 or 2752 x 4096) one launch over the four ranks is 2 * 8192 * K *
 // 4096 flops (0.28 / 0.75 ms at 989 TFLOP/s).
 //
-// Design (right and simple first): the tile loops of ggemm_tiles.cuh
-// with the PeerSum source; no overlap.
+// Design: in bf16 the warpgroup GEMM of wg_gemm.cuh (wgmma m64n256k16 fed
+// by TMA, 128 x 256 tiles) over the WgPeerSum source, its K loop over
+// (rank q, k step) in the f32 accumulators, the tile rounded and stored
+// once, any m; world size 1 (gemm_rs on tensors) is the same launch on a
+// one-rank table. Where wg_form_ok fails (f32, K or N not a multiple of
+// 8, a base off the 16-byte grid), the tile loops of ggemm_tiles.cuh with
+// the PeerSum source. No overlap.
 //
 // The quantized wire replaces _fused_kernel_w (:281),
 // whose ring requantizes each hop's running partial: its numerics are the
@@ -295,16 +301,29 @@ extern "C" {
 
 // a_peers: (world,) pointers to A_q (world * m, K); w_peers: (world,)
 // pointers to B_q (K, N); out_peers: (world,) pointers to out_r (m, N).
-// zero: one int32 0 (the one expert of the tile loops). Writes out_r
-// for r in [rank0, rank0 + nranks). x_dtype TDT_BF16 or
-// TDT_F32 (B alike), out_dtype TDT_BF16 or TDT_F32; aligned: every A and
-// B shard starts on a 16-byte boundary.
+// zero: one int32 0 (the one expert of the tile loops); a_host / w_host /
+// out_host, wgmma and *form as for tdt_ag_gemm. Writes out_r for r in
+// [rank0, rank0 + nranks). x_dtype TDT_BF16 or TDT_F32 (B alike),
+// out_dtype TDT_BF16 or TDT_F32; aligned: every A and B shard starts on a
+// 16-byte boundary.
 int tdt_gemm_rs(const void* a_peers, const void* w_peers,
-                const void* out_peers, const void* zero, int m, int K,
+                const void* out_peers, const void* zero, const void* a_host,
+                const void* w_host, const void* out_host, int m, int K,
                 int N, int world, int rank0, int nranks, int x_dtype,
-                int out_dtype, int aligned, void* stream) {
+                int out_dtype, int aligned, int wgmma, int* form,
+                void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (m <= 0 || N <= 0 || nranks <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_gemm<WgPeerSum>(
+        static_cast<const unsigned long long*>(a_host), world * m,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host), nullptr, nullptr,
+        m, K, N, world, rank0, nranks, 1, 0, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerSum rows{static_cast<const unsigned long long*>(a_peers),
                      static_cast<const unsigned long long*>(w_peers),
                      static_cast<const unsigned long long*>(out_peers),

@@ -1,16 +1,19 @@
 // The warpgroup GEMM of the mesh kernels on Hopper: wgmma fed by TMA, shared
-// by ag_gemm.cu (tdt_ag_gemm_w, the AG-GEMM on the fp8 / int8 wire) and
-// gemm_rs.cu (tdt_gemm_rs_partials, the GEMM-RS wire's partials). It
-// computes what ggemm_tiles.cuh's bf16_mma_kernel computes over the
+// by ag_gemm.cu (tdt_ag_gemm, the bf16 AG-GEMM over a mesh and at world
+// size 1; tdt_ag_gemm_w, the AG-GEMM on the fp8 / int8 wire) and gemm_rs.cu
+// (tdt_gemm_rs, the bf16 GEMM-RS over a mesh and at world size 1;
+// tdt_gemm_rs_partials, the GEMM-RS wire's partials). It computes what
+// ggemm_tiles.cuh's bf16_mma_kernel computes over the PeerRows, PeerSum,
 // PeerRowsQ and PeerLocal rows, f32 sums rounded once at the store, and
 // runs where wg_form_ok (below) holds; the launchers take bf16_mma_kernel
 // elsewhere.
 //
 // What bounds it on an H100: the tensor cores. At the Llama-2-7B tp = 4
-// wire (the AG-GEMM: A 4 x (2048, 4096), B_r (4096, 3072) or (4096, 2752);
-// the partials: A_r (8192, 1024 or 2752), B_r (., 4096)) one launch over
-// the four ranks is 2 * 8192 * 4096 * 4 * N_r (0.79 ms average at 989
-// TFLOP/s) or 2 * 4 * 8192 * K_r * 4096 flops.
+// prefill (the AG-GEMM: A 4 x (2048, 4096), B_r (4096, 3072) or (4096,
+// 2752); the GEMM-RS: A_q (8192, 1024 or 2752), B_q (., 4096), and its
+// wire's partials alike) one launch over the four ranks is 2 * 8192 *
+// 4096 * 4 * N_r (0.79 ms average at 989 TFLOP/s) or 2 * 4 * 8192 * K_q *
+// 4096 flops.
 //
 // Design. One CTA an output tile of WG_BM x WG_BN = 128 x 256 of one rank
 // (blockIdx.z), 384 threads: two consumer warpgroups of 64 rows each (128
@@ -40,13 +43,16 @@
 //   stage's products run (wait_group 1; two buffers of a stage's four k
 //   steps). A row's scale is its chunk's, looked up once a CTA.
 // The epilogue stages the tile through shared memory (rows padded by 16
-// bytes: conflict-free) and stores it in 16-byte pieces; the tiles are
-// whole in M (the launcher's m is a multiple of WG_BM), ragged in N.
+// bytes: conflict-free) and stores it in 16-byte pieces, ragged in N and
+// in M: only the tile's first `rows` rows are stored (those of its shard,
+// or of its destination; TMA fills A's rows past its map with zeros).
 //
-// Row sources (as bf16_mma_kernel's), compile-time: tile(p, m0, part) says
-// where tile m0's A rows and B come from and where its rows land; with
-// parts(p) > 1 the K loop runs over (part, k step), so that PeerSum's sum
-// over ranks (tdt_gemm_rs, still on bf16_mma_kernel) can take this loop.
+// Row sources (as bf16_mma_kernel's), compile-time: tiles(p) is the
+// grid's M-tile count, tile(p, m0, part) says where tile m0's A rows and
+// B come from, where its rows land and how many of them are stored; with
+// parts(p) > 1 the K loop runs over (part, k step): WgPeerSum's sum over
+// ranks. Every part's stage carries the same bytes (TMA counts a box's
+// zero fill), so the producer's count holds across parts.
 #pragma once
 
 #include "hopper.cuh"
@@ -64,6 +70,7 @@ constexpr int WG_STAGES = 4;            // stages in flight
 constexpr int WG_CONSUMERS = 256;       // the two consumer warpgroups
 constexpr int WG_THREADS = WG_CONSUMERS + 128;  // + the producer warpgroup
 constexpr int WG_MAX_RANKS = 8;         // the maps a launch carries
+constexpr int WG_BAND = 8;              // M-tiles a band of the tile order
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // a bf16 A box
 constexpr int WG_Q_BYTES = WG_BM * WG_BK;      // a codes box
 constexpr int WG_BOX_BYTES = WG_BK * 64 * 2;   // a B box: 64 k x 64 n
@@ -91,6 +98,7 @@ struct WgTile {
   bool codes;            // A is a peer's wire codes
   const CUtensorMap* b;  // B's map
   int out_row;           // the tile's first output row
+  int rows;              // its rows that are stored, the first `rows`
 };
 
 // tdt_ag_gemm_w: PeerRowsQ's rotated rows. Tile row t is gathered row g =
@@ -100,12 +108,14 @@ struct WgTile {
 // ...
 struct WgPeerRowsQ {
   static constexpr bool kQuant = true;
+  static int tiles(const WgParams& p) { return p.world * p.m / WG_BM; }
   __device__ static int parts(const WgParams&) { return 1; }
   __device__ static WgTile tile(const WgParams& p, int m0, int) {
     const int r = p.rank0 + blockIdx.z;
     const int g = (m0 + r * p.m) % (p.world * p.m);
-    if (g / p.m == r) return WgTile{&p.a[r], g % p.m, false, &p.b[r], g};
-    return WgTile{&p.q, g, true, &p.b[r], g};
+    if (g / p.m == r)
+      return WgTile{&p.a[r], g % p.m, false, &p.b[r], g, WG_BM};
+    return WgTile{&p.q, g, true, &p.b[r], g, WG_BM};
   }
   // gathered row g's scale (a peer's): PeerRowsQ::at's
   __device__ static float scale(const WgParams& p, int g) {
@@ -117,10 +127,54 @@ struct WgPeerRowsQ {
 // against its own B_r, rows in place, into its slab of partials.
 struct WgLocal {
   static constexpr bool kQuant = false;
+  static int tiles(const WgParams& p) {
+    return (p.world * p.m + WG_BM - 1) / WG_BM;
+  }
   __device__ static int parts(const WgParams&) { return 1; }
   __device__ static WgTile tile(const WgParams& p, int m0, int) {
     const int r = p.rank0 + blockIdx.z;
-    return WgTile{&p.a[r], m0, false, &p.b[r], m0};
+    return WgTile{&p.a[r], m0, false, &p.b[r], m0,
+                  min(WG_BM, p.world * p.m - m0)};
+  }
+};
+
+// tdt_ag_gemm in bf16 (over a mesh, and at world size 1 on a one-rank
+// table): PeerRows' gathered rows, every shard tiled on its own, ceil(m /
+// WG_BM) tiles a shard, so that any m >= 1 takes the loop. Rank r's tile
+// t is tile t % per of shard s = (t / per + r) mod W (its own shard first,
+// PeerRows' rotation; the order only schedules the work): A_s's rows i0,
+// i0 + 1, ... (i0 = (t % per) * WG_BM; A_s's map holds m rows, so TMA
+// fills the rows past m with zeros), landing at gathered rows s * m + i0,
+// ...; the first m - i0 of them are stored.
+struct WgPeerRows {
+  static constexpr bool kQuant = false;
+  static int tiles(const WgParams& p) {
+    return p.world * ((p.m + WG_BM - 1) / WG_BM);
+  }
+  __device__ static int parts(const WgParams&) { return 1; }
+  __device__ static WgTile tile(const WgParams& p, int m0, int) {
+    const int r = p.rank0 + blockIdx.z, per = (p.m + WG_BM - 1) / WG_BM;
+    const int t = m0 / WG_BM, s = (t / per + r) % p.world;
+    const int i0 = (t % per) * WG_BM;
+    return WgTile{&p.a[s], i0, false, &p.b[r], s * p.m + i0,
+                  min(WG_BM, p.m - i0)};
+  }
+};
+
+// tdt_gemm_rs in bf16 (over a mesh, and at world size 1 on a one-rank
+// table): PeerSum's rows. Destination r's tile m0 sums world parts: part q
+// reads A_q's rows r * m + m0, ... (A_q's map holds all W * m rows) against
+// B_q, in the f32 accumulators over (part, k step); rows m0, ... of out_r
+// (m rows), the first m - m0 stored. A tile's rows past m read rank r +
+// 1's rows (or TMA's zeros past W * m), and none of those is stored.
+struct WgPeerSum {
+  static constexpr bool kQuant = false;
+  static int tiles(const WgParams& p) { return (p.m + WG_BM - 1) / WG_BM; }
+  __device__ static int parts(const WgParams& p) { return p.world; }
+  __device__ static WgTile tile(const WgParams& p, int m0, int q) {
+    const int r = p.rank0 + blockIdx.z;
+    return WgTile{&p.a[q], r * p.m + m0, false, &p.b[q], m0,
+                  min(WG_BM, p.m - m0)};
   }
 };
 
@@ -164,7 +218,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   __shared__ uint64_t empty[WG_STAGES];  // the consumers are done with st
   char* sm = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
-  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * WG_BN;
+  // the CTA's tile of its rank's grid, in bands of WG_BAND M-tiles, the
+  // M-tiles fastest within a band: the CTAs in flight share B's column
+  // blocks and the band's A rows from L2, so that a B past L2's 50 MB (the
+  // world-size-1 wqkv's 100 MB) is read once a band, not once every few
+  // M-tiles as in row order
+  const int pid = blockIdx.y * gridDim.x + blockIdx.x;
+  const int first = pid / (WG_BAND * gridDim.x) * WG_BAND;
+  const int band = min(WG_BAND, static_cast<int>(gridDim.y) - first);
+  const int in = pid - first * gridDim.x;
+  const int m0 = (first + in % band) * WG_BM, n0 = in / band * WG_BN;
   const int nk = (p.K + WG_BK - 1) / WG_BK;
   const int total = Src::parts(p) * nk;
   const WgTile tile = Src::tile(p, m0, 0);
@@ -318,7 +381,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   constexpr int E = 16 / static_cast<int>(sizeof(OutT));  // a piece
   constexpr int PIECES = WG_BN / E;                        // a row's
   OutT* out = reinterpret_cast<OutT*>(p.out[p.rank0 + blockIdx.z]);
-  for (int idx = threadIdx.x; idx < WG_BM * PIECES; idx += WG_CONSUMERS) {
+  for (int idx = threadIdx.x; idx < tile.rows * PIECES;
+       idx += WG_CONSUMERS) {
     const int row = idx / PIECES, col = (idx % PIECES) * E;
     if (n0 + col < p.N)
       *reinterpret_cast<uint4*>(
@@ -328,17 +392,18 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // Whether the warpgroup loop takes a launch: bf16 A and B, out_dtype bf16
-// or f32, 1 <= world <= WG_MAX_RANKS, m a multiple of WG_BM (a tile in one
-// shard), K and N multiples of 8 (K of 16 for the codes: 16-byte rows for
-// TMA), every A, B, codes and output base 16-byte aligned. The Python
-// wrappers decide by the same rule (kernels/ag_gemm.py wgmma_form) and
-// pass the form; the launcher refuses a wgmma form that breaks it.
+// or f32, 1 <= world <= WG_MAX_RANKS, m >= 1 and, with the wire's codes q,
+// a multiple of WG_BM (WgPeerRowsQ's tile lies in one shard), K and N
+// multiples of 8 (K of 16 for the codes: 16-byte rows for TMA), every A,
+// B, codes and output base 16-byte aligned. The Python wrappers decide by
+// the same rule (kernels/ag_gemm.py wgmma_form) and pass the form; the
+// launcher refuses a wgmma form that breaks it.
 inline bool wg_form_ok(const unsigned long long* a, const unsigned long long* w,
                        const unsigned long long* out, const void* q, int m,
                        int K, int N, int world, int x_dtype, int out_dtype) {
   if (x_dtype != TDT_BF16 || (out_dtype != TDT_BF16 && out_dtype != TDT_F32) ||
-      world < 1 || world > WG_MAX_RANKS || m <= 0 || m % WG_BM || K <= 0 ||
-      K % (q ? 16 : 8) || N % 8 ||
+      world < 1 || world > WG_MAX_RANKS || m <= 0 || (q && m % WG_BM) ||
+      K <= 0 || K % (q ? 16 : 8) || N % 8 ||
       reinterpret_cast<uintptr_t>(q) % 16)
     return false;
   for (int r = 0; r < world; ++r)
@@ -356,8 +421,7 @@ int wg_launch(const WgParams& p, int nranks, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  const dim3 grid((p.N + WG_BN - 1) / WG_BN,
-                  (p.world * p.m + WG_BM - 1) / WG_BM, nranks);
+  const dim3 grid((p.N + WG_BN - 1) / WG_BN, Src::tiles(p), nranks);
   wg_gemm_kernel<OutT, Src, QUANT><<<grid, WG_THREADS, WG_SMEM, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

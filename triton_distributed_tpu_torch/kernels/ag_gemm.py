@@ -10,15 +10,19 @@ bf16 (or f32) in, f32 sums, the output in A's dtype.
 Two forms:
 
 * **world size 1**, ``ag_gemm(a, b)`` on tensors: the ring has nothing
-  to gather and the kernel is the GEMM, run on the float-mode kernel of
-  ``csrc/group_gemm.cu`` with one expert (launches counted apart, as
-  ``ag_gemm_n1``);
+  to gather and the kernel is the GEMM: ``tdt_ag_gemm`` on a one-rank
+  table (launches counted apart, as ``ag_gemm_n1``, and by form);
 * **over a mesh**, ``ag_gemm(a_shards, b_shards, mesh, axis)``: a list of
   W row shards A_q (m, K) and a list of W column shards B_r (K, N_r) →
   a list of W outputs (W·m, N_r). On the card one launch of
   ``tdt_ag_gemm`` (``csrc/ag_gemm.cu``) covers every rank: each output
   tile loads its A rows from the peer rank that holds them, through the
   peer table (:mod:`~triton_distributed_tpu_torch.lang.shmem`).
+
+Both forms run the warpgroup GEMM of ``csrc/wg_gemm.cuh`` (``wgmma`` fed
+by TMA, each shard tiled on its own) where :func:`wgmma_form` holds,
+which bf16 operands of 16-byte rows do at any row count, else the tile
+loops of ``csrc/ggemm_tiles.cuh`` (bf16 on ``mma.sync``, f32 on FMA).
 
 **Quantized wires** (``wire_dtype``, over a mesh of more than one
 rank; :func:`resolve_ag_gemm_wire` says which wire runs): ``'fp8'`` /
@@ -68,12 +72,14 @@ from triton_distributed_tpu_torch.runtime.topology import one_axis
 #: the GEMM-RS carries its own (``gemm_rs._RS_TILE_TARGETS``)
 _TILE_TARGETS = (512, 2048, 1792)
 
-#: the form a wire AG-GEMM or GEMM-RS partials launch ran, by the code its
-#: C entry reports (``MeshGemmForm`` of ``csrc/wg_gemm.cuh``): the
+#: the form an AG-GEMM, GEMM-RS or wire launch ran, by the code its C
+#: entry reports (``MeshGemmForm`` of ``csrc/wg_gemm.cuh``): the
 #: warpgroup GEMM (``wgmma`` fed by TMA) where :func:`wgmma_form` holds,
 #: else the tile loops of ``csrc/ggemm_tiles.cuh`` (bf16 on ``mma.sync``,
-#: f32 on FMA). Counted in ``ag_gemm_w_launch.by_variant`` and
-#: ``gemm_rs.gemm_rs_partials.by_variant``.
+#: f32 on FMA). Counted in ``by_variant`` on the mesh wrappers
+#: (``_ag_gemm_mesh_cuda``, ``gemm_rs._gemm_rs_mesh_cuda``), the
+#: world-size-1 ones (``_ag_gemm_cuda``, ``gemm_rs._gemm_rs_cuda``) and
+#: the wires' (``ag_gemm_w_launch``, ``gemm_rs.gemm_rs_partials``).
 MESH_GEMM_FORMS = {0: "fma", 1: "mma_sync", 2: "wgmma"}
 #: the warpgroup GEMM's tile rows and the ranks a launch's tensor maps
 #: cover (``WG_BM``, ``WG_MAX_RANKS``)
@@ -379,11 +385,7 @@ def ag_gemm(a, b, mesh=None, axis: str = "tp", *, method=None,
 
 
 def _ag_gemm_cuda(a, b, out_dtype):
-    from triton_distributed_tpu_torch.kernels.group_gemm import float_gemm
-
-    out = float_gemm(a, b, out_dtype)
-    _ag_gemm_cuda.launches += 1
-    return out
+    return launch_n1_gemm(_ag_gemm_cuda, "tdt_ag_gemm", a, b, out_dtype)
 
 
 def check_mesh_operands(entry, a, b, out_dtype, need_b=True):
@@ -402,54 +404,76 @@ def check_mesh_operands(entry, a, b, out_dtype, need_b=True):
     return out_dtype, all(s.data_ptr() % 16 == 0 for s in (*a, *b))
 
 
-def launch_mesh_gemm(entry, a, b, mesh, n, m, out_rows, out_dtype):
+def launch_mesh_gemm(fn, entry, a, b, m, out_rows, out_dtype, mesh=None):
     """Launch ``tdt_ag_gemm`` or ``tdt_gemm_rs`` (``m``: rows of an A
-    shard, or of an output shard) over every rank of the loopback mesh
-    (one launch, ``blockIdx.z`` the rank) into a fresh symmetric output
-    of ``(out_rows, N)`` per rank; returns its shards."""
+    shard, or of an output shard) over the W = ``len(a)`` ranks (one
+    launch, ``blockIdx.z`` the rank) into fresh ``(out_rows, N)`` outputs,
+    symmetric over ``mesh`` (None: one plain tensor, world size 1); returns
+    them. On the warpgroup GEMM where :func:`wgmma_form` holds, else on the
+    tile loops; counted in ``fn.launches`` and by the form its C entry
+    reports in ``fn.by_variant``."""
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.lang.shmem import peer_table, symm_empty
 
     out_dtype, aligned = check_mesh_operands(entry, a, b, out_dtype)
-    dev = mesh.device
-    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-    out = symm_empty(mesh, (out_rows, b[0].shape[1]), out_dtype)
-    # the tables (and ``zero``) stay referenced until the launch is
-    # enqueued: one freed earlier could be handed to the next allocation
-    # on the stream and rewritten before the kernel reads it
-    a_peers, b_peers = peer_table(a), peer_table(b)
-    fn = _build.function(entry, "pppp" + "i" * 9 + "p")
-    rc = fn(_build.ptr(a_peers), _build.ptr(b_peers),
-            _build.ptr(out.peers), _build.ptr(zero), m, a[0].shape[1],
-            b[0].shape[1], n, 0, n, _DT_CODE[a[0].dtype], _DT_CODE[out_dtype],
-            int(aligned), _build.stream(dev))
+    n, k, cols, dev = len(a), a[0].shape[1], b[0].shape[1], a[0].device
+    out = ([torch.empty((out_rows, cols), dtype=out_dtype, device=dev)]
+           if mesh is None else symm_empty(mesh, (out_rows, cols), out_dtype))
+    shards = out if mesh is None else out.shards
+    wg = wgmma_form(m, k, cols, n, a[0].dtype, out_dtype, [*a, *b, *shards])
+    # the tile loops read the device tables (the last one the one expert's
+    # 0), the warpgroup GEMM's maps the host pointers; all stay referenced
+    # until the launch
+    # is enqueued: a table freed earlier could be handed to the next
+    # allocation on the stream and rewritten before the kernel reads it
+    tables = [] if wg else [peer_table(t) for t in (a, b, out)] + [
+        torch.zeros((1,), dtype=torch.int32, device=dev)]
+    hosts = [_build.ptr_array(t) for t in (a, b, shards)]
+    form = ctypes.c_int(-1)
+    f = _build.function(entry, "p" * 7 + "i" * 10 + "pp")
+    rc = f(*([None] * 4 if wg else map(_build.ptr, tables)), *hosts,
+           m, k, cols, n, 0, n, _DT_CODE[a[0].dtype], _DT_CODE[out_dtype],
+           int(aligned), int(wg), ctypes.byref(form), _build.stream(dev))
     _build.check(rc, entry)
-    return out.shards
+    fn.launches += 1
+    count_form(fn, form.value)
+    return shards
+
+
+def launch_n1_gemm(fn, entry, a, b, out_dtype):
+    """The world-size-1 AG-GEMM or GEMM-RS, a (M, K) @ b (K, N): ``entry``
+    (``tdt_ag_gemm`` / ``tdt_gemm_rs``) on a one-rank table, on the
+    warpgroup GEMM where :func:`wgmma_form` holds (bf16), else on the tile
+    loops (f32 on FMA); counted in ``fn.launches`` and by form."""
+    a, b = a.contiguous(), b.contiguous()
+    return launch_mesh_gemm(fn, entry, [a], [b], a.shape[0], a.shape[0],
+                            out_dtype)[0]
 
 
 def _ag_gemm_mesh_cuda(a, b, mesh, n, out_dtype):
     m = a[0].shape[0]
-    out = launch_mesh_gemm("tdt_ag_gemm", a, b, mesh, n, m, n * m,
-                           out_dtype)
-    _ag_gemm_mesh_cuda.launches += 1
-    return out
+    return launch_mesh_gemm(_ag_gemm_mesh_cuda, "tdt_ag_gemm", a, b, m,
+                            n * m, out_dtype, mesh)
 
 
 def wgmma_form(m, k, n, world, dtype, out_dtype, tensors,
                codes=False) -> bool:
-    """Whether a wire AG-GEMM (``codes``: its wire codes among
-    ``tensors``) or GEMM-RS partials launch takes the warpgroup GEMM, by
-    ``wg_form_ok``'s rule (``csrc/wg_gemm.cuh``, which refuses a ``wgmma``
-    launch that breaks it): bf16 A and B, a bf16 or f32 output, ``m`` (the
-    rows of a shard, or of one destination's block) a multiple of
-    :data:`WG_TILE_ROWS` so that a tile lies in one shard, ``k`` and ``n``
-    multiples of 8 (``k`` of 16 with codes: TMA's rows are whole 16-byte
-    pieces), at most :data:`WG_MAX_RANKS` ranks (``world``), and every
-    tensor of ``tensors`` (the A and B shards, the outputs, the codes) on
-    a 16-byte boundary."""
+    """Whether an AG-GEMM, GEMM-RS (either over a mesh or at world size 1),
+    wire AG-GEMM (``codes``: its wire codes among ``tensors``) or GEMM-RS
+    partials launch takes the warpgroup GEMM, by ``wg_form_ok``'s rule
+    (``csrc/wg_gemm.cuh``, which refuses a ``wgmma`` launch that breaks
+    it): bf16 A and B, a bf16 or f32 output, ``m`` (the rows of a shard, or
+    of one destination's block) at least 1 and, with codes, a multiple of
+    :data:`WG_TILE_ROWS` (the wire's tile lies in one shard; the other
+    sources tile each shard on its own), ``k`` and ``n`` multiples of 8
+    (``k`` of 16 with codes: TMA's rows are whole 16-byte pieces), at most
+    :data:`WG_MAX_RANKS` ranks (``world``), and every tensor of
+    ``tensors`` (the A and B shards, the outputs, the codes) on a 16-byte
+    boundary."""
     return (dtype == torch.bfloat16
             and out_dtype in (torch.bfloat16, torch.float32)
-            and 1 <= world <= WG_MAX_RANKS and m > 0 and m % WG_TILE_ROWS == 0
+            and 1 <= world <= WG_MAX_RANKS and m > 0
+            and (not codes or m % WG_TILE_ROWS == 0)
             and k > 0 and k % (16 if codes else 8) == 0 and n % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
@@ -555,9 +579,11 @@ def _ag_gemm_mx_cuda(a, b, mesh, out_dtype, chunk_rows, keep_codes=False):
 
 #: launch counts of the kernels (plain ints on the wrappers): the world-
 #: size-1 GEMM, the kernel over a mesh, and its two quantized wires (the
-#: wire quantizer counts its own launches)
+#: wire quantizer counts its own launches); the first three also by form
 _ag_gemm_cuda.launches = 0
+_ag_gemm_cuda.by_variant = {}
 _ag_gemm_mesh_cuda.launches = 0
+_ag_gemm_mesh_cuda.by_variant = {}
 ag_gemm_w_launch.launches = 0
 ag_gemm_w_launch.by_variant = {}
 ag_gemm_mx_launch.launches = 0

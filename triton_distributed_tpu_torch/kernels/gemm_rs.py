@@ -10,15 +10,19 @@ block of ``Σ_q A_q @ B_q``.
 Two forms:
 
 * **world size 1**, ``gemm_rs(a, b)`` on tensors: there is nothing to
-  reduce and the kernel is the GEMM, on the float-mode kernel of
-  ``csrc/group_gemm.cu`` with one expert (launches counted apart, as
-  ``gemm_rs_n1``);
+  reduce and the kernel is the GEMM: ``tdt_gemm_rs`` on a one-rank table
+  (launches counted apart, as ``gemm_rs_n1``, and by form);
 * **over a mesh**, ``gemm_rs(a_shards, b_shards, mesh, axis)``: a list of
   W column shards A_q (W·m, K_q) and a list of W row shards B_q (K_q, N)
   → a list of W (m, N) outputs. On the card one launch of
   ``tdt_gemm_rs`` (``csrc/gemm_rs.cu``) covers every rank: each output
   tile runs its K loop over (rank q, k-block), reading A_q's rows and
   B_q through the peer tables, sums in f32 and rounds once.
+
+Both forms run the warpgroup GEMM of ``csrc/wg_gemm.cuh`` (``wgmma`` fed
+by TMA) where ``ag_gemm.wgmma_form`` holds, which bf16 operands of
+16-byte rows do at any row count, else the tile loops of
+``csrc/ggemm_tiles.cuh`` (bf16 on ``mma.sync``, f32 on FMA).
 
 Rounding: the TPU ring folds each hop's partial into a slab of the
 output type (``gemm_rs.py:551``), so in bf16 it rounds once per hop; the
@@ -89,6 +93,7 @@ from triton_distributed_tpu_torch.kernels.ag_gemm import (
     check_shards,
     count_form,
     launch_mesh_gemm,
+    launch_n1_gemm,
     pick_mm_blocks,
     quantize_cols_shards,
     wgmma_form,
@@ -421,18 +426,13 @@ def gemm_rs(a, b, mesh=None, axis: str = "tp", *, method=None,
 
 
 def _gemm_rs_cuda(a, b, out_dtype):
-    from triton_distributed_tpu_torch.kernels.group_gemm import float_gemm
-
-    out = float_gemm(a, b, out_dtype)
-    _gemm_rs_cuda.launches += 1
-    return out
+    return launch_n1_gemm(_gemm_rs_cuda, "tdt_gemm_rs", a, b, out_dtype)
 
 
 def _gemm_rs_mesh_cuda(a, b, mesh, n, out_dtype):
     m = a[0].shape[0] // n
-    out = launch_mesh_gemm("tdt_gemm_rs", a, b, mesh, n, m, m, out_dtype)
-    _gemm_rs_mesh_cuda.launches += 1
-    return out
+    return launch_mesh_gemm(_gemm_rs_mesh_cuda, "tdt_gemm_rs", a, b, m, m,
+                            out_dtype, mesh)
 
 
 def gemm_rs_partials(a, b, mesh, out_dtype):
@@ -591,9 +591,11 @@ def _gemm_rs_mx_cuda(a, b, mesh, out_dtype, plan):
 
 #: launch counts of the kernels (plain ints on the wrappers): the world-
 #: size-1 GEMM, the kernel over a mesh, and the two kernels of its
-#: fp8 / int8 wire
+#: fp8 / int8 wire; all but the fold also by form
 _gemm_rs_cuda.launches = 0
+_gemm_rs_cuda.by_variant = {}
 _gemm_rs_mesh_cuda.launches = 0
+_gemm_rs_mesh_cuda.by_variant = {}
 gemm_rs_partials.launches = 0
 gemm_rs_partials.by_variant = {}
 gemm_rs_fold.launches = 0

@@ -232,8 +232,8 @@ def _w8a16_cuda(x, w, block_expert, w_scale, out_dtype, cap, k, n,
     return out
 
 
-def _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m):
-    """Launch the float-mode kernel; the callers count the launch."""
+def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
+    """Launch the float-mode kernel, counted by x's dtype."""
     from triton_distributed_tpu_torch.kernels import _build
 
     out_dtype = to_torch_dtype(out_dtype or x.dtype)
@@ -246,20 +246,22 @@ def _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m):
             _build.ptr(out), cap, k, n, block_m, _DT_CODE[x.dtype],
             _DT_CODE[out_dtype], _build.stream(dev))
     _build.check(rc, "tdt_ggemm_f")
+    if x.dtype == torch.bfloat16:
+        _ggemm_f_cuda.launches_bf16 += 1
+    else:
+        _ggemm_f_cuda.launches_f32 += 1
     return out
 
 
-def float_gemm(a, b, out_dtype=None, *, counted=False):
+def float_gemm(a, b, out_dtype=None):
     """(M, K) @ (K, N) on a CUDA tensor through the float-mode kernel
     with one expert (a and b both bf16 or both f32, f32 sums, stored to
-    ``out_dtype``, default a's dtype). ``counted``: count the launch with
-    the float mode's; the world-size-1 ``ag_gemm`` and ``gemm_rs`` that
-    share it count their own."""
+    ``out_dtype``, default a's dtype), counted with the float mode's
+    launches."""
     x, w = a.contiguous(), b.contiguous()[None]
     be = torch.zeros((1,), dtype=torch.int32, device=a.device)
     cap, k, _, n, block_m = _check_args(x, w, be, None, None)
-    launch = _ggemm_f_cuda if counted else _launch_ggemm_f
-    return launch(x, w, be, out_dtype, cap, k, n, block_m)
+    return _ggemm_f_cuda(x, w, be, out_dtype, cap, k, n, block_m)
 
 
 def router_logits(x, router):
@@ -302,15 +304,6 @@ def _router_cuda(x, router):
             _DT_CODE[router.dtype], _build.stream(x.device))
     _build.check(rc, "tdt_narrow_f32")
     _ggemm_f_cuda.launches_f32 += 1
-    return out
-
-
-def _ggemm_f_cuda(x, w, block_expert, out_dtype, cap, k, n, block_m):
-    out = _launch_ggemm_f(x, w, block_expert, out_dtype, cap, k, n, block_m)
-    if x.dtype == torch.bfloat16:
-        _ggemm_f_cuda.launches_bf16 += 1
-    else:
-        _ggemm_f_cuda.launches_f32 += 1
     return out
 
 
