@@ -11,12 +11,18 @@ Phases, all run every time:
 3. kernels: each kernel against its plain PyTorch version on seeded
    inputs at the serving steps' shapes, with its time, the plain
    version's, a PyTorch library call's, and the card's bound for the
-   same work — the dense W8A8 projections, the W8A16 lm_head (at the
+   same work — the dense W8A8 projections (on K-major weights, bit for
+   bit, on the ``wgmma`` tiles), the W8A16 lm_head (at the
    serving slots' 16 rows and the decode batch's 8, on the tensor-core
    form) and attention at the shapes of the Llama-2-7B step and of the
    DeepSeek-MoE-16B step, the MoE step's chunked all-to-all (both
-   legs, both modes, byte-exact) and expert GEMMs (bf16 and W8A8, 64
-   experts), and the MoE router on bf16 x at 768 and 8 rows (one device
+   legs, both modes, byte-exact) and expert GEMMs (bf16, and W8A8 bit
+   for bit on the ``wgmma`` tiles, 64 experts), W8A8 at the Llama-2-7B
+   int8 decode's shapes (8 rows, the four projections and a tp = 4
+   rank's shards, bit for bit on the weight-streaming form, beside
+   ``torch._int_mm``) and both W8A8 forms at 8 to 64 rows (where one
+   hands over to the other), and the MoE router on bf16 x at 768 and 8
+   rows (one device
    operation a call); and the decode path's kernels at Llama-2-7B's full width:
    flash decode (bf16 and int8, contiguous bhsd and bshd, paged at page
    128, one soft-capped case) and the world-size-1 AG-GEMM / GEMM-RS at
@@ -155,6 +161,9 @@ Phases, all run every time:
    once a MoE layer (27 times). Then ``tools.generate --preset
    deepseek_moe_16b`` once. The run's wall time is printed last before
    the result lines.
+
+Every W8A8 launch of the run must take the ``tc`` or ``stream`` form,
+and ptxas may spill in none of the W8A8 kernels.
 
 Exits non-zero, printing no result line, without a CUDA device or
 without the port's package beside it. The last line is
@@ -777,6 +786,89 @@ def dense_shapes(cfg):
     return shapes
 
 
+def w8a8_form(fn):
+    """The form(s) the W8A8 launches of ``fn()`` ran, as {form: n}."""
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    before = dict(gg._w8a8_cuda.by_variant)
+    out = fn()
+    forms = {f: c - before.get(f, 0)
+             for f, c in gg._w8a8_cuda.by_variant.items()
+             if c != before.get(f, 0)}
+    return out, forms
+
+
+def int_mm_lib(xq, wqs, xs, ws):
+    """``torch._int_mm`` + the epilogue on (M, K) codes and K-major (K, N)
+    weights (column-major: what ``_int_mm`` takes, no copy) as fn(i) on
+    weight i % len(wqs), and what it ran; x padded with zero rows to 32
+    where ``_int_mm`` refuses M (its CUDA path has asked for more than 16
+    rows), and the log says so."""
+    import torch
+
+    def call(xp, w):
+        acc = torch._int_mm(xp, w)[: xq.shape[0]]
+        return (acc.float() * xs * ws).to(torch.bfloat16)
+
+    what = "torch._int_mm + epilogue"
+    xp = xq
+    try:
+        call(xq, wqs[0])
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        pad = torch.zeros((32 - xq.shape[0], xq.shape[1]), dtype=xq.dtype,
+                          device=xq.device)
+        xp = torch.cat([xq, pad])
+        what = "torch._int_mm on x padded to 32 rows + epilogue"
+        log(f"torch._int_mm refused M={xq.shape[0]} "
+            f"({str(e).splitlines()[0][:120]}): x padded with zero rows to "
+            "32")
+    return (lambda i: call(xp, wqs[i % len(wqs)])), what
+
+
+def weight_copies(w, nbytes: float):
+    """``w`` and clones of it (its layout kept), enough that timed calls
+    cycling through them read over 100 MB, twice the L2 cache, as a step
+    reads a layer's weights cold: at most 8."""
+    n = max(1, min(8, math.ceil(100e6 / nbytes)))
+    return [w] + [w.clone() for _ in range(n - 1)]
+
+
+def check_w8a8(res: Results, tag, xq, wq, be, kw, form):
+    """One W8A8 shape against its plain version, bit for bit (exact s32
+    sums on both sides and the same f32 epilogue), in the form ``form``;
+    returns (kernel, plain, library ms, what the library ran): the
+    kernel's and the library's (``torch._int_mm`` + the epilogue, one
+    expert; else None) device time
+    a call from CUDA graphs cycling through copies of the weight
+    (:func:`weight_copies`), the plain version's from back-to-back
+    calls."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    out, forms = w8a8_form(lambda: gg.grouped_matmul(xq, wq, be, **kw))
+    ref = gg.grouped_matmul_plain(xq, wq, be, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    res.check("ggemm_w8a8", err, 0.0, tag)
+    res.check("ggemm_w8a8", 0 if forms == {form: 1} else 1, 0,
+              f"{tag}: the {form} form ran ({forms})", metric="forms off")
+    res.kernel("ggemm_w8a8", err=err)
+    wqs = weight_copies(wq, wq.numel())
+    ms = graph_time_ms(
+        lambda i: gg.grouped_matmul(xq, wqs[i % len(wqs)], be, **kw))
+    plain = time_ms(lambda: gg.grouped_matmul_plain(xq, wq, be, **kw), 3)
+    lib, lib_what = None, None
+    if be.numel() == 1:
+        fn, lib_what = int_mm_lib(xq, [w[0] for w in wqs], kw["x_scale"],
+                                  kw["w_scale"])
+        lib = graph_time_ms(fn)
+    del wqs
+    return ms, plain, lib, lib_what
+
+
 def check_gemms(res: Results, dev, path, cfg, main: bool):
     """The dense W8A8 projections and the W8A16 lm_head of ``path`` at
     its shapes, each against its plain version. The main path's shapes
@@ -792,29 +884,17 @@ def check_gemms(res: Results, dev, path, cfg, main: bool):
         w = torch.randn((1, k, n), generator=g, device=dev,
                         dtype=torch.bfloat16) / math.sqrt(k)
         xq, xs = gg.quantize_act_rows(x)
-        wq, ws = gg.quantize_grouped_weights(w)
+        wq, ws = gg.quantize_grouped_weights(w, k_major=True)
         kw = dict(w_scale=ws, x_scale=xs, out_dtype=torch.bfloat16)
-        out = gg.grouped_matmul(xq, wq, be, **kw)
-        ref = gg.grouped_matmul_plain(xq, wq, be, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # exact s32 sums on both sides and the same f32 epilogue: the
-        # only allowed difference is one bf16 rounding step
-        tol = ref.float().abs().max().item() * 2.0 ** -8
         tag = f"{path} {what} M={m} K={k} N={n}"
-        res.check("ggemm_w8a8", err, tol, tag)
-        res.kernel("ggemm_w8a8", err=err)
-        ms = time_ms(lambda: gg.grouped_matmul(xq, wq, be, **kw), 10)
-        plain = time_ms(lambda: gg.grouped_matmul_plain(xq, wq, be, **kw), 3)
-        wcol = wq[0].t().contiguous().t()      # column-major for _int_mm
-        lib = time_ms(lambda: (torch._int_mm(xq, wcol).float() * xs
-                               * ws).to(torch.bfloat16), 10)
+        ms, plain, lib, lib_what = check_w8a8(res, tag, xq, wq, be, kw,
+                                              "tc")
         nbytes = m * k + 4 * m + k * n + 4 * n + 2 * m * n
         ops = 2.0 * m * n * k
         b, by = bound_ms(nbytes, ops, H100_INT8_OPS)
         log(f"time ggemm_w8a8 {tag} ({per_step}/step): kernel_ms={ms:.4f} "
-            f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch._int_mm + "
-            f"epilogue) bound_ms={b:.4f} ({by})")
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} ({lib_what}) "
+            f"bound_ms={b:.4f} ({by})")
         if main:
             res.shape("ggemm_w8a8", per_step, ms, plain, lib, nbytes, ops,
                       H100_INT8_OPS)
@@ -1223,20 +1303,14 @@ def check_expert_gemms(res: Results, dev, inp):
         res.kernel("ggemm_bf16", err=err)
         res.shape("ggemm_bf16", n_moe, ms, plain, lib, nbytes, ops,
                   H100_BF16_OPS)
-        # W8A8 at the same expert shapes (the main path's experts)
-        wq, ws = gg.quantize_grouped_weights(w)
+        # W8A8 at the same expert shapes (the main path's experts), on
+        # K-major weights
+        wq, ws = gg.quantize_grouped_weights(w, k_major=True)
         xq, xsc = gg.quantize_act_rows(x)
         kw = dict(w_scale=ws, x_scale=xsc, out_dtype=torch.bfloat16)
-        out = gg.grouped_matmul(xq, wq, be, **kw)
-        ref = gg.grouped_matmul_plain(xq, wq, be, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        res.check("ggemm_w8a8", err, ref.float().abs().max().item()
-                  * 2.0 ** -8, f"deepseek_moe_16b experts {what} M={cap} "
-                  f"K={k} N={n}")
-        res.kernel("ggemm_w8a8", err=err)
-        ms = time_ms(lambda: gg.grouped_matmul(xq, wq, be, **kw), 10)
-        plain = time_ms(lambda: gg.grouped_matmul_plain(xq, wq, be, **kw), 2)
+        ms, plain, _, _ = check_w8a8(
+            res, f"deepseek_moe_16b experts {what} M={cap} K={k} N={n}", xq,
+            wq, be, kw, "tc")
         # no PyTorch call multiplies int8 per expert block (``_int_mm`` is
         # one 2-D product): the yardstick is ``bmm`` on the dequantized
         # bf16 rows and the dequantized weights gathered per block
@@ -1254,21 +1328,118 @@ def check_expert_gemms(res: Results, dev, inp):
                   H100_INT8_OPS)
 
 
-def tally_w8a16_forms():
-    """Tally the W8A16 launches of the whole run by the form each ran
-    (``_w8a16_cuda.by_variant``): every path clears the wrapper's counts
-    with ``reset_launch_counts``, which from here on first adds them to
-    the tally. Returns a function that gives the tally so far."""
-    from triton_distributed_tpu_torch import kernels
+def decode_w8a8_shapes(cfg):
+    """A decode step's W8A8 products at ``DEC_B`` rows: (what, (M, K, N),
+    out dtype) of the whole projections (tp = 1) and of one rank's shards
+    at tp = ``TP`` (column shards of wqkv and up in bf16, row shards of wo
+    and down with f32 partials, as ``Transformer._dmm_tp`` runs them)."""
+    import torch
+
+    h, f, q, qkv = cfg.hidden, cfg.ffn, cfg.q_dim, cfg.qkv_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    m = DEC_B
+    return [("wqkv", (m, h, qkv), bf16), ("wo", (m, q, h), bf16),
+            ("up", (m, h, f), bf16), ("down", (m, f, h), bf16),
+            (f"wqkv tp{TP} rank", (m, h, qkv // TP), bf16),
+            (f"wo tp{TP} rank", (m, q // TP, h), f32),
+            (f"up tp{TP} rank", (m, h, f // TP), bf16),
+            (f"down tp{TP} rank", (m, f // TP, h), f32)]
+
+
+def check_decode_gemms(res: Results, dev, cfg):
+    """W8A8 at the Llama-2-7B int8 decode's shapes (``DEC_B`` = 8 rows, the
+    whole projections and a tp = 4 rank's shards), each on the
+    weight-streaming form, bit for bit against its plain version, timed
+    beside its bound (the weight's bytes) and ``torch._int_mm``."""
+    import torch
+
     from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    kernels, notes = ptxas_report("w8a8_")
+    for name, regs, st, ld in kernels:
+        log(f"ptxas {name}: {regs} registers, spill stores {st} B, spill "
+            f"loads {ld} B")
+        res.check("ggemm_w8a8", st + ld, 0, f"ptxas spills of {name}",
+                  metric="bytes")
+    for note in notes:
+        log(f"ptxas note: {note}")
+    g = torch.Generator(device=dev).manual_seed(17)
+    be = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for what, (m, k, n), odt in decode_w8a8_shapes(cfg):
+        x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+        w = torch.randn((1, k, n), generator=g, device=dev,
+                        dtype=torch.bfloat16) / math.sqrt(k)
+        xq, xs = gg.quantize_act_rows(x)
+        wq, ws = gg.quantize_grouped_weights(w, k_major=True)
+        del w
+        kw = dict(w_scale=ws, x_scale=xs, out_dtype=odt)
+        tag = f"llama_7b decode {what} M={m} K={k} N={n}"
+        ms, plain, lib, lib_what = check_w8a8(res, tag, xq, wq, be, kw,
+                                              "stream")
+        nbytes = m * k + 4 * m + k * n + 4 * n + odt.itemsize * m * n
+        b, by = bound_ms(nbytes, 2.0 * m * n * k, H100_INT8_OPS)
+        log(f"time ggemm_w8a8 {tag}: kernel_ms={ms:.4f} plain_ms="
+            f"{plain:.4f} library_ms={lib:.4f} ({lib_what}) bound_ms={b:.4f}"
+            f" ({by}) kernel/bound={ms / b:.2f}")
+        del wq, ws
+
+
+def check_w8a8_threshold(res: Results, dev):
+    """Where the W8A8 forms hand over: both forms (``_w8a8_cuda``'s
+    ``form``) at block rows 8 to 64 of Llama-2-7B's wqkv and wo (K 4096,
+    N 12288 / 4096), each bit for bit against the plain version, timed
+    from CUDA graphs over copies of the weight; the kernel's threshold
+    (blocks of up to ``W8_STREAM_ROWS`` = 16 rows stream) is where the
+    stream form stops being the faster."""
+    import torch
+
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    be = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for k, n in ((4096, 12288), (4096, 4096)):
+        w = torch.randn((1, k, n), generator=g, device=dev,
+                        dtype=torch.bfloat16) / math.sqrt(k)
+        wq, ws = gg.quantize_grouped_weights(w, k_major=True)
+        del w
+        wqs = weight_copies(wq, wq.numel())
+        for m in (8, 16, 24, 32, 64):
+            x = torch.randn((m, k), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            xq, xs = gg.quantize_act_rows(x)
+            ref = gg.grouped_matmul_plain(xq, wq, be, w_scale=ws,
+                                          x_scale=xs)
+            ms = {}
+            for form in ("tc", "stream"):
+                def call(i, form=form):
+                    return gg._w8a8_cuda(xq, wqs[i % len(wqs)], be, ws, xs,
+                                         torch.bfloat16, m, k, n, m,
+                                         form=form)
+                err = (call(0).float() - ref.float()).abs().max().item()
+                res.check("ggemm_w8a8", err, 0.0,
+                          f"threshold {form} M={m} K={k} N={n}")
+                ms[form] = graph_time_ms(call)
+            log(f"threshold ggemm_w8a8 M={m} K={k} N={n}: tc_ms="
+                f"{ms['tc']:.4f} stream_ms={ms['stream']:.4f} faster="
+                f"{min(ms, key=ms.get)}")
+        del wqs, wq, ws
+
+
+def tally_forms(wrapper):
+    """Tally the launches of the whole run of ``wrapper`` (a grouped-GEMM
+    wrapper: ``_w8a16_cuda`` or ``_w8a8_cuda``) by the form each ran (its
+    ``by_variant``): every path clears the wrapper's counts with
+    ``reset_launch_counts``, which from here on first adds them to the
+    tally. Returns a function that gives the tally so far."""
+    from triton_distributed_tpu_torch import kernels
 
     seen = {}
     reset = kernels.reset_launch_counts
 
     def add():
-        for form, c in gg._w8a16_cuda.by_variant.items():
+        for form, c in wrapper.by_variant.items():
             seen[form] = seen.get(form, 0) + c
-        gg._w8a16_cuda.by_variant.clear()
+        wrapper.by_variant.clear()
 
     def reset_and_tally():
         add()
@@ -4898,8 +5069,8 @@ def run_collectives_path(res: Results, dev, n_moe: int):
             gl = torch.Generator(device=dev).manual_seed(4000 + layer)
             gate, up, down = coll_layer(dev, gl)
             params = {"bf16": {"router": gate, "up": up, "down": down}}
-            uq, us = quantize_grouped_weights(up)
-            dq, ds = quantize_grouped_weights(down)
+            uq, us = quantize_grouped_weights(up, k_major=True)
+            dq, ds = quantize_grouped_weights(down, k_major=True)
             params["served"] = {"router": gate, "up": {"q": uq, "scale": us},
                                 "down": {"q": dq, "scale": ds}}
             outs = {}
@@ -6419,7 +6590,10 @@ def main() -> int:
     log(f"device {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)}")
     res = Results()
-    w8a16_forms = tally_w8a16_forms()
+    from triton_distributed_tpu_torch.kernels import group_gemm as gg
+
+    w8a16_forms = tally_forms(gg._w8a16_cuda)
+    w8a8_forms = tally_forms(gg._w8a8_cuda)
     t0 = time.perf_counter()
     _build.lib()
     log(f"build {len(_build.sources())} sources in "
@@ -6439,6 +6613,8 @@ def main() -> int:
     check_a2a(res, dev, moe)
     check_expert_gemms(res, dev, moe)
     del moe
+    check_decode_gemms(res, dev, llama)
+    check_w8a8_threshold(res, dev)
     check_router(res, dev, deepseek)
     check_decode_kernels(res, dev)
     check_n1_gemms(res, dev)
@@ -6613,6 +6789,16 @@ def main() -> int:
     if not forms.get("tc"):
         res.failures.append("ggemm_w8a16: no launch ran the tensor-core "
                             "form")
+    # every W8A8 launch of the run (the serving paths, every decode path,
+    # the kernels phase) on the wgmma tiles or the weight-streaming form
+    forms = w8a8_forms()
+    log(f"ggemm_w8a8 launches by form over the run: {forms}")
+    res.check("ggemm_w8a8", sum(c for f, c in forms.items()
+                                if f not in ("tc", "stream")), 0,
+              "launches off the tc and stream forms", metric="launches")
+    for form in ("tc", "stream"):
+        if not forms.get(form):
+            res.failures.append(f"ggemm_w8a8: no launch ran the {form} form")
     log(f"smoke wall_s={time.perf_counter() - t_start:.1f}")
     if res.failures:
         for f in res.failures:

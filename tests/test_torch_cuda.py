@@ -45,25 +45,52 @@ def _gemm_inputs(seed, e, cap, k, n, block_m):
     return x, w, be
 
 
+def _w8a8_form(k, n, block_m):
+    """The form ``tdt_ggemm_w8a8`` runs on 16-byte aligned tensors."""
+    if k % 16:
+        return "narrow"
+    return "stream" if block_m <= 16 or n % 8 else "tc"
+
+
 class TestGroupedMatmulKernel:
     @pytest.mark.parametrize("out", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("shape", [(192, 200, 100, 64, 3),
-                                       (37, 70, 33, 37, 1),
-                                       (1100, 96, 40, 1100, 1)])
+    @pytest.mark.parametrize("shape", [
+        (192, 200, 100, 64, 3), (37, 70, 33, 37, 1), (1100, 96, 40, 1100, 1),
+        (768, 256, 384, 64, 3), (512, 256, 320, 128, 3),
+        (192, 208, 136, 64, 3), (1, 256, 1024, 1, 1), (8, 4096, 512, 8, 1),
+        (16, 1408, 2048, 16, 1), (8, 11008, 96, 8, 1), (8, 70, 64, 8, 1)])
     def test_w8a8_is_exact(self, dev, out, shape):
-        """Ragged M/N/K edges, one or three experts, and one M-block of
-        more than 1024 rows: the int32 sums and the f32 epilogue equal
-        the plain version's bit for bit."""
+        """K-major weights, bit for bit against the plain version, and the
+        form each shape runs: ``tc`` at 64-row expert blocks (experts in
+        sorted order, so one spans several blocks; N 384 and 136, K 208
+        in partial stages), at 128-row blocks (N 320) and at one block of
+        1100 rows; ``stream`` at M 1, 8 and 16 (K 11008 and 1408 in
+        partial 512-k stages, split over the warps); the element-copy
+        ``narrow`` form at K 70 and 200. Ragged M, N and K edges."""
         cap, k, n, block_m, e = shape
         x, w, be = _gemm_inputs(0, e, cap, k, n, block_m)
-        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        be = np.sort(be)
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev), k_major=True)
         xq, xs = gg.quantize_act_rows(_t(x, dev))
         kw = dict(w_scale=ws, x_scale=xs, out_dtype=getattr(torch, out))
+        gg._w8a8_cuda.by_variant.clear()
         before = launch_counts()["ggemm_w8a8"]
         got = gg.grouped_matmul(xq, wq, _t(be, dev), **kw)
         want = gg.grouped_matmul_plain(xq, wq, _t(be, dev), **kw)
         assert launch_counts()["ggemm_w8a8"] == before + 1
+        assert gg._w8a8_cuda.by_variant == {_w8a8_form(k, n, block_m): 1}
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    def test_w8a8_refuses_an_n_major_weight(self, dev):
+        """The kernels read the weight K-major; an (E, K, N) weight with N
+        contiguous raises, naming the layout, and launches nothing."""
+        x, w, be = _gemm_inputs(3, 1, 64, 128, 64, 64)
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        xq, xs = gg.quantize_act_rows(_t(x, dev))
+        before = launch_counts()["ggemm_w8a8"]
+        with pytest.raises(ValueError, match="K-major"):
+            gg.grouped_matmul(xq, wq, _t(be, dev), w_scale=ws, x_scale=xs)
+        assert launch_counts()["ggemm_w8a8"] == before
 
     @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("out", ["float32", "bfloat16"])
@@ -155,18 +182,21 @@ class TestGroupedMatmulKernel:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
     def test_w8a8_is_exact_with_64_experts(self, dev):
-        """The expert layout: 64 experts, many 64-row blocks."""
+        """The expert layout: 64 experts, many 64-row blocks, on the
+        ``wgmma`` tiles."""
         x, w, be = _gemm_inputs(7, 64, 64 * 40, 256, 192, 64)
-        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev), k_major=True)
         xq, xs = gg.quantize_act_rows(_t(x, dev))
         kw = dict(w_scale=ws, x_scale=xs, out_dtype=torch.bfloat16)
+        gg._w8a8_cuda.by_variant.clear()
         got = gg.grouped_matmul(xq, wq, _t(be, dev), **kw)
         want = gg.grouped_matmul_plain(xq, wq, _t(be, dev), **kw)
+        assert gg._w8a8_cuda.by_variant == {"tc": 1}
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
     def test_wrapper_refuses_what_the_kernel_does_not_take(self, dev):
         x, w, be = _gemm_inputs(2, 2, 128, 64, 32, 32)
-        wq, ws = gg.quantize_grouped_weights(_t(w, dev))
+        wq, ws = gg.quantize_grouped_weights(_t(w, dev), k_major=True)
         xq, xs = gg.quantize_act_rows(_t(x, dev))
         with pytest.raises(ValueError, match="multiple of"):
             gg.grouped_matmul(xq, wq, _t(be, dev), w_scale=ws, x_scale=xs)
@@ -336,7 +366,8 @@ def test_ep_moe_on_card_matches_cpu(dev):
             u, dn = _t(up, d), _t(down, d)
             if act:
                 u, dn = ({"q": q, "scale": sc} for q, sc in (
-                    gg.quantize_grouped_weights(w) for w in (u, dn)))
+                    gg.quantize_grouped_weights(w, k_major=True)
+                    for w in (u, dn)))
             ctx = ops.create_ep_moe_context(
                 num_experts=8, topk=2, max_m=80, hidden=128,
                 dtype=torch.float32, quant="fp8", act_quant=act)

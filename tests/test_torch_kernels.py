@@ -69,6 +69,11 @@ class TestQuantizers:
         np.testing.assert_array_equal(
             tgg.dequantize_grouped_weights(tq, ts, torch.float32).numpy(),
             np.asarray(jgg.dequantize_grouped_weights(jq, js, jnp.float32)))
+        # the K-major store W8A8 reads: the same codes and scales
+        kq, ks = tgg.quantize_grouped_weights(_t(w), "int8", k_major=True)
+        assert kq.stride() == (64 * 40, 1, 64)
+        np.testing.assert_array_equal(kq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ks.numpy(), np.asarray(js))
         with pytest.raises(ValueError):
             tgg.quantize_grouped_weights(_t(w), "fp8")
 
@@ -97,17 +102,20 @@ class TestGroupedMatmul:
     @pytest.mark.parametrize("e", [1, 3])
     def test_w8a8_plain_matches_pallas_kernel(self, e):
         """s32 sums are exact on both sides and the f32 epilogue runs
-        in the same order, so the f32 outputs are bit-identical."""
+        in the same order, so the f32 outputs are bit-identical: on the
+        (E, K, N) codes as JAX holds them, and on their K-major view (the
+        layout W8A8's CUDA kernels read)."""
         x, w, be = _gemm_inputs(10 + e, e, 24, 64, 48, 8)
         jxq, jxs = jgg.quantize_act_rows(jnp.asarray(x))
         jwq, jws = jgg.quantize_grouped_weights(jnp.asarray(w))
         want = jgg.grouped_matmul(
             jxq, jwq, jnp.asarray(be), w_scale=jws, x_scale=jxs,
             block_m=8, out_dtype=jnp.float32)
-        got = tgg.grouped_matmul(
-            _t(jxq), _t(jwq), _t(be), w_scale=_t(jws), x_scale=_t(jxs),
-            out_dtype=torch.float32)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        for wq in (_t(jwq), tgg.to_k_major(_t(jwq))):
+            got = tgg.grouped_matmul(
+                _t(jxq), wq, _t(be), w_scale=_t(jws), x_scale=_t(jxs),
+                out_dtype=torch.float32)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     @pytest.mark.parametrize("e", [1, 3])
     def test_w8a16_plain_matches_pallas_kernel(self, e):

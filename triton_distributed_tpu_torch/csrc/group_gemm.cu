@@ -4,31 +4,71 @@
 //   * _ggemm_q8a_kernel (:74): x (M, K) int8 with per-row f32 scales
 //     x_scale (M,), w (E, K, N) int8 with per-(expert, out-channel) f32
 //     scales w_scale (E, N); s32 accumulator, epilogue
-//     acc * x_scale[m] * w_scale[e, n] cast to the output type.
+//     acc * x_scale[m] * w_scale[e, n] cast to the output type. Here the
+//     weight is K-major: (E, N, K) codes, the (E, K, N) weight's transpose.
 //   * _ggemm_q_kernel (:50): x (M, K) bf16 or f32, w int8 widened to
 //     x's dtype, f32 accumulator, epilogue acc * w_scale[e, n].
 //   * _ggemm_kernel (:32): x and w both bf16 or both f32, f32
 //     accumulator stored to the output type (the bf16 MoE experts).
 // The M dim is cut into blocks of block_m rows; block b multiplies the
 // weight of expert block_expert[b] (E = 1 with one block for the dense
-// projections of the serving step, E = 64 for the MoE experts).
+// projections, E = 64 for the MoE experts).
 //
-// What bounds it on an H100: at the serving step's shapes (M = 768
-// packed tokens, K = 4096/11008, N up to 12288) the W8A8 products do
-// ~100 operations per weight byte and are bound by integer math; the
-// lm_head W8A16 product (M = 16 slots, K = 2048, N = 102400 for
-// DeepSeek-MoE-16B; M = 8, K = 4096, N = 32000 for Llama-2-7B's decode)
-// reads 210 MB of int8 weights for 6.7 GFLOP and is bound by device
-// memory (0.063 ms). The MoE expert GEMMs (8704 sorted rows, 64 experts
-// of 2048 x 1408) do ~50 GFLOP each on 0.4 GB of bf16 weights: bound by
-// the tensor cores. The MoE routers' f32 product (M = 768 or 8, K 2048,
-// N 64) is bound by the latency of its K-long FMA chains.
+// W8A8, what bounds it on an H100. The serving step's blocks (768 packed
+// rows, K 2048, N 6144 / 2048 / 10944; the experts' 8704 sorted rows in
+// 64-row blocks, 64 experts of 2048 x 1408 and 1408 x 2048): int8 math
+// (19 GOP for wqkv: 0.010 ms at 1979 TOP/s) or, for the experts, their
+// 185 MB of weights (0.055 ms at 3.35 TB/s). A decode's blocks of 1 to 16
+// rows (Llama-2-7B's M = 8 at K 4096 -> N 12288, 4096, 11008 and K 11008
+// -> N 4096; a tp = 4 rank's column or row shard): the weight's bytes
+// (wqkv's 50 MB: 0.015 ms).
 //
-// Design. W8A8: 64 x 64 output tiles, 256 threads with a 4 x 4
-// micro-tile each, the K loop staged through shared memory; four
-// consecutive k of a weight column packed into one 32-bit word while the
-// tile is staged (the weight is (K, N) with N contiguous), __dp4a sums,
-// exact, in int32. W8A16 on bf16 x (w8a16_tc_kernel, below): the weight
+// W8A8, design: one entry, two forms (W8a8Variant, reported to the
+// wrapper). Both read the weight K-major, as the integer tensor-core
+// instructions take it: wgmma takes 8-bit operands only K-major, and
+// ldmatrix moves 16-bit words, so it cannot transpose bytes.
+//   * tc (blocks of more than W8_STREAM_ROWS rows): w8a8_tc_kernel,
+//     wg_gemm.cuh's shape on int8. A CTA a BM x 256 tile (BM 128, or 64
+//     where the blocks are 64 rows: a tile never straddles two experts),
+//     one producer warpgroup keeping 4 stages of 128 k in flight by TMA
+//     (x's box 128 k x BM rows, the weight's 64 k-rows boxes of a 2-D map
+//     over (E N, K), both in the 128-byte swizzle, zeros past M and K),
+//     two consumer warpgroups of s32 accumulators on wgmma m64n256k32 (BM
+//     128: 64 rows each) or m64n128k32 (BM 64: half the columns each),
+//     setmaxnreg 40 / 232; tiles in bands of 8 M-tiles, so that each
+//     expert's weight is read from device memory about once; the epilogue
+//     stages the tile in shared memory and stores its valid rows in
+//     16-byte pieces. The weight's map is encoded once per weight
+//     (w8_weight_map), x's per call.
+//   * stream (blocks of up to W8_STREAM_ROWS rows): w8a8_stream_kernel,
+//     out^T = w^T x^T on mma.sync m16n8k32 s8, the weight's K-major rows
+//     the A operand by ldmatrix, x's 8 or 16 rows the n8 side; a 4-stage
+//     cp.async ring of 16-byte copies. A CTA takes 16 weight rows, its
+//     four warps each a 128-k slice of every 512-k stage (K split across
+//     the warps, the s32 sums added in shared memory): N / 16 CTAs, 256
+//     at N 4096, 4 resident an SM; past N 8448 (S_WIDE_N) two 16-row
+//     groups, two warps each, so that the grid stays near one wave (on an
+//     H100 two groups were the faster past that N and 1.3x slower at N
+//     4096). Integer sums are exact in any order.
+//   * narrow: the stream kernel copying element by element, where K % 16
+//     or a base's alignment rules out 16-byte copies and TMA (never on a
+//     main path).
+// Both run the f32 epilogue (float(acc) * x_scale) * w_scale in that
+// order, __fmul_rn: the plain version's bits. Threshold W8_STREAM_ROWS =
+// 16, measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
+// check_w8a8_threshold, K 4096): at N 4096 the stream form takes 0.0105 /
+// 0.0120 ms at 8 / 16 rows against the tc form's 0.0163, and from 24 rows
+// tc is the faster; at N 12288 tc is 5 % faster at 8 rows too (0.0220
+// against 0.0231), which the rule leaves to the stream form.
+//
+// The other modes. The lm_head W8A16 product (M = 16 slots, K = 2048, N
+// = 102400 for DeepSeek-MoE-16B; M = 8, K = 4096, N = 32000 for Llama-2-
+// 7B's decode) reads 210 MB of int8 weights for 6.7 GFLOP and is bound by
+// device memory (0.063 ms). The bf16 MoE expert GEMMs (8704 sorted rows,
+// 64 experts of 2048 x 1408) do ~50 GFLOP each on 0.4 GB of bf16 weights:
+// bound by the tensor cores. The MoE routers' f32 product (M = 768 or 8, K
+// 2048, N 64) is bound by the latency of its K-long FMA chains. W8A16 on
+// bf16 x (w8a16_tc_kernel, below): the weight
 // as mma.sync's A operand and x as its B operand, so the few rows of x
 // fill the 8-wide side; 128 weight columns a CTA through a four-stage
 // cp.async ring; each int8 code widened to bf16 with two byte permutes
@@ -43,99 +83,406 @@
 // loaded into registers while the current one multiplies (two shared
 // buffers, one barrier per step). All mask the ragged M, N and K edges
 // themselves; with more than one M-block, block_m is a multiple of 64,
-// so a tile never straddles two experts. wgmma and TMA staging are
-// later work. The float loops live in ggemm_tiles.cuh, shared with the
-// MoE-TP kernels of moe_tp_fused.cu.
+// so a tile never straddles two experts. The float loops live in
+// ggemm_tiles.cuh, shared with the MoE-TP kernels of moe_tp_fused.cu.
+//
+// ptxas (sm_90a, -Xptxas=-v in the build log; the smoke fails on a
+// spill): w8a8_tc_kernel 168 registers a thread at entry in all four
+// instantiations (BM 64 / 128, bf16 / f32 out; setmaxnreg then gives the
+// producer 40, the consumers 232); w8a8_stream_kernel 56 (8 rows of x,
+// one row group), 96 (8, two), 64 (16, one), 60 (16, two); no spill.
 
-#include "ggemm_tiles.cuh"
+#include <mutex>
+#include <unordered_map>
+
+#include "hopper.cuh"
+#include "s8_tiles.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- W8A8
-constexpr int BK8 = 64;       // K bytes staged per step
-constexpr int KQ = BK8 / 4;   // packed 32-bit words per row and step
+// x (M, K) int8 with per-row f32 scales xs (M,), w int8 K-major: expert
+// e's (N, K) codes at w + e N K (the (E, K, N) weight of the JAX kernel,
+// transposed, as quantize_grouped_weights(..., k_major=True) stores it),
+// per-(expert, column) f32 scales ws (E, N); M-block b multiplies expert
+// block_expert[b]. Exact s32 sums, then (float(acc) * xs[m]) * ws[e, n],
+// rounded once to the output type: the plain version's bits.
 
-__device__ __forceinline__ int pack_x(const int8_t* __restrict__ row, int k,
-                                      int K) {
-  if (k + 3 < K && ((reinterpret_cast<uintptr_t>(row + k) & 3) == 0))
-    return *reinterpret_cast<const int*>(row + k);
-  int v = 0;
+// the form a W8A8 launch ran, as tdt_ggemm_w8a8 reports it
+enum W8a8Variant { W8A8_TC = 0, W8A8_STREAM = 1, W8A8_NARROW = 2 };
+
+// blocks of up to this many rows take the stream form (see the note)
+constexpr int W8_STREAM_ROWS = 16;
+
+// ---- tc: wgmma s8 x s8 -> s32, TMA stages, a producer warpgroup
+constexpr int W8_BN = 256;                // columns a CTA
+constexpr int W8_BK = 128;                // k a stage: a 128-byte row
+constexpr int W8_STAGES = 4;
+constexpr int W8_CONSUMERS = 256;         // two consumer warpgroups
+constexpr int W8_THREADS = W8_CONSUMERS + 128;
+constexpr int W8_BAND = 8;                // M-tiles a band of the order
+constexpr int W8_BOX = 64 * W8_BK;        // a weight box: 64 columns
+constexpr int W8_PITCH = W8_BN + 8;       // the epilogue tile's row pitch
+
+template <int BM>
+__host__ __device__ constexpr int w8_stage() {
+  return BM * W8_BK + (W8_BN / 64) * W8_BOX;
+}
+template <int BM>
+__host__ __device__ constexpr int w8_smem() {
+  return W8_STAGES * w8_stage<BM>() + 1024;  // + alignment
+}
+static_assert(128 * W8_PITCH * 4 <= W8_STAGES * w8_stage<128>() &&
+                  64 * W8_PITCH * 4 <= W8_STAGES * w8_stage<64>(),
+              "the f32 epilogue tile fits in the stages");
+
+// a launch's operands, a __grid_constant__ parameter
+struct W8Params {
+  CUtensorMap x;      // (M, K): box 128 k x BM rows, 128-byte swizzle
+  CUtensorMap w;      // (E N, K): box 128 k x 64 rows, 128-byte swizzle
+  const float* xs;
+  const float* ws;
+  const int* be;
+  void* out;
+  int M, K, N, block_m;
+};
+
+// A CTA's tile is BM rows (64 or 128, one expert's) x 256 columns. At BM
+// 128 each consumer warpgroup takes 64 rows x 256 columns (m64n256k32), at
+// BM 64 the tile's 64 rows x 128 columns of its half (m64n128k32); both
+// operands K-major from the stages, four products a stage.
+template <int BM, typename OutT>
+__global__ void __launch_bounds__(W8_THREADS, 1)
+    w8a8_tc_kernel(const __grid_constant__ W8Params p) {
+  constexpr int NACC = BM == 128 ? 128 : 64;  // a thread's accumulators
+  extern __shared__ unsigned char w8_raw[];
+  __shared__ uint64_t full[W8_STAGES];   // stage st has landed
+  __shared__ uint64_t empty[W8_STAGES];  // the consumers are done with st
+  __shared__ float wsc[W8_BN];           // the tile's column scales
+  char* sm = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(w8_raw) + 1023) & ~uintptr_t(1023));
+  // wg_gemm.cuh's banded order: the CTAs in flight share the band's
+  // weights from L2, so an expert's (or a projection's) weight is read
+  // from device memory about once
+  const int pid = blockIdx.y * gridDim.x + blockIdx.x;
+  const int first = pid / (W8_BAND * gridDim.x) * W8_BAND;
+  const int band = min(W8_BAND, static_cast<int>(gridDim.y) - first);
+  const int in = pid - first * gridDim.x;
+  const int m0 = (first + in % band) * BM, n0 = in / band * W8_BN;
+  const int e = p.be[m0 / p.block_m];
+  const int nk = (p.K + W8_BK - 1) / W8_BK;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int b = 0; b < 4; ++b)
-    if (k + b < K) v |= static_cast<int>(static_cast<uint8_t>(row[k + b])) << (8 * b);
-  return v;
+    for (int st = 0; st < W8_STAGES; ++st) {
+      tc_bar_init(&full[st], 1);
+      tc_bar_init(&empty[st], W8_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= W8_CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == W8_CONSUMERS) {
+      // the weight boxes that start inside N (the rest would only feed
+      // columns the epilogue never stores)
+      const int nbox = min(W8_BN / 64, (p.N - n0 + 63) / 64);
+      const int bytes = BM * W8_BK + nbox * W8_BOX;
+      const int wrow = e * p.N + n0;
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % W8_STAGES;
+        if (i >= W8_STAGES) tc_bar_wait(&empty[st], (i / W8_STAGES + 1) & 1);
+        char* s = sm + st * w8_stage<BM>();
+        tc_bar_expect(&full[st], bytes);
+        tc_tma_2d(s, &p.x, &full[st], i * W8_BK, m0);
+        for (int j = 0; j < nbox; ++j)
+          tc_tma_2d(s + BM * W8_BK + j * W8_BOX, &p.w, &full[st], i * W8_BK,
+                    wrow + 64 * j);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int row0 = BM == 128 ? 64 * wg : 0;   // this warpgroup's rows
+  const int col0 = BM == 128 ? 0 : 128 * wg;  // and columns
+  int acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % W8_STAGES;
+    tc_bar_wait(&full[st], (i / W8_STAGES) & 1);
+    const char* s = sm + st * w8_stage<BM>();
+    wg_pin(acc);
+    wg_fence();
+    // 8-row groups 1024 bytes apart, k step kk 32 bytes into the rows
+#pragma unroll
+    for (int kk = 0; kk < W8_BK / 32; ++kk)
+      wg_ss_s8(acc, wg_desc(s + row0 * W8_BK + kk * 32, 16, 1024, 1),
+               wg_desc(s + BM * W8_BK + col0 * W8_BK + kk * 32, 16, 1024, 1),
+               1);
+    wg_commit();
+    wg_wait<1>();  // the previous stage's products have retired
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) tc_bar_arrive(&empty[(i - 1) % W8_STAGES]);
+    }
+  }
+  wg_wait<0>();
+  wg_pin(acc);
+
+  // the epilogue: scales, then the tile through shared memory (every stage
+  // is consumed) and 16-byte stores of its valid rows. Accumulator 4j + v:
+  // row r + 8 (v >> 1), column col0 + 8j + 2tq + (v & 1)
+  asm volatile("bar.sync 1, %0;\n" :: "n"(W8_CONSUMERS) : "memory");
+  wsc[threadIdx.x] = n0 + static_cast<int>(threadIdx.x) < p.N
+                         ? p.ws[static_cast<size_t>(e) * p.N + n0 + threadIdx.x]
+                         : 0.f;
+  const int r = row0 + (warp & 3) * 16 + g;
+  const float sx0 = m0 + r < p.M ? p.xs[m0 + r] : 0.f;
+  const float sx1 = m0 + r + 8 < p.M ? p.xs[m0 + r + 8] : 0.f;
+  asm volatile("bar.sync 1, %0;\n" :: "n"(W8_CONSUMERS) : "memory");
+  OutT* stile = reinterpret_cast<OutT*>(sm);
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    const int c = col0 + 8 * j + 2 * tq;
+    // (acc * x_scale) * w_scale, the order of the TPU epilogue
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[q] = __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * j + q]),
+                                 q < 2 ? sx0 : sx1),
+                       wsc[c + (q & 1)]);
+    stile[r * W8_PITCH + c] = tdt_from_f<OutT>(v[0]);
+    stile[r * W8_PITCH + c + 1] = tdt_from_f<OutT>(v[1]);
+    stile[(r + 8) * W8_PITCH + c] = tdt_from_f<OutT>(v[2]);
+    stile[(r + 8) * W8_PITCH + c + 1] = tdt_from_f<OutT>(v[3]);
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(W8_CONSUMERS) : "memory");
+  constexpr int E = 16 / static_cast<int>(sizeof(OutT));  // a piece
+  constexpr int PIECES = W8_BN / E;                        // a row's
+  const int rows = min(BM, p.M - m0);
+  OutT* out = static_cast<OutT*>(p.out);
+  for (int idx = threadIdx.x; idx < rows * PIECES; idx += W8_CONSUMERS) {
+    const int row = idx / PIECES, col = (idx % PIECES) * E;
+    if (n0 + col < p.N)
+      *reinterpret_cast<uint4*>(
+          out + static_cast<size_t>(m0 + row) * p.N + n0 + col) =
+          *reinterpret_cast<const uint4*>(stile + row * W8_PITCH + col);
+  }
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
-            const int8_t* __restrict__ w, const float* __restrict__ ws,
-            const int* __restrict__ block_expert, OutT* __restrict__ out,
-            int M, int K, int N, int block_m) {
-  __shared__ int As[BM][KQ + 1];
-  __shared__ int Bs[BN][KQ + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+// the weight's map, encoded once per (codes, E N, K): what a map holds is
+// those three and this kernel's box, so a hit is always the right map
+inline bool w8_weight_map(CUtensorMap* map, const void* w, long long rows,
+                          int K) {
+  struct Key {
+    uintptr_t p;
+    long long rows;
+    int k;
+    bool operator==(const Key& o) const {
+      return p == o.p && rows == o.rows && k == o.k;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<uintptr_t>()(k.p) ^
+             (std::hash<long long>()(k.rows) * 31 + k.k);
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  const Key key{reinterpret_cast<uintptr_t>(w), rows, K};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!tc_map_2d(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, K, K, W8_BK,
+                 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return true;
+}
+
+template <int BM, typename OutT>
+int w8a8_tc_launch(W8Params& p, cudaStream_t s) {
+  static bool attr = false;  // above 48 KB only after this, once a kernel
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        w8a8_tc_kernel<BM, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        w8_smem<BM>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr = true;
+  }
+  const dim3 grid((p.N + W8_BN - 1) / W8_BN, (p.M + BM - 1) / BM);
+  w8a8_tc_kernel<BM, OutT><<<grid, W8_THREADS, w8_smem<BM>(), s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- stream: mma.sync m16n8k32 with the weight as the A operand
+constexpr int S_WARPS = 4;
+constexpr int S_THREADS = 32 * S_WARPS;
+constexpr int S_KW = 128;                // k a warp takes of a stage
+constexpr int S_STAGES = 4;
+// past this N a CTA takes two 16-row groups: N / 16 CTAs of one would
+// outnumber the 528 an H100 holds (4 an SM), and the second wave costs
+// more than fatter CTAs (measured: see the note)
+constexpr int S_WIDE_N = 8448;
+
+// a stage holds RW 16-row groups of the weight and MT rows of x, each row
+// (4 / RW) 128-k slices and 16 bytes more (16-byte aligned, ldmatrix
+// conflict-free)
+template <int RW>
+__host__ __device__ constexpr int s_pitch() {
+  return S_WARPS / RW * S_KW + 16;
+}
+template <int MT, int RW>
+__host__ __device__ constexpr int s_smem() {
+  return S_STAGES * (16 * RW + MT) * s_pitch<RW>();
+}
+
+// out^T = w^T x^T: a CTA's 16 RW weight rows (output columns n0 ..) are
+// RW m16 tiles of A, the MT (8 or 16) rows of x its n8 tiles; warp w takes
+// row group w % RW and the (w / RW)-th 128-byte slice of every stage of K,
+// and the slices' s32 sums meet in shared memory (integer sums: exact in
+// any order). vec: 16-byte cp.async copies (K % 16 == 0, 16-byte aligned
+// bases), else element by element (the narrow form).
+template <int MT, int RW, typename OutT>
+__global__ void __launch_bounds__(S_THREADS)
+    w8a8_stream_kernel(const int8_t* __restrict__ x,
+                       const float* __restrict__ xs,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ ws,
+                       const int* __restrict__ block_expert,
+                       OutT* __restrict__ out, int M, int K, int N,
+                       int block_m, bool vec) {
+  constexpr int NT = MT / 8;          // x's 8-row tiles
+  constexpr int KS = S_WARPS / RW;    // k slices a stage
+  constexpr int ROWS = 16 * RW;       // weight rows a CTA
+  constexpr int BK = KS * S_KW;       // k a stage
+  constexpr int PITCH = s_pitch<RW>();
+  constexpr int STAGE = (ROWS + MT) * PITCH;
+  extern __shared__ __align__(16) unsigned char s_smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % RW, ks = warp / RW;
+  const int n0 = blockIdx.x * ROWS, m0 = blockIdx.y * MT;
   const int e = block_expert[m0 / block_m];
-  const int8_t* __restrict__ we = w + static_cast<size_t>(e) * K * N;
+  const int8_t* __restrict__ we = w + static_cast<size_t>(e) * N * K;
+  const int nk = (K + BK - 1) / BK;
 
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK8) {
-    for (int idx = tid; idx < BM * KQ; idx += THREADS) {
-      const int r = idx / KQ, c = idx % KQ;
-      const int m = m0 + r;
-      As[r][c] = m < M ? pack_x(x + static_cast<size_t>(m) * K, k0 + 4 * c, K) : 0;
-    }
-    for (int idx = tid; idx < KQ * BN; idx += THREADS) {
-      const int c = idx / BN, n = idx % BN;  // n fastest: coalesced bytes
-      const int k = k0 + 4 * c, nn = n0 + n;
-      int v = 0;
-      if (nn < N) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (k + b < K)
-            v |= static_cast<int>(static_cast<uint8_t>(
-                     we[static_cast<size_t>(k + b) * N + nn])) << (8 * b);
+  // stage st: the weight's rows n0 .. n0 + ROWS - 1, then x's rows m0 ..
+  auto load = [&](int st, int k0) {
+    unsigned char* s = s_smem_raw + st * STAGE;
+    if (vec) {
+      for (int c = tid; c < (ROWS + MT) * (BK / 16); c += S_THREADS) {
+        const int r = c / (BK / 16), kk = k0 + (c % (BK / 16)) * 16;
+        const int8_t* src = nullptr;
+        if (kk < K) {
+          if (r < ROWS) {
+            if (n0 + r < N) src = we + static_cast<size_t>(n0 + r) * K + kk;
+          } else if (m0 + r - ROWS < M) {
+            src = x + static_cast<size_t>(m0 + r - ROWS) * K + kk;
+          }
+        }
+        gg_cp_async16(s + r * PITCH + (kk - k0), src ? src : x,
+                      src ? 16 : 0);
       }
-      Bs[n][c] = v;
+    } else {
+      for (int c = tid; c < (ROWS + MT) * BK; c += S_THREADS) {
+        const int r = c / BK, kk = k0 + c % BK;
+        int8_t v = 0;
+        if (kk < K) {
+          if (r < ROWS) {
+            if (n0 + r < N) v = we[static_cast<size_t>(n0 + r) * K + kk];
+          } else if (m0 + r - ROWS < M) {
+            v = x[static_cast<size_t>(m0 + r - ROWS) * K + kk];
+          }
+        }
+        s[r * PITCH + (kk - k0)] = static_cast<unsigned char>(v);
+      }
     }
-    __syncthreads();
+  };
+
+  int acc[NT][4];
 #pragma unroll
-    for (int c = 0; c < KQ; ++c) {
-      int a[4], b[4];
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0;
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const float sx = xs[m];
+  for (int st = 0; st < S_STAGES - 1; ++st) {
+    if (st < nk) load(st, st * BK);
+    gg_cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    gg_cp_wait<S_STAGES - 2>();
+    __syncthreads();
+    if (kt + S_STAGES - 1 < nk)
+      load((kt + S_STAGES - 1) % S_STAGES, (kt + S_STAGES - 1) * BK);
+    gg_cp_commit();
+    const unsigned char* s =
+        s_smem_raw + (kt % S_STAGES) * STAGE + ks * S_KW;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      // (acc * x_scale) * w_scale, the order of the TPU epilogue
-      float v = static_cast<float>(acc[i][j]) * sx;
-      v = v * ws[static_cast<size_t>(e) * N + n];
-      out[static_cast<size_t>(m) * N + n] = tdt_from_f<OutT>(v);
+    for (int kk = 0; kk < S_KW; kk += 32) {
+      // A: weight rows 16 rg .. + 15 x k 0-31 (the four 8 x 16-byte
+      // matrices in m16n8k32's register order); B: x rows 0-7 (and 8-15)
+      uint32_t a[4], b[4];
+      ldsm_x4(a, s + (16 * rg + (lane & 15)) * PITCH + kk + (lane >> 4) * 16);
+      ldsm_x4(b, s + (ROWS + (lane & 7) + (NT > 1 ? (lane >> 4) << 3 : 0)) *
+                         PITCH + kk + ((lane >> 3) & 1) * 16);
+      mma_s8(acc[0], a, b[0], b[1]);
+      if constexpr (NT > 1) mma_s8(acc[1], a, b[2], b[3]);
     }
   }
+  gg_cp_wait<0>();
+  __syncthreads();
+
+  // the slices' sums through shared memory: lane (g, tq) holds columns
+  // n0 + 16 rg + g (+ 8) of x rows 8j + 2tq (+ 1)
+  int* red = reinterpret_cast<int*>(s_smem_raw);  // [ks][MT][ROWS]
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      red[(ks * MT + 8 * j + 2 * tq + (v & 1)) * ROWS + 16 * rg + g +
+          8 * (v >> 1)] = acc[j][v];
+  __syncthreads();
+  for (int idx = tid; idx < MT * ROWS; idx += S_THREADS) {
+    const int m = m0 + idx / ROWS, n = n0 + idx % ROWS;
+    if (m >= M || n >= N) continue;
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < KS; ++q) sum += red[q * MT * ROWS + idx];
+    // (acc * x_scale) * w_scale, the order of the TPU epilogue
+    const float v = __fmul_rn(__fmul_rn(static_cast<float>(sum), xs[m]),
+                              ws[static_cast<size_t>(e) * N + n]);
+    out[static_cast<size_t>(m) * N + n] = tdt_from_f<OutT>(v);
+  }
+}
+
+template <int MT, typename OutT, int RW>
+int w8a8_stream_launch(const int8_t* x, const float* xs, const int8_t* w,
+                       const float* ws, const int* be, void* out, int M,
+                       int K, int N, int block_m, bool vec, cudaStream_t s) {
+  constexpr int bytes = s_smem<MT, RW>();
+  static bool attr = false;  // above 48 KB only after this, once a kernel
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        w8a8_stream_kernel<MT, RW, OutT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr = true;
+  }
+  const dim3 grid((N + 16 * RW - 1) / (16 * RW), (M + MT - 1) / MT);
+  w8a8_stream_kernel<MT, RW, OutT><<<grid, S_THREADS, bytes, s>>>(
+      x, xs, w, ws, be, static_cast<OutT*>(out), M, K, N, block_m, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --------------------------------------------------- W8A16, tensor cores
@@ -170,15 +517,15 @@ w8a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
 enum W8a16Variant { W8A16_FMA = 0, W8A16_TC = 1, W8A16_TC_NARROW = 2 };
 
 constexpr int QBN = 128;         // weight columns a CTA
-constexpr int QBK = 64;          // k a stage
+constexpr int QK16 = 64;         // k a stage
 constexpr int QSTAGES = 4;
 constexpr int Q_THREADS = 128;   // four warps of 32 columns
 constexpr int QWP = QBN + 16;    // a weight row in shared memory (bytes)
-constexpr int QXP = QBK + 8;     // an x row in shared memory (bf16)
+constexpr int QXP = QK16 + 8;    // an x row in shared memory (bf16)
 
 template <int MT>
 __host__ __device__ constexpr int q_stage_bytes() {
-  return QBK * QWP + MT * QXP * 2;
+  return QK16 * QWP + MT * QXP * 2;
 }
 
 // code j of four int8 codes (each biased by 128: u = w ^ 0x80808080) as f32
@@ -214,41 +561,41 @@ w8a16_tc_kernel(const unsigned short* __restrict__ x,
   const int n0 = blockIdx.x * QBN, m0 = blockIdx.y * MT;
   const int e = block_expert[m0 / block_m];
   const int8_t* __restrict__ we = w + static_cast<size_t>(e) * K * N;
-  const int nk = (K + QBK - 1) / QBK;
+  const int nk = (K + QK16 - 1) / QK16;
 
   unsigned char* const smem = q_smem;
   auto wst = [&](int st) { return smem + st * q_stage_bytes<MT>(); };
   auto xst = [&](int st) {
-    return reinterpret_cast<unsigned short*>(wst(st) + QBK * QWP);
+    return reinterpret_cast<unsigned short*>(wst(st) + QK16 * QWP);
   };
   auto load = [&](int st, int k0) {
     unsigned char* wsm = wst(st);
     unsigned short* xsm = xst(st);
     if (vec) {
-      for (int c = tid; c < QBK * (QBN / 16); c += Q_THREADS) {
+      for (int c = tid; c < QK16 * (QBN / 16); c += Q_THREADS) {
         const int kr = c / (QBN / 16), nn = n0 + (c % (QBN / 16)) * 16;
         const bool ok = k0 + kr < K && nn < N;
         gg_cp_async16(wsm + kr * QWP + (nn - n0),
                       ok ? we + static_cast<size_t>(k0 + kr) * N + nn : we,
                       ok ? 16 : 0);
       }
-      for (int c = tid; c < MT * (QBK / 8); c += Q_THREADS) {
-        const int r = c / (QBK / 8), kk = k0 + (c % (QBK / 8)) * 8;
+      for (int c = tid; c < MT * (QK16 / 8); c += Q_THREADS) {
+        const int r = c / (QK16 / 8), kk = k0 + (c % (QK16 / 8)) * 8;
         const bool ok = m0 + r < M && kk < K;
         gg_cp_async16(xsm + r * QXP + (kk - k0),
                       ok ? x + static_cast<size_t>(m0 + r) * K + kk : x,
                       ok ? 16 : 0);
       }
     } else {
-      for (int c = tid; c < QBK * QBN; c += Q_THREADS) {
+      for (int c = tid; c < QK16 * QBN; c += Q_THREADS) {
         const int kr = c / QBN, nn = n0 + c % QBN;
         wsm[kr * QWP + (nn - n0)] =
             (k0 + kr < K && nn < N)
                 ? static_cast<unsigned char>(we[static_cast<size_t>(k0 + kr) * N + nn])
                 : 0;
       }
-      for (int c = tid; c < MT * QBK; c += Q_THREADS) {
-        const int r = c / QBK, kk = k0 + c % QBK;
+      for (int c = tid; c < MT * QK16; c += Q_THREADS) {
+        const int r = c / QK16, kk = k0 + c % QK16;
         xsm[r * QXP + (kk - k0)] =
             (m0 + r < M && kk < K) ? x[static_cast<size_t>(m0 + r) * K + kk] : 0;
       }
@@ -265,19 +612,19 @@ w8a16_tc_kernel(const unsigned short* __restrict__ x,
 
 #pragma unroll
   for (int st = 0; st < QSTAGES - 1; ++st) {
-    if (st < nk) load(st, st * QBK);
+    if (st < nk) load(st, st * QK16);
     gg_cp_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
     gg_cp_wait<QSTAGES - 2>();
     __syncthreads();
     if (kt + QSTAGES - 1 < nk)
-      load((kt + QSTAGES - 1) % QSTAGES, (kt + QSTAGES - 1) * QBK);
+      load((kt + QSTAGES - 1) % QSTAGES, (kt + QSTAGES - 1) * QK16);
     gg_cp_commit();
     const unsigned char* wsm = wst(kt % QSTAGES) + warp * 32 + 4 * g;
     const unsigned short* xsm = xst(kt % QSTAGES);
 #pragma unroll
-    for (int kk = 0; kk < QBK; kk += 16) {
+    for (int kk = 0; kk < QK16; kk += 16) {
       uint32_t u[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)  // weight rows kk + 2t, +1, +8, +9
@@ -352,29 +699,72 @@ const char* tdt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out_dtype: TDT_F32 or TDT_BF16
+// out_dtype: TDT_F32 or TDT_BF16; w: the K-major codes (E, N, K); form: -1
+// to choose by W8_STREAM_ROWS, W8A8_TC or W8A8_STREAM to ask for one (the
+// threshold's measurement; cudaErrorInvalidValue where the shape rules it
+// out); *variant: the form launched (W8a8Variant)
 int tdt_ggemm_w8a8(const void* x, const void* x_scale, const void* w,
                    const void* w_scale, const void* block_expert, void* out,
-                   int M, int K, int N, int block_m, int out_dtype,
-                   void* stream) {
+                   int M, int K, int N, int E, int block_m, int out_dtype,
+                   int form, int* variant, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (M <= 0 || N <= 0) return 0;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (out_dtype != TDT_F32 && out_dtype != TDT_BF16)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xq = static_cast<const int8_t*>(x);
   const float* xs = static_cast<const float*>(x_scale);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* wsp = static_cast<const float*>(w_scale);
   const int* be = static_cast<const int*>(block_expert);
-  if (out_dtype == TDT_BF16)
-    w8a8_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        xq, xs, wq, wsp, be, static_cast<__nv_bfloat16*>(out), M, K, N, block_m);
-  else if (out_dtype == TDT_F32)
-    w8a8_kernel<float><<<grid, THREADS, 0, s>>>(
-        xq, xs, wq, wsp, be, static_cast<float*>(out), M, K, N, block_m);
-  else
+  const bool f32 = out_dtype == TDT_F32;
+  // 16-byte rows and bases: TMA and the 16-byte copies take them
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(w)) & 15) == 0 && K % 16 == 0;
+  const bool tc = vec && N % 8 == 0 &&
+                  (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+                  (block_m == M || block_m % 64 == 0);
+  if ((form == W8A8_TC && !tc) || (form == W8A8_STREAM && !vec))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (form == W8A8_TC || (form < 0 && tc && block_m > W8_STREAM_ROWS)) {
+    *variant = W8A8_TC;
+    W8Params p = {};
+    // 128-row tiles where the blocks are whole 128-row tiles (or one
+    // block of more than 64 rows), else 64: a tile never straddles two
+    // experts
+    const bool bm128 = block_m == M ? M > 64 : block_m % 128 == 0;
+    if (!tc_map_2d(&p.x, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, K, W8_BK,
+                   bm128 ? 128 : 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !w8_weight_map(&p.w, w, static_cast<long long>(E) * N, K))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.xs = xs;
+    p.ws = wsp;
+    p.be = be;
+    p.out = out;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.block_m = block_m;
+    if (bm128)
+      return f32 ? w8a8_tc_launch<128, float>(p, s)
+                 : w8a8_tc_launch<128, __nv_bfloat16>(p, s);
+    return f32 ? w8a8_tc_launch<64, float>(p, s)
+               : w8a8_tc_launch<64, __nv_bfloat16>(p, s);
+  }
+  // the stream form over 8 or 16 rows of x a CTA (16 where it tiles more
+  // rows, or copies element by element), one or two 16-row groups of the
+  // weight
+  *variant = vec ? W8A8_STREAM : W8A8_NARROW;
+#define TDT_W8A8_S(MT, OT, RW) \
+  w8a8_stream_launch<MT, OT, RW>(xq, xs, wq, wsp, be, out, M, K, N, block_m, \
+                                 vec, s)
+#define TDT_W8A8_S2(MT, OT) \
+  (N > S_WIDE_N ? TDT_W8A8_S(MT, OT, 2) : TDT_W8A8_S(MT, OT, 1))
+  if (vec && M <= 8)
+    return f32 ? TDT_W8A8_S2(8, float) : TDT_W8A8_S2(8, __nv_bfloat16);
+  return f32 ? TDT_W8A8_S2(16, float) : TDT_W8A8_S2(16, __nv_bfloat16);
+#undef TDT_W8A8_S2
+#undef TDT_W8A8_S
 }
 
 // x_dtype, out_dtype: TDT_F32 or TDT_BF16; *variant: the kernel launched

@@ -1,6 +1,7 @@
 // The Hopper pieces of the port's tensor-core kernels, shared by
-// cp_ring.cu (ring_attention_tc_kernel) and wg_gemm.cuh (the warpgroup
-// GEMM of ag_gemm.cu and gemm_rs.cu): the mbarriers that pace TMA stages,
+// cp_ring.cu (ring_attention_tc_kernel), wg_gemm.cuh (the warpgroup GEMM
+// of ag_gemm.cu and gemm_rs.cu) and group_gemm.cu (W8A8's w8a8_tc_kernel,
+// on the s8 products): the mbarriers that pace TMA stages,
 // the TMA copies, wgmma's shared-memory descriptor and its products, and
 // the tensor maps' encoding on the host.
 //
@@ -251,6 +252,53 @@ __device__ __forceinline__ void wg_ss_t(float (&d)[128], uint64_t a,
 }
 #undef TC_ACC16
 #undef TC_ACC8
+
+template <int N>
+__device__ __forceinline__ void wg_pin(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x N, s32) = or += a (64 x 32, s8) @ b (32 x N, s8), both in shared
+// memory K-major by descriptor (an 8-bit operand has no transpose: both
+// K-major), exact integer sums; N 128 or 256 by the accumulator's size
+#define TC_IACC8(i)                                                       \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),             \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define TC_IACC16(i) TC_IACC8(i), TC_IACC8(i + 8)
+__device__ __forceinline__ void wg_ss_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : TC_IACC16(0), TC_IACC16(16), TC_IACC16(32), TC_IACC16(48)
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wg_ss_s8(int (&d)[128], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : TC_IACC16(0), TC_IACC16(16), TC_IACC16(32), TC_IACC16(48),
+        TC_IACC16(64), TC_IACC16(80), TC_IACC16(96), TC_IACC16(112)
+      : "l"(a), "l"(b), "r"(acc));
+}
+#undef TC_IACC16
+#undef TC_IACC8
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (null where
 // the driver has none)

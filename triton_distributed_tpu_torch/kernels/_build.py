@@ -165,6 +165,14 @@ def ptr_array(tensors):
 
 
 def stream(device) -> ctypes.c_void_p:
+    """``device``'s current CUDA stream as a pointer argument: the raw
+    handle ``torch.cuda.current_stream(device).cuda_stream`` holds, read
+    without building a Stream object (a wrapper's host time counts)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if isinstance(device, torch.device) else None
+    if index is None:
+        index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

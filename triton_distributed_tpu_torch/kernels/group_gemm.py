@@ -11,7 +11,10 @@ Port of ``triton_distributed_tpu/kernels/group_gemm.py`` in three modes:
   (:data:`W8A16_VARIANTS`).
 * **W8A8** (``w_scale`` and ``x_scale``): x int8 from
   :func:`quantize_act_rows`, s8×s8→s32, ``acc · x_scale[m] ·
-  w_scale[e, n]`` — the TPU's ``_ggemm_q8a_kernel``.
+  w_scale[e, n]`` — the TPU's ``_ggemm_q8a_kernel``. On a card the
+  weight is K-major (``quantize_grouped_weights(..., k_major=True)``):
+  ``wgmma`` tiles for blocks of more than 16 rows, a weight-streaming
+  form for a decode's few rows (:data:`W8A8_VARIANTS`).
 
 Rows are cut into ``len(block_expert)`` equal M-blocks; block ``b``
 multiplies expert ``block_expert[b]``'s (K, N) weight (the dense
@@ -46,6 +49,16 @@ _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the FMA loop (``fma``). Counted in ``_w8a16_cuda.by_variant``.
 W8A16_VARIANTS = {0: "fma", 1: "tc", 2: "tc_narrow"}
 
+#: the form a W8A8 launch ran, as ``tdt_ggemm_w8a8`` reports it
+#: (``W8a8Variant`` of ``csrc/group_gemm.cu``): ``tc``, the ``wgmma``
+#: tiles of blocks of more than 16 rows (the serving step's projections
+#: and experts); ``stream``, the weight-streaming ``mma.sync`` form of
+#: blocks of up to 16 rows (every decode's projections); ``narrow``, the
+#: stream kernel copying element by element where K % 16 or an alignment
+#: rules out 16-byte copies and TMA. Counted in ``_w8a8_cuda.by_variant``.
+W8A8_VARIANTS = {0: "tc", 1: "stream", 2: "narrow"}
+_W8A8_FORM = {None: -1, "tc": 0, "stream": 1}
+
 
 def quantize_act_rows(x):
     """Per-row symmetric int8 activation quantization: (M, K) →
@@ -59,12 +72,25 @@ def quantize_act_rows(x):
     return q, s
 
 
-def quantize_grouped_weights(w, mode: str = "int8"):
+def quantize_grouped_weights(w, mode: str = "int8", k_major: bool = False):
     """(E, K, N) weights → ((E, K, N) int8, (E, N) f32 scales):
     symmetric per-(expert, out-channel) quantization. Only ``"int8"``
-    is ported (the fp8 mode has no consumer on the serving path)."""
+    is ported (the fp8 mode has no consumer on the serving path).
+
+    ``k_major`` stores the codes as (E, N, K), K contiguous, and returns
+    their (E, K, N) transposed view: the same codes, the layout W8A8's
+    CUDA kernels read (the tensor cores take 8-bit operands K-major only).
+    The weights W8A8 multiplies are quantized so once; nothing transposes
+    a weight per call."""
     if mode != "int8":
         raise ValueError(f"weight quant mode must be int8, got {mode!r}")
+    if k_major:
+        wt = w.new_empty((w.shape[0], w.shape[2], w.shape[1]),
+                         dtype=torch.float32).copy_(w.transpose(1, 2))
+        amax = wt.abs().amax(dim=2)                            # (E, N)
+        scale = div_scalar(torch.clamp(amax, min=1e-30), 127.0)
+        q = torch.round(wt / scale[:, :, None])
+        return torch.clamp(q, -127, 127).to(torch.int8).transpose(1, 2), scale
     wf = w.float()
     amax = wf.abs().amax(dim=1)                                # (E, N)
     scale = div_scalar(torch.clamp(amax, min=1e-30), 127.0)
@@ -72,9 +98,38 @@ def quantize_grouped_weights(w, mode: str = "int8"):
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
+def k_major(q):
+    """Whether (..., K, N) codes are a view of K-contiguous (..., N, K)
+    storage, the layout W8A8's CUDA kernels take (read from the strides:
+    the wrappers' host time counts)."""
+    if q.dim() < 2:
+        return False
+    *lead, k, n = q.shape
+    *lead_st, sk, sn = q.stride()
+    if (k != 1 and sk != 1) or (n != 1 and sn != k):
+        return False
+    expect = n * k
+    for size, st in zip(reversed(lead), reversed(lead_st)):
+        if size != 1 and st != expect:
+            return False
+        expect *= size
+    return True
+
+
+def to_k_major(q):
+    """(..., K, N) codes as the (..., K, N) view of a K-contiguous copy
+    (the codes unchanged; no copy when they are K-major already): for
+    weights carried in N-major (a JAX tree), once, when they load."""
+    return q if k_major(q) else q.transpose(-1, -2).contiguous().transpose(
+        -1, -2)
+
+
 def dequantize_grouped_weights(q, scale, dtype=torch.bfloat16):
-    """Widen (E, K, N) int8 weights with their (E, N) scales."""
-    return (q.float() * scale[:, None, :]).to(to_torch_dtype(dtype))
+    """Widen (E, K, N) int8 weights with their (E, N) scales; the result
+    is contiguous whatever the codes' layout."""
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out.copy_(q).mul_(scale[:, None, :])
+    return out.to(to_torch_dtype(dtype))
 
 
 def _check_args(x_sorted, w, block_expert, w_scale, x_scale):
@@ -186,7 +241,10 @@ def _cuda_common(tensors, block_expert, cap, block_m):
 
 
 def _w8a8_cuda(x, w, block_expert, w_scale, x_scale, out_dtype, cap, k, n,
-               block_m):
+               block_m, form=None):
+    """Launch W8A8; ``form`` ("tc" or "stream") asks for one form, for
+    measuring where one hands over to the other (None: by the kernel's
+    threshold)."""
     from triton_distributed_tpu_torch.kernels import _build
 
     out_dtype = to_torch_dtype(out_dtype or torch.bfloat16)
@@ -195,14 +253,27 @@ def _w8a8_cuda(x, w, block_expert, w_scale, x_scale, out_dtype, cap, k, n,
                          f"{out_dtype}")
     if w_scale.dtype != torch.float32 or x_scale.dtype != torch.float32:
         raise ValueError("W8A8 scales must be float32")
-    dev = _cuda_common((x, w, w_scale, x_scale), block_expert, cap, block_m)
+    if not k_major(w):
+        raise ValueError(
+            "W8A8's CUDA kernels take the weight K-major: an (E, K, N) "
+            "view of (E, N, K) int8 codes, K contiguous (as "
+            "quantize_grouped_weights(..., k_major=True) stores them); got "
+            f"an (E, K, N) weight of strides {tuple(w.stride())}")
+    dev = _cuda_common((x, w_scale, x_scale), block_expert, cap, block_m)
+    if w.device != dev:
+        raise ValueError(f"tensor on {w.device}, expected {dev}")
     out = torch.empty((cap, n), dtype=out_dtype, device=dev)
-    fn = _build.function("tdt_ggemm_w8a8", "pppppp" + "iiiii" + "p")
-    rc = fn(_build.ptr(x), _build.ptr(x_scale), _build.ptr(w),
-            _build.ptr(w_scale), _build.ptr(block_expert), _build.ptr(out),
-            cap, k, n, block_m, _DT_CODE[out_dtype], _build.stream(dev))
+    variant = ctypes.c_int(-1)
+    fn = _build.function("tdt_ggemm_w8a8", "pppppp" + "iiiiiii" + "pp")
+    rc = fn(x.data_ptr(), x_scale.data_ptr(), w.data_ptr(),
+            w_scale.data_ptr(), block_expert.data_ptr(), out.data_ptr(),
+            cap, k, n, w.shape[0], block_m, _DT_CODE[out_dtype],
+            _W8A8_FORM[form], ctypes.byref(variant), _build.stream(dev))
     _build.check(rc, "tdt_ggemm_w8a8")
     _w8a8_cuda.launches += 1
+    name = W8A8_VARIANTS.get(variant.value)
+    if name is not None:
+        _w8a8_cuda.by_variant[name] = _w8a8_cuda.by_variant.get(name, 0) + 1
     return out
 
 
@@ -310,6 +381,7 @@ def _router_cuda(x, router):
 #: launch counts of the kernels (plain ints on the wrappers); the float
 #: mode counts its bf16 (tensor-core) and f32 (FMA) kernels apart
 _w8a8_cuda.launches = 0
+_w8a8_cuda.by_variant = {}
 _w8a16_cuda.launches = 0
 _w8a16_cuda.by_variant = {}
 _ggemm_f_cuda.launches_bf16 = 0

@@ -193,26 +193,42 @@ MOE_BLOCK_M = 64
 PREFILL_BLOCK_M = 128
 
 
-def _qexperts(w, mode="int8"):
-    """(E, K, N) expert tensor → ``{"q": int8, "scale": f32 (E, N)}``."""
+def _qexperts(w, mode="int8", k_major=False):
+    """(E, K, N) expert tensor → ``{"q": int8, "scale": f32 (E, N)}``;
+    ``k_major``: the codes stored (E, N, K), "q" their (E, K, N) view (the
+    experts W8A8 multiplies)."""
     from triton_distributed_tpu_torch.kernels.group_gemm import (
         quantize_grouped_weights,
     )
 
-    q, scale = quantize_grouped_weights(w, mode)
+    q, scale = quantize_grouped_weights(w, mode, k_major=k_major)
     return {"q": q, "scale": scale}
 
 
-def _q2d(w, mode="int8"):
-    """(K, N) matrix → ``{"q": int8 (K, N), "scale": f32 (N,)}``."""
+def _q2d(w, mode="int8", k_major=False):
+    """(K, N) matrix → ``{"q": int8 (K, N), "scale": f32 (N,)}``;
+    ``k_major``: the codes stored (N, K), "q" their (K, N) view (the
+    projections W8A8 multiplies)."""
     from triton_distributed_tpu_torch.kernels.group_gemm import (
         quantize_grouped_weights,
     )
 
     if isinstance(w, dict):
         return w
-    q, scale = quantize_grouped_weights(w[None], mode)
+    q, scale = quantize_grouped_weights(w[None], mode, k_major=k_major)
     return {"q": q[0], "scale": scale[0]}
+
+
+def _w8a8_keys(cfg) -> tuple:
+    """The weights W8A8 multiplies, which are stored K-major: the dense
+    projections with ``dense_act_quant``, the experts with
+    ``moe_act_quant`` (the lm_head is W8A16 and stays N-major)."""
+    keys = ()
+    if cfg.dense_act_quant == "int8":
+        keys += _DENSE_QUANT_KEYS
+    if cfg.moe_act_quant == "int8":
+        keys += _EXPERT_KEYS
+    return keys
 
 
 class Transformer:
@@ -316,20 +332,23 @@ class Transformer:
                             dtype=dtype) * (scale or s)
             return w
 
-        def mat(shape, scale=None):
+        kmaj = c.dense_act_quant == "int8"
+
+        def mat(shape, scale=None, k_major=kmaj):
             w = dense(shape, scale)
-            return _q2d(w, c.dense_weight_quant) if quantize else w
+            return _q2d(w, c.dense_weight_quant, k_major) if quantize else w
 
         def experts(shape, scale=None):
             w = dense(shape, scale)
             if quantize and c.moe_weight_quant is not None:
-                return _qexperts(w, c.moe_weight_quant)
+                return _qexperts(w, c.moe_weight_quant,
+                                 c.moe_act_quant == "int8")
             return w
 
         params = {
             "embed": dense((c.vocab, c.hidden), 0.02),
             "norm_f": torch.ones((c.hidden,), dtype=pd, device=dev),
-            "lm_head": mat((c.hidden, c.vocab)),
+            "lm_head": mat((c.hidden, c.vocab), k_major=False),
             "blocks": [],
         }
         for i in range(c.n_layers):
@@ -356,29 +375,35 @@ class Transformer:
         int8 ``{"q": (E, K, N), "scale": (E, N) f32}`` dicts
         (per-(expert, out-channel) scales). ``mode`` defaults to
         ``config.moe_weight_quant``; returns ``params`` unchanged when
-        both are None. Only int8 is ported."""
+        both are None. Only int8 is ported. With ``moe_act_quant`` (W8A8)
+        the codes are stored K-major, "q" their (E, K, N) view."""
         mode = mode or self.config.moe_weight_quant
         if mode is None:
             return params
         if self.config.moe != "ep":
             raise ValueError("quantize_moe_weights targets EP expert weights")
+        kmaj = self.config.moe_act_quant == "int8"
         out = dict(params)
         out["blocks"] = []
         for blk in params["blocks"]:
             blk = dict(blk)
             for name in ("moe_up", "moe_down"):
                 if name in blk and not isinstance(blk[name], dict):
-                    blk[name] = _qexperts(blk[name], mode)
+                    blk[name] = _qexperts(blk[name], mode, kmaj)
             out["blocks"].append(blk)
         return out
 
     def quantize_dense_weights(self, params, mode: str | None = None):
         """Replace wqkv / wo / up / down of every block, and lm_head,
         with int8 ``{"q", "scale"}`` dicts (per-out-channel scales).
-        ``mode`` defaults to ``config.dense_weight_quant``."""
+        ``mode`` defaults to ``config.dense_weight_quant``. With
+        ``dense_act_quant`` (W8A8) the blocks' codes are stored K-major
+        (``quantize_grouped_weights(..., k_major=True)``); the lm_head's
+        stay N-major (W8A16)."""
         mode = mode or self.config.dense_weight_quant
         if mode is None:
             return params
+        kmaj = self.config.dense_act_quant == "int8"
         out = dict(params)
         out["lm_head"] = _q2d(params["lm_head"], mode)
         out["blocks"] = []
@@ -386,7 +411,7 @@ class Transformer:
             blk = dict(blk)
             for name in _DENSE_QUANT_KEYS:
                 if name in blk:
-                    blk[name] = _q2d(blk[name], mode)
+                    blk[name] = _q2d(blk[name], mode, kmaj)
             out["blocks"].append(blk)
         return out
 
@@ -428,6 +453,8 @@ class Transformer:
         tensor. ``wqkv`` is cut per head (see :meth:`_shard_index`); under
         context-parallel attention (``attn`` "ring" / "ulysses") ``wqkv``
         and ``wo`` stay shared, as JAX replicates them."""
+        from triton_distributed_tpu_torch.kernels.group_gemm import k_major
+
         if self.mesh is None:
             raise ValueError("shard_params needs the model's mesh")
         dev = self.device
@@ -437,6 +464,13 @@ class Transformer:
 
         def shard(w, dim, idx):
             idx = [i.to(w.device) for i in idx]
+            if not w.is_contiguous() and k_major(w):
+                # K-major codes (W8A8): cut their (..., N, K) storage, so
+                # that every shard stays a K-major view of one allocation
+                last = w.dim() - 1
+                dim = {last: last - 1, last - 1: last}.get(dim, dim)
+                return [t.transpose(-1, -2)
+                        for t in shard(w.transpose(-1, -2), dim, idx)]
             full = torch.stack([w.index_select(dim, i) for i in idx])
             return list(full.to(dev).unbind(0))
 
@@ -1550,7 +1584,8 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None,
     on ``device``. Plain trees and trees already put through
     ``quantize_dense_weights`` or ``quantize_moe_weights`` (int8
     ``{"q", "scale"}`` dicts), MoE blocks included, carry over bit for
-    bit; dtypes are kept. With ``mesh``, JAX's global arrays land on the
+    bit; dtypes are kept. The codes W8A8 multiplies (``_w8a8_keys``)
+    land K-major, as the port's quantizers store them. With ``mesh``, JAX's global arrays land on the
     mesh's device as :meth:`Transformer.shard_params` places them."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     if len(tree["blocks"]) != cfg.n_layers:
@@ -1560,6 +1595,8 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None,
         raise ValueError(f"embed shape {np.shape(tree['embed'])} does not "
                          f"match the config")
 
+    from triton_distributed_tpu_torch.kernels.group_gemm import to_k_major
+
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
@@ -1567,9 +1604,15 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None,
             return [conv(v) for v in node]
         return _leaf_from_numpy(node, dev)
 
+    params = conv(tree)
+    # the weights W8A8 multiplies are kept K-major, converted once here
+    for blk in params["blocks"]:
+        for name in _w8a8_keys(cfg):
+            if isinstance(blk.get(name), dict):
+                blk[name]["q"] = to_k_major(blk[name]["q"])
     if mesh is None:
-        return conv(tree)
-    return Transformer(cfg, mesh=mesh, device=device).shard_params(conv(tree))
+        return params
+    return Transformer(cfg, mesh=mesh, device=device).shard_params(params)
 
 
 def caches_from_numpy(caches, device=None, mesh: Mesh | None = None):

@@ -213,14 +213,19 @@ def sort_rows(ctx: EPMoEContext, rows, eid, valid, groups=None):
 def whole_experts(w):
     """An expert leaf as one tensor over every expert: a (E, ...) tensor
     as it is, a list of W per-rank (E/W, ...) shards (views of one
-    allocation) as their (E, ...) view; int8 dicts leaf by leaf."""
+    allocation) as their (E, ...) view; int8 dicts leaf by leaf, K-major
+    codes (W8A8) as the K-major view of their stacked storage."""
+    from triton_distributed_tpu_torch.kernels.group_gemm import k_major
     from triton_distributed_tpu_torch.lang.shmem import require_stacked
 
     if isinstance(w, dict):
         return {k: whole_experts(v) for k, v in w.items()}
     if isinstance(w, (list, tuple)):
-        st = require_stacked(list(w), "the expert-parallel MoE's experts")
-        return st.reshape(-1, *st.shape[2:])
+        kmaj = not w[0].is_contiguous() and k_major(w[0])
+        st = require_stacked([t.transpose(-1, -2) for t in w] if kmaj
+                             else list(w), "the expert-parallel MoE's experts")
+        st = st.reshape(-1, *st.shape[2:])
+        return st.transpose(-1, -2) if kmaj else st
     return w
 
 
