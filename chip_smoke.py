@@ -46,7 +46,9 @@ Phases, all run every time:
    token a shard): the quantizer on the sorted slabs (byte-exact), the
    AG kernels on fp8 / int8 (the bf16 GEMM's excess check, per row) and
    int8-mxu (bit-exact), the reduce's partials (the excess check) and
-   its fold on fp8 / int8 (bit-exact, as is the whole wire); and the
+   its fold on fp8 / int8 (bit-exact, as is the whole wire), every
+   launch of the fp8 / int8 AG and of the partials on the grouped
+   warpgroup GEMM (``wgmma``), ptxas's spills for it none; and the
    collectives at the collectives path's shapes (4 ranks): the
    reduce-scatter of the composed MoE-TP's stacked partials, 4 x 8192 x
    2048 (the stream engine) and 4 x 1024 x 2048 (the VMEM ring), bit-exact
@@ -2349,19 +2351,39 @@ def ptxas_report(name: str):
     return [tuple(r) for r in rows], notes
 
 
+def check_ptxas(res: Results, kernel: str, tag: str):
+    """Log ptxas's registers and spills for every kernel whose name holds
+    ``kernel`` in the current build, and fail the run on a spill."""
+    kernels, notes = ptxas_report(kernel)
+    for name, regs, st, ld in kernels:
+        log(f"ptxas {name}: {regs} registers, spill stores {st} B, spill "
+            f"loads {ld} B")
+        res.check(kernel, st + ld, 0, f"{tag} ptxas spills of {name}",
+                  metric="bytes")
+    for note in notes:
+        log(f"ptxas note: {note}")
+    if not kernels:
+        log(f"ptxas: the build log names no {kernel} (built without "
+            "-Xptxas=-v)")
+
+
 def _wg_entries() -> dict:
     """The wrappers of the entries on the warpgroup GEMM's routes, by
-    their counter's name: the two wires, the two mesh GEMMs and the two
-    world-size-1 GEMMs."""
+    their counter's name: the two wires, the two mesh GEMMs, the two
+    world-size-1 GEMMs and the MoE-TP wire's two grouped GEMMs."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agm
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
+
+    from triton_distributed_tpu_torch.kernels import moe_tp_fused as mtf
 
     return {"ag_gemm_wire": agm.ag_gemm_w_launch,
             "gemm_rs_wire": grs.gemm_rs_partials,
             "ag_gemm": agm._ag_gemm_mesh_cuda,
             "gemm_rs": grs._gemm_rs_mesh_cuda,
             "ag_gemm_n1": agm._ag_gemm_cuda,
-            "gemm_rs_n1": grs._gemm_rs_cuda}
+            "gemm_rs_n1": grs._gemm_rs_cuda,
+            "ag_group_gemm_wire": mtf._ag_group_gemm_w_cuda,
+            "moe_reduce_rs_wire": mtf._moe_reduce_rs_partials_cuda}
 
 
 def wg_forms():
@@ -2385,6 +2407,13 @@ def check_wg_forms(res: Results, what, want: dict):
         if forms[entry] != {"wgmma": n}:
             res.failures.append(f"{what}: {entry} launches by form "
                                 f"{forms[entry]}, expected {n} on wgmma")
+
+
+def form_of(fn, before):
+    """The form of the one launch of ``fn`` since its tally was
+    ``before``."""
+    return ",".join(k for k, v in fn.by_variant.items()
+                    if v != before.get(k, 0))
 
 
 def check_all_wgmma(res: Results, what, entries):
@@ -2430,24 +2459,9 @@ def check_wire_kernels(res: Results, dev):
     g = torch.Generator(device=dev).manual_seed(13)
     x = wire_operands(dev, g, (m, h), outlier=True)
     tag0 = f"llama_7b tp={TP} wire"
-    kernels, notes = ptxas_report("wg_gemm_kernel")
-    for name, regs, st, ld in kernels:
-        log(f"ptxas {name}: {regs} registers, spill stores {st} B, spill "
-            f"loads {ld} B")
-        res.check("wg_gemm_kernel", st + ld, 0, f"{tag0} ptxas spills of "
-                  f"{name}", metric="bytes")
-    for note in notes:
-        log(f"ptxas note: {note}")
-    if not kernels:
-        log("ptxas: the build log names no wg_gemm_kernel (built without "
-            "-Xptxas=-v)")
+    check_ptxas(res, "wg_gemm_kernel", tag0)
     agm.ag_gemm_w_launch.by_variant.clear()
     grs.gemm_rs_partials.by_variant.clear()
-
-    def form_of(fn, before):
-        """The form of the one launch of ``fn`` since ``before``."""
-        return ",".join(k for k, v in fn.by_variant.items()
-                        if v != before.get(k, 0))
 
     # the quantizer: the AG-GEMMs' chunks (fp8 and int8 at 64 rows, and
     # int8-mxu at JAX's fused row block, 512 rows here; 64 launches a
@@ -2962,7 +2976,13 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
     Each row weighs its shapes by their launches in the MoE wire path's
     run; an op's whole call (the gather and the quantizer, for int8-mxu
     the experts' quantization in torch ops; the partials and the fold) is
-    logged as call_ms beside its kernel's time."""
+    logged as call_ms beside its kernel's time. The fp8 / int8 AG (its
+    own rows from the sorted slabs the quantizer was given, as the op
+    passes them) and the partials run the grouped warpgroup GEMM
+    (``csrc/wg_gemm.cuh`` ``wg_grouped_kernel``): each checked launch
+    logs its form, every launch of the phase must be ``wgmma``, and
+    ptxas's registers and spills for that kernel are logged (a spill
+    fails the run)."""
     import torch
     import torch.nn.functional as F
 
@@ -2994,15 +3014,18 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
     be_all = be.reshape(-1).long()
     tag0 = (f"deepseek_moe_16b tp={TP} moe wire {TP} x {m_s} tokens "
             f"cap_s={cap_s}")
-    slabs = list(mu.gather_sorted(stacked(x), sti, MOE_K).unbind(0))
+    slab_st = mu.gather_sorted(stacked(x), sti, MOE_K)
+    slabs = list(slab_st.unbind(0))
     flops = 2.0 * valid * MOE_H * MOE_F
+    check_ptxas(res, "wg_grouped_kernel", tag0)
+    clear_wg_forms("ag_group_gemm_wire", "moe_reduce_rs_wire")
 
     # the quantizer on the sorted slabs: fp8 / int8 at 64-row chunks and
     # int8-mxu at 128, once a layer each
     wired = {}
     for wire in ("fp8", "int8", "int8-mxu"):
         fmt = mtf._wire_fmt(wire, cap_s, MOE_TP_BM)
-        q, sc = mtf.quantize_sorted(x, sti, MOE_K, fmt)
+        q, sc = mtf.quantize_sorted(x, sti, MOE_K, fmt)[:2]
         wq, wsc = wk.quantize_shards_plain(slabs, fmt)
         torch.cuda.synchronize()
         exact = (torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
@@ -3027,6 +3050,7 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
                   H100_BF16_OPS)
         wired[wire] = (fmt, q, sc)
     del slabs
+    agw = mtf._ag_group_gemm_w_cuda
 
     # the AG side: fp8 and int8 (ag_group_gemm_wire), int8-mxu
     wg = torch.cat(w_up, dim=2)[be_all]
@@ -3067,17 +3091,20 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
                      f"torch ops {w_ms:.4f} ms of it")
             del wq, wsc
         else:
+            before = dict(agw.by_variant)
             out = mtf.ag_group_gemm_mesh_w(x, q, sc, sti, be, w_up, MOE_K,
-                                           mesh, fmt)
+                                           mesh, fmt, slabs=slab_st)
             ref = mtf.ag_group_gemm_mesh_w_plain(x, q, sc, sti, be, w_up,
                                                  MOE_K, mesh, fmt,
                                                  out_dtype=torch.float32)
             torch.cuda.synchronize()
             over, err = _row_excess(out, ref)
+            tag += " form=" + form_of(agw, before)
             res.check(name, over, GG_ATOL, tag, metric="max over rows "
                       "of max(|err|-2^-8|ref|)/rowmax|ref|")
             ms = time_ms(lambda: mtf.ag_group_gemm_mesh_w(
-                x, q, sc, sti, be, w_up, MOE_K, mesh, fmt), 5)
+                x, q, sc, sti, be, w_up, MOE_K, mesh, fmt, slabs=slab_st),
+                5)
             plain_ms = time_ms(lambda: mtf.ag_group_gemm_mesh_w_plain(
                 x, q, sc, sti, be, w_up, MOE_K, mesh, fmt), 1)
             a_deq = torch.cat([tw.dequantize_slab(qr, sr, fmt, bf16)
@@ -3105,7 +3132,7 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
             f"{call_ms:.4f} (the op: gather + quantizer + kernel{extra})")
         res.shape(name, n_moe, ms, plain_ms, lib, nbytes, flops, peak)
         del out, ref
-    del wg, wired
+    del wg, wired, slab_st
 
     # the reduce side: every rank's partials (fp8, int8 and int8-mxu's
     # int8 payload), then the fold on fp8 / int8
@@ -3114,13 +3141,16 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
     y = list(hs.unbind(0))
     tag = (f"{tag0} down K={fl} a rank x {TP} N={MOE_H} ({used} experts, "
            f"one launch for {TP} ranks)")
+    before = dict(mtf._moe_reduce_rs_partials_cuda.by_variant)
     parts = mtf.moe_reduce_rs_partials(y, be, w_down, mesh)
     ref = mtf.moe_reduce_rs_partials_plain(y, be, w_down, mesh,
                                            out_dtype=torch.float32)
     torch.cuda.synchronize()
     over, err = _row_excess(parts, ref)
     del ref
-    res.check("moe_reduce_rs_wire", over, GG_ATOL, tag + " partials",
+    ptag = (f"{tag} partials form="
+            + form_of(mtf._moe_reduce_rs_partials_cuda, before))
+    res.check("moe_reduce_rs_wire", over, GG_ATOL, ptag,
               metric="max over rows of max(|err|-2^-8|ref|)/rowmax|ref|")
     res.kernel("moe_reduce_rs_wire", err=err)
     ms = time_ms(lambda: mtf.moe_reduce_rs_partials(y, be, w_down, mesh), 5)
@@ -3135,7 +3165,7 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
     nbytes = (2 * TP * TP * cap_s * fl + 4 * TP * nb
               + 2 * used * MOE_F * MOE_H + 2 * TP * TP * cap_s * MOE_H)
     bnd, by = bound_ms(nbytes, flops, H100_BF16_OPS)
-    log(f"time moe_reduce_rs_wire {tag} partials ({3 * n_moe}/run): "
+    log(f"time moe_reduce_rs_wire {ptag} ({3 * n_moe}/run): "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} "
         f"(bmm on the concatenated operands, weights gathered per block: "
         f"the sum over ranks in one product) bound_ms={bnd:.4f} ({by}) "
@@ -3173,6 +3203,8 @@ def check_moe_wire_kernels(res: Results, dev, n_moe: int):
         res.shape("moe_reduce_rs_fold", passes * n_moe, ms, plain_ms, None,
                   nbytes, 0.0, H100_BF16_OPS)
     del parts, y, hs, x, x_cat, w_up, w_down
+    check_all_wgmma(res, f"{tag0} kernels",
+                    ("ag_group_gemm_wire", "moe_reduce_rs_wire"))
 
 
 # ------------------------------------------------------------ collectives
@@ -4776,9 +4808,11 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
     int8 wire's), its up projection within the AG-wire limit. Counts
     every launch of the run with the plain versions made to raise: a
     layer launches the quantizer, the AG kernel, the partials and the
-    fold once on each quantized wire, the two mesh kernels on bf16.
-    Returns {kernel: launches}. On the loopback mesh no byte crosses a
-    link: the run shows the wires' numerics and cost."""
+    fold once on each quantized wire, the two mesh kernels on bf16; every
+    launch of the fp8 / int8 AG and of the partials must take the grouped
+    warpgroup GEMM (``wgmma``). Returns {kernel: launches}. On the
+    loopback mesh no byte crosses a link: the run shows the wires'
+    numerics and cost."""
     import torch
 
     from triton_distributed_tpu_torch import ops
@@ -4807,8 +4841,11 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
     worst = {(w, op): 0.0 for w in (*WIRES[1:], "twin")
              for op in ("up", "mlp")}
     call_ms = {w: 0.0 for w in WIRES}
+    # the most device memory a call allocated above what it found (MiB)
+    peak_mib = {w: 0.0 for w in WIRES}
     torch.cuda.synchronize()
     reset_launch_counts()
+    clear_wg_forms("ag_group_gemm_wire", "moe_reduce_rs_wire")
     t0 = time.perf_counter()
     moe_tp.ag_group_gemm_fused = recorded
     try:
@@ -4820,8 +4857,12 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
                 for wire in WIRES:
                     ev.append(torch.cuda.Event(enable_timing=True))
                     ev[-1].record()
+                    base = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
                     outs[wire] = ops.moe_tp_mlp_overlapped(
                         x, ids, wts, w_up, w_down, ctx[wire])
+                    peak_mib[wire] = max(peak_mib[wire], (
+                        torch.cuda.max_memory_allocated(dev) - base) / 2**20)
                 ev.append(torch.cuda.Event(enable_timing=True))
                 ev[-1].record()
                 torch.cuda.synchronize()
@@ -4852,6 +4893,8 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
         "(weights drawn on the card inside); the calls on the device's "
         "clock, a pass over the layers: " + " ".join(
             f"{w or 'bf16'}={call_ms[w]:.2f} ms" for w in WIRES)
+        + "; a call's peak device memory above what it found: " + " ".join(
+            f"{w or 'bf16'}={peak_mib[w]:.1f} MiB" for w in WIRES)
         + "; launches " + " ".join(f"{k}={v}" for k, v in counts.items()
                                    if v))
     expect = {"ag_group_gemm_mesh": n_moe, "moe_reduce_rs_mesh": n_moe,
@@ -4862,6 +4905,8 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
         if v != expect.get(k, 0):
             res.failures.append(f"{name}: {v} {k} launches, expected "
                                 f"{expect.get(k, 0)}")
+    check_wg_forms(res, name, {"ag_group_gemm_wire": 2 * n_moe,
+                               "moe_reduce_rs_wire": 3 * n_moe})
     for (wire, op), err in worst.items():
         if wire == "twin":
             tol, what = WIRE_MX_TWIN_TOL, f"int8-mxu vs int8 {op}"

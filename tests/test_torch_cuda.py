@@ -1586,8 +1586,9 @@ class TestMoEWireKernels:
         cap_s = sti.shape[1]
         fmt = mtf._wire_fmt(wire, cap_s)
         before = launch_counts()
-        q, s = mtf.quantize_sorted(x, sti, topk, fmt)
-        got = mtf.ag_group_gemm_mesh_w(x, q, s, sti, be, ws, topk, mesh, fmt)
+        q, s, kept = mtf.quantize_sorted(x, sti, topk, fmt)
+        got = mtf.ag_group_gemm_mesh_w(x, q, s, sti, be, ws, topk, mesh, fmt,
+                                       slabs=kept)
         after = launch_counts()
         assert after["wire_quantize"] == before["wire_quantize"] + 1
         assert after["ag_group_gemm_wire"] == (
@@ -1599,6 +1600,7 @@ class TestMoEWireKernels:
                                               mesh, fmt,
                                               out_dtype=torch.float32)
         torch.cuda.synchronize()
+        assert torch.equal(kept, torch.stack(slabs))
         assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8))
         assert torch.equal(s, wsc)
         pad = sti.reshape(-1) >= shape[0] * topk
@@ -1624,7 +1626,7 @@ class TestMoEWireKernels:
         mesh = Mesh.loopback(w, dev)
         x, sti, be, ws = self._inputs(41, dev, w, shape, torch.bfloat16)
         fmt = mtf._wire_fmt("int8-mxu", sti.shape[1], bm)
-        q, s = mtf.quantize_sorted(x, sti, topk, fmt)
+        q, s = mtf.quantize_sorted(x, sti, topk, fmt)[:2]
         wq, wsc = mtf.quantize_expert_shards(ws)
         kw = dict(out_dtype=getattr(torch, out))
         before = launch_counts()["ag_group_gemm_mx"]
@@ -1770,6 +1772,131 @@ class TestMoEWireKernels:
                                  "moe_reduce_rs": 1}
                 assert y.isfinite().all()
         torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+
+
+#: (tokens a shard, top-k, experts, K, N, block_m) of the grouped
+#: warpgroup GEMM's card tests: the DeepSeek-MoE-16B tp = 4 up projection's
+#: widths (N 352: 2.75 tiles of 128), K 352 (5.5 stages of 64: an expert's
+#: K edge) against N 88 (one partial tile) at 256-row blocks, and K 144 /
+#: N 200; every shard has an empty expert (1), trailing all-padding blocks
+#: and sentinel rows inside its last block of each expert
+GROUPED_SHAPES = [(64, 6, 16, 2048, 352, 128), (100, 2, 8, 352, 88, 256),
+                  (60, 3, 6, 144, 200, 128)]
+
+
+class TestGroupedWgmma:
+    """The MoE-TP wire's two grouped GEMMs on the grouped warpgroup GEMM
+    (``csrc/wg_gemm.cuh`` ``wg_grouped_kernel``: the weight a 3-D tensor
+    map looked up by the tile's expert, a persistent grid, TMA stores) at
+    ``GROUPED_SHAPES``, 1, 2 and 4 ranks, bf16 and f32 outputs: every
+    launch on ``wgmma``, within f32 summation order (per row) and one
+    rounding of the plain version, the padding rows exactly 0, and two
+    runs bit-identical."""
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("wire", ["fp8", "int8"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", GROUPED_SHAPES)
+    def test_ag_group_gemm_w_wgmma(self, dev, shape, w, wire, out):
+        """``tdt_ag_group_gemm_w`` over ``WgPeerGatherRowsQ``: a peer's
+        codes converted in registers, the own rows from the sorted slabs
+        ``quantize_sorted`` returned, the all-padding tiles' zeros stored
+        without their K loop; token 1 of shard 0 x1000."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, k, n, bm = shape
+        odt = getattr(torch, out)
+        mesh = Mesh.loopback(w, dev)
+        x, sti, be, ws = _moe_mesh_inputs(70, dev, w, m_s, topk, e, k, n, bm,
+                                          torch.bfloat16)
+        x[0][1] *= 1000.0
+        cap_s = sti.shape[1]
+        pad = sti.reshape(-1) >= m_s * topk
+        first = sti[:, ::bm].reshape(-1) >= m_s * topk
+        assert pad.any() and first.any() and not first.all()
+        fmt = mtf._wire_fmt(wire, cap_s)
+        q, s, slabs = mtf.quantize_sorted(x, sti, topk, fmt)
+        runs = []
+        for _ in range(2):
+            mtf._ag_group_gemm_w_cuda.by_variant.clear()
+            runs.append(mtf.ag_group_gemm_mesh_w(x, q, s, sti, be, ws, topk,
+                                                 mesh, fmt, out_dtype=odt,
+                                                 slabs=slabs))
+            assert mtf._ag_group_gemm_w_cuda.by_variant == {"wgmma": 1}
+        want = mtf.ag_group_gemm_mesh_w_plain(x, q, s, sti, be, ws, topk,
+                                              mesh, fmt,
+                                              out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, g2, ref in zip(*runs, want):
+            assert g.dtype == odt and g.shape == (w * cap_s, n)
+            assert torch.equal(g, g2)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, out == "bfloat16")).all()
+            assert (g[pad] == 0).all()
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", GROUPED_SHAPES)
+    def test_moe_reduce_rs_partials_wgmma(self, dev, shape, w, out):
+        """``tdt_moe_reduce_rs_partials`` over ``WgGroupedLocal`` (here F_q
+        = K of the shape, H = its N): every rank's rows against its
+        experts' weights, y's padding rows zero as the up projection's
+        are (their partials exactly 0), an outlier row x1000."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, f, h, bm = shape
+        odt = getattr(torch, out)
+        mesh = Mesh.loopback(w, dev)
+        _, sti, be, ws = _moe_mesh_inputs(71, dev, w, m_s, topk, e, f, h, bm,
+                                          torch.bfloat16)
+        cap_s = sti.shape[1]
+        pad = sti.reshape(-1) >= m_s * topk
+        rng = np.random.default_rng(72)
+        yf = rng.standard_normal((w, w * cap_s, f))
+        yf[0, 5] *= 1000.0
+        y = _t(yf, dev, torch.bfloat16)
+        y[:, pad] = 0
+        y = list(y.unbind(0))
+        runs = []
+        for _ in range(2):
+            mtf._moe_reduce_rs_partials_cuda.by_variant.clear()
+            runs.append(mtf.moe_reduce_rs_partials(y, be, ws, mesh,
+                                                   out_dtype=odt))
+            assert mtf._moe_reduce_rs_partials_cuda.by_variant == {
+                "wgmma": 1}
+        want = mtf.moe_reduce_rs_partials_plain(y, be, ws, mesh,
+                                                out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for p, p2, ref in zip(*runs, want):
+            assert p.dtype == odt and p.shape == (w * cap_s, h)
+            assert torch.equal(p, p2)
+            assert ((p.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, f, out == "bfloat16")).all()
+            assert (p[pad] == 0).all()
+
+    def test_off_rule_shapes_keep_the_tile_loops(self, dev):
+        """64-row routing blocks (a 128-row tile would span two experts)
+        and f32 operands run the tile loops, counted as ``mma_sync`` /
+        ``fma``."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(2, dev)
+        for dtype, bm, form in ((torch.bfloat16, 64, "mma_sync"),
+                                (torch.float32, 128, "fma")):
+            x, sti, be, ws = _moe_mesh_inputs(73, dev, 2, 60, 2, 6, 144, 200,
+                                              bm, dtype)
+            fmt = mtf._wire_fmt("int8", sti.shape[1])
+            q, s, slabs = mtf.quantize_sorted(x, sti, 2, fmt)
+            mtf._ag_group_gemm_w_cuda.by_variant.clear()
+            mtf.ag_group_gemm_mesh_w(x, q, s, sti, be, ws, 2, mesh, fmt,
+                                     slabs=slabs)
+            assert mtf._ag_group_gemm_w_cuda.by_variant == {form: 1}
+            y = [torch.zeros((2 * sti.shape[1], 200), dtype=dtype,
+                             device=dev) for _ in range(2)]
+            wd = [t.transpose(1, 2).contiguous() for t in ws]
+            mtf._moe_reduce_rs_partials_cuda.by_variant.clear()
+            mtf.moe_reduce_rs_partials(y, be, wd, mesh)
+            assert mtf._moe_reduce_rs_partials_cuda.by_variant == {form: 1}
 
 
 def _staged_a2a_mesh(dev, w, quant, dtype, seed, skew):

@@ -269,14 +269,17 @@ class TestWireFormat:
         assert tf.chunk_rows == jf.chunk_rows == (128 if wire == "int8-mxu"
                                                   else 64)
         xs = list(_t(x, tdt).chunk(W))
-        q, s = tmtf.quantize_sorted(xs, tr.sti, K, tf)
+        q, s, slabs = tmtf.quantize_sorted(xs, tr.sti, K, tf)
         assert q.shape == (W, cap_s, H) and s.shape == (W, cap_s //
                                                         tf.chunk_rows)
+        assert slabs.shape == (W, cap_s, H) and slabs.dtype == tdt
         jx = jnp.asarray(x, jdt)
         pad_chunks = 0
         for r in range(W):
             slab = jmu.gather_sorted(jx[r * (M // W):(r + 1) * (M // W)],
                                      jr.sti[r], K).astype(jdt)
+            np.testing.assert_array_equal(slabs[r].float().numpy(),
+                                          np.asarray(slab, np.float32))
             jq, js = jw.quantize_slab(slab, jf)
             np.testing.assert_array_equal(q[r].view(torch.uint8).numpy(),
                                           np.asarray(jq).view(np.uint8))
@@ -317,13 +320,14 @@ class TestWireFormat:
         xs = list(_t(x).chunk(W))
         w_sh = _f_shards(w_up, 2, torch.float32)
         fmt8 = tmtf._wire_fmt("fp8", tr.cap_s)
-        q, s = tmtf.quantize_sorted(xs, tr.sti, K, fmt8)
+        q, s, slabs = tmtf.quantize_sorted(xs, tr.sti, K, fmt8)
         with pytest.raises(ValueError, match="wire form"):
             tmtf.ag_group_gemm_mesh_w(xs, q, s, tr.sti, tr.be, w_sh, K,
                                       tmesh, tmtf._wire_fmt("int8",
-                                                            tr.cap_s))
-        q, s = tmtf.quantize_sorted(xs, tr.sti, K,
-                                    tmtf._wire_fmt("int8", tr.cap_s))
+                                                            tr.cap_s),
+                                      slabs=slabs)
+        q, s, _ = tmtf.quantize_sorted(xs, tr.sti, K,
+                                       tmtf._wire_fmt("int8", tr.cap_s))
         wq, ws = tmtf.quantize_expert_shards(w_sh)
         with pytest.raises(ValueError, match="one scale a routing block"):
             tmtf.ag_group_gemm_mesh_mx(q, s[:, 1:].contiguous(), tr.be, wq,
@@ -374,9 +378,10 @@ class TestMoEWireOps:
             on_jax = tmtf.ag_group_gemm_mesh_mx(q, s, tr.be, *wq, tmesh,
                                                 out_dtype=tdt)
         else:
+            xs = list(_t(x, tdt).chunk(W))
             on_jax = tmtf.ag_group_gemm_mesh_w(
-                list(_t(x, tdt).chunk(W)), q, s, tr.sti, tr.be, w_sh, K,
-                tmesh, fmt)
+                xs, q, s, tr.sti, tr.be, w_sh, K, tmesh, fmt,
+                slabs=tmtf.gather_sorted(torch.stack(xs), tr.sti, K))
         np.testing.assert_allclose(_cols(on_jax), want, rtol=2.0 ** -7,
                                    atol=1e-6)
 

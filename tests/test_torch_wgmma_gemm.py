@@ -570,16 +570,19 @@ def test_bf16_gemms_match_jax_at_a_ragged_shard(w):
 
 
 def test_ab_script_imports_no_jax():
-    """``ab_wire.py``, ``ab_tp.py`` and the runner they share,
-    ``ab_common.py`` (run on the card machine, which has no JAX), and the
-    child each script starts in each tree import nothing of JAX or of the
-    JAX package."""
+    """``ab_wire.py``, ``ab_tp.py``, ``ab_moe_wire.py`` and the runner they
+    share, ``ab_common.py`` (run on the card machine, which has no JAX),
+    and the child each script starts in each tree import nothing of JAX or
+    of the JAX package."""
+    import ab_moe_wire
     import ab_tp
     import ab_wire
 
     root = csrc_dir().parents[1]
     for script, child in (("ab_wire.py", ab_wire.CHILD),
-                          ("ab_tp.py", ab_tp.CHILD), ("ab_common.py", "")):
+                          ("ab_tp.py", ab_tp.CHILD),
+                          ("ab_moe_wire.py", ab_moe_wire.CHILD),
+                          ("ab_common.py", "")):
         text = (root / script).read_text() + child
         for line in text.splitlines():
             hit = re.match(r"^\s*(?:import|from)\s+([\w.]+)", line)

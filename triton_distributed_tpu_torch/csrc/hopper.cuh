@@ -1,9 +1,10 @@
 // The Hopper pieces of the port's tensor-core kernels, shared by
 // cp_ring.cu (ring_attention_tc_kernel), wg_gemm.cuh (the warpgroup GEMM
-// of ag_gemm.cu and gemm_rs.cu) and group_gemm.cu (W8A8's w8a8_tc_kernel,
-// on the s8 products): the mbarriers that pace TMA stages,
-// the TMA copies, wgmma's shared-memory descriptor and its products, and
-// the tensor maps' encoding on the host.
+// of ag_gemm.cu, gemm_rs.cu and moe_tp_fused.cu) and group_gemm.cu
+// (W8A8's w8a8_tc_kernel, on the s8 products): the mbarriers that pace
+// TMA stages, the TMA copies (loads, and stores in bulk groups), wgmma's
+// shared-memory descriptor and its products, and the tensor maps'
+// encoding on the host.
 //
 // wgmma (sm_90a): a warpgroup of four warps issues an asynchronous product
 // of a 64-row tile, d (64 x N, f32 in registers) += a (64 x 16 bf16) @ b
@@ -78,6 +79,52 @@ __device__ __forceinline__ void tc_tma_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(tc_smem(dst)), "l"(map), "r"(tc_smem(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// one TMA box of a 3-D map at (c0 innermost, c1, c2) into dst; `bar`
+// counts its bytes (elements past the tensor land as zeros)
+__device__ __forceinline__ void tc_tma_3d(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(tc_smem(dst)), "l"(map), "r"(tc_smem(bar)), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// one TMA box of shared memory at src stored to a 2-D map at (c0
+// innermost, c1), in this thread's bulk group (elements past the tensor
+// are not written)
+__device__ __forceinline__ void tc_tma_store_2d(const CUtensorMap* map,
+                                                const void* src, int c0,
+                                                int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n"
+      :: "l"(map), "r"(tc_smem(src)), "r"(c0), "r"(c1) : "memory");
+}
+
+// this thread's TMA stores since the last commit form one bulk group
+__device__ __forceinline__ void tc_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups have read their shared memory (READ) or are
+// complete
+template <bool READ>
+__device__ __forceinline__ void tc_bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// this thread's writes to shared memory are visible to TMA (the async
+// proxy)
+__device__ __forceinline__ void tc_fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tc_ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -250,6 +297,40 @@ __device__ __forceinline__ void wg_ss_t(float (&d)[128], uint64_t a,
         TC_ACC16(64), TC_ACC16(80), TC_ACC16(96), TC_ACC16(112)
       : "l"(a), "l"(b), "r"(acc));
 }
+// the m64n192k16 forms of wg_pv (a from registers) and wg_ss_t (a from
+// shared memory, K-major); b MN-major
+__device__ __forceinline__ void wg_pv(float (&d)[96], const uint32_t (&a)[4],
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : TC_ACC16(0), TC_ACC16(16), TC_ACC16(32), TC_ACC16(48),
+        TC_ACC16(64), TC_ACC16(80)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wg_ss_t(float (&d)[96], uint64_t a,
+                                        uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : TC_ACC16(0), TC_ACC16(16), TC_ACC16(32), TC_ACC16(48),
+        TC_ACC16(64), TC_ACC16(80)
+      : "l"(a), "l"(b), "r"(acc));
+}
 #undef TC_ACC16
 #undef TC_ACC8
 
@@ -334,6 +415,34 @@ inline bool tc_map_2d(CUtensorMap* map, const void* base,
                        static_cast<cuuint32_t>(box_rows)};
   cuuint32_t one[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                one, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (d2, d1, d0) tensor of `esize`-byte elements at `base`, innermost d0,
+// its d1 rows `pitch1` bytes apart and its d2 slices `pitch2`, as a map of
+// boxes of b0 x b1 x b2 in swizzle `swz`; false where TMA cannot take it
+inline bool tc_map_3d(CUtensorMap* map, const void* base,
+                      CUtensorMapDataType type, int esize, long long d0,
+                      long long d1, long long d2, long long pitch1,
+                      long long pitch2, int b0, int b1, int b2,
+                      CUtensorMapSwizzle swz) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tc_encoder();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      pitch1 % 16 != 0 || pitch2 % 16 != 0 || d0 <= 0 || d1 <= 0 ||
+      d2 <= 0 || pitch1 < d0 * esize || pitch2 < d1 * pitch1)
+    return false;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                        static_cast<cuuint64_t>(d1),
+                        static_cast<cuuint64_t>(d2)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(pitch1),
+                           static_cast<cuuint64_t>(pitch2)};
+  cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
+                       static_cast<cuuint32_t>(b1),
+                       static_cast<cuuint32_t>(b2)};
+  cuuint32_t one[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
                 one, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -61,29 +61,40 @@
 // quantizes all W in one tdt_quantize_slab launch (wire.cu): fp8 / int8
 // at the chunk rows of make_wire_format(cap_s), int8-mxu at one chunk a
 // routing block (block_m rows).
-//   * tdt_ag_group_gemm_w: the tile loops over PeerGatherRowsQ, rank r's
-//     own shard exact from its tokens, a peer's sorted rows its codes
-//     times the chunk scale rounded to x's dtype (what JAX's
+//   * tdt_ag_group_gemm_w: rank r's own shard exact, a peer's sorted rows
+//     its codes times the chunk scale rounded to x's dtype (what JAX's
 //     dequant_pipeline writes into the bf16 workspace), f32 sums, one
-//     rounding.
+//     rounding. Where wg_grouped_form_ok holds (bf16, block_m and cap_s
+//     multiples of 128: the wire path's shapes) the grouped warpgroup GEMM
+//     of wg_gemm.cuh over WgPeerGatherRowsQ (128 x 192 tiles, the own rows
+//     by TMA from the sorted slabs quantize_sorted materialized for the
+//     quantizer and returned, the codes converted in registers, all-padding tiles
+//     stored as zeros without their K loop); elsewhere the tile loops over
+//     PeerGatherRowsQ (the own rows gathered from the tokens).
 //   * tdt_ag_group_gemm_mx: every slab's codes, the own one too, through
 //     s8_mma_kernel (s8_tiles.cuh) over PeerSortedMx against the block's
 //     expert of the rank's per-(expert, column) int8 weight (the wrapper
 //     quantizes it on every call, as JAX does, and hands it over (E, N,
 //     K)), exact s32 sums, epilogue acc * (row scale * column scale).
 //   * tdt_moe_reduce_rs_partials: every rank's grouped partials y_q @
-//     w_q[be] over all W * cap_s rows (PeerLocal, grouped), each rounded
-//     once to the output type as JAX's partial_into writes its slab; then
+//     w_q[be] over all W * cap_s rows, each rounded once to the output
+//     type as JAX's partial_into writes its slab (the grouped warpgroup
+//     GEMM over WgGroupedLocal, 128 x 256 tiles on a persistent grid whose
+//     TMA stores overlap the next tile's products, where
+//     wg_grouped_form_ok holds; PeerLocal grouped on the tile loops
+//     elsewhere); then
 //     gemm_rs.cu's tdt_gemm_rs_fold (m = cap_s) replays the reduce ring's
 //     requantizing hops, rank d - 1's partial first and the own last. On
 //     the loopback mesh no byte crosses a link: a hop's codes are made
 //     and consumed in registers.
 // What bounds them at the tp = 4 prefill: the tensor cores, over the
 // 49152 real sorted rows (2 * 49152 * 2048 * 1408 operations: 0.29 ms at
-// 989 TFLOP/s bf16, 0.14 ms at 1979 TOP/s int8); the fold, device memory
-// (16 partial slabs of 20480 x 2048 bf16 read once, ~0.5 ms).
+// 989 TFLOP/s bf16, 0.14 ms at 1979 TOP/s int8); the partials, the 16
+// slabs of 20480 x 2048 bf16 they write (1.34 GB, 0.40 ms); the fold,
+// device memory (those slabs read once, ~0.5 ms).
 
 #include "s8_tiles.cuh"
+#include "wg_gemm.cuh"
 
 extern "C" {
 
@@ -172,19 +183,41 @@ int tdt_moe_reduce_rs_mesh(const void* y_peers, const void* w_peers,
 // for tdt_ag_group_gemm_mesh (rank r's own shard read exact from its
 // tokens); q: (world, cap_s, K) wire codes of every shard's sorted slab,
 // s: (world, cap_s / chunk_rows) f32 scales; quant TDT_WIRE_FP8 or
-// TDT_WIRE_INT8.
+// TDT_WIRE_INT8; experts: E of w_r (E, K, N). wgmma: run the grouped
+// warpgroup form (the caller's choice by wg_grouped_form_ok's rule;
+// refused where it fails), which reads the own rows from xs, the (world,
+// cap_s, K) sorted slabs (gather_sorted of every shard, zeros at the
+// padding), and the weights and outputs through w_host / out_host, the
+// (world,) pointers in host memory (the tensor maps); the device tables
+// x_peers, w_peers and out_peers are then unused. Else the tile loops
+// (xs, w_host and out_host unused). *form: the MeshGemmForm launched.
 int tdt_ag_group_gemm_w(const void* x_peers, const void* q, const void* s,
                         const void* w_peers, const void* out_peers,
-                        const void* sti, const void* block_expert, int m_tok,
-                        int topk, int cap_s, int K, int N, int block_m,
-                        int world, int rank0, int nranks, int chunk_rows,
-                        int quant, int x_dtype, int out_dtype, int aligned,
-                        void* stream) {
+                        const void* sti, const void* block_expert,
+                        const void* xs, const void* w_host,
+                        const void* out_host, int m_tok, int topk, int cap_s,
+                        int K, int N, int experts, int block_m, int world,
+                        int rank0, int nranks, int chunk_rows, int quant,
+                        int x_dtype, int out_dtype, int aligned, int wgmma,
+                        int* form, void* stream) {
   cudaGetLastError();
   if (cap_s <= 0 || N <= 0 || nranks <= 0) return 0;
   if (chunk_rows <= 0 || cap_s % chunk_rows ||
       (quant != TDT_WIRE_FP8 && quant != TDT_WIRE_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    if (xs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned long long a = reinterpret_cast<uintptr_t>(xs);
+    return wg_grouped<WgPeerGatherRowsQ, WG_GROUP_BN_AG>(
+        &a, 1, static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host), q,
+        static_cast<const float*>(s), static_cast<const int*>(sti),
+        static_cast<const int*>(block_expert), m_tok * topk, cap_s, K, N,
+        experts, block_m, world, rank0, nranks, chunk_rows, quant, x_dtype,
+        out_dtype, static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerGatherRowsQ rows{
       {static_cast<const unsigned long long*>(x_peers),
        static_cast<const uint8_t*>(q), static_cast<const float*>(s),
@@ -236,15 +269,33 @@ int tdt_ag_group_gemm_mx(const void* q, const void* s,
 // (world * cap_s, F); w_peers: to w_q (E, F, H); part_peers: to each
 // rank's partial slab (world * cap_s, H) of out_dtype, rank q's y_q @
 // w_q[be] over all its rows; block_expert (world * cap_s / block_m,)
-// int32, the shards' tables stacked. Every rank's partials feed every
-// destination's fold, so the launch covers all ranks.
+// int32, the shards' tables stacked; experts: E. Every rank's partials
+// feed every destination's fold, so the launch covers all ranks. wgmma:
+// run the grouped warpgroup form over y_host / w_host / part_host, the
+// three tables' pointers in host memory (the caller's choice by
+// wg_grouped_form_ok's rule; refused where it fails; the device tables
+// are then unused), else the tile loops; *form: the MeshGemmForm launched.
 int tdt_moe_reduce_rs_partials(const void* y_peers, const void* w_peers,
                                const void* part_peers,
-                               const void* block_expert, int cap_s, int F,
-                               int H, int block_m, int world, int x_dtype,
-                               int out_dtype, int aligned, void* stream) {
+                               const void* block_expert, const void* y_host,
+                               const void* w_host, const void* part_host,
+                               int cap_s, int F, int H, int experts,
+                               int block_m, int world, int x_dtype,
+                               int out_dtype, int aligned, int wgmma,
+                               int* form, void* stream) {
   cudaGetLastError();
   if (cap_s <= 0 || H <= 0 || world <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_grouped<WgGroupedLocal, WG_GROUP_BN_RS>(
+        static_cast<const unsigned long long*>(y_host), world,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(part_host), nullptr, nullptr,
+        nullptr, static_cast<const int*>(block_expert), 0, cap_s, F, H,
+        experts, block_m, world, 0, world, 1, 0, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerLocal rows{static_cast<const unsigned long long*>(y_peers),
                        static_cast<const unsigned long long*>(w_peers),
                        static_cast<const unsigned long long*>(part_peers),

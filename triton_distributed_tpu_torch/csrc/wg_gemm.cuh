@@ -2,11 +2,14 @@
 // by ag_gemm.cu (tdt_ag_gemm, the bf16 AG-GEMM over a mesh and at world
 // size 1; tdt_ag_gemm_w, the AG-GEMM on the fp8 / int8 wire) and gemm_rs.cu
 // (tdt_gemm_rs, the bf16 GEMM-RS over a mesh and at world size 1;
-// tdt_gemm_rs_partials, the GEMM-RS wire's partials). It computes what
+// tdt_gemm_rs_partials, the GEMM-RS wire's partials), and in a grouped,
+// persistent form (wg_grouped_kernel, at the end of this file) by
+// moe_tp_fused.cu (the MoE-TP wire's AG and partials). It computes what
 // ggemm_tiles.cuh's bf16_mma_kernel computes over the PeerRows, PeerSum,
-// PeerRowsQ and PeerLocal rows, f32 sums rounded once at the store, and
-// runs where wg_form_ok (below) holds; the launchers take bf16_mma_kernel
-// elsewhere.
+// PeerRowsQ and PeerLocal rows (grouped: PeerGatherRowsQ and PeerLocal
+// with the block -> expert table), f32 sums rounded once at the store,
+// and runs where wg_form_ok (wg_grouped_form_ok) holds; the launchers take
+// bf16_mma_kernel elsewhere.
 //
 // What bounds it on an H100: the tensor cores. At the Llama-2-7B tp = 4
 // prefill (the AG-GEMM: A 4 x (2048, 4096), B_r (4096, 3072) or (4096,
@@ -475,6 +478,437 @@ int wg_gemm(const unsigned long long* a, int m_a,
   } else {
     return f32 ? wg_launch<float, Src, 0>(p, nranks, st)
                : wg_launch<__nv_bfloat16, Src, 0>(p, nranks, st);
+  }
+}
+
+// ------------------------------------------------------------ grouped
+// The grouped form (moe_tp_fused.cu: tdt_moe_reduce_rs_partials and
+// tdt_ag_group_gemm_w, the MoE-TP wire's two bf16 grouped GEMMs over
+// expert-sorted rows). Every 128-row tile lies in one routing block of one
+// expert (block_m and cap_s multiples of WG_BM), looked up once a tile
+// from the stacked block table, be[g / block_m] for the tile's first row
+// g; the weight (E, K, N) is a 3-D map (N, K, E innermost first, boxes of
+// 64 n x 64 k x 1 expert) with the expert as the third coordinate, so an
+// expert's K edge (K = 352 = 5.5 steps of 64 in the partials) lands as
+// TMA's zeros, never as the next expert's rows.
+//
+// What bounds them on an H100, at the DeepSeek-MoE-16B tp = 4 MoE wire
+// (cap_s 20480 sorted rows a shard, 4 ranks): the partials write 4 x
+// 81920 x 2048 bf16 (1.34 GB, 0.40 ms at 3.35 TB/s) for 0.47 TFLOP
+// (0.48 ms at 989 TFLOP/s) at K = 352, so a tile's store is as long as
+// its products; the AG is 2 x 81920 x 2048 x 352 x 4 operations, about a
+// fifth of its 128-row blocks all padding.
+//
+// Design: a persistent grid, one CTA an SM, each walking the tiles t =
+// blockIdx.x, + gridDim.x, ... (N-tiles fastest, then M-tiles, then
+// ranks), with the warpgroup GEMM's producer warpgroup (one TMA thread)
+// and two consumer warpgroups; the stage ring and its barriers' phases run
+// on across tiles, so the producer loads the next tile's stages while the
+// consumers store this one. The epilogue has its own shared-memory tile,
+// in the 128-byte swizzle (conflict-free bf16x2 / float2 writes), stored
+// by TMA (128 rows x 128 bytes a box; TMA clips N's edge) in a bulk group
+// that overlaps the next tile's products; the buffer is rewritten only
+// after that store has read it. Tile widths: WG_GROUP_BN_RS = 256 for the
+// partials (N = 2048), WG_GROUP_BN_AG = 192 for the AG (N_r = 352: two
+// tiles, 384 columns, against two of 256, 512, or three of 128, which
+// read each A tile three times). The AG's tile whose first sorted row is
+// the sentinel (>= tokens * topk) is all padding: its K loop is skipped
+// and its zeros stored.
+constexpr int WG_GROUP_BN_RS = 256;     // the partials' tile width
+constexpr int WG_GROUP_BN_AG = 192;     // the AG's tile width
+constexpr int WG_SMEM_MAX = 232448;     // shared memory a CTA may take
+constexpr int WG_STORE_BOX = WG_BM * 128;  // an epilogue box: 128 B rows
+
+// the shared memory of a grouped kernel's tile of BN columns stored as
+// OutT: the stages (a bf16 A box and BN / 64 B boxes each, as many as fit
+// beside the epilogue tile, at most 6) and the epilogue tile
+template <typename OutT, int BN>
+struct WgGroupShape {
+  static constexpr int NBOX = BN / 64;
+  static constexpr int STAGE = WG_A_BYTES + NBOX * WG_BOX_BYTES;
+  static constexpr int EC = 128 / static_cast<int>(sizeof(OutT));
+  static constexpr int EPI = WG_BM * BN * static_cast<int>(sizeof(OutT));
+  static constexpr int FIT = (WG_SMEM_MAX - 1024 - 256 - EPI) / STAGE;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int SMEM = STAGES * STAGE + EPI + 1024;
+  static_assert(STAGES >= 2, "two stages fit beside the epilogue tile");
+  static_assert(STAGE % 1024 == 0, "the epilogue tile is 1024-aligned");
+};
+
+// a grouped launch's operands, a __grid_constant__ parameter (3.3 KB of
+// the 4 KB)
+struct WgGroupParams {
+  CUtensorMap a[WG_MAX_RANKS];  // bf16 A rows: box 64 k x 128 rows
+  CUtensorMap b[WG_MAX_RANKS];  // each rank's (E, K, N) weight
+  CUtensorMap o[WG_MAX_RANKS];  // each rank's output (rows, N)
+  CUtensorMap q;                // the AG's codes (world * cap_s, K)
+  const int* be;                // (world * cap_s / block_m) block -> expert
+  const int* sti;               // the AG's (world * cap_s) sorted token ids
+  const float* s;               // the codes' (world, cap_s / chunk_rows)
+  int cap_s, world, K, N, block_m, chunk_rows, total;
+};
+
+// what tile m0 of rank r reads
+struct WgGroupTile {
+  const CUtensorMap* a;  // its A rows' map (bf16, or the codes)
+  int a_row;             // their first row in that map
+  bool codes;            // A is a peer's wire codes
+  bool skip;             // all padding: no K loop, zeros stored
+  int expert;            // its block's expert
+};
+
+// tdt_moe_reduce_rs_partials: PeerLocal grouped. Rank r's own y_r (world *
+// cap_s, F_r) against w_r[be[g / block_m]], rows in place, into its slab
+// of partials; every row computed, as JAX's kernel does (y is any input).
+struct WgGroupedLocal {
+  static constexpr bool kQuant = false;
+  __host__ __device__ static int tiles(const WgGroupParams& p) {
+    return p.world * p.cap_s / WG_BM;
+  }
+  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0) {
+    return WgGroupTile{&p.a[r], m0, false, false, p.be[m0 / p.block_m]};
+  }
+};
+
+// tdt_ag_group_gemm_w: PeerGatherRowsQ::at's rows. Output row g = s *
+// cap_s + i of rank r is shard s's sorted row i, from the peer's codes of
+// q (row g) for s != r, exact bf16 for s = r from the sorted slabs' stack
+// (a[0], row g: every shard's gather_sorted, zeros at the padding, as the
+// wrapper materialized them for the quantizer), against w_r[be[g /
+// block_m]]; a tile lies in one shard (cap_s a multiple of WG_BM).
+struct WgPeerGatherRowsQ {
+  static constexpr bool kQuant = true;
+  __host__ __device__ static int tiles(const WgGroupParams& p) {
+    return p.world * p.cap_s / WG_BM;
+  }
+  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0) {
+    const bool pad = static_cast<unsigned>(p.sti[m0]) >=
+                     static_cast<unsigned>(p.total);
+    const bool peer = m0 / p.cap_s != r;
+    return WgGroupTile{peer ? &p.q : &p.a[0], m0, peer, pad,
+                       p.be[m0 / p.block_m]};
+  }
+  // sorted row g's scale (a peer's): PeerGatherRowsQ::at's
+  __device__ static float scale(const WgGroupParams& p, int g) {
+    return p.s[g / p.chunk_rows];
+  }
+};
+
+template <typename OutT, typename Src, int QUANT, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wg_grouped_kernel(const __grid_constant__ WgGroupParams p, int rank0,
+                      int nranks) {
+  using S = WgGroupShape<OutT, BN>;
+  constexpr int NACC = BN / 2;  // a thread's accumulators
+  extern __shared__ unsigned char wg_raw[];
+  __shared__ uint64_t full[S::STAGES];   // stage st has landed
+  __shared__ uint64_t empty[S::STAGES];  // the consumers are done with st
+  char* sm = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
+  char* epi = sm + S::STAGES * S::STAGE;
+  // tile t: rank rank0 + t / (mt * nt), M-tile t / nt % mt, N-tile t % nt
+  const int mt = Src::tiles(p), nt = (p.N + BN - 1) / BN;
+  const int ntiles = nranks * mt * nt;
+  const int nk = (p.K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < S::STAGES; ++st) {
+      tc_bar_init(&full[st], 1);
+      tc_bar_init(&empty[st], WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WG_CONSUMERS) {
+      int it = 0;  // the stage ring's position, across tiles
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int r = rank0 + t / (mt * nt), m0 = t / nt % mt * WG_BM;
+        const int n0 = t % nt * BN;
+        const WgGroupTile tile = Src::tile(p, r, m0);
+        if (tile.skip) continue;
+        // B's boxes that start inside N (the rest would only feed columns
+        // the epilogue never stores)
+        const int nbox = min(S::NBOX, (p.N - n0 + 63) / 64);
+        const int bytes =
+            (tile.codes ? WG_Q_BYTES : WG_A_BYTES) + nbox * WG_BOX_BYTES;
+        for (int kk = 0; kk < nk; ++kk, ++it) {
+          const int st = it % S::STAGES;
+          if (it >= S::STAGES)
+            tc_bar_wait(&empty[st], (it / S::STAGES + 1) & 1);
+          char* s = sm + st * S::STAGE;
+          tc_bar_expect(&full[st], bytes);
+          tc_tma_2d(s, tile.a, &full[st], kk * WG_BK, tile.a_row);
+          for (int j = 0; j < nbox; ++j)
+            tc_tma_3d(s + WG_A_BYTES + j * WG_BOX_BYTES, &p.b[r], &full[st],
+                      n0 + 64 * j, kk * WG_BK, tile.expert);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  // this thread's fragment rows of the tile: r0 and r0 + 8
+  const int r0 = wg * 64 + (warp & 3) * 16 + g;
+  float acc[NACC];
+  // B of k step kk of a stage: 8-k groups 1024 bytes apart, the boxes of
+  // 64 n 8192 apart
+  auto bdesc = [&](const char* s, int kk) {
+    return wg_desc(s + WG_A_BYTES + kk * 2048, WG_BOX_BYTES, 1024, 1);
+  };
+  // a warp is done with stage st
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) tc_bar_arrive(&empty[st]);
+  };
+  auto stage = [&](int i) { return sm + (i % S::STAGES) * S::STAGE; };
+  auto landed = [&](int i) {
+    tc_bar_wait(&full[i % S::STAGES], (i / S::STAGES) & 1);
+  };
+
+  int it = 0;  // the stage ring's position, as the producer's
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int r = rank0 + t / (mt * nt), m0 = t / nt % mt * WG_BM;
+    const int n0 = t % nt * BN;
+    const WgGroupTile tile = Src::tile(p, r, m0);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    if (tile.skip) {
+      // all padding: zeros
+    } else if (!tile.codes) {
+      // bf16 A from shared memory: this warpgroup's 64 rows, 8-row groups
+      // 1024 bytes apart, k step kk 32 bytes into the 128-byte rows
+      for (int i = 0; i < nk; ++i) {
+        landed(it + i);
+        const char* s = stage(it + i);
+        wg_pin(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)
+          wg_ss_t(acc, wg_desc(s + wg * 8192 + kk * 32, 16, 1024, 1),
+                  bdesc(s, kk), 1);
+        wg_commit();
+        wg_wait<1>();  // the previous stage's products have retired
+        if (i > 0) release((it + i - 1) % S::STAGES);
+      }
+    } else if constexpr (QUANT != 0) {
+      // the codes, as wg_gemm_kernel reads and converts them: 16-byte
+      // chunk c of row r at chunk c ^ ((r >> 1) & 3); register i of the
+      // fragment of k step kk: row r0 + 8 (i & 1), codes 16 kk + 8 (i >>
+      // 1) + 2 tq, + 1, the half (tq & 1) of the word at 4 (tq >> 1) in
+      // their chunk; a stage's fragments converted while the previous
+      // stage's products run, two buffers
+      const int sw = (g >> 1) & 3, sh = (tq & 1) * 16;
+      const int o0 = r0 * 64 + 4 * (tq >> 1), o1 = o0 + 8 * 64;
+      const float s0 = Src::scale(p, tile.a_row + r0);
+      const float s1 = Src::scale(p, tile.a_row + r0 + 8);
+      uint32_t f[2][WG_BK / 16][4];
+      auto convert = [&](uint32_t (&d)[WG_BK / 16][4], const char* s) {
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          const char* c = s + ((kk ^ sw) << 4);
+          d[kk][0] = wg_code_pair<QUANT>(
+              *reinterpret_cast<const uint32_t*>(c + o0) >> sh, s0);
+          d[kk][1] = wg_code_pair<QUANT>(
+              *reinterpret_cast<const uint32_t*>(c + o1) >> sh, s1);
+          d[kk][2] = wg_code_pair<QUANT>(
+              *reinterpret_cast<const uint32_t*>(c + o0 + 8) >> sh, s0);
+          d[kk][3] = wg_code_pair<QUANT>(
+              *reinterpret_cast<const uint32_t*>(c + o1 + 8) >> sh, s1);
+        }
+      };
+      // stage i's products from its fragments fc, then the next stage's
+      // fragments into fn, whose last reader (stage i - 1) has retired
+      auto run = [&](auto& fc, auto& fn, int i) {
+        const char* s = stage(it + i);
+        wg_pin(acc);
+        wg_pin(fc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)
+          wg_pv(acc, fc[kk], bdesc(s, kk), 1);
+        wg_commit();
+        wg_wait<1>();
+        wg_pin(fn);
+        if (i > 0) release((it + i - 1) % S::STAGES);
+        if (i + 1 < nk) {
+          landed(it + i + 1);
+          convert(fn, stage(it + i + 1));
+        }
+      };
+      landed(it);
+      convert(f[0], stage(it));
+      for (int i = 0; i < nk; i += 2) {
+        run(f[0], f[1], i);
+        if (i + 1 < nk) run(f[1], f[0], i + 1);
+      }
+    }
+    if (!tile.skip) {
+      wg_wait<0>();
+      release((it + nk - 1) % S::STAGES);
+      it += nk;
+    }
+    wg_pin(acc);
+
+    // the epilogue tile, once the previous tile's store has read it: 128-
+    // byte rows of EC columns, a box of 128 rows per EC columns, chunk c of
+    // row r at chunk c ^ (r & 7). Accumulator 4j + e: row r0 + 8 (e >> 1),
+    // column 8j + 2tq + (e & 1)
+    if (threadIdx.x == 0) tc_bulk_wait<true>();
+    wg_consumer_sync();
+#pragma unroll
+    for (int j = 0; j < NACC / 4; ++j) {
+      const int col = 8 * j + 2 * tq;
+      const int byte = col % S::EC * static_cast<int>(sizeof(OutT));
+      char* box = epi + col / S::EC * WG_STORE_BOX + (byte & 15);
+      char* p0 = box + r0 * 128 + (((byte >> 4) ^ g) << 4);
+      char* p1 = p0 + 8 * 128;  // row r0 + 8: the same swizzle
+      if constexpr (sizeof(OutT) == 2) {
+        *reinterpret_cast<__nv_bfloat162*>(p0) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(p1) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      } else {
+        *reinterpret_cast<float2*>(p0) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(p1) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    tc_fence_async_smem();
+    wg_consumer_sync();
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < BN / S::EC && n0 + b * S::EC < p.N; ++b)
+        tc_tma_store_2d(&p.o[r], epi + b * WG_STORE_BOX, n0 + b * S::EC, m0);
+      tc_bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) tc_bulk_wait<false>();  // before the CTA's memory goes
+}
+
+// Whether the grouped form takes a launch: bf16 A and B, out_dtype bf16
+// or f32, 1 <= world <= WG_MAX_RANKS, cap_s and block_m multiples of WG_BM
+// (a tile lies in one shard and one routing block), cap_s a multiple of
+// block_m, K and N multiples of 8 (K of 16 for the codes: 16-byte rows for
+// TMA), every A (na of them), weight, output and codes base 16-byte
+// aligned. The Python wrappers decide by the same rule (kernels/ag_gemm.py
+// grouped_wgmma_form) and pass the form; the launchers refuse a wgmma form
+// that breaks it.
+inline bool wg_grouped_form_ok(const unsigned long long* a, int na,
+                               const unsigned long long* w,
+                               const unsigned long long* out, const void* q,
+                               int cap_s, int block_m, int K, int N,
+                               int world, int x_dtype, int out_dtype) {
+  if (x_dtype != TDT_BF16 || (out_dtype != TDT_BF16 && out_dtype != TDT_F32) ||
+      world < 1 || world > WG_MAX_RANKS || cap_s <= 0 || cap_s % WG_BM ||
+      block_m <= 0 || block_m % WG_BM || cap_s % block_m || K <= 0 ||
+      K % (q ? 16 : 8) || N <= 0 || N % 8 ||
+      reinterpret_cast<uintptr_t>(q) % 16)
+    return false;
+  for (int r = 0; r < na; ++r)
+    if (a[r] % 16) return false;
+  for (int r = 0; r < world; ++r)
+    if ((w[r] | out[r]) % 16) return false;
+  return true;
+}
+
+template <typename OutT, typename Src, int QUANT, int BN>
+int wg_grouped_launch(const WgGroupParams& p, int rank0, int nranks,
+                      cudaStream_t st) {
+  using S = WgGroupShape<OutT, BN>;
+  static bool attr = false;  // above 48 KB only after this, once a kernel
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wg_grouped_kernel<OutT, Src, QUANT, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long ntiles = static_cast<long long>(nranks) * Src::tiles(p) *
+                           ((p.N + BN - 1) / BN);
+  const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
+  wg_grouped_kernel<OutT, Src, QUANT, BN>
+      <<<grid, WG_THREADS, S::SMEM, st>>>(p, rank0, nranks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped form over `world` ranks' weights (w: (E, K, N) each) and
+// outputs (out: (world * cap_s, N) each), with na A maps (a: host
+// pointers, world * cap_s rows of K each: every rank's y_r, or for the AG
+// the one stack of sorted slabs) and, for the AG, q the codes (world *
+// cap_s, K), s their scales, sti the sorted token ids (sentinel >= total);
+// be the stacked block table. Writes ranks rank0 .. rank0 + nranks - 1.
+// Encodes the maps, launches, and returns the launch's error
+// (cudaErrorInvalidValue where wg_grouped_form_ok fails or TMA refuses a
+// map).
+template <typename Src, int BN>
+int wg_grouped(const unsigned long long* a, int na,
+               const unsigned long long* w, const unsigned long long* out,
+               const void* q, const float* s, const int* sti, const int* be,
+               int total, int cap_s, int K, int N, int E, int block_m,
+               int world, int rank0, int nranks, int chunk_rows, int quant,
+               int x_dtype, int out_dtype, cudaStream_t st) {
+  if (!wg_grouped_form_ok(a, na, w, out, q, cap_s, block_m, K, N, world,
+                          x_dtype, out_dtype) || E <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = out_dtype == TDT_F32;
+  const int esize = f32 ? 4 : 2;
+  const long long rows = static_cast<long long>(world) * cap_s;
+  WgGroupParams p = {};
+  bool ok = true;
+  for (int r = 0; r < na; ++r)
+    ok = ok && tc_map_2d(&p.a[r], reinterpret_cast<const void*>(a[r]),
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows, K, 2LL * K,
+                         WG_BK, WG_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  for (int r = 0; r < world; ++r) {
+    ok = ok && tc_map_3d(&p.b[r], reinterpret_cast<const void*>(w[r]),
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, K, E,
+                         2LL * N, 2LL * K * N, 64, WG_BK, 1,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+    ok = ok && tc_map_2d(&p.o[r], reinterpret_cast<const void*>(out[r]),
+                         f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         esize, rows, N, 1LL * esize * N, 128 / esize, WG_BM,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (q != nullptr)
+    ok = ok && tc_map_2d(&p.q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, K,
+                         K, WG_BK, WG_BM, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  p.be = be;
+  p.sti = sti;
+  p.s = s;
+  p.cap_s = cap_s;
+  p.world = world;
+  p.K = K;
+  p.N = N;
+  p.block_m = block_m;
+  p.chunk_rows = chunk_rows;
+  p.total = total;
+  if constexpr (Src::kQuant) {
+    if (quant == TDT_WIRE_FP8)
+      return f32 ? wg_grouped_launch<float, Src, TDT_WIRE_FP8, BN>(
+                       p, rank0, nranks, st)
+                 : wg_grouped_launch<__nv_bfloat16, Src, TDT_WIRE_FP8, BN>(
+                       p, rank0, nranks, st);
+    if (quant == TDT_WIRE_INT8)
+      return f32 ? wg_grouped_launch<float, Src, TDT_WIRE_INT8, BN>(
+                       p, rank0, nranks, st)
+                 : wg_grouped_launch<__nv_bfloat16, Src, TDT_WIRE_INT8, BN>(
+                       p, rank0, nranks, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return f32 ? wg_grouped_launch<float, Src, 0, BN>(p, rank0, nranks, st)
+               : wg_grouped_launch<__nv_bfloat16, Src, 0, BN>(p, rank0,
+                                                              nranks, st);
   }
 }
 

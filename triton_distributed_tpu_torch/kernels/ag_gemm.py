@@ -478,6 +478,31 @@ def wgmma_form(m, k, n, world, dtype, out_dtype, tensors,
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def grouped_wgmma_form(cap_s, block_m, k, n, world, dtype, out_dtype,
+                       tensors, codes=False) -> bool:
+    """Whether a MoE-TP wire launch (``tdt_ag_group_gemm_w``, with
+    ``codes``: its wire codes among ``tensors``; ``tdt_moe_reduce_rs_
+    partials``) takes the grouped warpgroup GEMM, by
+    ``wg_grouped_form_ok``'s rule (``csrc/wg_gemm.cuh``, which refuses a
+    ``wgmma`` launch that breaks it): bf16 A and weights, a bf16 or f32
+    output, ``cap_s`` (a shard's sorted rows) and ``block_m`` (a routing
+    block's) multiples of :data:`WG_TILE_ROWS` with ``cap_s`` a multiple of
+    ``block_m`` (a tile lies in one shard and one block, so one expert),
+    ``k`` and ``n`` multiples of 8 (``k`` of 16 with codes), at most
+    :data:`WG_MAX_RANKS` ranks (``world``), and every tensor of
+    ``tensors`` (the A rows, the weights, the outputs, the codes) on a
+    16-byte boundary."""
+    return (dtype == torch.bfloat16
+            and out_dtype in (torch.bfloat16, torch.float32)
+            and 1 <= world <= WG_MAX_RANKS
+            and cap_s > 0 and cap_s % WG_TILE_ROWS == 0
+            and block_m > 0 and block_m % WG_TILE_ROWS == 0
+            and cap_s % block_m == 0
+            and k > 0 and k % (16 if codes else 8) == 0
+            and n > 0 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def count_form(fn, code: int) -> None:
     """Tally a launch of ``fn``'s entry by the form it reported
     (:data:`MESH_GEMM_FORMS`) in ``fn.by_variant``."""

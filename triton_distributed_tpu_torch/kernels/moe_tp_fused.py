@@ -43,8 +43,8 @@ gather, padding rows zero, then every shard quantized in one launch of
 ``tdt_quantize_slab``):
 
 * :func:`ag_group_gemm_mesh_w` (fp8 / int8): rank r reads its own
-  shard's rows exact from its tokens and a peer's as its codes times the
-  chunk scale, rounded to x's dtype (``tdt_ag_group_gemm_w``);
+  shard's rows exact and a peer's as its codes times the chunk scale,
+  rounded to x's dtype (``tdt_ag_group_gemm_w``);
 * :func:`ag_group_gemm_mesh_mx` (int8-mxu, and :func:`ag_group_gemm_mx`
   at one rank): every slab's codes, the own one too, chunked a routing
   block each, against the rank's per-(expert, column) int8 weights
@@ -55,13 +55,31 @@ gather, padding rows zero, then every shard quantized in one launch of
   each rounded once to the output type), then the reduce ring's
   requantizing hops replayed by the GEMM-RS wire's fold
   (``tdt_gemm_rs_fold``, counted apart: :func:`moe_reduce_rs_fold`).
+
+``tdt_ag_group_gemm_w`` and ``tdt_moe_reduce_rs_partials`` run the
+grouped warpgroup GEMM of ``csrc/wg_gemm.cuh`` (``wgmma`` fed by TMA, the
+weight a 3-D tensor map looked up by the tile's expert, a persistent grid
+whose TMA stores overlap the next tile's products) where
+:func:`~triton_distributed_tpu_torch.kernels.ag_gemm.grouped_wgmma_form`
+holds: bf16, ``block_m`` and ``cap_s`` multiples of 128, the wire path's
+shapes. There the AG reads its own rows from the sorted slabs that
+:func:`quantize_sorted` materialized (``slabs``) and skips the K loop of
+an all-padding tile. Elsewhere they run the tile loops of
+``csrc/ggemm_tiles.cuh``. Each wrapper tallies its launches by the form
+its C entry reports, in ``by_variant`` (``MESH_GEMM_FORMS``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from triton_distributed_tpu_torch.config import to_torch_dtype
+from triton_distributed_tpu_torch.kernels.ag_gemm import (
+    count_form,
+    grouped_wgmma_form,
+)
 from triton_distributed_tpu_torch.kernels.group_gemm import (
     _DT_CODE,
     KERNEL_BM,
@@ -389,14 +407,17 @@ def _as_stack(shards):
 def quantize_sorted(x, sti, topk: int, fmt):
     """Every shard's sorted slab on the wire: x W row shards (M_s, K), sti
     (W, cap_s) their tables → ((W, cap_s, K) codes of ``fmt.wire_dtype``,
-    (W, cap_s / chunk_rows) f32 scales). The slabs are materialized
+    (W, cap_s / chunk_rows) f32 scales, the (W, cap_s, K) slabs
+    themselves: :func:`ag_group_gemm_mesh_w`'s ``slabs``, which a caller
+    that does not need them drops). The slabs are materialized
     (``gather_sorted``, padding rows zero: JAX's XLA
     ``_build_gather_sorted``) and quantized together
     (:func:`~triton_distributed_tpu_torch.kernels.wire.quantize_shards`:
     one ``tdt_quantize_slab`` launch on the card), so a chunk of padding
     rows gets codes 0 and the scale 1e-12 / QMAX, as JAX's does."""
     slabs = gather_sorted(_as_stack(x), sti, topk)
-    return quantize_shards(list(slabs.unbind(0)), fmt)
+    q, s = quantize_shards(list(slabs.unbind(0)), fmt)
+    return q, s, slabs
 
 
 def quantize_expert_shards(w):
@@ -446,22 +467,25 @@ def ag_group_gemm_mesh_w_plain(x, q, s, sti, be, w, topk: int, mesh, fmt,
 
 
 def ag_group_gemm_mesh_w(x, q, s, sti, be, w, topk: int, mesh, fmt,
-                         axis="tp", *, out_dtype=None):
+                         axis="tp", *, slabs, out_dtype=None):
     """AllGather ⊕ grouped GEMM on the fp8 / int8 wire: as
     :func:`ag_group_gemm_mesh` (x, sti, be, w), with q (W, cap_s, K) and
     s (W, cap_s / chunk_rows) every shard's sorted slab on the wire
     (:func:`quantize_sorted` at ``fmt``): rank r's rows of shard s ≠ r
     are the codes times their chunk's scale, rounded to x's dtype; its
-    own rows are exact."""
+    own rows are exact. ``slabs``: the (W, cap_s, K) sorted slabs those
+    codes were made from (:func:`quantize_sorted`'s third value), which
+    the card's grouped warpgroup GEMM reads its own rows from (the plain
+    version gathers the own rows from x)."""
     if x[0].device.type == "cpu":
         return ag_group_gemm_mesh_w_plain(x, q, s, sti, be, w, topk, mesh,
                                           fmt, axis, out_dtype=out_dtype)
     return _ag_group_gemm_w_cuda(x, q, s, sti, be, w, topk, mesh, fmt,
-                                 axis, out_dtype)
+                                 axis, out_dtype, slabs)
 
 
 def _ag_group_gemm_w_cuda(x, q, s, sti, be, w, topk, mesh, fmt, axis,
-                          out_dtype):
+                          out_dtype, slabs):
     from triton_distributed_tpu_torch.kernels import _build
 
     what = "ag_group_gemm_mesh_w"
@@ -473,15 +497,32 @@ def _ag_group_gemm_w_cuda(x, q, s, sti, be, w, topk, mesh, fmt, axis,
     aligned = aligned and q.data_ptr() % 16 == 0
     out_dtype = _out_dtype(out_dtype, x[0], what)
     out = symm_empty(mesh, (n * cap_s, nn), out_dtype)
-    x_peers, w_peers = peer_table(x), peer_table(w)
-    fn = _build.function("tdt_ag_group_gemm_w", "p" * 7 + "i" * 14 + "p")
-    rc = fn(_build.ptr(x_peers), _build.ptr(q), _build.ptr(s),
-            _build.ptr(w_peers), _build.ptr(out.peers), _build.ptr(sti),
-            _build.ptr(be), x[0].shape[0], topk, cap_s, k, nn, block_m, n,
-            0, n, fmt.chunk_rows, WIRE_CODE[fmt.quant], _DT_CODE[x[0].dtype],
-            _DT_CODE[out_dtype], int(aligned), _build.stream(dev))
+    if (slabs.shape != (n, cap_s, k) or slabs.dtype != x[0].dtype
+            or slabs.device != dev or not slabs.is_contiguous()):
+        raise ValueError(f"{what}: slabs must be the contiguous ({n}, "
+                         f"{cap_s}, {k}) {x[0].dtype} sorted slabs on "
+                         f"{dev}, got {tuple(slabs.shape)} {slabs.dtype}")
+    wg = grouped_wgmma_form(cap_s, block_m, k, nn, n, x[0].dtype, out_dtype,
+                            [*w, *out.shards, q, slabs], codes=True)
+    # the tile loops read the device tables, the grouped warpgroup GEMM's
+    # maps the host pointers; all stay referenced until the launch is
+    # enqueued
+    x_peers, w_peers = ((None, None) if wg
+                        else (peer_table(x), peer_table(w)))
+    hosts = [_build.ptr_array(t) for t in (w, out.shards)]
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_ag_group_gemm_w", "p" * 10 + "i" * 16 + "pp")
+    rc = fn(None if wg else _build.ptr(x_peers), _build.ptr(q),
+            _build.ptr(s), None if wg else _build.ptr(w_peers),
+            None if wg else _build.ptr(out.peers), _build.ptr(sti),
+            _build.ptr(be), _build.ptr(slabs) if wg else None, *hosts,
+            x[0].shape[0], topk, cap_s, k, nn, w[0].shape[0], block_m, n, 0,
+            n, fmt.chunk_rows, WIRE_CODE[fmt.quant], _DT_CODE[x[0].dtype],
+            _DT_CODE[out_dtype], int(aligned), int(wg), ctypes.byref(form),
+            _build.stream(dev))
     _build.check(rc, "tdt_ag_group_gemm_w")
     _ag_group_gemm_w_cuda.launches += 1
+    count_form(_ag_group_gemm_w_cuda, form.value)
     return out.shards
 
 
@@ -626,13 +667,22 @@ def _moe_reduce_rs_partials_cuda(y, be, w, mesh, axis, out_dtype):
     out_dtype = _out_dtype(out_dtype, y[0], what)
     f, h = y[0].shape[1], w[0].shape[2]
     parts = symm_empty(mesh, (n * cap_s, h), out_dtype)
-    y_peers, w_peers = peer_table(y), peer_table(w)
-    fn = _build.function("tdt_moe_reduce_rs_partials", "pppp" + "i" * 8 + "p")
-    rc = fn(_build.ptr(y_peers), _build.ptr(w_peers), _build.ptr(parts.peers),
-            _build.ptr(be), cap_s, f, h, block_m, n, _DT_CODE[y[0].dtype],
-            _DT_CODE[out_dtype], int(aligned), _build.stream(dev))
+    wg = grouped_wgmma_form(cap_s, block_m, f, h, n, y[0].dtype, out_dtype,
+                            [*y, *w, *parts.shards])
+    y_peers, w_peers = (None, None) if wg else (peer_table(y), peer_table(w))
+    hosts = [_build.ptr_array(t) for t in (y, w, parts.shards)]
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_moe_reduce_rs_partials",
+                         "p" * 7 + "i" * 9 + "pp")
+    rc = fn(None if wg else _build.ptr(y_peers),
+            None if wg else _build.ptr(w_peers),
+            None if wg else _build.ptr(parts.peers), _build.ptr(be), *hosts,
+            cap_s, f, h, w[0].shape[0], block_m, n, _DT_CODE[y[0].dtype],
+            _DT_CODE[out_dtype], int(aligned), int(wg), ctypes.byref(form),
+            _build.stream(dev))
     _build.check(rc, "tdt_moe_reduce_rs_partials")
     _moe_reduce_rs_partials_cuda.launches += 1
+    count_form(_moe_reduce_rs_partials_cuda, form.value)
     return parts.shards
 
 
@@ -693,12 +743,15 @@ def moe_reduce_rs_mesh_w(y, be, w, mesh, fmt, axis="tp", *,
 
 #: launch counts of the kernels (plain ints on the wrappers): at world
 #: size 1, over a mesh (each launch covers every rank), and the wires'
-#: (the one-rank int8-mxu form counts with its mesh form)
+#: (the one-rank int8-mxu form counts with its mesh form); the fp8 / int8
+#: AG and the partials also by form
 _ag_group_gemm_cuda.launches = 0
 _moe_reduce_rs_cuda.launches = 0
 _ag_group_gemm_mesh_cuda.launches = 0
 _moe_reduce_rs_mesh_cuda.launches = 0
 _ag_group_gemm_w_cuda.launches = 0
+_ag_group_gemm_w_cuda.by_variant = {}
 _ag_group_gemm_mx_cuda.launches = 0
 _moe_reduce_rs_partials_cuda.launches = 0
+_moe_reduce_rs_partials_cuda.by_variant = {}
 _moe_reduce_rs_fold_cuda.launches = 0

@@ -181,7 +181,7 @@ def ag_group_gemm_fused(x, routing: ShardedRouting, w, ctx: MoETPContext):
     if ctx.mesh is None:
         if wire == "int8-mxu":
             q, s = mtf.quantize_sorted([x.to(dt)], routing.sti[None],
-                                       ctx.topk, fmt)
+                                       ctx.topk, fmt)[:2]
             wq, ws = mtf.quantize_expert_shards([w])
             return mtf.ag_group_gemm_mx(q[0], s[0], routing.be, wq[0], ws[0],
                                         out_dtype=dt)
@@ -194,14 +194,17 @@ def ag_group_gemm_fused(x, routing: ShardedRouting, w, ctx: MoETPContext):
         return mtf.ag_group_gemm_mesh(
             xs, routing.sti, routing.be, [t.to(dt) for t in w], ctx.topk,
             ctx.mesh, ctx.axis, out_dtype=dt)
-    q, s = mtf.quantize_sorted(xs, routing.sti, ctx.topk, fmt)
     if wire == "int8-mxu":
+        q, s = mtf.quantize_sorted(xs, routing.sti, ctx.topk, fmt)[:2]
         wq, ws = mtf.quantize_expert_shards(w)
         return mtf.ag_group_gemm_mesh_mx(q, s, routing.be, wq, ws, ctx.mesh,
                                          ctx.axis, out_dtype=dt)
+    # the sorted slabs stay alive into the AG kernel, which reads its own
+    # rows from them
+    q, s, slabs = mtf.quantize_sorted(xs, routing.sti, ctx.topk, fmt)
     return mtf.ag_group_gemm_mesh_w(
         xs, q, s, routing.sti, routing.be, [t.to(dt) for t in w], ctx.topk,
-        ctx.mesh, fmt, ctx.axis, out_dtype=dt)
+        ctx.mesh, fmt, ctx.axis, out_dtype=dt, slabs=slabs)
 
 
 def moe_reduce_rs_fused(y, routing: ShardedRouting, weights, w,
