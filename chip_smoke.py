@@ -160,7 +160,8 @@ Phases, all run every time:
    its TP flavour with bf16 experts: the same batch, caches and layouts
    as the decode path, 32 greedy steps on each, the EP decode over its
    persistent workspaces; the TP prefill must launch each MoE-TP kernel
-   once a MoE layer (27 times). Then ``tools.generate --preset
+   once a MoE layer (27 times), every launch on the grouped warpgroup GEMM
+   (``wgmma``), at tp = 1 and over the mesh. Then ``tools.generate --preset
    deepseek_moe_16b`` once. The run's wall time is printed last before
    the result lines.
 
@@ -2093,7 +2094,9 @@ def check_moe_tp_kernels(res: Results, dev):
     """The two MoE-TP kernels against their plain versions: at the TP
     prefill's shapes in bf16 (8 prompts of 1024 tokens, top-6 over 64
     experts: 57344 sorted rows; up K 2048 N 1408, down K 1408 N 2048),
-    timed, and in f32 and bf16 at 1024 tokens with an empty expert."""
+    timed, two runs bit-identical, and in f32 and bf16 at 1024 tokens with
+    an empty expert; every bf16 launch on the grouped warpgroup GEMM
+    (``wgmma``), every f32 one on the FMA loop."""
     import torch
     import torch.nn.functional as F
 
@@ -2103,6 +2106,7 @@ def check_moe_tp_kernels(res: Results, dev):
              ("f32 expert 5 empty", 1024, torch.float32, 5),
              ("bf16 expert 5 empty", 1024, torch.bfloat16, 5))
     for what, m, dt, empty in cases:
+        clear_wg_forms(*MOE_TP_ROWS)
         x, sti, be, splits, g = moe_tp_inputs(dev, m, dt, 9, empty)
         if empty is not None and int(splits[empty]) != 0:
             res.failures.append(f"moe_tp {what}: expert {empty} not empty")
@@ -2146,6 +2150,8 @@ def check_moe_tp_kernels(res: Results, dev):
                     res.failures.append(f"{name} {tag}: padding rows not 0")
             if empty is not None:
                 continue
+            if not torch.equal(fn(), out):
+                res.failures.append(f"{name} {tag}: two runs differ")
             ms = time_ms(fn, 5)
             plain_ms = time_ms(plain, 2)
             # yardstick: bmm over the 128-row blocks, the weights
@@ -2175,6 +2181,8 @@ def check_moe_tp_kernels(res: Results, dev):
             res.shape(name, 27, ms, plain_ms, lib, nbytes, flops,
                       H100_BF16_OPS)
         del x, h, w_up, w_down
+        check_all_wgmma(res, f"deepseek_moe_16b moe_tp {what}", MOE_TP_ROWS,
+                        "wgmma" if dt == torch.bfloat16 else "fma")
 
 
 def check_mesh_kernels(res: Results, dev):
@@ -2370,7 +2378,8 @@ def check_ptxas(res: Results, kernel: str, tag: str):
 def _wg_entries() -> dict:
     """The wrappers of the entries on the warpgroup GEMM's routes, by
     their counter's name: the two wires, the two mesh GEMMs, the two
-    world-size-1 GEMMs and the MoE-TP wire's two grouped GEMMs."""
+    world-size-1 GEMMs, the MoE-TP wire's two grouped GEMMs and the bf16
+    MoE-TP pair over the mesh and at world size 1."""
     from triton_distributed_tpu_torch.kernels import ag_gemm as agm
     from triton_distributed_tpu_torch.kernels import gemm_rs as grs
 
@@ -2383,7 +2392,11 @@ def _wg_entries() -> dict:
             "ag_gemm_n1": agm._ag_gemm_cuda,
             "gemm_rs_n1": grs._gemm_rs_cuda,
             "ag_group_gemm_wire": mtf._ag_group_gemm_w_cuda,
-            "moe_reduce_rs_wire": mtf._moe_reduce_rs_partials_cuda}
+            "moe_reduce_rs_wire": mtf._moe_reduce_rs_partials_cuda,
+            "ag_group_gemm": mtf._ag_group_gemm_cuda,
+            "moe_reduce_rs": mtf._moe_reduce_rs_cuda,
+            "ag_group_gemm_mesh": mtf._ag_group_gemm_mesh_cuda,
+            "moe_reduce_rs_mesh": mtf._moe_reduce_rs_mesh_cuda}
 
 
 def wg_forms():
@@ -2398,15 +2411,15 @@ def clear_wg_forms(*entries):
         _wg_entries()[e].by_variant.clear()
 
 
-def check_wg_forms(res: Results, what, want: dict):
+def check_wg_forms(res: Results, what, want: dict, form="wgmma"):
     """Fail unless every launch of the entries of ``want`` since their
-    tallies were cleared ran the ``wgmma`` form, ``want[entry]`` times."""
+    tallies were cleared ran ``form``, ``want[entry]`` times."""
     forms = wg_forms()
     log(f"forms {what}: " + " ".join(f"{k}={forms[k]}" for k in want))
     for entry, n in want.items():
-        if forms[entry] != {"wgmma": n}:
+        if forms[entry] != {form: n}:
             res.failures.append(f"{what}: {entry} launches by form "
-                                f"{forms[entry]}, expected {n} on wgmma")
+                                f"{forms[entry]}, expected {n} on {form}")
 
 
 def form_of(fn, before):
@@ -2416,12 +2429,12 @@ def form_of(fn, before):
                     if v != before.get(k, 0))
 
 
-def check_all_wgmma(res: Results, what, entries):
+def check_all_wgmma(res: Results, what, entries, form="wgmma"):
     """Fail unless ``entries`` launched since their tallies were cleared,
-    and every launch ran the ``wgmma`` form."""
+    and every launch ran ``form`` (the ``wgmma`` form by default)."""
     forms = wg_forms()
     check_wg_forms(res, what, {e: max(1, sum(forms[e].values()))
-                               for e in entries})
+                               for e in entries}, form)
 
 
 def check_wire_kernels(res: Results, dev):
@@ -2817,8 +2830,10 @@ def check_moe_tp_mesh_kernels(res: Results, dev, n_moe: int):
     versions: at the DeepSeek-MoE-16B tp = 4 prefill's shapes in bf16 (8
     prompts of 1024 tokens, 2048 a rank, top-6 over 64 experts, each
     shard aligned on its own at block_m 128: 20480 sorted rows a shard;
-    up K 2048 N 352 a rank, down K 352 a rank N 2048), timed, and in f32
-    at 256 tokens a rank with an empty expert."""
+    up K 2048 N 352 a rank, down K 352 a rank N 2048), timed, two runs
+    bit-identical, and in f32 at 256 tokens a rank with an empty expert;
+    every bf16 launch on the grouped warpgroup GEMM (``wgmma``), every f32
+    one on the FMA loop."""
     import torch
     import torch.nn.functional as F
 
@@ -2832,6 +2847,7 @@ def check_moe_tp_mesh_kernels(res: Results, dev, n_moe: int):
     for what, m_s, dt, empty in (
             ("bf16 prefill", DEC_B * DEC_PROMPT // TP, torch.bfloat16, None),
             ("f32 expert 5 empty", 256, torch.float32, 5)):
+        clear_wg_forms(*MOE_MESH_ROWS)
         g = torch.Generator(device=dev).manual_seed(13)
         logits = torch.randn((TP * m_s, MOE_E), generator=g, device=dev)
         if empty is not None:
@@ -2890,6 +2906,9 @@ def check_moe_tp_mesh_kernels(res: Results, dev, n_moe: int):
                 pad = sti.reshape(-1) >= m_s * MOE_K
                 if not all(bool((o[pad] == 0).all()) for o in out):
                     res.failures.append(f"{name} {tag}: padding rows not 0")
+            if empty is None and not all(
+                    torch.equal(a, b) for a, b in zip(fn(), out)):
+                res.failures.append(f"{name} {tag}: two runs differ")
             del out
             if empty is not None:
                 continue
@@ -2929,6 +2948,9 @@ def check_moe_tp_mesh_kernels(res: Results, dev, n_moe: int):
             res.shape(name, n_moe, ms, plain_ms, lib, nbytes, flops,
                       H100_BF16_OPS)
         del x, h, hs, w_up, w_down
+        check_all_wgmma(res, f"deepseek_moe_16b tp={TP} moe_tp mesh {what}",
+                        MOE_MESH_ROWS,
+                        "wgmma" if dt == torch.bfloat16 else "fma")
 
 
 def moe_wire_tokens(dev, g):
@@ -4230,9 +4252,11 @@ def run_decode_path(res: Results, dev, name, cfg, steps=DEC_STEPS,
         if counts[k] != per_prefill:
             res.failures.append(f"{name}: {counts[k]} {k} launches in the "
                                 f"prefill, expected {per_prefill}")
-    n1 = {k: counts[k] for k in ("ag_gemm_n1", "gemm_rs_n1") if counts[k]}
+    n1 = {k: counts[k] for k in ("ag_gemm_n1", "gemm_rs_n1", *MOE_TP_ROWS)
+          if counts[k]}
     if cfg.dtype == torch.bfloat16 and n1:
-        # the bf16 world-size-1 GEMMs all on the warpgroup GEMM
+        # the bf16 world-size-1 GEMMs (and the TP prefill's MoE-TP pair)
+        # all on the warpgroup GEMM
         check_wg_forms(res, f"{name} prefill", n1)
     first = torch.argmax(last, -1).to(torch.int32)
     if not torch.isfinite(last).all():
@@ -4809,8 +4833,9 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
     every launch of the run with the plain versions made to raise: a
     layer launches the quantizer, the AG kernel, the partials and the
     fold once on each quantized wire, the two mesh kernels on bf16; every
-    launch of the fp8 / int8 AG and of the partials must take the grouped
-    warpgroup GEMM (``wgmma``). Returns {kernel: launches}. On the
+    launch of the fp8 / int8 AG, of the partials and of the bf16 pass's two
+    mesh kernels must take the grouped warpgroup GEMM (``wgmma``). Returns
+    {kernel: launches}. On the
     loopback mesh no byte crosses a link: the run shows the wires'
     numerics and cost."""
     import torch
@@ -4845,7 +4870,8 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
     peak_mib = {w: 0.0 for w in WIRES}
     torch.cuda.synchronize()
     reset_launch_counts()
-    clear_wg_forms("ag_group_gemm_wire", "moe_reduce_rs_wire")
+    clear_wg_forms("ag_group_gemm_wire", "moe_reduce_rs_wire",
+                   *MOE_MESH_ROWS)
     t0 = time.perf_counter()
     moe_tp.ag_group_gemm_fused = recorded
     try:
@@ -4906,7 +4932,9 @@ def run_moe_wire_path(res: Results, dev, n_moe: int):
             res.failures.append(f"{name}: {v} {k} launches, expected "
                                 f"{expect.get(k, 0)}")
     check_wg_forms(res, name, {"ag_group_gemm_wire": 2 * n_moe,
-                               "moe_reduce_rs_wire": 3 * n_moe})
+                               "moe_reduce_rs_wire": 3 * n_moe,
+                               "ag_group_gemm_mesh": n_moe,
+                               "moe_reduce_rs_mesh": n_moe})
     for (wire, op), err in worst.items():
         if wire == "twin":
             tol, what = WIRE_MX_TWIN_TOL, f"int8-mxu vs int8 {op}"
@@ -5830,9 +5858,10 @@ def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
     with ``keep``) in the same flavour: its weights sharded (EP: the
     experts split over the ranks; TP: their F dim), its prompts prefilled
     into sequence-sharded caches (the TP prefill must launch each mesh
-    MoE-TP kernel once a MoE layer; the EP prefill the all-to-all over
-    the mesh twice a MoE layer; no one-rank MoE form), the first step's
-    logits within ``TP_PREFILL_RTOL`` of the tp = 1 prefill's, then
+    MoE-TP kernel once a MoE layer, on ``wgmma``; the EP prefill the
+    all-to-all over the mesh twice a MoE layer; no one-rank MoE form), the
+    first step's logits within ``TP_PREFILL_RTOL`` of the tp = 1 prefill's,
+    then
     ``TP_STEPS`` steps in lockstep with the tp = 1 model (the EP decode
     of each over its own persistent workspaces, 54 all-to-all launches a
     step at tp = 4), both fed its greedy tokens, as :func:`run_tp_path`
@@ -5882,6 +5911,10 @@ def run_moe_tp4_path(res: Results, dev, name, one, profile=False):
         if pre[k] != v:
             res.failures.append(f"{name}: {pre[k]} {k} launches in the "
                                 f"prefill, expected {v}")
+    if cfg.moe == "tp":
+        # the bf16 mesh MoE-TP pair all on the grouped warpgroup GEMM
+        check_wg_forms(res, f"{name} prefill", {
+            k: n_moe for k in MOE_MESH_ROWS})
     if not torch.equal(kl4, kl):
         res.failures.append(f"{name}: prefill lengths differ")
     scale = one["last"].abs().max().item()

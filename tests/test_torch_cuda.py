@@ -1899,6 +1899,233 @@ class TestGroupedWgmma:
             assert mtf._moe_reduce_rs_partials_cuda.by_variant == {form: 1}
 
 
+#: the world-size-1 shapes of the bf16 pair on the grouped warpgroup GEMM:
+#: ``GROUPED_SHAPES`` and the TP prefill's experts (64 of 2048 x 1408,
+#: top-6) at 256 tokens
+GROUPED_N1_SHAPES = GROUPED_SHAPES + [(256, 6, 64, 2048, 1408, 128)]
+
+#: the bf16 MoE-TP pair's entries: (wrapper, counter) at world size 1 and
+#: over a mesh
+_BF16_PAIR = {1: (("ag_group_gemm", "_ag_group_gemm_cuda"),
+                  ("moe_reduce_rs", "_moe_reduce_rs_cuda")),
+              4: (("ag_group_gemm_mesh", "_ag_group_gemm_mesh_cuda"),
+                  ("moe_reduce_rs_mesh", "_moe_reduce_rs_mesh_cuda"))}
+
+
+class TestGroupedWgmmaBf16:
+    """The bf16 MoE-TP pair on the grouped warpgroup GEMM (``csrc/
+    wg_gemm.cuh`` ``wg_grouped_kernel``): ``tdt_ag_group_gemm_mesh`` over
+    ``WgPeerGatherRows`` (the producer warpgroup gathers each tile's sorted
+    rows from the tokens by cp.async), ``tdt_moe_reduce_rs_mesh`` over
+    ``WgGroupedPeerSum`` (the K loop over (rank, K step)), and both at world
+    size 1 on a one-rank table, at ``GROUPED_SHAPES`` (ragged N 352 and 88,
+    K 352, an empty expert), 1, 2 and 4 ranks, bf16 and f32 outputs: every
+    launch on ``wgmma``, within f32 summation order (per row) and one
+    rounding of the plain version, the padding rows exactly 0, two runs
+    bit-identical."""
+
+    @staticmethod
+    def _runs(fn, counter, n=2):
+        runs = []
+        for _ in range(n):
+            counter.by_variant.clear()
+            runs.append(fn())
+            assert counter.by_variant == {"wgmma": 1}
+        return runs
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", GROUPED_SHAPES)
+    def test_ag_group_gemm_mesh_wgmma(self, dev, shape, w, out):
+        """Every rank's rows of every shard, gathered from the token's
+        shard; token 1 of shard 0 x1000; the all-padding tiles' zeros."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, k, n, bm = shape
+        odt = getattr(torch, out)
+        mesh = Mesh.loopback(w, dev)
+        x, sti, be, ws = _moe_mesh_inputs(80, dev, w, m_s, topk, e, k, n, bm,
+                                          torch.bfloat16)
+        x[0][1] *= 1000.0
+        pad = sti.reshape(-1) >= m_s * topk
+        first = sti[:, ::bm].reshape(-1) >= m_s * topk
+        assert pad.any() and first.any() and not first.all()
+        runs = self._runs(lambda: mtf.ag_group_gemm_mesh(
+            x, sti, be, ws, topk, mesh, out_dtype=odt),
+            mtf._ag_group_gemm_mesh_cuda)
+        want = mtf.ag_group_gemm_mesh_plain(x, sti, be, ws, topk, mesh,
+                                            out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for g, g2, ref in zip(*runs, want):
+            assert g.dtype == odt and g.shape == (w * sti.shape[1], n)
+            assert torch.equal(g, g2)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, k, out == "bfloat16")).all()
+            assert (g[pad] == 0).all()
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("w", [1, 2, 4])
+    @pytest.mark.parametrize("shape", GROUPED_SHAPES)
+    def test_moe_reduce_rs_mesh_wgmma(self, dev, shape, w, out):
+        """Destination r's rows summed over the ranks' F shards (F_q = K
+        of the shape, H = its N), every row computed (padding rows of y
+        zero, as the up projection's are: their sums exactly 0); an
+        outlier row x1000."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        m_s, topk, e, f, h, bm = shape
+        odt = getattr(torch, out)
+        mesh = Mesh.loopback(w, dev)
+        _, sti, be, ws = _moe_mesh_inputs(81, dev, w, m_s, topk, e, f, h, bm,
+                                          torch.bfloat16)
+        cap_s = sti.shape[1]
+        pad = sti >= m_s * topk
+        rng = np.random.default_rng(82)
+        yf = rng.standard_normal((w, w * cap_s, f))
+        yf[0, 5] *= 1000.0
+        y = _t(yf, dev, torch.bfloat16)
+        y[:, pad.reshape(-1)] = 0
+        y = list(y.unbind(0))
+        runs = self._runs(lambda: mtf.moe_reduce_rs_mesh(
+            y, be, ws, mesh, out_dtype=odt), mtf._moe_reduce_rs_mesh_cuda)
+        want = mtf.moe_reduce_rs_mesh_plain(y, be, ws, mesh,
+                                            out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for r, (g, g2, ref) in enumerate(zip(*runs, want)):
+            assert g.dtype == odt and g.shape == (cap_s, h)
+            assert torch.equal(g, g2)
+            assert ((g.float() - ref).abs()
+                    <= _gemm_tol_rows(ref, w * f, out == "bfloat16")).all()
+            assert (g[pad[r]] == 0).all()
+
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("shape", GROUPED_N1_SHAPES)
+    def test_n1_pair_wgmma(self, dev, shape, out):
+        """World size 1: ``tdt_ag_group_gemm`` gathers from x (M, K) and
+        ``tdt_moe_reduce_rs`` reads y (cap, F) in place, both on a
+        one-rank table of the grouped warpgroup GEMM."""
+        m, topk, e, k, n, bm = shape
+        odt = getattr(torch, out)
+        x, sti, be, ws = _moe_mesh_inputs(83, dev, 1, m, topk, e, k, n, bm,
+                                          torch.bfloat16)
+        x, sti, be, w = x[0], sti[0], be[0], ws[0]
+        x[1] *= 1000.0
+        pad = sti >= m * topk
+        runs = self._runs(lambda: mtf.ag_group_gemm(x, sti, be, w, topk,
+                                                    out_dtype=odt),
+                          mtf._ag_group_gemm_cuda)
+        want = mtf.ag_group_gemm_plain(x, sti, be, w, topk,
+                                       out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        g, g2 = runs
+        assert g.dtype == odt and g.shape == (sti.shape[0], n)
+        assert torch.equal(g, g2) and (g[pad] == 0).all()
+        assert ((g.float() - want).abs()
+                <= _gemm_tol_rows(want, k, out == "bfloat16")).all()
+        # the down projection: F = N of the shape, H = its K
+        wd = (_t(np.random.default_rng(84).standard_normal((e, n, k)), dev,
+                 torch.bfloat16) / np.sqrt(n))
+        y = runs[0].to(torch.bfloat16)
+        runs = self._runs(lambda: mtf.moe_reduce_rs(y, be, wd,
+                                                    out_dtype=odt),
+                          mtf._moe_reduce_rs_cuda)
+        want = mtf.moe_reduce_rs_plain(y, be, wd, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        g, g2 = runs
+        assert g.dtype == odt and g.shape == (sti.shape[0], k)
+        assert torch.equal(g, g2) and (g[pad] == 0).all()
+        assert ((g.float() - want).abs()
+                <= _gemm_tol_rows(want, n, out == "bfloat16")).all()
+
+    @pytest.mark.parametrize("w", [1, 4])
+    def test_prefill_shapes_never_run_the_plain_versions(self, dev,
+                                                         monkeypatch, w):
+        """``moe_tp_mlp_overlapped`` in bf16 at the TP prefill's shapes (8
+        x 1024 tokens, top-6 over 64 experts of 2048 x 1408, block_m 128)
+        at tp = 1 and tp = 4 on the card: with the plain versions made to
+        raise, one layer launches the AG and the RS once each, both on
+        ``wgmma``, and nothing else."""
+        from triton_distributed_tpu_torch import ops
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        def boom(*a, **k):
+            raise AssertionError("a plain version ran on CUDA tensors")
+
+        for name in ("ag_group_gemm_plain", "moe_reduce_rs_plain",
+                     "ag_group_gemm_mesh_plain", "moe_reduce_rs_mesh_plain"):
+            monkeypatch.setattr(mtf, name, boom)
+        monkeypatch.setattr(gg, "grouped_matmul_plain", boom)
+        m, topk, e, hid, f = 8192, 6, 64, 2048, 1408
+        g = torch.Generator(device=dev).manual_seed(85)
+        bf = torch.bfloat16
+        x = torch.randn((m, hid), generator=g, device=dev, dtype=bf)
+        w_up = torch.randn((w, e, hid, f // w), generator=g, device=dev,
+                           dtype=bf) / hid ** 0.5
+        w_down = torch.randn((w, e, f // w, hid), generator=g, device=dev,
+                             dtype=bf) / f ** 0.5
+        wts, ids = mu.select_experts(torch.randn(
+            (m, e), generator=g, device=dev), topk)
+        mesh = Mesh.loopback(w, dev) if w > 1 else None
+        ctx = ops.MoETPContext(num_experts=e, topk=topk, block_m=128,
+                               mesh=mesh)
+        ups, downs = ((list(w_up.unbind(0)), list(w_down.unbind(0)))
+                      if w > 1 else (w_up[0], w_down[0]))
+        counters = [getattr(mtf, c) for _, c in _BF16_PAIR[w]]
+        for c in counters:
+            c.by_variant.clear()
+        before = launch_counts()
+        out = ops.moe_tp_mlp_overlapped(x, ids, wts, ups, downs, ctx)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert moved == {name: 1 for name, _ in _BF16_PAIR[w]}
+        assert all(c.by_variant == {"wgmma": 1} for c in counters)
+        assert out.shape == (m, hid) and out.isfinite().all()
+
+    @pytest.mark.parametrize("w", [1, 2])
+    def test_f32_and_64_row_blocks_keep_the_tile_loops(self, dev, w):
+        """f32 operands run the FMA loop, bf16 at 64-row routing blocks (a
+        128-row tile would span two experts) the ``mma.sync`` loop, at
+        world size 1 and over a mesh, counted by form."""
+        from triton_distributed_tpu_torch.runtime import Mesh
+
+        mesh = Mesh.loopback(w, dev)
+        for dtype, bm, form in ((torch.float32, 128, "fma"),
+                                (torch.bfloat16, 64, "mma_sync")):
+            x, sti, be, ws = _moe_mesh_inputs(86, dev, w, 60, 2, 6, 144, 200,
+                                              bm, dtype)
+            wd = [t.transpose(1, 2).contiguous() for t in ws]
+            y = [torch.ones((w * sti.shape[1], 200), dtype=dtype,
+                            device=dev) for _ in range(w)]
+            if w == 1:
+                calls = (lambda: mtf.ag_group_gemm(x[0], sti[0], be[0],
+                                                   ws[0], 2),
+                         lambda: mtf.moe_reduce_rs(y[0], be[0], wd[0]))
+            else:
+                calls = (lambda: mtf.ag_group_gemm_mesh(x, sti, be, ws, 2,
+                                                        mesh),
+                         lambda: mtf.moe_reduce_rs_mesh(y, be, wd, mesh))
+            for (_, c), call in zip(_BF16_PAIR[1 if w == 1 else 4], calls):
+                counter = getattr(mtf, c)
+                counter.by_variant.clear()
+                call()
+                assert counter.by_variant == {form: 1}
+
+    def test_a_refused_wgmma_form_raises(self, dev, monkeypatch):
+        """A ``wgmma`` form that the C side refuses (64-row routing blocks
+        forced past the predicate) raises; nothing falls back to the tile
+        loops."""
+        monkeypatch.setattr(mtf, "grouped_wgmma_form",
+                            lambda *a, **k: True)
+        x, sti, be, ws = _moe_mesh_inputs(87, dev, 1, 60, 2, 6, 144, 200,
+                                          64, torch.bfloat16)
+        with pytest.raises(RuntimeError, match="tdt_ag_group_gemm"):
+            mtf.ag_group_gemm(x[0], sti[0], be[0], ws[0], 2)
+        y = torch.ones((sti.shape[1], 144), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(RuntimeError, match="tdt_moe_reduce_rs"):
+            mtf.moe_reduce_rs(y, be[0], ws[0])
+
+
 def _staged_a2a_mesh(dev, w, quant, dtype, seed, skew):
     """Every rank's staged payload and metadata for a seeded routing of
     100 tokens a rank (top-2 over 16 experts, some assignments masked);

@@ -1,15 +1,22 @@
 """CPU checks of the grouped warpgroup GEMM's host-side pieces
 (``csrc/wg_gemm.cuh`` ``wg_grouped_kernel`` under ``tdt_ag_group_gemm_w``
 and ``tdt_moe_reduce_rs_partials``, the MoE-TP wire's two bf16 grouped
-GEMMs), whose kernel runs only on a card
-(``tests/test_torch_cuda.py::TestGroupedWgmma``), emulated in numpy:
+GEMMs, and under the bf16 MoE-TP pair ``tdt_ag_group_gemm_mesh`` /
+``tdt_moe_reduce_rs_mesh`` and their world-size-1 entries), whose kernel
+runs only on a card (``tests/test_torch_cuda.py::TestGroupedWgmma``,
+``TestGroupedWgmmaBf16``), emulated in numpy:
 
 * the persistent grid's tile walk covers every (rank, M-tile, N-tile)
-  once, and the two row sources' tile maps agree with the tile loops'
-  ``PeerGatherRowsQ::at`` and grouped ``PeerLocal`` (``csrc/
-  ggemm_tiles.cuh``): the tile's expert ``be[s, i / block_m]``, the own
-  slab against a peer's codes, each row's chunk scale, the all-padding
-  tiles that skip their K loop;
+  once, and the row sources' tile maps agree with the tile loops'
+  ``PeerGatherRowsQ::at``, grouped ``PeerLocal``, ``PeerGatherRows::at``
+  and grouped ``PeerSum`` (``csrc/ggemm_tiles.cuh``): the tile's expert
+  ``be[s, i / block_m]``, the own slab against a peer's codes, each row's
+  chunk scale, each gathered row's (shard, token), the RS's parts with
+  their rows, weights and K edges, the all-padding tiles that skip their K
+  loop;
+* the bf16 AG's gather: each thread's 16-byte ``cp.async`` pieces land
+  once each where TMA's 128-byte swizzle puts them, and the stage's full
+  barrier counts the arrivals its producers make;
 * the weight's 3-D tensor map: the boxes a tile loads cover its expert's
   (K, N) block once, the K edge (352 = 5.5 stages) and the N edges (352,
   88) as TMA's zeros, never the next expert's rows;
@@ -17,8 +24,9 @@ GEMMs), whose kernel runs only on a card
   cover it once without bank conflicts, and the TMA store boxes put every
   accumulator at its output row and column;
 * the tile widths, stage counts and shared memory against the C source;
-* the form predicate (``ag_gemm.grouped_wgmma_form``) at the wire path's
-  and off-rule shapes, and the wrappers' form tallies;
+* the form predicate (``ag_gemm.grouped_wgmma_form``) at the wire path's,
+  the bf16 prefill's and off-rule shapes, and the six wrappers' form
+  tallies; the wrappers' ctypes signatures against the C entries;
 * on the CPU, the slabs ``quantize_sorted`` returns are
   ``gather_sorted``'s, and the codes and scales are those of the slabs.
 """
@@ -281,9 +289,11 @@ def test_tile_widths_and_shared_memory_match_the_kernel():
     for n, bn in ((2048, 256), (352, 192)):
         assert -(-n // bn) * bn <= -(-n // 256) * 256
     cu = (csrc_dir() / "moe_tp_fused.cu").read_text()
-    assert "wg_grouped<WgPeerGatherRowsQ, WG_GROUP_BN_AG>" in cu
-    assert "wg_grouped<WgGroupedLocal, WG_GROUP_BN_RS>" in cu
-    params = 25 * 128 + 3 * 8 + 7 * 4
+    for src, bn in (("WgPeerGatherRowsQ", "AG"), ("WgGroupedLocal", "RS"),
+                    ("WgPeerGatherRows", "AG"), ("WgGroupedPeerSum", "RS")):
+        assert f"wg_grouped<{src}, WG_GROUP_BN_{bn}>" in cu
+    # 25 maps, the gather's 8 shard pointers, 3 table pointers, 8 ints
+    params = 25 * 128 + 8 * 8 + 3 * 8 + 8 * 4
     assert params <= 4096
 
 
@@ -324,24 +334,40 @@ def _form(cap_s=20480, block_m=128, k=2048, n=352, world=4,
     (dict(off=8), False),                              # a base 8 B off
     (dict(world=8), True),
     (dict(world=9), False),                            # maps for 8 ranks
+    # the bf16 pair: the tp = 4 prefill's AG and RS, and at world size 1
+    (dict(codes=False), True),
+    (dict(k=352, n=2048, codes=False), True),
+    (dict(cap_s=57344, k=2048, n=1408, world=1, codes=False), True),
+    (dict(cap_s=57344, k=1408, n=2048, world=1, codes=False), True),
+    (dict(cap_s=57344, k=1408, n=2048, world=1, codes=False,
+          dtype=torch.float32, out=torch.float32), False),
+    (dict(cap_s=6144, block_m=64, world=1, codes=False), False),
+    (dict(codes=False, off=4), False),                 # a token shard 4 B off
 ])
 def test_grouped_form_predicate(case, want):
     """Which shapes, types and alignments take the grouped warpgroup GEMM:
     the MoE wire path's (cap_s 20480, block_m 128; AG K 2048 N 352 a rank
-    on codes, partials K 352 N 2048) do; 64-row blocks, f32, codes rows
-    not a multiple of 16 bytes and misaligned bases keep the tile loops."""
+    on codes, partials K 352 N 2048) and the bf16 prefill's (the pair at
+    tp = 4, and at world size 1 cap 57344, K 2048 N 1408 and K 1408 N
+    2048) do; 64-row blocks, f32, codes rows not a multiple of 16 bytes
+    and misaligned bases keep the tile loops."""
     assert _form(**case) is want
 
 
 def test_grouped_forms_are_counted_and_cleared():
-    """The two wrappers tally their launches by form, and
-    ``reset_launch_counts`` clears both tallies."""
+    """The six wrappers on the grouped routes (the wire's AG and
+    partials, the bf16 pair over a mesh and at world size 1) tally their
+    launches by form, and ``reset_launch_counts`` clears every tally."""
     from triton_distributed_tpu_torch.kernels import reset_launch_counts
 
-    fns = (mtf._ag_group_gemm_w_cuda, mtf._moe_reduce_rs_partials_cuda)
+    fns = (mtf._ag_group_gemm_w_cuda, mtf._moe_reduce_rs_partials_cuda,
+           mtf._ag_group_gemm_mesh_cuda, mtf._moe_reduce_rs_mesh_cuda,
+           mtf._ag_group_gemm_cuda, mtf._moe_reduce_rs_cuda)
     for i, fn in enumerate(fns):
-        agm.count_form(fn, 2 - i)
-        assert fn.by_variant.get(agm.MESH_GEMM_FORMS[2 - i], 0) >= 1
+        agm.count_form(fn, 2 - i % 3)
+        agm.count_form(fn, 2)
+        assert fn.by_variant.get(agm.MESH_GEMM_FORMS[2 - i % 3], 0) >= 1
+        assert fn.by_variant.get("wgmma", 0) >= 1
     reset_launch_counts()
     assert all(fn.by_variant == {} for fn in fns)
 
@@ -361,3 +387,229 @@ def test_kept_slabs_are_the_gathered_rows():
     assert (slabs.reshape(-1, k)[sti.reshape(-1) >= m_s * topk] == 0).all()
     q2, s2 = wk.quantize_shards_plain(list(slabs.unbind(0)), fmt)
     assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
+# ------------------------------------------------- the bf16 MoE-TP pair
+
+def _tma_rows(t, r0, k0, rows=BM, cols=BK):
+    """A TMA box of the 2-D (R, K) tensor ``t`` at rows r0.., columns
+    k0..: elements past the tensor are zeros."""
+    box = np.zeros((rows, cols), t.dtype)
+    part = t[r0:r0 + rows, k0:k0 + cols]
+    box[:part.shape[0], :part.shape[1]] = part
+    return box
+
+
+def _weight_tile(wts, expert, k0, n0, bn):
+    """The producer's B boxes of one stage, assembled: (BK, bn) of the
+    expert's (K, N) block from (n0, k0) through the 3-D map (zeros past K
+    and N; boxes starting past N not loaded)."""
+    n = wts.shape[2]
+    tile = np.zeros((BK, bn), wts.dtype)
+    for j in range(min(bn // 64, -(-(n - n0) // 64))):
+        tile[:, 64 * j:64 * (j + 1)] = _tma_box(
+            wts, (n0 + 64 * j, k0, expert))
+    return tile
+
+
+def _int_operands(seed, shape):
+    """Small integers as float64 (exact sums in any order)."""
+    return np.random.default_rng(seed).integers(-3, 4, shape).astype(
+        np.float64)
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_rs_tiles_follow_grouped_peer_sum(w):
+    """``WgGroupedPeerSum``: destination r's tile m0 sums w parts, part q
+    reading y_q's rows r·cap_s + m0.. (its 2-D map) against w_q's 3-D map
+    at the destination's block's expert ``be[r, m0 / block_m]`` (grouped
+    ``PeerSum::expert``), each part's K of 352 in 5.5 stages with the last
+    half TMA's zeros; the stored tiles equal Σ_q y_q[r·cap_s + i] @
+    w_q[be[r, i / block_m]] exactly (integers), N 200 a partial tile, and
+    the walk stores every destination row and column block once."""
+    sti, be = _routing(100 + w, w, 40, 2, 6, 128)
+    cap_s, f, h, bn, e = sti.shape[1], 352, 200, 256, 6
+    y = _int_operands(1, (w, w * cap_s, f))
+    wts = _int_operands(2, (w, e, f, h))
+    want = np.zeros((w, cap_s, h))
+    for r in range(w):
+        for i in range(cap_s):
+            ex = be[r, i // 128]
+            want[r, i] = sum(y[q, r * cap_s + i] @ wts[q, ex]
+                             for q in range(w))
+    mt, nt, nk = cap_s // BM, -(-h // bn), -(-f // BK)
+    got = np.full((w, cap_s, h), np.nan)
+    seen = np.zeros((w, mt, nt), np.int64)
+    for tiles in _walk(w * mt * nt, 7):
+        for t in tiles:
+            r, m0, n0 = _decode(t, mt, nt, bn)
+            g = r * cap_s + m0
+            expert = int(be.reshape(-1)[g // 128])
+            # one block, so one expert, for every row of the tile
+            assert all(be[r, i // 128] == expert for i in range(m0, m0 + BM))
+            acc = np.zeros((BM, bn))
+            for q in range(w):
+                for kk in range(nk):
+                    acc += (_tma_rows(y[q], g, kk * BK)
+                            @ _weight_tile(wts[q], expert, kk * BK, n0, bn))
+            cols = min(bn, h - n0)
+            got[r, m0:m0 + BM, n0:n0 + cols] = acc[:, :cols]
+            seen[r, m0 // BM, n0 // bn] += 1
+    assert (seen == 1).all()
+    assert np.array_equal(got, want)
+
+
+def _swizzle128(addr):
+    """TMA's 128-byte swizzle of a byte offset in a 1024-aligned box: the
+    16-byte chunk bits [4:6] XOR the row bits [7:9]."""
+    return addr ^ ((addr >> 3) & 0x70)
+
+
+def test_gather_pieces_land_once_where_tma_puts_them():
+    """The bf16 AG's producer: thread t copies piece c = t % 8 (bytes
+    16c..16c+15 of a row's 128 of a stage) of rows g = t / 8 + 16 j, j =
+    0..7, to g·128 + ((c ^ (g & 7)) << 4), which it computes as one base
+    plus j·2048; those 1024 destinations cover the 16 KB box once each and
+    are TMA's 128-byte swizzle of (g, c), the layout the consumers'
+    descriptors read; each warp instruction (one j) reads four whole
+    128-byte rows. A stage's full barrier is initialised to the arrivals
+    its producers make: the TMA thread's expect_tx and one
+    ``cp.async.mbarrier.arrive.noinc`` a thread; its byte count is B's
+    boxes only, A coming by cp.async."""
+    dst, ref, rows = [], [], []
+    for t in range(128):
+        c, g0 = t % 8, t // 8
+        base = g0 * 128 + ((c ^ (g0 & 7)) << 4)
+        for j in range(BM * 8 // 128):
+            g = g0 + 16 * j
+            dst.append(base + j * 16 * 128)
+            ref.append(_swizzle128(g * 128 + 16 * c))
+            rows.append((t // 32, j, g, c))
+    assert sorted(dst) == list(range(0, BM * 128, 16))
+    assert dst == ref
+    for w in range(4):
+        for j in range(8):
+            got = sorted((g, c) for w_, j_, g, c in rows
+                         if (w_, j_) == (w, j))
+            g0 = sorted({g for g, _ in got})
+            assert len(g0) == 4 and got == [(g, c) for g in g0
+                                            for c in range(8)]
+    src = _src()
+    kernel = src[src.index("wg_grouped_kernel(const __grid_constant__"):]
+    init = re.search(r"tc_bar_init\(&full\[st\], Src::kGather \? 1 \+ "
+                     r"(\d+) : 1\);", kernel)
+    copiers = 128 - 0                     # every thread of the warpgroup
+    arrivals = 1 + copiers                # + the TMA thread's expect_tx
+    assert init and 1 + int(init.group(1)) == arrivals
+    assert "wg_cp_arrive(&full[st]);" in kernel
+    assert re.search(r"const int bytes = \(Src::kGather \? 0", kernel)
+    regs = re.search(r"P = Src::kGather \? (\d+) : (\d+);\s+"
+                     r"static constexpr int C = Src::kGather \? (\d+) : "
+                     r"(\d+);", src)
+    pg, pt, cg, ct = map(int, regs.groups())
+    for p_, c_ in ((pg, cg), (pt, ct)):
+        assert 128 * p_ + 256 * c_ == 384 * 168
+        assert p_ % 8 == 0 and c_ % 8 == 0 and p_ >= 24
+
+
+#: the producer's placement: element e of piece c of the box's row t at
+#: (t·128 + ((c ^ (t & 7)) << 4)) / 2 + e, in (t, 8c + e) order; and the
+#: consumers' view: element (i, j) at the swizzle of i·128 + 2j
+_T, _C, _E = np.meshgrid(np.arange(BM), np.arange(8), np.arange(8),
+                         indexing="ij")
+_PLACE = ((_T * 128 + ((_C ^ (_T & 7)) << 4)) // 2 + _E).reshape(-1)
+_VIEW = _swizzle128(np.arange(BM)[:, None] * 128
+                    + 2 * np.arange(BK)[None, :]) // 2
+
+
+@pytest.mark.parametrize("shape", [(40, 2, 6, 144, 200, 128),
+                                   (64, 6, 16, 128, 352, 128),
+                                   (50, 2, 8, 88, 88, 256)])
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_gather_tiles_follow_peer_gather_rows(shape, w):
+    """``WgPeerGatherRows``: rank r's tile m0 (one shard, one block, one
+    expert ``be[s, i / block_m]``) is skipped exactly when every row is
+    padding (its first row the sentinel), and otherwise its row i is
+    sorted row g = m0 + i as ``PeerGatherRows::at`` reads it: token sti[g]
+    / topk of shard g / cap_s, zeros at the sentinel; the pieces past K (K
+    144: 2.25 stages) are zeros. The stages read back through the
+    swizzle, times the rank's expert weight, equal the plain version's
+    rows exactly (integers); the walk stores every row of every rank
+    once."""
+    m_s, topk, e, k, n, bm = shape
+    sti, be = _routing(110 + w, w, m_s, topk, e, bm)
+    cap_s, total, bn = sti.shape[1], m_s * topk, 192
+    x = _int_operands(3, (w, m_s, k))
+    wts = _int_operands(4, (w, e, k, n))
+    slabs = mu.gather_sorted(torch.from_numpy(x), torch.from_numpy(sti),
+                             topk).numpy().reshape(w * cap_s, k)
+    flat_sti, flat_be = sti.reshape(-1), be.reshape(-1)
+    mt, nt, nk = w * cap_s // BM, -(-n // bn), -(-k // BK)
+    got = np.full((w, w * cap_s, n), np.nan)
+    seen = np.zeros((w, mt, nt), np.int64)
+    skipped = 0
+    for tiles in _walk(w * mt * nt, 5):
+        for t in tiles:
+            r, m0, n0 = _decode(t, mt, nt, bn)
+            skip = int(flat_sti[m0]) >= total
+            expert = int(flat_be[m0 // bm])
+            seen[r, m0 // BM, n0 // bn] += 1
+            rows = [None if int(flat_sti[g]) >= total
+                    else (g // cap_s, int(flat_sti[g]) // topk)
+                    for g in range(m0, m0 + BM)]
+            assert skip == all(v is None for v in rows)
+            cols = min(bn, n - n0)
+            if skip:
+                skipped += 1
+                got[r, m0:m0 + BM, n0:n0 + cols] = 0.0
+                continue
+            # thread t's row, zeros at the sentinel and past K
+            src = np.zeros((BM, nk * BK))
+            for tt, v in enumerate(rows):
+                if v is not None:
+                    src[tt, :k] = x[v[0], v[1]]
+            acc = np.zeros((BM, bn))
+            for kk in range(nk):
+                box = np.zeros(BM * BK)     # the stage's A box, in elements
+                box[_PLACE] = src[:, kk * BK:(kk + 1) * BK].reshape(-1)
+                a = box[_VIEW]              # the consumers' view
+                assert np.array_equal(a, _tma_rows(slabs, m0, kk * BK))
+                assert expert == flat_be[(m0 + BM - 1) // bm]
+                acc += a @ _weight_tile(wts[r], expert, kk * BK, n0, bn)
+            got[r, m0:m0 + BM, n0:n0 + cols] = acc[:, :cols]
+    assert (seen == 1).all()
+    assert 0 < skipped < w * mt * nt
+    for r in range(w):
+        want = np.stack([slabs[g] @ wts[r, flat_be[g // bm]]
+                         for g in range(w * cap_s)])
+        assert np.array_equal(got[r], want)
+
+
+def _c_entries():
+    """{name: ctypes letters} of the extern "C" entries of
+    ``csrc/moe_tp_fused.cu``: p for a pointer, i for an int."""
+    cu = (csrc_dir() / "moe_tp_fused.cu").read_text()
+    out = {}
+    for name, args in re.findall(r"\nint (tdt_\w+)\(([^)]*)\)\s*\{", cu):
+        out[name] = "".join("p" if "*" in a else "i"
+                            for a in args.split(","))
+    return out
+
+
+def test_wrapper_signatures_match_the_c_entries():
+    """Every ``_build.function`` of ``kernels/moe_tp_fused.py`` declares
+    its C entry's arguments, one ctypes letter each, in order: a missing
+    or extra argument would be passed as garbage."""
+    import inspect
+
+    py = inspect.getsource(mtf)
+    entries = _c_entries()
+    found = re.findall(r'_build\.function\(\s*"(tdt_\w+)",\s*([^)]+?)\)',
+                       py)
+    assert {n for n, _ in found} >= {"tdt_ag_group_gemm", "tdt_moe_reduce_rs",
+                                     "tdt_ag_group_gemm_mesh",
+                                     "tdt_moe_reduce_rs_mesh",
+                                     "tdt_ag_group_gemm_w",
+                                     "tdt_moe_reduce_rs_partials"}
+    for name, sig in found:
+        assert eval(sig, {"__builtins__": {}}) == entries[name], name

@@ -27,31 +27,46 @@
 // rows at block_m 128) each launch is ~331 GFLOP on 0.56 GB (up) or
 // 0.77 GB (down) of operands read and written once.
 //
-// Design: the tile loops of ggemm_tiles.cuh (bf16 on mma.sync, f32 on
-// FMA) with a row source: GatherRows for the up projection, DenseRows
-// for the down projection.
+// Design: in bf16, where wg_grouped_form_ok holds (block_m and cap a
+// multiple of 128: the prefill's shapes), the grouped warpgroup GEMM of
+// wg_gemm.cuh (wg_grouped_kernel: wgmma fed by a persistent producer
+// warpgroup, the weight a 3-D TMA map looked up by the tile's expert, TMA
+// stores that overlap the next tile) on a one-rank table: the up
+// projection over WgPeerGatherRows (the producer warpgroup gathers each
+// tile's sorted rows from x by cp.async into the swizzled stage, 128 x 192
+// tiles, all-padding tiles stored as zeros without their K loop), the
+// down projection over WgGroupedPeerSum (rows in place, 128 x 256 tiles).
+// Elsewhere (f32, 64-row blocks) the tile loops of ggemm_tiles.cuh (bf16
+// on mma.sync, f32 on FMA) with a row source: GatherRows for the up
+// projection, DenseRows for the down projection.
 //
 // Over a mesh (tdt_ag_group_gemm_mesh, tdt_moe_reduce_rs_mesh) the rings
 // become pulls through the peer tables, as in ag_gemm.cu / gemm_rs.cu:
-// one launch covers the ranks rank0 .. rank0 + nranks - 1 on this device
-// (blockIdx.z is the rank), and every rank's inputs are complete before
-// the launch by stream order, so no block waits on another.
+// one launch covers the ranks rank0 .. rank0 + nranks - 1 on this device,
+// and every rank's inputs are complete before the launch by stream order,
+// so no block waits on another.
 //   * AG + grouped GEMM: rank r's out_r (W * cap_s, N_r) stacks, for
 //     each source shard s, its expert-sorted rows x_s[sti[s, i] / topk]
-//     @ w_r[be[s, i / block_m]] (PeerGatherRows: the token's rank, then
-//     its sorted row; no gathered slab is written). Each shard was
-//     aligned on its own (cap_s = its tokens * topk + E * block_m,
-//     rounded), so the rows are ~1.4x those of one alignment over all
-//     tokens at the DeepSeek-MoE-16B tp = 4 prefill (81920 against 57344).
+//     @ w_r[be[s, i / block_m]] (the token's rank, then its sorted row;
+//     no gathered slab is written): in bf16 WgPeerGatherRows over every
+//     rank's tiles, elsewhere PeerGatherRows on the tile loops
+//     (blockIdx.z the rank). Each shard was aligned on its own (cap_s =
+//     its tokens * topk + E * block_m, rounded), so the rows are ~1.4x
+//     those of one alignment over all tokens at the DeepSeek-MoE-16B tp =
+//     4 prefill (81920 against 57344).
 //   * grouped GEMM + RS: rank r's out_r (cap_s, H) = sum_q y_q[r * cap_s
-//     + i] @ w_q[be[r, i / block_m]] (PeerSum, grouped): the K loop runs
-//     over (rank q, F-block) with y_q and w_q looked up once a part, the
-//     sum in f32 and rounded once. The TPU's reduce ring rounds each hop's
-//     partial to the compute type, so in bf16 the two differ by up to
-//     about W - 1 ulps of the result, as the mesh GEMM-RS does.
+//     + i] @ w_q[be[r, i / block_m]]: the K loop runs over (rank q,
+//     F-block) with y_q and w_q looked up once a part, the sum in f32 and
+//     rounded once (in bf16 WgGroupedPeerSum, the part's stages by TMA;
+//     elsewhere grouped PeerSum on the tile loops). The TPU's reduce ring
+//     rounds each hop's partial to the compute type, so in bf16 the two
+//     differ by up to about W - 1 ulps of the result, as the mesh GEMM-RS
+//     does.
 // At the DeepSeek-MoE-16B tp = 4 prefill N_r = F / 4 = 352 (up) and the
-// down K a rank is 352: the tile loops mask the ragged N edge (352 = 2.75
-// tiles of 128) and the K loop takes 11 whole steps of 32.
+// down K a rank is 352: two 192-wide tiles cover the up projection's N
+// (TMA clips the store), and each part's K is 5.5 stages of 64, the last
+// half TMA's zeros (the weight's 3-D map never reads the next expert's
+// rows).
 //
 // The quantized wires (MoETPContext.wire_dtype) replace
 // ag_group_gemm_kernel_w (:208), ag_group_gemm_kernel_mx (:243) with its
@@ -101,13 +116,29 @@ extern "C" {
 // x (M_tok, K), sti (cap,) int32 sorted token ids (sentinel M_tok * topk
 // at the padding), w (E, K, N), block_expert (cap / block_m,) ->
 // out (cap, N); x_dtype TDT_BF16 or TDT_F32 (w alike), out_dtype
-// TDT_BF16 or TDT_F32
+// TDT_BF16 or TDT_F32; experts: E. wgmma: run the grouped warpgroup form
+// on a one-rank table (the caller's choice by wg_grouped_form_ok's rule;
+// refused where it fails), else the tile loops. *form: the MeshGemmForm
+// launched.
 int tdt_ag_group_gemm(const void* x, const void* sti, const void* w,
                       const void* block_expert, void* out, int M_tok,
-                      int topk, int cap, int K, int N, int block_m,
-                      int x_dtype, int out_dtype, void* stream) {
+                      int topk, int cap, int K, int N, int experts,
+                      int block_m, int x_dtype, int out_dtype, int wgmma,
+                      int* form, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (cap <= 0 || N <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    const unsigned long long xh = reinterpret_cast<uintptr_t>(x);
+    const unsigned long long wh = reinterpret_cast<uintptr_t>(w);
+    const unsigned long long oh = reinterpret_cast<uintptr_t>(out);
+    return wg_grouped<WgPeerGatherRows, WG_GROUP_BN_AG>(
+        nullptr, 0, &xh, topk, &wh, &oh, cap, nullptr, nullptr,
+        static_cast<const int*>(sti), static_cast<const int*>(block_expert),
+        M_tok * topk, cap, K, N, experts, block_m, 1, 0, 1, 1, 0, x_dtype,
+        out_dtype, static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const GatherRows rows{static_cast<const int*>(sti), cap, K, topk,
                         M_tok * topk};
   return launch_float_ggemm(
@@ -118,12 +149,27 @@ int tdt_ag_group_gemm(const void* x, const void* sti, const void* w,
 
 // y (cap, F) sorted post-activation rows, w (E, F, H), block_expert
 // (cap / block_m,) -> out (cap, H): this rank's partial, the whole sum
-// at world size 1
+// at world size 1; experts: E. wgmma: the grouped warpgroup form on a
+// one-rank table (refused where wg_grouped_form_ok fails), else the tile
+// loops; *form: the MeshGemmForm launched.
 int tdt_moe_reduce_rs(const void* y, const void* w, const void* block_expert,
-                      void* out, int cap, int F, int H, int block_m,
-                      int x_dtype, int out_dtype, void* stream) {
+                      void* out, int cap, int F, int H, int experts,
+                      int block_m, int x_dtype, int out_dtype, int wgmma,
+                      int* form, void* stream) {
   cudaGetLastError();
   if (cap <= 0 || H <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    const unsigned long long yh = reinterpret_cast<uintptr_t>(y);
+    const unsigned long long wh = reinterpret_cast<uintptr_t>(w);
+    const unsigned long long oh = reinterpret_cast<uintptr_t>(out);
+    return wg_grouped<WgGroupedPeerSum, WG_GROUP_BN_RS>(
+        &yh, 1, nullptr, 1, &wh, &oh, cap, nullptr, nullptr, nullptr,
+        static_cast<const int*>(block_expert), 0, cap, F, H, experts,
+        block_m, 1, 0, 1, 1, 0, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   return launch_float_ggemm(
       y, w, static_cast<const int*>(block_expert), out, cap, F, H, block_m,
       x_dtype, out_dtype, static_cast<cudaStream_t>(stream),
@@ -135,15 +181,34 @@ int tdt_moe_reduce_rs(const void* y, const void* w, const void* block_expert,
 // out_r (world * cap_s, N); sti (world * cap_s,) and block_expert
 // (world * cap_s / block_m,) int32: the shards' tables stacked. Writes
 // out_r for r in [rank0, rank0 + nranks); aligned: every x and w shard
-// starts on a 16-byte boundary.
+// starts on a 16-byte boundary; experts: E. wgmma: run the grouped
+// warpgroup form over x_host / w_host / out_host, the three tables'
+// pointers in host memory (the tensor maps, and the gather's shards by
+// value; the caller's choice by wg_grouped_form_ok's rule; refused where
+// it fails; the device tables are then unused), else the tile loops
+// (the host tables unused); *form: the MeshGemmForm launched.
 int tdt_ag_group_gemm_mesh(const void* x_peers, const void* w_peers,
                            const void* out_peers, const void* sti,
-                           const void* block_expert, int m_tok, int topk,
-                           int cap_s, int K, int N, int block_m, int world,
-                           int rank0, int nranks, int x_dtype, int out_dtype,
-                           int aligned, void* stream) {
+                           const void* block_expert, const void* x_host,
+                           const void* w_host, const void* out_host,
+                           int m_tok, int topk, int cap_s, int K, int N,
+                           int experts, int block_m, int world, int rank0,
+                           int nranks, int x_dtype, int out_dtype,
+                           int aligned, int wgmma, int* form, void* stream) {
   cudaGetLastError();
   if (cap_s <= 0 || N <= 0 || nranks <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_grouped<WgPeerGatherRows, WG_GROUP_BN_AG>(
+        nullptr, 0, static_cast<const unsigned long long*>(x_host), topk,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host),
+        static_cast<long long>(world) * cap_s, nullptr, nullptr,
+        static_cast<const int*>(sti), static_cast<const int*>(block_expert),
+        m_tok * topk, cap_s, K, N, experts, block_m, world, rank0, nranks, 1,
+        0, x_dtype, out_dtype, static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerGatherRows rows{static_cast<const unsigned long long*>(x_peers),
                             static_cast<const unsigned long long*>(w_peers),
                             static_cast<const unsigned long long*>(out_peers),
@@ -160,14 +225,30 @@ int tdt_ag_group_gemm_mesh(const void* x_peers, const void* w_peers,
 // y_peers: (world,) pointers to y_q (world * cap_s, F); w_peers: to w_q
 // (E, F, H); out_peers: to out_r (cap_s, H); block_expert (world * cap_s
 // / block_m,) int32, the shards' block tables stacked. Writes out_r for
-// r in [rank0, rank0 + nranks).
+// r in [rank0, rank0 + nranks); experts: E. wgmma: the grouped warpgroup
+// form over y_host / w_host / out_host, the tables' pointers in host
+// memory (refused where wg_grouped_form_ok fails; the device tables are
+// then unused), else the tile loops; *form: the MeshGemmForm launched.
 int tdt_moe_reduce_rs_mesh(const void* y_peers, const void* w_peers,
                            const void* out_peers, const void* block_expert,
-                           int cap_s, int F, int H, int block_m, int world,
-                           int rank0, int nranks, int x_dtype, int out_dtype,
-                           int aligned, void* stream) {
+                           const void* y_host, const void* w_host,
+                           const void* out_host, int cap_s, int F, int H,
+                           int experts, int block_m, int world, int rank0,
+                           int nranks, int x_dtype, int out_dtype,
+                           int aligned, int wgmma, int* form, void* stream) {
   cudaGetLastError();
   if (cap_s <= 0 || H <= 0 || nranks <= 0) return 0;
+  if (wgmma) {
+    *form = GEMM_WGMMA;
+    return wg_grouped<WgGroupedPeerSum, WG_GROUP_BN_RS>(
+        static_cast<const unsigned long long*>(y_host), world, nullptr, 1,
+        static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host), cap_s, nullptr,
+        nullptr, nullptr, static_cast<const int*>(block_expert), 0, cap_s, F,
+        H, experts, block_m, world, rank0, nranks, 1, 0, x_dtype, out_dtype,
+        static_cast<cudaStream_t>(stream));
+  }
+  *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;
   const PeerSum rows{static_cast<const unsigned long long*>(y_peers),
                      static_cast<const unsigned long long*>(w_peers),
                      static_cast<const unsigned long long*>(out_peers),
@@ -210,8 +291,9 @@ int tdt_ag_group_gemm_w(const void* x_peers, const void* q, const void* s,
     if (xs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const unsigned long long a = reinterpret_cast<uintptr_t>(xs);
     return wg_grouped<WgPeerGatherRowsQ, WG_GROUP_BN_AG>(
-        &a, 1, static_cast<const unsigned long long*>(w_host),
-        static_cast<const unsigned long long*>(out_host), q,
+        &a, 1, nullptr, topk, static_cast<const unsigned long long*>(w_host),
+        static_cast<const unsigned long long*>(out_host),
+        static_cast<long long>(world) * cap_s, q,
         static_cast<const float*>(s), static_cast<const int*>(sti),
         static_cast<const int*>(block_expert), m_tok * topk, cap_s, K, N,
         experts, block_m, world, rank0, nranks, chunk_rows, quant, x_dtype,
@@ -288,11 +370,12 @@ int tdt_moe_reduce_rs_partials(const void* y_peers, const void* w_peers,
   if (wgmma) {
     *form = GEMM_WGMMA;
     return wg_grouped<WgGroupedLocal, WG_GROUP_BN_RS>(
-        static_cast<const unsigned long long*>(y_host), world,
+        static_cast<const unsigned long long*>(y_host), world, nullptr, 1,
         static_cast<const unsigned long long*>(w_host),
-        static_cast<const unsigned long long*>(part_host), nullptr, nullptr,
-        nullptr, static_cast<const int*>(block_expert), 0, cap_s, F, H,
-        experts, block_m, world, 0, world, 1, 0, x_dtype, out_dtype,
+        static_cast<const unsigned long long*>(part_host),
+        static_cast<long long>(world) * cap_s, nullptr, nullptr, nullptr,
+        static_cast<const int*>(block_expert), 0, cap_s, F, H, experts,
+        block_m, world, 0, world, 1, 0, x_dtype, out_dtype,
         static_cast<cudaStream_t>(stream));
   }
   *form = x_dtype == TDT_BF16 ? GEMM_MMA_SYNC : GEMM_FMA;

@@ -4,12 +4,13 @@
 // (tdt_gemm_rs, the bf16 GEMM-RS over a mesh and at world size 1;
 // tdt_gemm_rs_partials, the GEMM-RS wire's partials), and in a grouped,
 // persistent form (wg_grouped_kernel, at the end of this file) by
-// moe_tp_fused.cu (the MoE-TP wire's AG and partials). It computes what
+// moe_tp_fused.cu (the MoE-TP GEMMs in bf16 over a mesh and at world size
+// 1, and the MoE-TP wire's AG and partials). It computes what
 // ggemm_tiles.cuh's bf16_mma_kernel computes over the PeerRows, PeerSum,
-// PeerRowsQ and PeerLocal rows (grouped: PeerGatherRowsQ and PeerLocal
-// with the block -> expert table), f32 sums rounded once at the store,
-// and runs where wg_form_ok (wg_grouped_form_ok) holds; the launchers take
-// bf16_mma_kernel elsewhere.
+// PeerRowsQ and PeerLocal rows (grouped: PeerGatherRows, grouped PeerSum,
+// PeerGatherRowsQ and PeerLocal with the block -> expert table), f32 sums
+// rounded once at the store, and runs where wg_form_ok (wg_grouped_form_ok)
+// holds; the launchers take bf16_mma_kernel elsewhere.
 //
 // What bounds it on an H100: the tensor cores. At the Llama-2-7B tp = 4
 // prefill (the AG-GEMM: A 4 x (2048, 4096), B_r (4096, 3072) or (4096,
@@ -482,40 +483,68 @@ int wg_gemm(const unsigned long long* a, int m_a,
 }
 
 // ------------------------------------------------------------ grouped
-// The grouped form (moe_tp_fused.cu: tdt_moe_reduce_rs_partials and
-// tdt_ag_group_gemm_w, the MoE-TP wire's two bf16 grouped GEMMs over
-// expert-sorted rows). Every 128-row tile lies in one routing block of one
-// expert (block_m and cap_s multiples of WG_BM), looked up once a tile
-// from the stacked block table, be[g / block_m] for the tile's first row
-// g; the weight (E, K, N) is a 3-D map (N, K, E innermost first, boxes of
-// 64 n x 64 k x 1 expert) with the expert as the third coordinate, so an
-// expert's K edge (K = 352 = 5.5 steps of 64 in the partials) lands as
-// TMA's zeros, never as the next expert's rows.
+// The grouped form (moe_tp_fused.cu: the MoE-TP grouped GEMMs over
+// expert-sorted rows). In bf16 the AG + grouped GEMM (tdt_ag_group_gemm_mesh,
+// and tdt_ag_group_gemm on a one-rank table) over WgPeerGatherRows, the
+// grouped GEMM + RS (tdt_moe_reduce_rs_mesh, and tdt_moe_reduce_rs on a
+// one-rank table) over WgGroupedPeerSum; on the fp8 / int8 wire the AG
+// (tdt_ag_group_gemm_w) over WgPeerGatherRowsQ and the partials
+// (tdt_moe_reduce_rs_partials) over WgGroupedLocal. Every 128-row tile lies
+// in one routing block of one expert (block_m and cap_s multiples of
+// WG_BM), looked up once a tile from the stacked block table, be[g /
+// block_m] for the tile's first row g; the weight (E, K, N) is a 3-D map
+// (N, K, E innermost first, boxes of 64 n x 64 k x 1 expert) with the
+// expert as the third coordinate, so an expert's K edge (K = 352 = 5.5
+// steps of 64 at the tp = 4 down projection) lands as TMA's zeros, never as
+// the next expert's rows.
 //
-// What bounds them on an H100, at the DeepSeek-MoE-16B tp = 4 MoE wire
-// (cap_s 20480 sorted rows a shard, 4 ranks): the partials write 4 x
-// 81920 x 2048 bf16 (1.34 GB, 0.40 ms at 3.35 TB/s) for 0.47 TFLOP
-// (0.48 ms at 989 TFLOP/s) at K = 352, so a tile's store is as long as
-// its products; the AG is 2 x 81920 x 2048 x 352 x 4 operations, about a
-// fifth of its 128-row blocks all padding.
+// What bounds them on an H100, at the DeepSeek-MoE-16B prefill (4 ranks:
+// cap_s 20480 sorted rows a shard, F 352 a rank; one rank: cap 57344, F
+// 1408): the tensor cores. The AG computes 2 x 81920 x 2048 x 352 x 4
+// operations (0.48 ms at 989 TFLOP/s), about a fifth of its 128-row blocks
+// all padding (skipped); the RS every row of its destination, 4 x 20480 x
+// 1408 x 2048 x 2 (0.48 ms), writing 4 x 20480 x 2048 bf16 (0.17 GB); the
+// partials write 4 x 81920 x 2048 bf16 (1.34 GB, 0.40 ms at 3.35 TB/s), so
+// a tile's store is as long as its products.
 //
 // Design: a persistent grid, one CTA an SM, each walking the tiles t =
 // blockIdx.x, + gridDim.x, ... (N-tiles fastest, then M-tiles, then
-// ranks), with the warpgroup GEMM's producer warpgroup (one TMA thread)
-// and two consumer warpgroups; the stage ring and its barriers' phases run
-// on across tiles, so the producer loads the next tile's stages while the
-// consumers store this one. The epilogue has its own shared-memory tile,
-// in the 128-byte swizzle (conflict-free bf16x2 / float2 writes), stored
-// by TMA (128 rows x 128 bytes a box; TMA clips N's edge) in a bulk group
-// that overlaps the next tile's products; the buffer is rewritten only
-// after that store has read it. Tile widths: WG_GROUP_BN_RS = 256 for the
-// partials (N = 2048), WG_GROUP_BN_AG = 192 for the AG (N_r = 352: two
-// tiles, 384 columns, against two of 256, 512, or three of 128, which
-// read each A tile three times). The AG's tile whose first sorted row is
-// the sentinel (>= tokens * topk) is all padding: its K loop is skipped
-// and its zeros stored.
-constexpr int WG_GROUP_BN_RS = 256;     // the partials' tile width
-constexpr int WG_GROUP_BN_AG = 192;     // the AG's tile width
+// ranks), with the warpgroup GEMM's producer warpgroup and two consumer
+// warpgroups; the stage ring and its barriers' phases run on across tiles,
+// so the producer loads the next tile's stages while the consumers store
+// this one. A tile's A rows come one of three ways:
+// - one TMA box a stage (the partials' and the RS's rows in place, the
+//   wire AG's own rows from the sorted slabs its quantizer was given, a
+//   peer's wire codes converted in registers as wg_gemm_kernel does);
+// - gathered by the producer warpgroup (the bf16 AG, kGather): the
+//   tile's sorted rows, token sti[g] / topk of its shard, by 16-byte
+//   cp.async straight into the 128-byte swizzle that TMA writes and the
+//   consumers' descriptors read (zeros at the sentinel and past K).
+//   Thread t copies piece t % 8 (bytes 16 (t % 8) ..) of rows 16 j + t /
+//   8, j = 0 .. 7, so that each warp instruction reads four whole 128-byte
+//   rows; it holds the eight rows' pointers for the tile, and its
+//   cp.async.mbarrier.arrive.noinc completes the stage's full barrier once
+//   its copies have landed (1 + 128 arrivals: thread 0 also loads B by TMA
+//   with expect_tx); the consumers fence the async proxy after the
+//   barrier, before wgmma reads what the generic proxy wrote. No sorted
+//   slab is written, and the producer warpgroup keeps 56 registers (the
+//   consumers 224: 96 accumulators at 192 columns);
+// - with parts(p) > 1 (the RS) the K loop runs over (part, k step) in the
+//   f32 accumulators, part q's rows and weight from rank q's maps; every
+//   part's stage carries the same bytes (TMA counts a box's zero fill), so
+//   the producer's count holds across parts.
+// The epilogue has its own shared-memory tile, in the 128-byte swizzle
+// (conflict-free bf16x2 / float2 writes), stored by TMA (128 rows x 128
+// bytes a box; TMA clips N's edge) in a bulk group that overlaps the next
+// tile's products; the buffer is rewritten only after that store has read
+// it. Tile widths: WG_GROUP_BN_RS = 256 for the partials and the RS (N =
+// 2048), WG_GROUP_BN_AG = 192 for the AGs (N_r = 352: two tiles, 384
+// columns, against two of 256, 512, or three of 128, which read each A tile
+// three times; N 1408 at one rank: eight). The AGs' tile whose first sorted
+// row is the sentinel (>= tokens * topk) is all padding: its K loop is
+// skipped and its zeros stored.
+constexpr int WG_GROUP_BN_RS = 256;     // the partials' and the RS's width
+constexpr int WG_GROUP_BN_AG = 192;     // the AGs' tile width
 constexpr int WG_SMEM_MAX = 232448;     // shared memory a CTA may take
 constexpr int WG_STORE_BOX = WG_BM * 128;  // an epilogue box: 128 B rows
 
@@ -542,19 +571,22 @@ struct WgGroupParams {
   CUtensorMap b[WG_MAX_RANKS];  // each rank's (E, K, N) weight
   CUtensorMap o[WG_MAX_RANKS];  // each rank's output (rows, N)
   CUtensorMap q;                // the AG's codes (world * cap_s, K)
+  unsigned long long x[WG_MAX_RANKS];  // the gather's token shards (., K)
   const int* be;                // (world * cap_s / block_m) block -> expert
   const int* sti;               // the AG's (world * cap_s) sorted token ids
   const float* s;               // the codes' (world, cap_s / chunk_rows)
-  int cap_s, world, K, N, block_m, chunk_rows, total;
+  int cap_s, world, K, N, block_m, chunk_rows, total, topk;
 };
 
-// what tile m0 of rank r reads
+// what tile m0 of rank r reads in part q
 struct WgGroupTile {
-  const CUtensorMap* a;  // its A rows' map (bf16, or the codes)
+  const CUtensorMap* a;  // its A rows' map (bf16, or the codes; a gather
+                         // reads none)
   int a_row;             // their first row in that map
   bool codes;            // A is a peer's wire codes
   bool skip;             // all padding: no K loop, zeros stored
   int expert;            // its block's expert
+  const CUtensorMap* b;  // the weight it is multiplied by
 };
 
 // tdt_moe_reduce_rs_partials: PeerLocal grouped. Rank r's own y_r (world *
@@ -562,11 +594,37 @@ struct WgGroupTile {
 // of partials; every row computed, as JAX's kernel does (y is any input).
 struct WgGroupedLocal {
   static constexpr bool kQuant = false;
+  static constexpr bool kGather = false;
   __host__ __device__ static int tiles(const WgGroupParams& p) {
     return p.world * p.cap_s / WG_BM;
   }
-  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0) {
-    return WgGroupTile{&p.a[r], m0, false, false, p.be[m0 / p.block_m]};
+  __device__ static constexpr int parts(const WgGroupParams&) { return 1; }
+  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0,
+                                     int) {
+    return WgGroupTile{&p.a[r], m0, false, false, p.be[m0 / p.block_m],
+                       &p.b[r]};
+  }
+};
+
+// tdt_moe_reduce_rs_mesh in bf16, and tdt_moe_reduce_rs on a one-rank
+// table: PeerSum grouped. Destination r's tile m0 sums world parts: part q
+// reads y_q's rows r * cap_s + m0, ... (a[q]: all world * cap_s rows of
+// rank q's F columns) against w_q (b[q]) at the destination's block's
+// expert be[(r * cap_s + m0) / block_m], into rows m0, ... of out_r (cap_s
+// rows). Every row computed, as JAX's kernel does: the RS takes no sorted
+// ids, so it cannot tell a padding row.
+struct WgGroupedPeerSum {
+  static constexpr bool kQuant = false;
+  static constexpr bool kGather = false;
+  __host__ __device__ static int tiles(const WgGroupParams& p) {
+    return p.cap_s / WG_BM;
+  }
+  __device__ static int parts(const WgGroupParams& p) { return p.world; }
+  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0,
+                                     int q) {
+    const int g = r * p.cap_s + m0;
+    return WgGroupTile{&p.a[q], g, false, false, p.be[g / p.block_m],
+                       &p.b[q]};
   }
 };
 
@@ -578,15 +636,18 @@ struct WgGroupedLocal {
 // block_m]]; a tile lies in one shard (cap_s a multiple of WG_BM).
 struct WgPeerGatherRowsQ {
   static constexpr bool kQuant = true;
+  static constexpr bool kGather = false;
   __host__ __device__ static int tiles(const WgGroupParams& p) {
     return p.world * p.cap_s / WG_BM;
   }
-  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0) {
+  __device__ static constexpr int parts(const WgGroupParams&) { return 1; }
+  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0,
+                                     int) {
     const bool pad = static_cast<unsigned>(p.sti[m0]) >=
                      static_cast<unsigned>(p.total);
     const bool peer = m0 / p.cap_s != r;
     return WgGroupTile{peer ? &p.q : &p.a[0], m0, peer, pad,
-                       p.be[m0 / p.block_m]};
+                       p.be[m0 / p.block_m], &p.b[r]};
   }
   // sorted row g's scale (a peer's): PeerGatherRowsQ::at's
   __device__ static float scale(const WgGroupParams& p, int g) {
@@ -594,11 +655,70 @@ struct WgPeerGatherRowsQ {
   }
 };
 
+// tdt_ag_group_gemm_mesh in bf16, and tdt_ag_group_gemm on a one-rank
+// table: PeerGatherRows::at's rows, gathered by the producer warpgroup.
+// Output row g = s * cap_s + i of rank r is token sti[g] / topk of shard
+// s's x_s (zeros where sti[g] is the sentinel, >= total) against
+// w_r[be[g / block_m]]; a tile lies in one shard (cap_s a multiple of
+// WG_BM), and one whose first row is the sentinel is all padding (an
+// expert's padding ends its block).
+struct WgPeerGatherRows {
+  static constexpr bool kQuant = false;
+  static constexpr bool kGather = true;
+  __host__ __device__ static int tiles(const WgGroupParams& p) {
+    return p.world * p.cap_s / WG_BM;
+  }
+  __device__ static constexpr int parts(const WgGroupParams&) { return 1; }
+  __device__ static WgGroupTile tile(const WgGroupParams& p, int r, int m0,
+                                     int) {
+    const bool pad = static_cast<unsigned>(p.sti[m0]) >=
+                     static_cast<unsigned>(p.total);
+    return WgGroupTile{nullptr, m0, false, pad, p.be[m0 / p.block_m],
+                       &p.b[r]};
+  }
+  // sorted row g's first byte in its shard, nullptr at the sentinel
+  __device__ static const char* row(const WgGroupParams& p, int g) {
+    const int v = p.sti[g];
+    if (static_cast<unsigned>(v) >= static_cast<unsigned>(p.total))
+      return nullptr;
+    return reinterpret_cast<const char*>(p.x[g / p.cap_s]) +
+           static_cast<size_t>(v / p.topk) * p.K * 2;
+  }
+};
+
+// 16 bytes from global to shared memory (the 32-bit shared address dst) by
+// cp.async, zeros where !ok (src then only names a valid address, nothing
+// is read); .cg: the gathered rows are not read again by this CTA
+__device__ __forceinline__ void wg_cp16(uint32_t dst, const char* src,
+                                        bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+// an arrival on `bar` once this thread's cp.async copies so far have
+// landed, counted in the barrier's expected arrivals (.noinc)
+__device__ __forceinline__ void wg_cp_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(tc_smem(bar)) : "memory");
+}
+
+// the registers a thread of a grouped kernel's producer warpgroup keeps
+// (setmaxnreg), and those its consumers take: 128 x P + 256 x C = 384 x
+// 168, the CTA's own pool. One TMA thread needs few; a gather's 128
+// threads hold eight row pointers each.
+template <typename Src>
+struct WgGroupRegs {
+  static constexpr int P = Src::kGather ? 56 : 40;
+  static constexpr int C = Src::kGather ? 224 : 232;
+  static_assert(128 * P + 256 * C == 384 * 168, "the CTA's own pool");
+};
+
 template <typename OutT, typename Src, int QUANT, int BN>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_grouped_kernel(const __grid_constant__ WgGroupParams p, int rank0,
                       int nranks) {
   using S = WgGroupShape<OutT, BN>;
+  using R = WgGroupRegs<Src>;
   constexpr int NACC = BN / 2;  // a thread's accumulators
   extern __shared__ unsigned char wg_raw[];
   __shared__ uint64_t full[S::STAGES];   // stage st has landed
@@ -613,7 +733,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < S::STAGES; ++st) {
-      tc_bar_init(&full[st], 1);
+      // a gather's stage: the TMA thread's arrival and the 128 copiers'
+      tc_bar_init(&full[st], Src::kGather ? 1 + 128 : 1);
       tc_bar_init(&empty[st], WG_CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -621,35 +742,72 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   __syncthreads();
 
   if (threadIdx.x >= WG_CONSUMERS) {  // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == WG_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R::P));
+    // its piece of a gathered A box's rows (the gather's 128 threads), or
+    // the one TMA thread (t == 0)
+    const int t = threadIdx.x - WG_CONSUMERS;
+    constexpr int GJ = WG_BM * 8 / 128;  // a gather thread's rows
+    const int gc = t % 8, grow = t / 8;  // its piece, its first row
+    if (Src::kGather || t == 0) {
       int it = 0;  // the stage ring's position, across tiles
-      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const int r = rank0 + t / (mt * nt), m0 = t / nt % mt * WG_BM;
-        const int n0 = t % nt * BN;
-        const WgGroupTile tile = Src::tile(p, r, m0);
-        if (tile.skip) continue;
+      for (int ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
+        const int r = rank0 + ti / (mt * nt), m0 = ti / nt % mt * WG_BM;
+        const int n0 = ti % nt * BN;
+        const WgGroupTile tile0 = Src::tile(p, r, m0, 0);
+        if (tile0.skip) continue;
         // B's boxes that start inside N (the rest would only feed columns
         // the epilogue never stores)
         const int nbox = min(S::NBOX, (p.N - n0 + 63) / 64);
-        const int bytes =
-            (tile.codes ? WG_Q_BYTES : WG_A_BYTES) + nbox * WG_BOX_BYTES;
-        for (int kk = 0; kk < nk; ++kk, ++it) {
-          const int st = it % S::STAGES;
-          if (it >= S::STAGES)
-            tc_bar_wait(&empty[st], (it / S::STAGES + 1) & 1);
-          char* s = sm + st * S::STAGE;
-          tc_bar_expect(&full[st], bytes);
-          tc_tma_2d(s, tile.a, &full[st], kk * WG_BK, tile.a_row);
-          for (int j = 0; j < nbox; ++j)
-            tc_tma_3d(s + WG_A_BYTES + j * WG_BOX_BYTES, &p.b[r], &full[st],
-                      n0 + 64 * j, kk * WG_BK, tile.expert);
+        // a gather: this thread's rows grow + 16 j (nullptr: zeros)
+        const char* src[Src::kGather ? GJ : 1];
+        if constexpr (Src::kGather) {
+#pragma unroll
+          for (int j = 0; j < GJ; ++j)
+            src[j] = Src::row(p, m0 + grow + 16 * j);
+        }
+        const int bytes = (Src::kGather ? 0
+                           : tile0.codes ? WG_Q_BYTES : WG_A_BYTES) +
+                          nbox * WG_BOX_BYTES;
+        for (int q = 0; q < Src::parts(p); ++q) {
+          const WgGroupTile tile = q ? Src::tile(p, r, m0, q) : tile0;
+          for (int kk = 0; kk < nk; ++kk, ++it) {
+            const int st = it % S::STAGES;
+            if (it >= S::STAGES)
+              tc_bar_wait(&empty[st], (it / S::STAGES + 1) & 1);
+            char* s = sm + st * S::STAGE;
+            if (t == 0) {
+              tc_bar_expect(&full[st], bytes);
+              if constexpr (!Src::kGather)
+                tc_tma_2d(s, tile.a, &full[st], kk * WG_BK, tile.a_row);
+              for (int j = 0; j < nbox; ++j)
+                tc_tma_3d(s + WG_A_BYTES + j * WG_BOX_BYTES, tile.b,
+                          &full[st], n0 + 64 * j, kk * WG_BK, tile.expert);
+            }
+            if constexpr (Src::kGather) {
+              // piece gc of row g = grow + 16 j at g * 128 + ((gc ^ (g &
+              // 7)) << 4), the 128-byte swizzle (g & 7 = grow & 7)
+              const int k = kk * WG_BK + 8 * gc;
+              const uint32_t dst = tc_smem(s) + grow * 128 +
+                                   ((gc ^ (grow & 7)) << 4);
+#pragma unroll
+              for (int j = 0; j < GJ; ++j) {
+                const bool ok = src[j] != nullptr && k < p.K;
+                wg_cp16(dst + j * 16 * 128,
+                        ok ? src[j] + 2 * k
+                           : reinterpret_cast<const char*>(p.x[0]),
+                        ok);
+              }
+              wg_cp_arrive(&full[st]);
+            }
+          }
         }
       }
+      if constexpr (Src::kGather)
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R::C));
 
   const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
@@ -670,12 +828,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   auto landed = [&](int i) {
     tc_bar_wait(&full[i % S::STAGES], (i / S::STAGES) & 1);
   };
+  // a tile's stages: parts x K steps
+  const int steps = Src::parts(p) * nk;
 
   int it = 0;  // the stage ring's position, as the producer's
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int r = rank0 + t / (mt * nt), m0 = t / nt % mt * WG_BM;
-    const int n0 = t % nt * BN;
-    const WgGroupTile tile = Src::tile(p, r, m0);
+  for (int ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
+    const int r = rank0 + ti / (mt * nt), m0 = ti / nt % mt * WG_BM;
+    const int n0 = ti % nt * BN;
+    const WgGroupTile tile = Src::tile(p, r, m0, 0);
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
     if (tile.skip) {
@@ -683,8 +843,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     } else if (!tile.codes) {
       // bf16 A from shared memory: this warpgroup's 64 rows, 8-row groups
       // 1024 bytes apart, k step kk 32 bytes into the 128-byte rows
-      for (int i = 0; i < nk; ++i) {
+      for (int i = 0; i < steps; ++i) {
         landed(it + i);
+        // the gathered rows came by the generic proxy; wgmma reads the
+        // async proxy's view
+        if constexpr (Src::kGather) tc_fence_async_smem();
         const char* s = stage(it + i);
         wg_pin(acc);
         wg_fence();
@@ -750,8 +913,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
     if (!tile.skip) {
       wg_wait<0>();
-      release((it + nk - 1) % S::STAGES);
-      it += nk;
+      release((it + steps - 1) % S::STAGES);
+      it += steps;
     }
     wg_pin(acc);
 
@@ -795,11 +958,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 // or f32, 1 <= world <= WG_MAX_RANKS, cap_s and block_m multiples of WG_BM
 // (a tile lies in one shard and one routing block), cap_s a multiple of
 // block_m, K and N multiples of 8 (K of 16 for the codes: 16-byte rows for
-// TMA), every A (na of them), weight, output and codes base 16-byte
-// aligned. The Python wrappers decide by the same rule (kernels/ag_gemm.py
-// grouped_wgmma_form) and pass the form; the launchers refuse a wgmma form
-// that breaks it.
+// TMA and cp.async), every A (na of them), token shard (x, world of them,
+// where given), weight, output and codes base 16-byte aligned. The Python
+// wrappers decide by the same rule (kernels/ag_gemm.py grouped_wgmma_form)
+// and pass the form; the launchers refuse a wgmma form that breaks it.
 inline bool wg_grouped_form_ok(const unsigned long long* a, int na,
+                               const unsigned long long* x,
                                const unsigned long long* w,
                                const unsigned long long* out, const void* q,
                                int cap_s, int block_m, int K, int N,
@@ -813,7 +977,7 @@ inline bool wg_grouped_form_ok(const unsigned long long* a, int na,
   for (int r = 0; r < na; ++r)
     if (a[r] % 16) return false;
   for (int r = 0; r < world; ++r)
-    if ((w[r] | out[r]) % 16) return false;
+    if ((w[r] | out[r] | (x ? x[r] : 0)) % 16) return false;
   return true;
 }
 
@@ -841,23 +1005,27 @@ int wg_grouped_launch(const WgGroupParams& p, int rank0, int nranks,
 }
 
 // The grouped form over `world` ranks' weights (w: (E, K, N) each) and
-// outputs (out: (world * cap_s, N) each), with na A maps (a: host
-// pointers, world * cap_s rows of K each: every rank's y_r, or for the AG
-// the one stack of sorted slabs) and, for the AG, q the codes (world *
-// cap_s, K), s their scales, sti the sorted token ids (sentinel >= total);
-// be the stacked block table. Writes ranks rank0 .. rank0 + nranks - 1.
-// Encodes the maps, launches, and returns the launch's error
-// (cudaErrorInvalidValue where wg_grouped_form_ok fails or TMA refuses a
-// map).
+// outputs (out: (out_rows, N) each), with na A maps (a: host pointers,
+// world * cap_s rows of K each: every rank's y_r, or for the wire AG the
+// one stack of sorted slabs) or, for a gather, the world token shards x
+// (host pointers, rows of K, token sti[g] / topk of shard g / cap_s) and,
+// for the wire AG, q the codes (world * cap_s, K), s their scales; sti the
+// sorted token ids (sentinel >= total); be the stacked block table. Writes
+// ranks rank0 .. rank0 + nranks - 1. Encodes the maps, launches, and
+// returns the launch's error (cudaErrorInvalidValue where
+// wg_grouped_form_ok fails or TMA refuses a map).
 template <typename Src, int BN>
 int wg_grouped(const unsigned long long* a, int na,
+               const unsigned long long* x, int topk,
                const unsigned long long* w, const unsigned long long* out,
-               const void* q, const float* s, const int* sti, const int* be,
-               int total, int cap_s, int K, int N, int E, int block_m,
-               int world, int rank0, int nranks, int chunk_rows, int quant,
-               int x_dtype, int out_dtype, cudaStream_t st) {
-  if (!wg_grouped_form_ok(a, na, w, out, q, cap_s, block_m, K, N, world,
-                          x_dtype, out_dtype) || E <= 0)
+               long long out_rows, const void* q, const float* s,
+               const int* sti, const int* be, int total, int cap_s, int K,
+               int N, int E, int block_m, int world, int rank0, int nranks,
+               int chunk_rows, int quant, int x_dtype, int out_dtype,
+               cudaStream_t st) {
+  if (!wg_grouped_form_ok(a, na, x, w, out, q, cap_s, block_m, K, N, world,
+                          x_dtype, out_dtype) ||
+      E <= 0 || (Src::kGather && (x == nullptr || topk <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f32 = out_dtype == TDT_F32;
   const int esize = f32 ? 4 : 2;
@@ -876,8 +1044,9 @@ int wg_grouped(const unsigned long long* a, int na,
     ok = ok && tc_map_2d(&p.o[r], reinterpret_cast<const void*>(out[r]),
                          f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                         esize, rows, N, 1LL * esize * N, 128 / esize, WG_BM,
-                         CU_TENSOR_MAP_SWIZZLE_128B);
+                         esize, out_rows, N, 1LL * esize * N, 128 / esize,
+                         WG_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (x != nullptr) p.x[r] = x[r];
   }
   if (q != nullptr)
     ok = ok && tc_map_2d(&p.q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, K,
@@ -893,6 +1062,7 @@ int wg_grouped(const unsigned long long* a, int na,
   p.block_m = block_m;
   p.chunk_rows = chunk_rows;
   p.total = total;
+  p.topk = topk;
   if constexpr (Src::kQuant) {
     if (quant == TDT_WIRE_FP8)
       return f32 ? wg_grouped_launch<float, Src, TDT_WIRE_FP8, BN>(

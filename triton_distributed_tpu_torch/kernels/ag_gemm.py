@@ -78,8 +78,9 @@ _TILE_TARGETS = (512, 2048, 1792)
 #: else the tile loops of ``csrc/ggemm_tiles.cuh`` (bf16 on ``mma.sync``,
 #: f32 on FMA). Counted in ``by_variant`` on the mesh wrappers
 #: (``_ag_gemm_mesh_cuda``, ``gemm_rs._gemm_rs_mesh_cuda``), the
-#: world-size-1 ones (``_ag_gemm_cuda``, ``gemm_rs._gemm_rs_cuda``) and
-#: the wires' (``ag_gemm_w_launch``, ``gemm_rs.gemm_rs_partials``).
+#: world-size-1 ones (``_ag_gemm_cuda``, ``gemm_rs._gemm_rs_cuda``), the
+#: wires' (``ag_gemm_w_launch``, ``gemm_rs.gemm_rs_partials``) and the
+#: MoE-TP grouped GEMMs' (``moe_tp_fused``, :func:`grouped_wgmma_form`).
 MESH_GEMM_FORMS = {0: "fma", 1: "mma_sync", 2: "wgmma"}
 #: the warpgroup GEMM's tile rows and the ranks a launch's tensor maps
 #: cover (``WG_BM``, ``WG_MAX_RANKS``)
@@ -480,9 +481,12 @@ def wgmma_form(m, k, n, world, dtype, out_dtype, tensors,
 
 def grouped_wgmma_form(cap_s, block_m, k, n, world, dtype, out_dtype,
                        tensors, codes=False) -> bool:
-    """Whether a MoE-TP wire launch (``tdt_ag_group_gemm_w``, with
-    ``codes``: its wire codes among ``tensors``; ``tdt_moe_reduce_rs_
-    partials``) takes the grouped warpgroup GEMM, by
+    """Whether a MoE-TP grouped GEMM launch takes the grouped warpgroup
+    GEMM: the bf16 AG and RS over a mesh (``tdt_ag_group_gemm_mesh``,
+    ``tdt_moe_reduce_rs_mesh``) and at world size 1 (``tdt_ag_group_gemm``,
+    ``tdt_moe_reduce_rs``: ``world`` 1, ``cap_s`` the sorted rows), and
+    the wire's (``tdt_ag_group_gemm_w``, with ``codes``: its wire codes
+    among ``tensors``; ``tdt_moe_reduce_rs_partials``), by
     ``wg_grouped_form_ok``'s rule (``csrc/wg_gemm.cuh``, which refuses a
     ``wgmma`` launch that breaks it): bf16 A and weights, a bf16 or f32
     output, ``cap_s`` (a shard's sorted rows) and ``block_m`` (a routing
@@ -490,8 +494,8 @@ def grouped_wgmma_form(cap_s, block_m, k, n, world, dtype, out_dtype,
     ``block_m`` (a tile lies in one shard and one block, so one expert),
     ``k`` and ``n`` multiples of 8 (``k`` of 16 with codes), at most
     :data:`WG_MAX_RANKS` ranks (``world``), and every tensor of
-    ``tensors`` (the A rows, the weights, the outputs, the codes) on a
-    16-byte boundary."""
+    ``tensors`` (the A rows or token shards, the weights, the outputs, the
+    codes) on a 16-byte boundary."""
     return (dtype == torch.bfloat16
             and out_dtype in (torch.bfloat16, torch.float32)
             and 1 <= world <= WG_MAX_RANKS

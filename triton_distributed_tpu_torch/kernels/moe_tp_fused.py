@@ -33,7 +33,18 @@ for every rank (``csrc/moe_tp_fused.cu``).
 
 All take bf16 (tensor cores) or f32 (FMA) operands, sum in f32 and
 store to ``out_dtype``. On a CPU tensor each runs its ``*_plain``
-version; on a CUDA tensor it launches the kernel or raises.
+version; on a CUDA tensor it launches the kernel or raises. In bf16,
+where :func:`~triton_distributed_tpu_torch.kernels.ag_gemm.
+grouped_wgmma_form` holds (``block_m`` and ``cap_s`` multiples of 128:
+the prefill's shapes), the four run the grouped warpgroup GEMM of
+``csrc/wg_gemm.cuh`` (``wg_grouped_kernel``): the AGs gather each tile's
+sorted rows from the tokens in its producer warpgroup (``cp.async``
+into the swizzled stage; no slab is written), the RSs read their rows
+in place by TMA, over (rank, K step) at the mesh; world size 1 is the
+same source on a one-rank table. Elsewhere (f32, 64-row blocks) they
+run the tile loops of ``csrc/ggemm_tiles.cuh``. Each tallies its
+launches by the form its C entry reports, in ``by_variant``
+(``MESH_GEMM_FORMS``).
 
 **Quantized wires** (JAX ``ag_group_gemm_kernel_w`` ``:208``,
 ``ag_group_gemm_kernel_mx`` ``:243``, ``moe_reduce_rs_kernel_w``
@@ -176,7 +187,7 @@ def _ag_group_gemm_cuda(x, sti, be, w, topk, out_dtype):
     _check(x, be, w)
     if sti.dim() != 1 or sti.dtype != torch.int32:
         raise ValueError("ag_group_gemm: sti must be an int32 vector")
-    cap, (m, k), n = sti.shape[0], x.shape, w.shape[2]
+    cap, (m, k), (e, _, n) = sti.shape[0], x.shape, w.shape
     if cap % be.shape[0]:
         raise ValueError(f"ag_group_gemm: {cap} rows do not split into "
                          f"{be.shape[0]} equal M-blocks")
@@ -184,28 +195,37 @@ def _ag_group_gemm_cuda(x, sti, be, w, topk, out_dtype):
     dev = _cuda_common((x, w, sti), be, cap, block_m)
     out_dtype = _out_dtype(out_dtype, x, "ag_group_gemm")
     out = torch.empty((cap, n), dtype=out_dtype, device=dev)
-    fn = _build.function("tdt_ag_group_gemm", "ppppp" + "iiiiiiii" + "p")
+    wg = grouped_wgmma_form(cap, block_m, k, n, 1, x.dtype, out_dtype,
+                            [x, w, out])
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_ag_group_gemm", "ppppp" + "i" * 10 + "pp")
     rc = fn(_build.ptr(x), _build.ptr(sti), _build.ptr(w), _build.ptr(be),
-            _build.ptr(out), m, topk, cap, k, n, block_m, _DT_CODE[x.dtype],
-            _DT_CODE[out_dtype], _build.stream(dev))
+            _build.ptr(out), m, topk, cap, k, n, e, block_m,
+            _DT_CODE[x.dtype], _DT_CODE[out_dtype], int(wg),
+            ctypes.byref(form), _build.stream(dev))
     _build.check(rc, "tdt_ag_group_gemm")
     _ag_group_gemm_cuda.launches += 1
+    count_form(_ag_group_gemm_cuda, form.value)
     return out
 
 
 def _moe_reduce_rs_cuda(y, be, w, out_dtype):
     from triton_distributed_tpu_torch.kernels import _build
 
-    cap, f, _, h, block_m = _check_args(y, w, be, None, None)
+    cap, f, e, h, block_m = _check_args(y, w, be, None, None)
     dev = _cuda_common((y, w), be, cap, block_m)
     out_dtype = _out_dtype(out_dtype, y, "moe_reduce_rs")
     out = torch.empty((cap, h), dtype=out_dtype, device=dev)
-    fn = _build.function("tdt_moe_reduce_rs", "pppp" + "iiiiii" + "p")
+    wg = grouped_wgmma_form(cap, block_m, f, h, 1, y.dtype, out_dtype,
+                            [y, w, out])
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_moe_reduce_rs", "pppp" + "i" * 8 + "pp")
     rc = fn(_build.ptr(y), _build.ptr(w), _build.ptr(be), _build.ptr(out),
-            cap, f, h, block_m, _DT_CODE[y.dtype], _DT_CODE[out_dtype],
-            _build.stream(dev))
+            cap, f, h, e, block_m, _DT_CODE[y.dtype], _DT_CODE[out_dtype],
+            int(wg), ctypes.byref(form), _build.stream(dev))
     _build.check(rc, "tdt_moe_reduce_rs")
     _moe_reduce_rs_cuda.launches += 1
+    count_form(_moe_reduce_rs_cuda, form.value)
     return out
 
 
@@ -335,19 +355,27 @@ def _ag_group_gemm_mesh_cuda(x, sti, be, w, topk, mesh, axis, out_dtype):
     dev, aligned = _mesh_launch_common(x, w, (sti, be), be, block_m,
                                        "ag_group_gemm_mesh")
     out_dtype = _out_dtype(out_dtype, x[0], "ag_group_gemm_mesh")
-    k, nn = x[0].shape[1], w[0].shape[2]
+    k, (e, _, nn) = x[0].shape[1], w[0].shape
     out = symm_empty(mesh, (n * cap_s, nn), out_dtype)
-    # the tables stay referenced until the launch is enqueued: one freed
-    # earlier could be handed to the next allocation on the stream and
-    # rewritten before the kernel reads it
-    x_peers, w_peers = peer_table(x), peer_table(w)
-    fn = _build.function("tdt_ag_group_gemm_mesh", "ppppp" + "i" * 12 + "p")
-    rc = fn(_build.ptr(x_peers), _build.ptr(w_peers), _build.ptr(out.peers),
-            _build.ptr(sti), _build.ptr(be), x[0].shape[0], topk, cap_s, k,
-            nn, block_m, n, 0, n, _DT_CODE[x[0].dtype], _DT_CODE[out_dtype],
-            int(aligned), _build.stream(dev))
+    wg = grouped_wgmma_form(cap_s, block_m, k, nn, n, x[0].dtype, out_dtype,
+                            [*x, *w, *out.shards])
+    # the tile loops read the device tables, the grouped warpgroup GEMM the
+    # host pointers; all stay referenced until the launch is enqueued: one
+    # freed earlier could be handed to the next allocation on the stream
+    # and rewritten before the kernel reads it
+    x_peers, w_peers = (None, None) if wg else (peer_table(x), peer_table(w))
+    hosts = [_build.ptr_array(t) for t in (x, w, out.shards)]
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_ag_group_gemm_mesh", "p" * 8 + "i" * 14 + "pp")
+    rc = fn(None if wg else _build.ptr(x_peers),
+            None if wg else _build.ptr(w_peers),
+            None if wg else _build.ptr(out.peers), _build.ptr(sti),
+            _build.ptr(be), *hosts, x[0].shape[0], topk, cap_s, k, nn, e,
+            block_m, n, 0, n, _DT_CODE[x[0].dtype], _DT_CODE[out_dtype],
+            int(aligned), int(wg), ctypes.byref(form), _build.stream(dev))
     _build.check(rc, "tdt_ag_group_gemm_mesh")
     _ag_group_gemm_mesh_cuda.launches += 1
+    count_form(_ag_group_gemm_mesh_cuda, form.value)
     return out.shards
 
 
@@ -359,16 +387,23 @@ def _moe_reduce_rs_mesh_cuda(y, be, w, mesh, axis, out_dtype):
     dev, aligned = _mesh_launch_common(y, w, (be,), be, block_m,
                                        "moe_reduce_rs_mesh")
     out_dtype = _out_dtype(out_dtype, y[0], "moe_reduce_rs_mesh")
-    f, h = y[0].shape[1], w[0].shape[2]
+    f, (e, _, h) = y[0].shape[1], w[0].shape
     out = symm_empty(mesh, (cap_s, h), out_dtype)
-    y_peers, w_peers = peer_table(y), peer_table(w)
-    fn = _build.function("tdt_moe_reduce_rs_mesh", "pppp" + "i" * 10 + "p")
-    rc = fn(_build.ptr(y_peers), _build.ptr(w_peers), _build.ptr(out.peers),
-            _build.ptr(be), cap_s, f, h, block_m, n, 0, n,
-            _DT_CODE[y[0].dtype], _DT_CODE[out_dtype], int(aligned),
+    wg = grouped_wgmma_form(cap_s, block_m, f, h, n, y[0].dtype, out_dtype,
+                            [*y, *w, *out.shards])
+    y_peers, w_peers = (None, None) if wg else (peer_table(y), peer_table(w))
+    hosts = [_build.ptr_array(t) for t in (y, w, out.shards)]
+    form = ctypes.c_int(-1)
+    fn = _build.function("tdt_moe_reduce_rs_mesh", "p" * 7 + "i" * 12 + "pp")
+    rc = fn(None if wg else _build.ptr(y_peers),
+            None if wg else _build.ptr(w_peers),
+            None if wg else _build.ptr(out.peers), _build.ptr(be), *hosts,
+            cap_s, f, h, e, block_m, n, 0, n, _DT_CODE[y[0].dtype],
+            _DT_CODE[out_dtype], int(aligned), int(wg), ctypes.byref(form),
             _build.stream(dev))
     _build.check(rc, "tdt_moe_reduce_rs_mesh")
     _moe_reduce_rs_mesh_cuda.launches += 1
+    count_form(_moe_reduce_rs_mesh_cuda, form.value)
     return out.shards
 
 
@@ -673,7 +708,7 @@ def _moe_reduce_rs_partials_cuda(y, be, w, mesh, axis, out_dtype):
     hosts = [_build.ptr_array(t) for t in (y, w, parts.shards)]
     form = ctypes.c_int(-1)
     fn = _build.function("tdt_moe_reduce_rs_partials",
-                         "p" * 7 + "i" * 9 + "pp")
+                         "p" * 7 + "i" * 10 + "pp")
     rc = fn(None if wg else _build.ptr(y_peers),
             None if wg else _build.ptr(w_peers),
             None if wg else _build.ptr(parts.peers), _build.ptr(be), *hosts,
@@ -743,12 +778,17 @@ def moe_reduce_rs_mesh_w(y, be, w, mesh, fmt, axis="tp", *,
 
 #: launch counts of the kernels (plain ints on the wrappers): at world
 #: size 1, over a mesh (each launch covers every rank), and the wires'
-#: (the one-rank int8-mxu form counts with its mesh form); the fp8 / int8
-#: AG and the partials also by form
+#: (the one-rank int8-mxu form counts with its mesh form); the bf16 pair at
+#: world size 1 and over a mesh, the fp8 / int8 AG and the partials also by
+#: form
 _ag_group_gemm_cuda.launches = 0
+_ag_group_gemm_cuda.by_variant = {}
 _moe_reduce_rs_cuda.launches = 0
+_moe_reduce_rs_cuda.by_variant = {}
 _ag_group_gemm_mesh_cuda.launches = 0
+_ag_group_gemm_mesh_cuda.by_variant = {}
 _moe_reduce_rs_mesh_cuda.launches = 0
+_moe_reduce_rs_mesh_cuda.by_variant = {}
 _ag_group_gemm_w_cuda.launches = 0
 _ag_group_gemm_w_cuda.by_variant = {}
 _ag_group_gemm_mx_cuda.launches = 0
